@@ -1,0 +1,171 @@
+"""Inference API: load a frozen V-JEPA encoder (and an attentive probe) and
+serve features or class probabilities (counterpart of jepa_tpu/api.py).
+
+    from jepa_tpu_torch.api import load_encoder, load_classifier
+
+    enc = load_encoder("vitl16.pth.tar", "vit_large", num_frames=16,
+                       uniform_power=True)          # device="cuda"
+    feats = enc.encode(clips)     # [B, T, H, W, C] uint8 or float -> [B, N, D] fp32
+    clf = load_classifier("k400-probe.pth.tar", enc, num_classes=400)
+    probs = clf.classify(clips)   # [B, num_classes] fp32
+
+Checkpoints are the reference zoo's ``.pth.tar`` layout. The encoder runs
+grad-free with the fused fc1 kernel on: on a CUDA device every encoder
+block runs the flash-attention kernel (H1) and the fused fc1 + GELU
+kernel (H3). ``device`` defaults to "cuda" and a missing GPU raises; the
+work never moves to the CPU unasked (tests pass ``device="cpu"``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from jepa_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from jepa_tpu_torch.models.attentive import (
+    AttentiveCfg,
+    AttentiveClassifier,
+    classifier_forward,
+)
+from jepa_tpu_torch.models.factory import vit_cfg
+from jepa_tpu_torch.models.transformer import cast_matmul_weights_
+from jepa_tpu_torch.models.vit import ViTCfg, VisionTransformer, vit_forward
+from jepa_tpu_torch.utils.checkpoint_port import (
+    check_state,
+    load_classifier_state,
+    load_pretrained_encoder,
+)
+
+_TORCH_CKPT = (".pth.tar", ".pth", ".pt")
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device is "
+                           "available (pass device='cpu' to run on the CPU)")
+    return device
+
+
+def _require_torch_ckpt(path: str) -> None:
+    if not path.endswith(_TORCH_CKPT):
+        raise NotImplementedError(
+            f"{path!r}: only .pth.tar / .pth / .pt checkpoints load in the port "
+            "(the orbax checkpoint path is not ported)")
+
+
+@dataclasses.dataclass
+class Encoder:
+    """A loaded, frozen encoder."""
+
+    model: VisionTransformer
+    cfg: ViTCfg
+
+    def __post_init__(self):
+        self.model.requires_grad_(False).eval()
+        self._run_cfg = dataclasses.replace(self.cfg, fused_mlp=True)  # grad-free
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.pos_embed.device
+
+    @property
+    def embed_dim(self) -> int:
+        return self.cfg.embed_dim
+
+    @torch.no_grad()
+    def encode(self, clips, normalize: Optional[bool] = None) -> torch.Tensor:
+        """clips: video [B, T, H, W, C] or image [B, H, W, C] (array or
+        tensor). uint8 input is scaled and ImageNet-normalized (``normalize``
+        overrides the dtype-based default). Returns [B, N, D] fp32 on the
+        encoder's device."""
+        x = torch.as_tensor(clips).to(self.device)
+        if normalize is None:
+            normalize = x.dtype == torch.uint8
+        if normalize:
+            mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
+            std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+            x = (x.float() / 255.0 - mean) / std
+        x = x.to(self.cfg.compute_dtype)
+        return vit_forward(self.model, x, self._run_cfg).float()
+
+
+def load_encoder(
+    checkpoint: str,
+    model_name: str,
+    img_size: int = 224,
+    patch_size: Optional[int] = None,
+    num_frames: int = 1,
+    tubelet_size: int = 2,
+    uniform_power: bool = False,
+    checkpoint_key: str = "target_encoder",
+    compute_dtype: torch.dtype = torch.bfloat16,
+    tolerant: bool = False,
+    device="cuda",
+) -> Encoder:
+    """Load a frozen encoder from a reference ``.pth.tar`` zoo file.
+
+    ``checkpoint_key`` is 'target_encoder' or 'encoder'. Loading is strict
+    by default: a key or shape mismatch raises; ``tolerant=True`` keeps a
+    seeded init for mismatched entries.
+    """
+    if checkpoint_key not in ("target_encoder", "encoder"):
+        raise ValueError(f"checkpoint_key must be 'target_encoder' or 'encoder', "
+                         f"got {checkpoint_key!r}")
+    device = _resolve_device(device)
+    _require_torch_ckpt(checkpoint)
+    cfg = vit_cfg(model_name, img_size=img_size, patch_size=patch_size,
+                  num_frames=num_frames, tubelet_size=tubelet_size,
+                  uniform_power=uniform_power, compute_dtype=compute_dtype)
+    model = load_pretrained_encoder(checkpoint, cfg, checkpoint_key,
+                                    tolerant=tolerant, device=device)
+    return Encoder(model=cast_matmul_weights_(model, compute_dtype), cfg=cfg)
+
+
+@dataclasses.dataclass
+class VideoClassifier:
+    """A frozen encoder plus a trained attentive probe. ``classify`` returns
+    fp32 softmax probabilities [B, num_classes]; for the multi-view eval
+    protocol call it per view and average."""
+
+    encoder: Encoder
+    classifier: AttentiveClassifier
+    acfg: AttentiveCfg
+
+    def __post_init__(self):
+        self.classifier.requires_grad_(False).eval()
+
+    @torch.no_grad()
+    def classify(self, clips, normalize: Optional[bool] = None) -> torch.Tensor:
+        feats = self.encoder.encode(clips, normalize)  # fp32, as the evals feed it
+        logits = classifier_forward(self.classifier, feats, self.acfg)
+        return torch.softmax(logits, dim=-1)
+
+    @property
+    def num_classes(self) -> int:
+        return self.acfg.num_classes
+
+
+def load_classifier(
+    checkpoint: str,
+    encoder: Encoder,
+    num_classes: int,
+    depth: int = 1,
+    checkpoint_key: str = "classifier",
+) -> VideoClassifier:
+    """Load a trained attentive probe (reference ``.pth.tar`` layout, its
+    ``checkpoint_key`` entry) on top of a loaded encoder, strictly: a key
+    or shape mismatch raises. ``depth`` must match the probe's training
+    config (the evals use 1)."""
+    _require_torch_ckpt(checkpoint)
+    cd = encoder.cfg.compute_dtype
+    acfg = AttentiveCfg(embed_dim=encoder.cfg.embed_dim, num_heads=encoder.cfg.num_heads,
+                        depth=depth, num_classes=num_classes, compute_dtype=cd)
+    sd = load_classifier_state(checkpoint, checkpoint_key)
+    clf = AttentiveClassifier(acfg, device=encoder.device)
+    check_state(sd, clf, "classifier")
+    clf.load_state_dict(sd, strict=True)
+    return VideoClassifier(encoder=encoder, classifier=cast_matmul_weights_(clf, cd),
+                           acfg=acfg)
