@@ -4,6 +4,9 @@
 // token-major TPU kernel) and computes the same math as its kv-blocked
 // sibling _fwd_tm_tiled_kernel.
 //
+// Head dims C in {32, 64, 80}: 64/80 for the encoders, 32 for the
+// predictors' 24 zero-padded to 32 (see ops/flash_attention.py).
+//
 // Inputs: qkv [B, N, 3*H*C] bf16, the projection output read by stride
 // (columns q|k|v, each head-major). Outputs: o [B, N, H*C] bf16
 // token-major (the input of attn.proj) and lse [B, H, N] fp32 in base-2
@@ -213,6 +216,11 @@ int launch(const void* qkv, void* o, void* lse, int B, int N, int H,
 }
 
 }  // namespace
+
+extern "C" int jt_flash_fwd_c32(const void* qkv, void* o, void* lse, int B,
+                                int N, int H, float qscale, void* stream) {
+  return launch<32>(qkv, o, lse, B, N, H, qscale, stream);
+}
 
 extern "C" int jt_flash_fwd_c64(const void* qkv, void* o, void* lse, int B,
                                 int N, int H, float qscale, void* stream) {

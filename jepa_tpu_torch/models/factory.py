@@ -1,5 +1,5 @@
-"""Model factories for the reference's size ladder (counterpart of
-jepa_tpu/models/factory.py).
+"""Model factories for the reference's size ladder and the predictor sized
+from an encoder (counterpart of jepa_tpu/models/factory.py).
 
 Name -> (embed_dim, depth, num_heads, mlp_ratio, default_patch). The
 reference's vit_gigantic passes a typo'd ``mpl_ratio`` that is swallowed,
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from jepa_tpu_torch.models.predictor import PredictorCfg
 from jepa_tpu_torch.models.vit import ViTCfg
 
 _SPECS = {
@@ -53,4 +54,33 @@ def vit_cfg(
         compute_dtype=compute_dtype,
         attn_impl=attn_impl,
         fused_mlp=fused_mlp,
+    )
+
+
+def predictor_cfg_for(
+    enc: ViTCfg,
+    *,
+    predictor_embed_dim: int = 384,
+    depth: int = 6,
+    use_mask_tokens: bool = True,
+    num_mask_tokens: int = 2,
+    zero_init_mask_tokens: bool = True,
+) -> PredictorCfg:
+    """Predictor sized from the encoder (reference app/vjepa/utils.py:108-125;
+    jepa_tpu/models/factory.py::predictor_cfg_for)."""
+    return PredictorCfg(
+        img_size=enc.img_size,
+        patch_size=enc.patch_size,
+        num_frames=enc.num_frames,
+        tubelet_size=enc.tubelet_size,
+        embed_dim=enc.embed_dim,
+        predictor_embed_dim=predictor_embed_dim,
+        depth=depth,
+        num_heads=enc.num_heads,
+        uniform_power=enc.uniform_power,
+        use_mask_tokens=use_mask_tokens,
+        num_mask_tokens=num_mask_tokens,
+        zero_init_mask_tokens=zero_init_mask_tokens,
+        compute_dtype=enc.compute_dtype,
+        attn_impl=enc.attn_impl,
     )

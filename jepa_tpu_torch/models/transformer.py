@@ -52,18 +52,53 @@ class BlockCfg:
                 f"dim ({self.dim}) must be divisible by num_heads ({self.num_heads})")
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] @ b [K, F], one dtype, with an fp32 result summed in fp32.
+    bf16 on CUDA asks cuBLAS for an fp32 output; bf16 on the CPU upcasts
+    the operands (exact), since a CPU bf16 matmul rounds its output."""
+    if a.dtype == torch.float32:
+        return torch.mm(a, b)
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class MatmulF32(torch.autograd.Function):
+    """x [..., K] @ w.T (w [F, K]) -> fp32 [..., F], differentiable.
+
+    cuBLAS's fp32-output bf16 GEMM (``aten::mm.dtype``) has no autograd
+    formula, so the backward is written here: dx = g @ w and dw = g.T @ x
+    as products in the operands' dtype with fp32 sums, cast to x's and
+    w's dtypes. The cotangent g reaching a ``linear`` comes through the
+    cast of its output to the compute dtype, so casting g to that dtype is
+    exact and both products equal the JAX package's dot transpose up to
+    summation order."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = _mm_f32(x.reshape(-1, x.shape[-1]), w.t())
+        return y.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_f32(g2, w).to(x.dtype).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = _mm_f32(g2.t(), x.reshape(-1, x.shape[-1])).to(w.dtype)
+        return dx, dw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ w.T (w [F, K], one dtype) with an fp32 result summed in
-    fp32. bf16 on CUDA asks cuBLAS for an fp32 output; bf16 on the CPU
-    upcasts the operands (exact), since a CPU bf16 matmul rounds its
-    output."""
-    if x.dtype == torch.float32:
-        return torch.matmul(x, w.t())
-    if x.is_cuda:
-        x2 = x.reshape(-1, x.shape[-1])
-        y = torch.mm(x2, w.t(), out_dtype=torch.float32)
-        return y.reshape(*x.shape[:-1], w.shape[0])
-    return torch.matmul(x.float(), w.float().t())
+    fp32, on either device; differentiable through ``MatmulF32`` when a
+    gradient is wanted (a grad-free call skips the Function's overhead)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return MatmulF32.apply(x, w)
+    return _mm_f32(x.reshape(-1, x.shape[-1]), w.t()).reshape(*x.shape[:-1], w.shape[0])
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, eps: float) -> torch.Tensor:
@@ -82,7 +117,7 @@ def linear(x: torch.Tensor, lin: nn.Linear, compute_dtype: torch.dtype) -> torch
 
 
 def mlp(x: torch.Tensor, m: "Mlp", cfg: BlockCfg) -> torch.Tensor:
-    from jepa_tpu_torch.ops.fused_mlp import _gelu_fast, linear_gelu, resolve_fused_mlp
+    from jepa_tpu_torch.ops.fused_mlp import GeluFast, linear_gelu, resolve_fused_mlp
 
     cd = cfg.compute_dtype
     if cfg.fused_mlp and (cfg.fused_mlp == "force" or resolve_fused_mlp(x)):
@@ -90,7 +125,7 @@ def mlp(x: torch.Tensor, m: "Mlp", cfg: BlockCfg) -> torch.Tensor:
     else:
         h = linear(x, m.fc1, cd)
         if cd == torch.bfloat16:
-            h = _gelu_fast(h.float()).to(cd)
+            h = GeluFast.apply(h)
         else:
             h = F.gelu(h.float()).to(cd)
     return linear(h, m.fc2, cd)

@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-All sources under ``jepa_tpu_torch/csrc/*.cu`` are compiled by ``nvcc`` into
-one shared library with a plain C interface and loaded with ``ctypes``
-(no PyTorch headers, so a build takes seconds, not minutes). The build runs
+All sources under ``jepa_tpu_torch/csrc/*.cu`` are compiled by ``nvcc``, one
+process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds, not minutes). The build runs
 at first use and lands in ``jepa_tpu_torch/build/``, named by a hash of the
 sources and flags, so an edited source is never served by a stale library.
 
     lib = load_library()          # builds if needed
-    lib.jt_flash_fwd(...)         # argtypes set below
+    lib.jt_flash_fwd_c64(...)     # argtypes set below
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
@@ -38,8 +39,13 @@ _F = ctypes.c_float
 # name -> argtypes; every entry point returns cudaError_t (int)
 _SIGNATURES = {
     # qkv, o, lse, B, N, H, scale*log2e, stream
-    "jt_flash_fwd_c64": [_P, _P, _P, _I, _I, _I, _F, _P],
-    "jt_flash_fwd_c80": [_P, _P, _P, _I, _I, _I, _F, _P],
+    **{f"jt_flash_fwd_c{c}": [_P, _P, _P, _I, _I, _I, _F, _P] for c in (32, 64, 80)},
+    # qkv, do, lse, delta, dqkv, B, N, H, scale*log2e, stream
+    **{f"jt_flash_bwd_dkv_c{c}": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
+       for c in (32, 64, 80)},
+    # qkv, do, lse, delta, dqkv, B, N, H, scale*log2e, scale, stream
+    **{f"jt_flash_bwd_dq_c{c}": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P]
+       for c in (32, 64, 80)},
     # x, w, b, out, M, K, F, stream
     "jt_linear_gelu_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
@@ -70,22 +76,41 @@ def _digest() -> str:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the library if no up-to-date build exists; return its path."""
+    """Compile the library if no up-to-date build exists; return its path.
+    Each source compiles in its own nvcc process, all started together,
+    then one nvcc links the objects."""
     global build_seconds
     out = BUILD_DIR / f"libjepa_tpu_torch_{_digest()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{out.stem}.{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+        compile_flags = ["-Xptxas=-v", *compile_flags]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    errors, notes = [], []
+    for src, proc in zip(_sources(), procs):
+        _, err = proc.communicate()
+        (errors if proc.returncode else notes).append(f"{src.name}:\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    if verbose:
+        print("\n".join(notes))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr)
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out

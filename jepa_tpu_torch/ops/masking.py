@@ -1,8 +1,9 @@
-"""Token gathers for masked forwards (counterpart of jepa_tpu/ops/masking.py)."""
+"""Token gathers, batch tiling and weighted means for masked forwards and
+losses (counterpart of jepa_tpu/ops/masking.py)."""
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -19,3 +20,25 @@ def apply_masks(x: torch.Tensor, masks: List[torch.Tensor], concat: bool = True)
     if not concat:
         return outs
     return torch.cat(outs, dim=0)
+
+
+def repeat_interleave_batch(x: torch.Tensor, b: int, repeat: int) -> torch.Tensor:
+    """Tile each contiguous batch chunk of size ``b`` ``repeat`` times:
+    [n*b, ...] -> [n*repeat*b, ...] (reference src/utils/tensors.py:65-71)."""
+    n = x.shape[0] // b
+    rest = x.shape[1:]
+    out = x.reshape(n, 1, b, *rest).expand(n, repeat, b, *rest)
+    return out.reshape(n * repeat * b, *rest)
+
+
+def masked_mean(x: torch.Tensor, weight: Optional[torch.Tensor], dim=None) -> torch.Tensor:
+    """Mean of x under optional token-validity weights ([B, K] against
+    x [B, K, D], or x's own shape); weight-0 positions are excluded from
+    the normalizer."""
+    if weight is None:
+        return x.mean() if dim is None else x.mean(dim=dim)
+    w = weight[..., None] if weight.dim() == x.dim() - 1 else weight
+    w = w.expand(x.shape).to(x.dtype)
+    if dim is None:
+        return (x * w).sum() / w.sum().clamp(min=1e-6)
+    return (x * w).sum(dim=dim) / w.sum(dim=dim).clamp(min=1e-6)

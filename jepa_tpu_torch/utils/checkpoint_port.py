@@ -8,6 +8,9 @@ the ``target_encoder`` key with ``encoder`` fallback, strip ``module.`` /
 ``classifier_state_from_jax`` turn the JAX package's parameter trees (as
 numpy: stacked ``[depth, ...]`` block leaves, ``[in, out]`` linears) into
 port state_dicts; they take plain dicts and need no JAX.
+``predictor_state_from_jax`` does the same for the predictor, and
+``train_state_from_jax`` turns a whole JAX train state (params, target,
+AdamW moments, step) into the port's ``TrainState``.
 """
 
 from __future__ import annotations
@@ -132,6 +135,61 @@ def encoder_state_from_jax(params: Mapping, consts: Mapping, cfg: ViTCfg) -> Dic
     sd["norm.weight"] = _t(params["norm"]["scale"])
     sd["norm.bias"] = _t(params["norm"]["bias"])
     return sd
+
+
+def predictor_state_from_jax(params: Mapping, consts: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """JAX predictor (params, consts), as numpy, -> Predictor state_dict
+    (the inverse of jepa_tpu's port_predictor)."""
+    sd = {
+        "predictor_embed.weight": _t(np.asarray(params["predictor_embed"]["w"]).T),
+        "predictor_embed.bias": _t(params["predictor_embed"]["b"]),
+        "predictor_pos_embed": _t(consts["pos_embed"])[None],
+        "predictor_norm.weight": _t(params["norm"]["scale"]),
+        "predictor_norm.bias": _t(params["norm"]["bias"]),
+        "predictor_proj.weight": _t(np.asarray(params["predictor_proj"]["w"]).T),
+        "predictor_proj.bias": _t(params["predictor_proj"]["b"]),
+    }
+    for i in range(_depth(params["blocks"])):
+        sd.update(_block_state(params["blocks"], i, f"predictor_blocks.{i}"))
+    if cfg.use_mask_tokens:
+        mts = np.asarray(params["mask_tokens"], np.float32)
+        for k in range(cfg.num_mask_tokens):
+            sd[f"mask_tokens.{k}"] = _t(mts[k].reshape(1, 1, -1))
+    return sd
+
+
+def train_state_from_jax(state: Mapping, consts: Mapping, enc_cfg, pred_cfg,
+                         device="cuda"):
+    """The JAX package's train state (canonical stacked layout, as numpy:
+    ``step``, ``params`` {encoder, predictor}, ``target``, ``opt`` {mu, nu})
+    -> the port's TrainState on ``device``, so both packages update from
+    the same numbers."""
+    from jepa_tpu_torch.api import _resolve_device
+    from jepa_tpu_torch.models.predictor import Predictor
+    from jepa_tpu_torch.train.step import state_from_modules
+
+    dev = _resolve_device(device)
+    ec, pc = consts["encoder"], consts["predictor"]
+
+    def modules(tree):
+        enc = VisionTransformer(enc_cfg, device=dev)
+        enc.load_state_dict(encoder_state_from_jax(tree["encoder"], ec, enc_cfg))
+        pred = Predictor(pred_cfg, device=dev)
+        pred.load_state_dict(predictor_state_from_jax(tree["predictor"], pc, pred_cfg))
+        return enc, pred
+
+    def moments(tree):
+        enc, pred = modules(tree)
+        out = {f"encoder.{n}": p.detach() for n, p in enc.named_parameters()}
+        out.update({f"predictor.{n}": p.detach() for n, p in pred.named_parameters()})
+        return out
+
+    encoder, predictor = modules(state["params"])
+    target = VisionTransformer(enc_cfg, device=dev)
+    target.load_state_dict(encoder_state_from_jax(state["target"], ec, enc_cfg))
+    return state_from_modules(encoder, predictor, target, step=int(state["step"]),
+                              mu=moments(state["opt"]["mu"]),
+                              nu=moments(state["opt"]["nu"]))
 
 
 def classifier_state_from_jax(params: Mapping, acfg) -> Dict[str, torch.Tensor]:

@@ -87,3 +87,28 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     w = torch.zeros(256, 128, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fm.linear_gelu_cuda(x, w, torch.zeros(256))
+
+
+def test_gelu_fast_backward_matches_jax():
+    """GeluFast's hand-written derivative against jax.grad of the JAX
+    package's _gelu_fast in fp32, across both branches and the clamp
+    (|z|/sqrt2 >= 3.9 has no polynomial slope), and its bf16 rounding."""
+    import jax
+
+    z = np.concatenate([np.linspace(-7.0, 7.0, 4001), [0.0, 5.5154, -5.5155]]).astype(np.float32)
+    g = np.random.default_rng(0).normal(size=z.shape).astype(np.float32)
+    want = np.asarray(jax.grad(lambda a: jnp.sum(jax_gelu_fast(a) * g))(jnp.asarray(z)))
+    zt = torch.from_numpy(z).requires_grad_(True)
+    y = fm.GeluFast.apply(zt)
+    np.testing.assert_array_equal(y.detach().numpy(), fm._gelu_fast(torch.from_numpy(z)).numpy())
+    y.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(zt.grad.numpy(), want, atol=2e-6, rtol=1e-5)
+
+    zb = torch.from_numpy(z).bfloat16().requires_grad_(True)
+    fm.GeluFast.apply(zb).backward(torch.from_numpy(g).bfloat16())
+    assert zb.grad.dtype == torch.bfloat16
+    want_b = np.asarray(jax.grad(lambda a: jnp.sum(
+        jax_gelu_fast(a.astype(jnp.float32)).astype(jnp.bfloat16).astype(jnp.float32)
+        * jnp.asarray(g, jnp.bfloat16).astype(jnp.float32)))(jnp.asarray(z, jnp.bfloat16)))
+    np.testing.assert_allclose(zb.grad.float().numpy(), want_b.astype(np.float32),
+                               atol=2.0**-8 * 4, rtol=2.0**-7)
