@@ -31,7 +31,18 @@ Phases (any failure raises and exits non-zero):
      H1/H2/H3 launches per step the path implies, times the steps,
      profiles one more, then holds one B=2 update through the kernels
      against the same update through the plain versions (loss, grad norms,
-     and the change of the encoder, the predictor and the EMA target).
+     and the change of the encoder, the predictor and the EMA target);
+  7. masked kernels: H1 (c=64 and c=24->32) and both H2 kernels with a key
+     mask, against their plain versions at the padded mode's shapes
+     (B=24; context N 128/384/640 at c=64, predictor N 1152/1664 at
+     c=24->32), each mask with a mid-sequence run of pads and a ragged
+     tail; the masked keys' dk and dv must be exactly 0;
+  8. the pretrain app (jepa_tpu_torch.apps.vjepa.train.main) on
+     configs/pretrain/vitl16.yaml with synthetic data and APP_IPE updates
+     per epoch, in a temporary folder: fixed mode for 2 epochs, a resume
+     to 3 (step count, CSV rows, and api.load_encoder reading the app's
+     checkpoint), then padded mode for 1 epoch with the launches of the
+     masked kernels per update checked.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -80,6 +91,7 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_EXP2_PER_S = 132 * 16 * 1.98e9  # 132 SMs x 16 exp2/clock/SM (sm_90 SFU
                                      # throughput) at the 1,980 MHz max SM clock
 PROB_TOL = 1e-3
+APP_IPE = 5        # app updates per epoch (the config's ipe is 300)
 
 
 def log(msg: str) -> None:
@@ -264,14 +276,17 @@ def _sdpa_fwd_ms(torch, qkv, h, scale):
     return time_ms(torch, lambda: f(q, k, v, scale=scale))
 
 
-def attn_bound_ms(b, n, h, c, products, in_bytes, out_bytes):
+def attn_bound_ms(b, n, h, c, products, in_bytes, out_bytes, pairs=None):
     """Least time for one attention kernel: the largest of `products`
     N x N x c matmuls per (batch, head) at the bf16 tensor-core peak (c the
     real head dim: pad lanes are zeros), one exp2 per score (p, computed or
     recomputed once by every kernel here) at the SFU rate, and moving the
-    inputs and outputs once. Returns (ms, "operations" or "bytes", which)."""
-    t = {"MMA": products * 2.0 * b * h * n * n * c / PEAK_BF16_FLOPS * 1e3,
-         "exp2": 1.0 * b * h * n * n / PEAK_EXP2_PER_S * 1e3,
+    inputs and outputs once. ``pairs``: the (query, valid key) pairs summed
+    over the batch where a key mask leaves fewer than b*N*N scores to
+    compute. Returns (ms, "operations" or "bytes", which)."""
+    pairs = b * n * n if pairs is None else pairs
+    t = {"MMA": products * 2.0 * h * pairs * c / PEAK_BF16_FLOPS * 1e3,
+         "exp2": 1.0 * h * pairs / PEAK_EXP2_PER_S * 1e3,
          "bytes": (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3}
     which = max(t, key=t.get)
     return t[which], ("bytes" if which == "bytes" else "operations"), which
@@ -360,6 +375,122 @@ def phase_bwd_kernels(torch, shapes):
             ms_dq = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(qkv, do, lse, delta, out, h, scale))
             log(f"H2 {label} B={b} N={n} time: dkv {ms_dkv:.4f} ms, dq {ms_dq:.4f} ms")
         del qkv, do, o, lse, delta, dqkv, ref
+    return rep
+
+
+def padded_key_mask(torch, rng, b, n, mid_run):
+    """[B, N] bool key mask on the card: per sample a run of pads starting
+    at ``mid_run`` (the predictor's context pads, or a random run) and a
+    ragged tail of pads, key 0 always valid."""
+    m = np.ones((b, n), dtype=bool)
+    for i in range(b):
+        a = mid_run if mid_run else int(rng.integers(1, n // 2))
+        m[i, a:a + int(rng.integers(1, n // 4))] = False
+        m[i, n - int(rng.integers(1, n // 8)):] = False
+    return torch.from_numpy(m).to("cuda")
+
+
+def _sdpa_masked_ms(torch, qkv, do, h, scale, mask):
+    """Library yardstick with the key mask: SDPA with a boolean attn_mask,
+    (forward ms, backward-alone ms); timed only, the port never calls it."""
+    b, n, w3 = qkv.shape
+    c = w3 // (3 * h)
+    q, k, v = (t.transpose(1, 2).contiguous().requires_grad_(True)
+               for t in qkv.reshape(b, n, 3, h, c).unbind(2))
+    am = mask[:, None, None, :]
+    f = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        fwd = time_ms(torch, lambda: f(q, k, v, attn_mask=am, scale=scale))
+    out = f(q, k, v, attn_mask=am, scale=scale)
+    g = do.reshape(b, n, h, c).transpose(1, 2).contiguous()
+    bwd = time_ms(torch, lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True))
+    return fwd, bwd
+
+
+def phase_masked_kernels(torch, shapes):
+    """H1 and both H2 kernels with a key mask (the padded mask mode)
+    against their plain versions on the card.
+
+    shapes: (label, B, N, H, c, c_real, mid_run); the first of each head
+    dim is timed for the summary line."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rng = np.random.default_rng(SEED + 2)
+    rep = {k: {"max_abs_err": 0.0} for k in ("h1_c64", "h1_c32", "dkv", "dq")}
+    for label, b, n, h, c, c_real, mid_run in shapes:
+        qkv, do = _attn_inputs(torch, gen, b, n, h, c, c_real)
+        mask = padded_key_mask(torch, rng, b, n, mid_run)
+        scale = c_real**-0.5
+        o, lse = fa.flash_self_attention_cuda(qkv, h, scale, mask)
+        o_ref, lse_ref = fa.flash_self_attention_ref(qkv, h, scale, mask)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(o.float()).all() and torch.isfinite(lse).all()):
+            raise RuntimeError(f"masked H1 {label}: non-finite output")
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_l = (lse - lse_ref).abs().max().item()
+        del o_ref, lse_ref
+        valid = mask.float().mean().item()
+        log(f"masked H1 c={c} {label} B={b} N={n}: valid keys {valid:.3f}, max|do| "
+            f"{err_o:.3e} (tol {H1_O_TOL}) max|dlse| {err_l:.3e} (tol {H1_LSE_TOL})")
+        if not (err_o <= H1_O_TOL and err_l <= H1_LSE_TOL):
+            raise RuntimeError(f"masked H1 {label} disagrees with its plain version")
+        h1 = rep[f"h1_c{c}"]
+        h1["max_abs_err"] = max(h1["max_abs_err"], err_o)
+        delta = fa.attention_delta(do, o, h)
+        dqkv = fa.flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale, mask)
+        ref = fa.flash_self_attention_bwd_ref(qkv, do, lse, delta, h, scale, mask)
+        torch.cuda.synchronize()
+        if not torch.isfinite(dqkv.float()).all():
+            raise RuntimeError(f"masked H2 {label}: non-finite output")
+        hc = h * c
+        for i, name in enumerate(("dq", "dk", "dv")):
+            got = dqkv[..., i * hc:(i + 1) * hc].float()
+            want = ref[..., i * hc:(i + 1) * hc].float()
+            err = (got - want).abs().max().item()
+            tol = H2_REL * want.abs().max().item()
+            masked = got[~mask].abs().max().item() if name != "dq" else 0.0
+            log(f"masked H2 {label} c={c_real}->{c}: {name} max|d| {err:.3e} (tol "
+                f"{tol:.3e}), masked keys max|{name}| {masked:.1e} (must be 0)")
+            if not (err <= tol and masked == 0.0):
+                raise RuntimeError(f"masked H2 {label} {name} disagrees with its plain version")
+            kern = "dq" if name == "dq" else "dkv"
+            rep[kern]["max_abs_err"] = max(rep[kern]["max_abs_err"], err)
+        el = 2
+        qkv_b, o_b, vec_b, m_b = b * n * 3 * hc * el, b * n * hc * el, b * h * n * 4, b * n
+        pairs = int(mask.sum().item()) * n  # every query row against the valid keys
+        if "ms" not in h1:
+            fwd_lib, bwd_lib = _sdpa_masked_ms(torch, qkv, do, h, scale, mask)
+            h1.update(
+                ms=time_ms(torch, lambda: fa.flash_self_attention_cuda(qkv, h, scale, mask)),
+                plain_ms=time_ms(torch, lambda: fa.flash_self_attention_ref(qkv, h, scale, mask)),
+                library_ms=fwd_lib,
+                bound=attn_bound_ms(b, n, h, c_real, 2, qkv_b + m_b, o_b + vec_b, pairs),
+                shape=(b, n, h, c_real))
+            log(f"masked H1 c={c_real}->{c} {label} B={b} N={n} time: kernel {h1['ms']:.4f} ms, "
+                f"plain {h1['plain_ms']:.4f} ms, library (SDPA fwd, bool mask) {fwd_lib:.4f} "
+                f"ms, bound {h1['bound'][0]:.4f} ms ({h1['bound'][2]})")
+            if c == 32:
+                out = torch.empty_like(qkv)
+                rep["dkv"].update(
+                    ms=time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(qkv, do, lse, delta, out, h, scale, mask)),
+                    plain_ms=time_ms(torch, lambda: fa.flash_bwd_dkv_ref(qkv, do, lse, delta, h, scale, mask)),
+                    library_ms=bwd_lib,
+                    bound=attn_bound_ms(b, n, h, c_real, 4, qkv_b + o_b + 2 * vec_b + m_b, 2 * o_b, pairs),
+                    shape=(b, n, h, c_real))
+                rep["dq"].update(
+                    ms=time_ms(torch, lambda: fa.flash_bwd_dq_cuda(qkv, do, lse, delta, out, h, scale, mask)),
+                    plain_ms=time_ms(torch, lambda: fa.flash_bwd_dq_ref(qkv, do, lse, delta, h, scale, mask)),
+                    library_ms=bwd_lib,
+                    bound=attn_bound_ms(b, n, h, c_real, 3, qkv_b + o_b + 2 * vec_b + m_b, o_b, pairs),
+                    shape=(b, n, h, c_real))
+                for k in ("dkv", "dq"):
+                    r = rep[k]
+                    log(f"masked {k} {label} B={b} N={n} c={c_real}->{c} time: kernel "
+                        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library (SDPA "
+                        f"backward, bool mask) {bwd_lib:.4f} ms, bound {r['bound'][0]:.4f} ms "
+                        f"({r['bound'][2]})")
+        del qkv, do, o, lse, delta, dqkv, ref, mask
     return rep
 
 
@@ -493,7 +624,7 @@ def train_setup(repo: str):
                   seed=cfg["meta"]["seed"])
     step_fn = build_train_step(enc_cfg, pred_cfg, tc, *scheds, specs, grid, keep)
     return dict(enc_cfg=enc_cfg, pred_cfg=pred_cfg, keep=keep, step_fn=step_fn,
-                yaml_batch=d["batch_size"], clip_shape=(d["num_frames"], d["crop_size"],
+                specs=specs, grid=grid, yaml_batch=d["batch_size"], clip_shape=(d["num_frames"], d["crop_size"],
                                                         d["crop_size"], 3))
 
 
@@ -645,6 +776,150 @@ def profile_step(torch, step_fn, state, clips):
     return {"device_ms": total, "groups": groups}
 
 
+def expected_padded_launches(setup, ladder_caps) -> dict:
+    """Per-update launches of the padded mode: the unmasked H1 and H3 of
+    the target, a masked H1 per context block whose cap is >= 128 (c=64)
+    and per predictor block (c=32), a masked dk/dv and dq per masked H1."""
+    depth, pdepth = setup["enc_cfg"].depth, setup["pred_cfg"].depth
+    ctx = sum(depth for ce, _ in ladder_caps if ce >= 128)
+    pred = sum(pdepth for ce, cp in ladder_caps if ce + cp >= 128)
+    return {"h1_c64": depth, "h1_c32": 0, "h1_c64_masked": ctx, "h1_c32_masked": pred,
+            "dkv_masked": ctx + pred, "dq_masked": ctx + pred, "dkv": ctx + pred,
+            "dq": ctx + pred, "h3": depth}
+
+
+def _app_counts(fa, fm) -> dict:
+    return {**_counts(fa, fm), "h1_c64_masked": fa.masked_launches_by_head_dim[64],
+            "h1_c32_masked": fa.masked_launches_by_head_dim[32],
+            "dkv_masked": fa.dkv_masked_launches, "dq_masked": fa.dq_masked_launches}
+
+
+def _csv_times(path):
+    """(median step ms, median wall ms, median host share of the wall) over
+    the rows after each run's first (the CSV's own integer ms)."""
+    rows = [r.split(",") for r in open(path).read().strip().splitlines()]
+    body, first = [], True
+    for r in rows:
+        if r[0] == "epoch":
+            first = True
+            continue
+        if not first:
+            body.append((float(r[7]), float(r[8])))
+        first = False
+    step = statistics.median(b[0] for b in body)
+    wall = statistics.median(b[1] for b in body)
+    host = statistics.median((b[1] - b[0]) / b[1] for b in body)
+    return step, wall, host, len(rows) - rows.count(rows[0])
+
+
+def phase_app(torch, repo, setup, workdir):
+    """The pretrain app on vitl16.yaml with synthetic data, APP_IPE updates
+    per epoch: fixed mode 2 epochs, a resume to 3, then padded mode 1
+    epoch, each with the launch counts set to 0 just before and read just
+    after; api.load_encoder reads the fixed run's checkpoint."""
+    import shutil
+
+    import yaml
+
+    from jepa_tpu_torch import api
+    from jepa_tpu_torch.apps.vjepa.train import main as train_main
+    from jepa_tpu_torch.masks.multiblock3d import calibrate_pad_ladders
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+
+    with open(os.path.join(repo, "configs", "pretrain", "vitl16.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["data"]["dataset_type"] = "synthetic"
+    cfg["optimization"]["ipe"] = APP_IPE
+    cfg["optimization"]["epochs"] = 2
+    cfg["logging"]["folder"] = os.path.join(workdir, "fixed")
+    torch.cuda.empty_cache()  # a fresh allocator, as the app has in its own process
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    log(f"app: vitl16.yaml, synthetic data, ipe {APP_IPE}, batch {cfg['data']['batch_size']}, "
+        f"{cfg['data']['num_workers']} loader workers; free disk "
+        f"{shutil.disk_usage(workdir).free / 2**30:.1f} GiB")
+    out = {}
+    want_fixed = expected_train_launches(setup)
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(fa, fm)
+    t0 = time.perf_counter()
+    state = train_main(cfg)  # device="cuda"
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = _counts(fa, fm)
+    steps = 2 * APP_IPE
+    if state.step != steps:
+        raise RuntimeError(f"app fixed: step {state.step} != {steps}")
+    if any(got[k] != steps * v for k, v in want_fixed.items()):
+        raise RuntimeError(f"app fixed: launches {got} != {steps} x {want_fixed}")
+    tag = cfg["logging"]["write_tag"]
+    csv = os.path.join(cfg["logging"]["folder"], f"{tag}_r0.csv")
+    ckpt = os.path.join(cfg["logging"]["folder"], f"{tag}-latest.pth.tar")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"app fixed: {steps} updates in {secs:.1f} s (build of state, loader, checkpoints "
+        f"included); checkpoint {os.path.getsize(ckpt) / 2**30:.2f} GiB; launches {got}")
+
+    # the app's checkpoint through the serving API: the EMA target's features
+    geo = dict(img_size=224, num_frames=16, tubelet_size=2, uniform_power=True)
+    clips = np.random.default_rng(SEED).integers(0, 256, size=(2, 16, 224, 224, 3),
+                                                 dtype=np.uint8)
+    feats = api.load_encoder(ckpt, "vit_large", **geo).encode(clips)
+    want = api.Encoder(model=state.target, cfg=setup["enc_cfg"]).encode(clips)
+    err = (feats - want).abs().max().item()
+    log(f"app: api.load_encoder on {os.path.basename(ckpt)} vs the state's target, "
+        f"features max|d| {err:.3e} (tol 1e-3)")
+    if not (torch.isfinite(feats).all() and err <= 1e-3):
+        raise RuntimeError("api.load_encoder does not read the app's checkpoint")
+    del state, feats, want
+
+    # resume to 3 epochs
+    cfg["optimization"]["epochs"] = 3
+    _reset_counts(fa, fm)
+    state = train_main(cfg)
+    got = _counts(fa, fm)
+    if state.step != 3 * APP_IPE or any(got[k] != APP_IPE * v for k, v in want_fixed.items()):
+        raise RuntimeError(f"app resume: step {state.step}, launches {got}")
+    step_ms, wall_ms, host, n_rows = _csv_times(csv)
+    if n_rows != 3 * APP_IPE:
+        raise RuntimeError(f"app: {n_rows} CSV rows != {3 * APP_IPE}")
+    out["fixed"] = dict(step_ms=step_ms, wall_ms=wall_ms, host=host, peak_gib=peak)
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
+    log(f"app fixed + resume: step {state.step}, {n_rows} CSV rows; median step "
+        f"{step_ms:.0f} ms, wall {wall_ms:.0f} ms, host (loader + augment) share of the "
+        f"wall {100 * host:.1f} %, peak allocated {peak:.2f} GiB, allocator retries {retries}")
+    del state
+    shutil.rmtree(cfg["logging"]["folder"])
+    torch.cuda.empty_cache()
+
+    # padded mode, one epoch
+    cfg["meta"]["mask_mode"] = "padded"
+    cfg["optimization"]["epochs"] = 1
+    cfg["logging"]["folder"] = os.path.join(workdir, "padded")
+    specs_caps = calibrate_pad_ladders(
+        setup["specs"], setup["grid"], cfg["data"]["batch_size"])
+    want_padded = expected_padded_launches(setup, [rungs[0] for rungs in specs_caps])
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(fa, fm)
+    state = train_main(cfg)
+    torch.cuda.synchronize()
+    got = _app_counts(fa, fm)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if state.step != APP_IPE or any(got[k] != APP_IPE * v for k, v in want_padded.items()):
+        raise RuntimeError(f"app padded: step {state.step}, launches {got} != "
+                           f"{APP_IPE} x {want_padded}")
+    step_ms, wall_ms, host, n_rows = _csv_times(
+        os.path.join(cfg["logging"]["folder"], f"{tag}_r0.csv"))
+    out["padded"] = dict(step_ms=step_ms, wall_ms=wall_ms, host=host, peak_gib=peak,
+                         launches=got, ladders=specs_caps)
+    log(f"app padded: step {state.step}, cap ladders {specs_caps}; launches per update "
+        f"{ {k: v // APP_IPE for k, v in got.items()} }; median step {step_ms:.0f} ms, wall "
+        f"{wall_ms:.0f} ms, host share {100 * host:.1f} %, peak allocated {peak:.2f} GiB")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, rep) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
@@ -671,10 +946,19 @@ def main() -> int:
         ("384px predictor geometry", 1, 4608, 16, 32, 24),
     ])
     kern["h1"]["max_abs_err"] = max(kern["h1"]["max_abs_err"], bwd["h1"]["max_abs_err"])
+    masked = phase_masked_kernels(torch, [
+        ("context, short-range rung", TRAIN_BATCH, 384, 16, 64, 64, 0),
+        ("context, long-range rung", TRAIN_BATCH, 128, 16, 64, 64, 0),
+        ("context, top rung", TRAIN_BATCH, 640, 16, 64, 64, 0),
+        ("predictor, short-range", TRAIN_BATCH, 384 + 768, 16, 32, 24, 384),
+        ("predictor, top rungs", TRAIN_BATCH, 256 + 1408, 16, 32, 24, 256),
+    ])
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
         serve = phase_serve(torch, workdir)
     train = phase_train(torch, setup)
-    sl, tl = serve["launches"], train["launches"]
+    with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
+        app = phase_app(torch, repo, setup, workdir)
+    sl, tl, al = serve["launches"], train["launches"], app["padded"]["launches"]
     fa_src, bwd_src = "jepa_tpu_torch/csrc/flash_attention.cu", "jepa_tpu_torch/csrc/flash_attention_bwd.cu"
     fa_py = "jepa_tpu/ops/flash_attention.py"
     kernels = [
@@ -686,10 +970,24 @@ def main() -> int:
         kernel_entry("flash_bwd_dq", bwd_src, f"{fa_py}:1400", tl["dq"], bwd["dq"]),
         kernel_entry("linear_gelu_fwd", "jepa_tpu_torch/csrc/fused_mlp.cu",
                      "jepa_tpu/ops/fused_mlp.py:92", sl["h3"] + tl["h3"], kern["h3"]),
+        # the key-masked instances: the padded-mode app's launches
+        kernel_entry("flash_self_attention_fwd_masked", fa_src, f"{fa_py}:955",
+                     al["h1_c64_masked"], masked["h1_c64"]),
+        kernel_entry("flash_self_attention_fwd_masked_c32", fa_src, f"{fa_py}:955",
+                     al["h1_c32_masked"], masked["h1_c32"]),
+        kernel_entry("flash_bwd_dkv_masked", bwd_src, f"{fa_py}:1452", al["dkv_masked"],
+                     masked["dkv"]),
+        kernel_entry("flash_bwd_dq_masked", bwd_src, f"{fa_py}:1400", al["dq_masked"],
+                     masked["dq"]),
     ]
     log(f"card: {card}; serve median {serve['median_ms']:.3f} ms/request (B=2), "
         f"peak {serve['peak_gib']:.3f} GiB; train median {train['median_ms']:.1f} "
         f"ms/step (B={TRAIN_BATCH}), peak {train['peak_gib']:.2f} GiB")
+    for mode in ("fixed", "padded"):
+        a = app[mode]
+        log(f"card: {card}; app {mode} (B={TRAIN_BATCH}): median step {a['step_ms']:.0f} ms, "
+            f"wall {a['wall_ms']:.0f} ms, host share {100 * a['host']:.1f} %, peak "
+            f"{a['peak_gib']:.2f} GiB")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,20 @@
 // predictors' 24 zero-padded to 32 (see ops/flash_attention.py).
 //
 // Inputs: qkv [B, N, 3*H*C] bf16, the projection output read by stride
-// (columns q|k|v, each head-major). Outputs: o [B, N, H*C] bf16
-// token-major (the input of attn.proj) and lse [B, H, N] fp32 in base-2
-// units (m + log2 l), kept for the backward.
+// (columns q|k|v, each head-major), and an optional key mask kvm [B, N]
+// uint8 (1 = valid key; the padded mask mode's pads are 0, anywhere in the
+// row). Outputs: o [B, N, H*C] bf16 token-major (the input of attn.proj)
+// and lse [B, H, N] fp32 in base-2 units (m + log2 l), kept for the
+// backward.
+//
+// Key mask (the masked instance of _fwd_tm_kernel, its mask_ref branch): a
+// masked score is set to -1e30 before the row max, as the TPU kernel does,
+// each 64-key tile by its own bytes, so a run of pads in the middle of the
+// sequence is handled like a tail. A tile whose keys are all masked gives
+// p = 1 against its own max of -1e30, and the first valid key's max then
+// scales those terms by exp2(-1e30 - m) = 0. A row with no valid key gets
+// the uniform average (the padded mode never makes one). The mask is a
+// template flag: the unmasked instance is the same code as before.
 //
 // Rounding points mirror the reference: q * (scale*log2e) is rounded to
 // bf16 before QK^T; p is rounded to bf16 before PV; the denominator is the
@@ -43,10 +54,11 @@ constexpr int BKV = 64;     // keys per kv step
 constexpr int THREADS = 128;
 constexpr int PAD = 8;      // shared-memory row padding, bf16 elements
 
-template <int C>
+template <int C, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o,
-                 float* __restrict__ lse, int N, int H, float qscale) {
+flash_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ kvm,
+                 bf16* __restrict__ o, float* __restrict__ lse, int N, int H,
+                 float qscale) {
   constexpr int LD = C + PAD;
   constexpr int KSTEPS = C / 16;   // contraction steps of QK^T
   constexpr int NT_S = BKV / 8;    // score tiles of 8 keys
@@ -55,6 +67,7 @@ flash_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o,
   __shared__ __align__(16) bf16 sQ[BQ * LD];
   __shared__ __align__(16) bf16 sK[BKV * LD];
   __shared__ __align__(16) bf16 sV[BKV * LD];
+  __shared__ uint8_t sM[BKV];  // key mask of the tile (MASKED only)
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * BQ;
@@ -108,6 +121,9 @@ flash_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o,
       *reinterpret_cast<uint4*>(&sK[r * LD + cv * 8]) = kv;
       *reinterpret_cast<uint4*>(&sV[r * LD + cv * 8]) = vv;
     }
+    if constexpr (MASKED) {
+      if (tid < BKV) sM[tid] = k0 + tid < N ? kvm[(size_t)b * N + k0 + tid] : 0;
+    }
     __syncthreads();
 
     // S = Q K^T (base-2 logits), 16 x 64 per warp
@@ -120,6 +136,13 @@ flash_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o,
       for (int ks = 0; ks < KSTEPS; ++ks)
         jt::mma_16816(s[nt], qa[ks], jt::ld32(krow + ks * 16),
                       jt::ld32(krow + ks * 16 + 8));
+    }
+    if constexpr (MASKED) {  // masked keys: -1e30 before the row max
+#pragma unroll
+      for (int nt = 0; nt < NT_S; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          if (!sM[nt * 8 + 2 * t + j]) s[nt][j] = s[nt][2 + j] = -1e30f;
     }
     if (k0 + BKV > N) {  // ragged kv edge: keys past N get no weight
 #pragma unroll
@@ -206,28 +229,29 @@ flash_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ o,
   }
 }
 
+// kvm == nullptr launches the unmasked instance
 template <int C>
-int launch(const void* qkv, void* o, void* lse, int B, int N, int H,
-           float qscale, void* stream) {
+int launch(const void* qkv, const void* kvm, void* o, void* lse, int B, int N,
+           int H, float qscale, void* stream) {
   const dim3 grid((N + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<C><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (bf16*)o, (float*)lse, N, H, qscale);
+  if (kvm)
+    flash_fwd_kernel<C, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const bf16*)qkv, (const uint8_t*)kvm, (bf16*)o, (float*)lse, N, H, qscale);
+  else
+    flash_fwd_kernel<C, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const bf16*)qkv, nullptr, (bf16*)o, (float*)lse, N, H, qscale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int jt_flash_fwd_c32(const void* qkv, void* o, void* lse, int B,
-                                int N, int H, float qscale, void* stream) {
-  return launch<32>(qkv, o, lse, B, N, H, qscale, stream);
-}
+#define JT_FWD_ENTRY(C)                                                         \
+  extern "C" int jt_flash_fwd_c##C(const void* qkv, const void* kvm, void* o,   \
+                                   void* lse, int B, int N, int H,              \
+                                   float qscale, void* stream) {                \
+    return launch<C>(qkv, kvm, o, lse, B, N, H, qscale, stream);                \
+  }
 
-extern "C" int jt_flash_fwd_c64(const void* qkv, void* o, void* lse, int B,
-                                int N, int H, float qscale, void* stream) {
-  return launch<64>(qkv, o, lse, B, N, H, qscale, stream);
-}
-
-extern "C" int jt_flash_fwd_c80(const void* qkv, void* o, void* lse, int B,
-                                int N, int H, float qscale, void* stream) {
-  return launch<80>(qkv, o, lse, B, N, H, qscale, stream);
-}
+JT_FWD_ENTRY(32)
+JT_FWD_ENTRY(64)
+JT_FWD_ENTRY(80)

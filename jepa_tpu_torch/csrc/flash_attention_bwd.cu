@@ -12,6 +12,14 @@
 // dqkv [B, N, 3*H*C] bf16; the dk/dv kernel writes columns [H*C, 3*H*C),
 // the dq kernel columns [0, H*C), so no concatenation follows.
 //
+// Key mask (the masked instances of _dkv_tm_kernel and _dq_tm_kernel, their
+// mask_ref branches): an optional kvm [B, N] uint8 (1 = valid key). A
+// masked score is set to -1e30 before p = exp2(s - lse), so p = ds = 0 on
+// every masked key and its dk and dv come out exactly 0. The dk/dv kernel
+// reads the bytes of the two kv rows each thread owns, the dq kernel the
+// bytes of each 64-key tile, so pads anywhere in the row are handled. The
+// mask is a template flag: the unmasked instances are the code as before.
+//
 // Rounding points of the reference kernels: q * (scale*log2e) is rounded
 // to bf16 before QK^T; p = exp2(s - lse) is fp32, rounded to bf16 only as
 // the operand of dV = p^T do; ds = p * (dp - delta) is rounded to bf16
@@ -133,9 +141,10 @@ __device__ __forceinline__ void store_rows(bf16* out, size_t rs, int r0, int N,
 }
 
 // dk, dv of 64 kv rows of one (batch, head); loops over every q tile
-template <int C>
+template <int C, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
+flash_bwd_dkv_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ kvm,
+                     const bf16* __restrict__ dO,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      bf16* __restrict__ dqkv, int N, int H, float qscale) {
   constexpr int LD = C + PAD;
@@ -161,6 +170,14 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
   uint32_t ka[C / 16][4], va[C / 16][4];
   load_a<C>(ka, sQ, kr, t);
   load_a<C>(va, sdO, kr, t);
+  // this thread's kv rows k0 + kr and k0 + kr + 8: masked (or past N) ones
+  // get s = -1e30
+  [[maybe_unused]] bool valid0 = true, valid1 = true;
+  if constexpr (MASKED) {
+    const uint8_t* mrow = kvm + (size_t)b * N;
+    valid0 = k0 + kr < N && mrow[k0 + kr];
+    valid1 = k0 + kr + 8 < N && mrow[k0 + kr + 8];
+  }
 
   float dk[C / 8][4], dv[C / 8][4];
 #pragma unroll
@@ -192,6 +209,10 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
         const int col = nt * 8 + 2 * t + j;
         const bool ok = q0 + col < N;
         const float L = sL[col], D = sD[col];
+        if constexpr (MASKED) {
+          if (!valid0) st[nt][j] = -1e30f;
+          if (!valid1) st[nt][2 + j] = -1e30f;
+        }
         p[j] = ok ? exp2f(st[nt][j] - L) : 0.f;          // kv row g
         p[2 + j] = ok ? exp2f(st[nt][2 + j] - L) : 0.f;  // kv row g + 8
         ds[j] = p[j] * (dpt[nt][j] - D);
@@ -213,15 +234,17 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
 }
 
 // dq of 64 q rows of one (batch, head); loops over every kv tile
-template <int C>
+template <int C, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
+flash_bwd_dq_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ kvm,
+                    const bf16* __restrict__ dO,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dqkv, int N, int H, float qscale,
                     float scale) {
   constexpr int LD = C + PAD;
   __shared__ __align__(16) bf16 sK[BC * LD];
   __shared__ __align__(16) bf16 sV[BC * LD];
+  __shared__ uint8_t sM[BC];  // key mask of the kv tile (MASKED only)
 
   const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BR;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -253,6 +276,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
     __syncthreads();
     load_tile<C, BC>(sK, base + HC, rs, k0, N, 1.f);
     load_tile<C, BC>(sV, base + 2 * HC, rs, k0, N, 1.f);
+    if constexpr (MASKED) {
+      if (tid < BC) sM[tid] = k0 + tid < N ? kvm[(size_t)b * N + k0 + tid] : 0;
+    }
     __syncthreads();
 
     float s[BC / 8][4], dp[BC / 8][4];
@@ -266,6 +292,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const bool ok = k0 + nt * 8 + 2 * t + j < N;
+        if constexpr (MASKED) {
+          if (!sM[nt * 8 + 2 * t + j]) s[nt][j] = s[nt][2 + j] = -1e30f;
+        }
         ds[j] = ok ? exp2f(s[nt][j] - L0) * (dp[nt][j] - D0) : 0.f;
         ds[2 + j] = ok ? exp2f(s[nt][2 + j] - L1) * (dp[nt][2 + j] - D1) : 0.f;
       }
@@ -279,23 +308,29 @@ flash_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
   store_rows<C>(dqkv + (size_t)b * N * rs + h * C, rs, r0, N, dq, scale, t);
 }
 
+// kvm == nullptr launches the unmasked instances
 template <int C>
-int launch_dkv(const void* qkv, const void* dO, const void* lse, const void* delta,
-               void* dqkv, int B, int N, int H, float qscale, void* stream) {
+int launch_dkv(const void* qkv, const void* kvm, const void* dO, const void* lse,
+               const void* delta, void* dqkv, int B, int N, int H, float qscale,
+               void* stream) {
   const dim3 grid((N + BR - 1) / BR, H, B);
-  flash_bwd_dkv_kernel<C><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (const bf16*)dO, (const float*)lse, (const float*)delta,
+  const auto* m = (const uint8_t*)kvm;
+  auto* kern = kvm ? flash_bwd_dkv_kernel<C, true> : flash_bwd_dkv_kernel<C, false>;
+  kern<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)qkv, m, (const bf16*)dO, (const float*)lse, (const float*)delta,
       (bf16*)dqkv, N, H, qscale);
   return (int)cudaGetLastError();
 }
 
 template <int C>
-int launch_dq(const void* qkv, const void* dO, const void* lse, const void* delta,
-              void* dqkv, int B, int N, int H, float qscale, float scale,
-              void* stream) {
+int launch_dq(const void* qkv, const void* kvm, const void* dO, const void* lse,
+              const void* delta, void* dqkv, int B, int N, int H, float qscale,
+              float scale, void* stream) {
   const dim3 grid((N + BR - 1) / BR, H, B);
-  flash_bwd_dq_kernel<C><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (const bf16*)dO, (const float*)lse, (const float*)delta,
+  const auto* m = (const uint8_t*)kvm;
+  auto* kern = kvm ? flash_bwd_dq_kernel<C, true> : flash_bwd_dq_kernel<C, false>;
+  kern<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)qkv, m, (const bf16*)dO, (const float*)lse, (const float*)delta,
       (bf16*)dqkv, N, H, qscale, scale);
   return (int)cudaGetLastError();
 }
@@ -303,17 +338,20 @@ int launch_dq(const void* qkv, const void* dO, const void* lse, const void* delt
 }  // namespace
 
 #define JT_BWD_ENTRIES(C)                                                       \
-  extern "C" int jt_flash_bwd_dkv_c##C(const void* qkv, const void* dO,         \
-                                       const void* lse, const void* delta,      \
-                                       void* dqkv, int B, int N, int H,         \
-                                       float qscale, void* stream) {            \
-    return launch_dkv<C>(qkv, dO, lse, delta, dqkv, B, N, H, qscale, stream);   \
+  extern "C" int jt_flash_bwd_dkv_c##C(const void* qkv, const void* kvm,        \
+                                       const void* dO, const void* lse,         \
+                                       const void* delta, void* dqkv, int B,    \
+                                       int N, int H, float qscale,              \
+                                       void* stream) {                          \
+    return launch_dkv<C>(qkv, kvm, dO, lse, delta, dqkv, B, N, H, qscale,       \
+                         stream);                                               \
   }                                                                             \
-  extern "C" int jt_flash_bwd_dq_c##C(const void* qkv, const void* dO,          \
-                                      const void* lse, const void* delta,       \
-                                      void* dqkv, int B, int N, int H,          \
-                                      float qscale, float scale, void* stream) { \
-    return launch_dq<C>(qkv, dO, lse, delta, dqkv, B, N, H, qscale, scale,      \
+  extern "C" int jt_flash_bwd_dq_c##C(const void* qkv, const void* kvm,         \
+                                      const void* dO, const void* lse,          \
+                                      const void* delta, void* dqkv, int B,     \
+                                      int N, int H, float qscale, float scale,  \
+                                      void* stream) {                           \
+    return launch_dq<C>(qkv, kvm, dO, lse, delta, dqkv, B, N, H, qscale, scale, \
                         stream);                                                \
   }
 

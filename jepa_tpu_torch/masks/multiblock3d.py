@@ -7,7 +7,11 @@ Two parts:
     ``resolve_keep_counts``, the reference-distribution host generator
     ``HostMaskGenerator`` and ``calibrate_keep_counts``, which sets the
     fixed (K_enc, K_pred) of each mask config from the reference's
-    batch-min truncation at the actual batch size;
+    batch-min truncation at the actual batch size; for the padded mode the
+    host ``MaskCollator`` (per-device chunks, O(1) resume) and the pad-cap
+    calibration ``calibrate_pad_caps`` / ``calibrate_pad_tiers`` /
+    ``calibrate_pad_ladders`` with ``select_pad_rungs`` /
+    ``select_pad_tier``;
   * torch, the fixed-K sampler of the train step: ``sample_masks`` and
     ``sample_masks_for_specs`` draw on the generator's device from an
     explicit ``torch.Generator``. Block geometry is shared across the
@@ -127,13 +131,17 @@ class HostMaskGenerator:
         w = min(int(round(math.sqrt(num_keep / ar))), g.w)
         return t, max(1, h), max(1, w)
 
-    def __call__(self, batch_size: int):
+    def __call__(self, batch_size: int, chunk: int = 0, _it: Optional[int] = None):
         """One per-device batch: ([B, K_enc], [B, K_pred]) int32, batch-min
-        truncated (the JAX package's generator with chunk 0)."""
+        truncated. ``chunk`` names the device whose batch this is: the block
+        size is shared across chunks (drawn from (seed, step)), placements
+        come from a chunk-keyed stream, so devices get i.i.d. masks; chunk 0
+        keeps the single-stream key. ``_it`` reuses a step already taken."""
         g, s = self.grid, self.spec
-        it = self.step()
+        it = self.step() if _it is None else _it
         bt, bh, bw = self._block_size(np.random.default_rng((self.seed, it)))
-        rng = np.random.default_rng((self.seed, it, 1))
+        rng = np.random.default_rng((self.seed, it, 1) if chunk == 0
+                                    else (self.seed, it, 1, chunk))
         ctx_dur = _ctx_dur(s, g)
         encs, preds = [], []
         min_enc, min_pred = g.n, g.n
@@ -179,6 +187,176 @@ def calibrate_keep_counts(spec: MaskSpec, grid: MaskGrid, batch_size: int,
     if spec.max_keep is not None:
         k_enc = min(k_enc, int(spec.max_keep))
     return k_enc, k_pred
+
+
+class MaskCollator:
+    """Host multi-spec collator of the padded mode: ``collate_chunks``
+    returns per-spec lists of [batch_size, K_c] chunks, one per device,
+    each with its own batch-min K (the reference's per-GPU collate)."""
+
+    def __init__(self, specs: Sequence[MaskSpec], grid: MaskGrid, seed: int = 0):
+        self.generators = [HostMaskGenerator(sp, grid, seed) for sp in specs]
+
+    def set_step(self, step: int):
+        """O(1) resume: the next collate draws step ``step``."""
+        for gen in self.generators:
+            gen._counter = step - 1
+
+    def __call__(self, batch_size: int):
+        out_e, out_p = [], []
+        for gen in self.generators:
+            e, p = gen(batch_size)
+            out_e.append(e)
+            out_p.append(p)
+        return out_e, out_p
+
+    def collate_chunks(self, batch_size: int, n_chunks: int):
+        """``n_chunks`` per-device collates of ``batch_size`` samples on one
+        shared counter step; deterministic in (seed, step, chunk)."""
+        out_e, out_p = [], []
+        for gen in self.generators:
+            it = gen.step()
+            es, ps = [], []
+            for c in range(n_chunks):
+                e, p = gen(batch_size, chunk=c, _it=it)
+                es.append(e)
+                ps.append(p)
+            out_e.append(es)
+            out_p.append(ps)
+        return out_e, out_p
+
+
+def _lane_cap(k, headroom: float, multiple: int, n: int) -> int:
+    """k * headroom rounded up to ``multiple``, within [multiple, n]."""
+    c = int(np.ceil(k * headroom / multiple) * multiple)
+    return min(max(c, multiple), n)
+
+
+def calibrate_pad_caps(spec: MaskSpec, grid: MaskGrid, batch_size: int,
+                       iters: int = 40, seed: int = 4321, headroom: float = 1.05,
+                       multiple: int = 128) -> Tuple[int, int]:
+    """(enc_cap, pred_cap): the empirical max over ``iters`` draws plus
+    headroom, rounded up to ``multiple``; heavier masks truncate in
+    ``pad_masks``."""
+    gen = HostMaskGenerator(spec, grid, seed=seed)
+    enc_max = pred_max = 0
+    for _ in range(iters):
+        enc, pred = gen(batch_size)
+        enc_max = max(enc_max, enc.shape[1])
+        pred_max = max(pred_max, pred.shape[1])
+    return (_lane_cap(enc_max, headroom, multiple, grid.n),
+            _lane_cap(pred_max, headroom, multiple, grid.n))
+
+
+def _record_draws(specs, grid, batch_size, iters, seed, n_chunks) -> np.ndarray:
+    """[iters, S, 2] per-step (K_enc, K_pred) of each spec, the max over
+    ``n_chunks`` per-device chunks."""
+    gens = [HostMaskGenerator(sp, grid, seed=seed) for sp in specs]
+    if n_chunks > 1:
+        iters = max(40, iters // n_chunks)
+    rec = np.empty((iters, len(specs), 2), np.int64)
+    for i in range(iters):
+        for s, gen in enumerate(gens):
+            it = gen.step()
+            ke = kp = 0
+            for c in range(n_chunks):
+                e, p = gen(batch_size, chunk=c, _it=it)
+                ke = max(ke, e.shape[1])
+                kp = max(kp, p.shape[1])
+            rec[i, s] = (ke, kp)
+    return rec
+
+
+def calibrate_pad_tiers(specs: Sequence[MaskSpec], grid: MaskGrid, batch_size: int,
+                        iters: int = 200, fractions: Sequence[float] = (0.6, 0.9),
+                        seed: int = 4321, headroom: float = 1.05, multiple: int = 128,
+                        n_chunks: int = 1, mode: str = "total"):
+    """Joint cap tiers (meta.pad_tier_scope: joint): an ascending list of
+    per-spec (enc_cap, pred_cap) lists from ``iters`` joint draws; the last
+    tier is the max * headroom worst case. mode "total" takes prefix
+    envelopes of the draws sorted by total tokens, "field" each field's own
+    quantile. Adjacent equal tiers are merged."""
+    rec = _record_draws(specs, grid, batch_size, iters, seed, n_chunks)
+    iters = rec.shape[0]
+    cap = lambda k, hr: _lane_cap(k, hr, multiple, grid.n)
+    tiers = []
+    if mode == "field":
+        for f in sorted(fractions):
+            env = np.quantile(rec, f, axis=0)
+            tier = [(cap(env[s, 0], 1.0), cap(env[s, 1], 1.0)) for s in range(len(specs))]
+            if not tiers or tier != tiers[-1]:
+                tiers.append(tier)
+        env = rec.max(axis=0)
+        tier = [(cap(env[s, 0], headroom), cap(env[s, 1], headroom))
+                for s in range(len(specs))]
+        if not tiers or tier != tiers[-1]:
+            tiers.append(tier)
+        return tiers
+    rec = rec[np.argsort(rec.sum(axis=(1, 2)), kind="stable")]
+    cuts = [max(1, int(round(f * iters))) for f in fractions] + [iters]
+    for cut in sorted(set(cuts)):
+        env = rec[:cut].max(axis=0)
+        hr = headroom if cut == iters else 1.0
+        tier = [(cap(env[s, 0], hr), cap(env[s, 1], hr)) for s in range(len(specs))]
+        if not tiers or tier != tiers[-1]:
+            tiers.append(tier)
+    return tiers
+
+
+def calibrate_pad_ladders(specs: Sequence[MaskSpec], grid: MaskGrid, batch_size: int,
+                          iters: int = 200, fractions: Sequence[float] = (0.6, 0.9),
+                          seed: int = 4321, headroom: float = 1.05, multiple: int = 128,
+                          n_chunks: int = 1):
+    """Per-spec cap ladders (meta.pad_tier_scope: spec, the default): for
+    each spec an ascending list of (enc_cap, pred_cap) rungs at its own
+    per-field quantiles, the last rung its max * headroom worst case."""
+    rec = _record_draws(specs, grid, batch_size, iters, seed, n_chunks)
+    cap = lambda k, hr: _lane_cap(k, hr, multiple, grid.n)
+    ladders = []
+    for s in range(len(specs)):
+        rs = rec[:, s]
+        rungs = []
+        for f in sorted(fractions):
+            qe, qp = np.quantile(rs, f, axis=0)
+            rung = (cap(qe, 1.0), cap(qp, 1.0))
+            if not rungs or rung != rungs[-1]:
+                rungs.append(rung)
+        env = rs.max(axis=0)
+        rung = (cap(env[0], headroom), cap(env[1], headroom))
+        if not rungs or rung != rungs[-1]:
+            rungs.append(rung)
+        ladders.append(rungs)
+    return ladders
+
+
+def _max_k(x) -> int:
+    """K of a [B, K] array, or the largest K of a list of chunks."""
+    return max(a.shape[1] for a in x) if isinstance(x, (list, tuple)) else x.shape[1]
+
+
+def select_pad_rungs(ladders, me_list, mp_list) -> tuple:
+    """Per spec, the smallest rung covering this step's K (else the last,
+    where pad_masks truncates)."""
+    out = []
+    for me, mp, rungs in zip(me_list, mp_list, ladders):
+        ke, kp = _max_k(me), _max_k(mp)
+        pick = len(rungs) - 1
+        for r, (ce, cp) in enumerate(rungs[:-1]):
+            if ke <= ce and kp <= cp:
+                pick = r
+                break
+        out.append(pick)
+    return tuple(out)
+
+
+def select_pad_tier(tiers, me_list, mp_list) -> int:
+    """The smallest joint tier covering every spec's K this step, else the
+    last."""
+    for t, tier in enumerate(tiers[:-1]):
+        if all(_max_k(me) <= ce and _max_k(mp) <= cp
+               for me, mp, (ce, cp) in zip(me_list, mp_list, tier)):
+            return t
+    return len(tiers) - 1
 
 
 def _block_size(generator: torch.Generator, spec: MaskSpec, grid: MaskGrid):

@@ -130,8 +130,10 @@ class Predictor(nn.Module):
                 mt.copy_(trunc_normal(mt.shape, generator, std=cfg.init_std))
         return self
 
-    def forward(self, ctxt, masks_ctxt, masks_tgt, mask_index: int = 0):
-        return predictor_forward(self, ctxt, masks_ctxt, masks_tgt, mask_index=mask_index)
+    def forward(self, ctxt, masks_ctxt, masks_tgt, mask_index: int = 0,
+                kv_mask_ctxt=None, kv_mask_tgt=None):
+        return predictor_forward(self, ctxt, masks_ctxt, masks_tgt, mask_index=mask_index,
+                                 kv_mask_ctxt=kv_mask_ctxt, kv_mask_tgt=kv_mask_tgt)
 
 
 def init_predictor(cfg: PredictorCfg, generator: Optional[torch.Generator] = None,
@@ -147,12 +149,17 @@ def predictor_forward(
     masks_tgt: torch.Tensor,
     mask_index: int = 0,
     cfg: Optional[PredictorCfg] = None,
+    kv_mask_ctxt: Optional[torch.Tensor] = None,
+    kv_mask_tgt: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Predict target latents.
 
     ctxt: [B, K_c, D_enc] encoder outputs at the context positions;
     masks_ctxt / masks_tgt: [B, K_c] / [B, K_t] token indices into the full
-    grid. Returns [B, K_t, D_enc] fp32.
+    grid. kv_mask_ctxt / kv_mask_tgt ([B, K_c] / [B, K_t] bool, padded mask
+    mode): the blocks' key mask is their concatenation, so the pads of the
+    context sit in the middle of the sequence (jepa_tpu/models/predictor.py:180-191).
+    Returns [B, K_t, D_enc] fp32.
     """
     cfg = cfg or model.cfg
     cd = cfg.compute_dtype
@@ -166,7 +173,15 @@ def predictor_forward(
     pred = (mt + gather_tokens(pe, masks_tgt)).to(cd)
     seq = torch.cat([x, pred], dim=1)
 
-    out, _ = run_blocks(seq, model.predictor_blocks, cfg.block_cfg())
+    kv_mask = None
+    if kv_mask_ctxt is not None or kv_mask_tgt is not None:
+        ones = lambda k: torch.ones((b, k), dtype=torch.bool, device=seq.device)
+        kv_mask = torch.cat([
+            kv_mask_ctxt.bool() if kv_mask_ctxt is not None else ones(n_ctxt),
+            kv_mask_tgt.bool() if kv_mask_tgt is not None else ones(masks_tgt.shape[1]),
+        ], dim=1)
+
+    out, _ = run_blocks(seq, model.predictor_blocks, cfg.block_cfg(), kv_mask=kv_mask)
     out = layer_norm(out, model.predictor_norm, cfg.ln_eps)
     out = linear(out[:, n_ctxt:], model.predictor_proj, cd)
     return out.float()

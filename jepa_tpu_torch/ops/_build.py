@@ -38,13 +38,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> argtypes; every entry point returns cudaError_t (int)
 _SIGNATURES = {
-    # qkv, o, lse, B, N, H, scale*log2e, stream
-    **{f"jt_flash_fwd_c{c}": [_P, _P, _P, _I, _I, _I, _F, _P] for c in (32, 64, 80)},
-    # qkv, do, lse, delta, dqkv, B, N, H, scale*log2e, stream
-    **{f"jt_flash_bwd_dkv_c{c}": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
+    # qkv, key mask (None: unmasked), o, lse, B, N, H, scale*log2e, stream
+    **{f"jt_flash_fwd_c{c}": [_P, _P, _P, _P, _I, _I, _I, _F, _P] for c in (32, 64, 80)},
+    # qkv, key mask, do, lse, delta, dqkv, B, N, H, scale*log2e, stream
+    **{f"jt_flash_bwd_dkv_c{c}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
        for c in (32, 64, 80)},
-    # qkv, do, lse, delta, dqkv, B, N, H, scale*log2e, scale, stream
-    **{f"jt_flash_bwd_dq_c{c}": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P]
+    # qkv, key mask, do, lse, delta, dqkv, B, N, H, scale*log2e, scale, stream
+    **{f"jt_flash_bwd_dq_c{c}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P]
        for c in (32, 64, 80)},
     # x, w, b, out, M, K, F, stream
     "jt_linear_gelu_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],

@@ -36,6 +36,14 @@ _dkv_tm_kernel): the same bf16 q*(scale*log2e); p = exp2(s - lse) in
 fp32, rounded to bf16 only as the operand of dV = p^T do; ds = p*(dp -
 delta) rounded to bf16 before dK = ds^T q and dQ = ds k; dk scaled by
 1/log2e and dq by ``scale``.
+
+Key mask (the padded mask mode): an optional ``kv_mask`` [B, N] (True =
+valid key) reaches every kernel and plain version; a masked score is set
+to -1e30 before the row max (forward) and before exp2(s - lse) (both
+backward kernels), as the TPU kernels do, so masked keys get dk = dv = 0.
+The pads may sit anywhere in the row (the predictor's mask is
+concat(context valid, target valid)). A row with no valid key is out of
+scope: the padded mode always keeps a context token.
 """
 
 from __future__ import annotations
@@ -50,17 +58,29 @@ _LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIMS = (32, 64, 80)
 
 # wrapper-counted launches in this process
-launches = 0      # H1, every head dim
-launches_by_head_dim = {c: 0 for c in KERNEL_HEAD_DIMS}  # H1, per instance
-dkv_launches = 0  # H2, dk/dv kernel
-dq_launches = 0   # H2, dq kernel
+launches = 0      # H1, every head dim, masked or not
+launches_by_head_dim = {c: 0 for c in KERNEL_HEAD_DIMS}  # H1 unmasked, per instance
+masked_launches_by_head_dim = {c: 0 for c in KERNEL_HEAD_DIMS}  # H1 with a key mask
+dkv_launches = 0  # H2, dk/dv kernel, masked or not
+dq_launches = 0   # H2, dq kernel, masked or not
+dkv_masked_launches = 0  # of which with a key mask
+dq_masked_launches = 0
 
 
 def reset_launch_counts() -> None:
-    global launches, dkv_launches, dq_launches
-    launches = dkv_launches = dq_launches = 0
-    for c in launches_by_head_dim:
-        launches_by_head_dim[c] = 0
+    global launches, dkv_launches, dq_launches, dkv_masked_launches, dq_masked_launches
+    launches = dkv_launches = dq_launches = dkv_masked_launches = dq_masked_launches = 0
+    for counts in (launches_by_head_dim, masked_launches_by_head_dim):
+        for c in counts:
+            counts[c] = 0
+
+
+def _masked_scores(s: torch.Tensor, kv_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Scores [B, H, Nq, Nk] with masked keys (kv_mask [B, Nk] False) at -1e30."""
+    if kv_mask is None:
+        return s
+    return torch.where(kv_mask[:, None, None, :].bool(), s,
+                       torch.tensor(_NEG_INF, dtype=torch.float32))
 
 
 def _project_qkv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -83,10 +103,7 @@ def flash_self_attention_ref(
     dt = qkv.dtype
     q, k, v = qkv.reshape(b, n, 3, num_heads, c).unbind(2)  # [B, N, H, c]
     qs = (q.float() * (scale * _LOG2E)).to(dt)
-    s = torch.einsum("bqhc,bkhc->bhqk", qs.float(), k.float())
-    if kv_mask is not None:
-        s = torch.where(kv_mask[:, None, None, :].bool(), s,
-                        torch.tensor(_NEG_INF, dtype=torch.float32))
+    s = _masked_scores(torch.einsum("bqhc,bkhc->bhqk", qs.float(), k.float()), kv_mask)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp2(s - m).to(dt)
     l = p.float().sum(dim=-1, keepdim=True)  # [B, H, N, 1]
@@ -116,11 +133,25 @@ def _check_qkv(qkv: torch.Tensor, num_heads: int, name: str) -> int:
     return c
 
 
+def _kernel_mask(kv_mask: Optional[torch.Tensor], qkv: torch.Tensor, name: str):
+    """The kernels' key-mask operand: kv_mask [B, N] (bool or 0/1) as a
+    contiguous uint8 tensor on qkv's device, or None."""
+    if kv_mask is None:
+        return None
+    b, n, _ = qkv.shape
+    if tuple(kv_mask.shape) != (b, n) or kv_mask.device != qkv.device:
+        raise ValueError(f"{name}: kv_mask must be [B, N] = {(b, n)} on {qkv.device}, "
+                         f"got {tuple(kv_mask.shape)} on {kv_mask.device}")
+    return kv_mask.to(torch.uint8).contiguous()
+
+
 def flash_self_attention_cuda(
-    qkv: torch.Tensor, num_heads: int, scale: float
+    qkv: torch.Tensor, num_heads: int, scale: float,
+    kv_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch H1 on qkv's current stream. qkv [B, N, 3*H*c] bf16, c in
-    {32, 64, 80}. Differentiable only through ``FlashSelfAttentionFn``."""
+    {32, 64, 80}; kv_mask [B, N] (True = valid key) or None.
+    Differentiable only through ``FlashSelfAttentionFn``."""
     global launches
     from jepa_tpu_torch.ops._build import check, load_library
 
@@ -128,28 +159,31 @@ def flash_self_attention_cuda(
         raise NotImplementedError("flash_self_attention_cuda has no autograd "
                                   "of its own; use FlashSelfAttentionFn")
     c = _check_qkv(qkv, num_heads, "flash_self_attention_cuda")
+    mask = _kernel_mask(kv_mask, qkv, "flash_self_attention_cuda")
     b, n, _ = qkv.shape
     o = torch.empty((b, n, num_heads * c), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
     lib = load_library()
     fn = getattr(lib, f"jt_flash_fwd_c{c}")
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    check(fn(qkv.data_ptr(), o.data_ptr(), lse.data_ptr(), b, n, num_heads,
-             float(scale) * _LOG2E, stream), f"jt_flash_fwd_c{c}")
+    check(fn(qkv.data_ptr(), None if mask is None else mask.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), b, n, num_heads, float(scale) * _LOG2E, stream),
+          f"jt_flash_fwd_c{c}")
     launches += 1
-    launches_by_head_dim[c] += 1
+    (launches_by_head_dim if mask is None else masked_launches_by_head_dim)[c] += 1
     return o, lse
 
 
 def _launch_bwd(kind: str, qkv, do, lse, delta, dqkv, num_heads: int,
-                scale: float) -> None:
+                scale: float, kv_mask=None) -> None:
     """Check the operands of one H2 kernel (``kind`` "dkv" or "dq") and
     launch it on qkv's current stream."""
-    global dkv_launches, dq_launches
+    global dkv_launches, dq_launches, dkv_masked_launches, dq_masked_launches
     from jepa_tpu_torch.ops._build import check, load_library
 
     name = f"flash_bwd_{kind}_cuda"
     c = _check_qkv(qkv, num_heads, name)
+    mask = _kernel_mask(kv_mask, qkv, name)
     b, n, _ = qkv.shape
     hc = num_heads * c
     if do.dtype != qkv.dtype or tuple(do.shape) != (b, n, hc) or not do.is_contiguous():
@@ -166,35 +200,40 @@ def _launch_bwd(kind: str, qkv, do, lse, delta, dqkv, num_heads: int,
     extra = (float(scale),) if kind == "dq" else ()  # dq's accumulator scale
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     check(getattr(load_library(), entry)(
-        qkv.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dqkv.data_ptr(), b, n, num_heads, float(scale) * _LOG2E, *extra, stream), entry)
+        qkv.data_ptr(), None if mask is None else mask.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), b, n, num_heads,
+        float(scale) * _LOG2E, *extra, stream), entry)
     if kind == "dq":
         dq_launches += 1
+        dq_masked_launches += mask is not None
     else:
         dkv_launches += 1
+        dkv_masked_launches += mask is not None
 
 
-def flash_bwd_dkv_cuda(qkv, do, lse, delta, dqkv, num_heads: int, scale: float) -> None:
+def flash_bwd_dkv_cuda(qkv, do, lse, delta, dqkv, num_heads: int, scale: float,
+                       kv_mask=None) -> None:
     """Launch H2's dk/dv kernel: writes dk and dv into columns [H*c, 3*H*c)
-    of dqkv [B, N, 3*H*c] bf16."""
-    _launch_bwd("dkv", qkv, do, lse, delta, dqkv, num_heads, scale)
+    of dqkv [B, N, 3*H*c] bf16; masked keys get exactly 0."""
+    _launch_bwd("dkv", qkv, do, lse, delta, dqkv, num_heads, scale, kv_mask)
 
 
-def flash_bwd_dq_cuda(qkv, do, lse, delta, dqkv, num_heads: int, scale: float) -> None:
+def flash_bwd_dq_cuda(qkv, do, lse, delta, dqkv, num_heads: int, scale: float,
+                      kv_mask=None) -> None:
     """Launch H2's dq kernel: writes dq into columns [0, H*c) of dqkv."""
-    _launch_bwd("dq", qkv, do, lse, delta, dqkv, num_heads, scale)
+    _launch_bwd("dq", qkv, do, lse, delta, dqkv, num_heads, scale, kv_mask)
 
 
 def flash_self_attention_bwd_cuda(qkv, do, lse, delta, num_heads: int,
-                                  scale: float) -> torch.Tensor:
+                                  scale: float, kv_mask=None) -> torch.Tensor:
     """H2: both backward kernels into one token-major dqkv [B, N, 3*H*c]."""
     dqkv = torch.empty_like(qkv)
-    flash_bwd_dkv_cuda(qkv, do, lse, delta, dqkv, num_heads, scale)
-    flash_bwd_dq_cuda(qkv, do, lse, delta, dqkv, num_heads, scale)
+    flash_bwd_dkv_cuda(qkv, do, lse, delta, dqkv, num_heads, scale, kv_mask)
+    flash_bwd_dq_cuda(qkv, do, lse, delta, dqkv, num_heads, scale, kv_mask)
     return dqkv
 
 
-def _bwd_ref_common(qkv, do, lse, delta, num_heads, scale):
+def _bwd_ref_common(qkv, do, lse, delta, num_heads, scale, kv_mask=None):
     """Shared recompute of the plain backward: (q scaled, k, v, do, p, ds),
     head-major fp32 except where a bf16 rounding point is kept."""
     b, n, w3 = qkv.shape
@@ -203,37 +242,37 @@ def _bwd_ref_common(qkv, do, lse, delta, num_heads, scale):
     q, k, v = qkv.reshape(b, n, 3, num_heads, c).permute(2, 0, 3, 1, 4).unbind(0)
     qs = (q.float() * (scale * _LOG2E)).to(dt).float()          # [B, H, N, c]
     dof = do.reshape(b, n, num_heads, c).transpose(1, 2).float()
-    s = qs @ k.float().transpose(-1, -2)                          # [B, H, N, N]
+    s = _masked_scores(qs @ k.float().transpose(-1, -2), kv_mask)  # [B, H, N, N]
     p = torch.exp2(s - lse[..., None])
     dp = dof @ v.float().transpose(-1, -2)
     ds = (p * (dp - delta[..., None])).to(dt).float()
     return qs, k.float(), dof, p, ds
 
 
-def flash_bwd_dkv_ref(qkv, do, lse, delta, num_heads: int, scale: float):
+def flash_bwd_dkv_ref(qkv, do, lse, delta, num_heads: int, scale: float, kv_mask=None):
     """Plain version of H2's dk/dv kernel -> (dk, dv), each [B, N, H*c]."""
     b, n, _ = qkv.shape
     dt = qkv.dtype
-    qs, _, dof, p, ds = _bwd_ref_common(qkv, do, lse, delta, num_heads, scale)
+    qs, _, dof, p, ds = _bwd_ref_common(qkv, do, lse, delta, num_heads, scale, kv_mask)
     dv = p.to(dt).float().transpose(-1, -2) @ dof
     dk = (ds.transpose(-1, -2) @ qs) * (1.0 / _LOG2E)
     flat = lambda t: t.transpose(1, 2).reshape(b, n, -1).to(dt)
     return flat(dk), flat(dv)
 
 
-def flash_bwd_dq_ref(qkv, do, lse, delta, num_heads: int, scale: float):
+def flash_bwd_dq_ref(qkv, do, lse, delta, num_heads: int, scale: float, kv_mask=None):
     """Plain version of H2's dq kernel -> dq [B, N, H*c]."""
     b, n, _ = qkv.shape
-    _, k, _, _, ds = _bwd_ref_common(qkv, do, lse, delta, num_heads, scale)
+    _, k, _, _, ds = _bwd_ref_common(qkv, do, lse, delta, num_heads, scale, kv_mask)
     dq = (ds @ k) * scale
     return dq.transpose(1, 2).reshape(b, n, -1).to(qkv.dtype)
 
 
 def flash_self_attention_bwd_ref(qkv, do, lse, delta, num_heads: int,
-                                 scale: float) -> torch.Tensor:
+                                 scale: float, kv_mask=None) -> torch.Tensor:
     """Plain version of H2: dqkv [B, N, 3*H*c] from (qkv, do, lse, delta)."""
-    dk, dv = flash_bwd_dkv_ref(qkv, do, lse, delta, num_heads, scale)
-    dq = flash_bwd_dq_ref(qkv, do, lse, delta, num_heads, scale)
+    dk, dv = flash_bwd_dkv_ref(qkv, do, lse, delta, num_heads, scale, kv_mask)
+    dq = flash_bwd_dq_ref(qkv, do, lse, delta, num_heads, scale, kv_mask)
     return torch.cat([dq, dk, dv], dim=-1)
 
 
@@ -249,31 +288,33 @@ class FlashSelfAttentionFn(torch.autograd.Function):
     """o = attention(qkv) with the flash kernels: H1 forward, H2 backward
     on CUDA tensors, their plain versions on CPU tensors.
 
-    qkv [B, N, 3*H*c] -> o [B, N, H*c]; saves (qkv, o, lse). The backward
-    returns one token-major dqkv that the projection's backward consumes
-    directly (the JAX package's ``_flash_tm_qkv``)."""
+    qkv [B, N, 3*H*c] -> o [B, N, H*c], with an optional key mask
+    kv_mask [B, N]; saves (qkv, o, lse, kv_mask). The backward returns one
+    token-major dqkv that the projection's backward consumes directly (the
+    JAX package's ``_flash_tm_qkv`` and ``_flash_tm_qkv_masked``); the
+    mask gets no gradient."""
 
     @staticmethod
-    def forward(ctx, qkv, num_heads, scale):
+    def forward(ctx, qkv, num_heads, scale, kv_mask=None):
         if qkv.is_cuda:
-            o, lse = flash_self_attention_cuda(qkv, num_heads, scale)
+            o, lse = flash_self_attention_cuda(qkv, num_heads, scale, kv_mask)
         else:
-            o, lse = flash_self_attention_ref(qkv, num_heads, scale)
-        ctx.save_for_backward(qkv, o, lse)
+            o, lse = flash_self_attention_ref(qkv, num_heads, scale, kv_mask)
+        ctx.save_for_backward(qkv, o, lse, kv_mask)
         ctx.num_heads, ctx.scale = num_heads, scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        qkv, o, lse = ctx.saved_tensors
+        qkv, o, lse, kv_mask = ctx.saved_tensors
         h, scale = ctx.num_heads, ctx.scale
         do = do.to(o.dtype).contiguous()
         delta = attention_delta(do, o, h)
         if qkv.is_cuda:
-            dqkv = flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale)
+            dqkv = flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale, kv_mask)
         else:
-            dqkv = flash_self_attention_bwd_ref(qkv, do, lse, delta, h, scale)
-        return dqkv, None, None
+            dqkv = flash_self_attention_bwd_ref(qkv, do, lse, delta, h, scale, kv_mask)
+        return dqkv, None, None, None
 
 
 def padded_head_dim(c: int) -> int:
@@ -297,9 +338,8 @@ def flash_self_attention(
     x: [B, N, D] (compute dtype); w_qkv: [3*H*c, D] (nn.Linear layout; rows
     q|k|v, each head-major); b_qkv: [3*H*c]. Returns o [B, N, H*c]
     token-major, the input of the output projection. Differentiable in x,
-    w_qkv and b_qkv through ``FlashSelfAttentionFn``. ``kv_mask`` runs only
-    grad-free on CPU tensors (the plain version takes it; the kernels take
-    no key mask yet).
+    w_qkv and b_qkv through ``FlashSelfAttentionFn``. ``kv_mask`` [B, N]
+    (True = valid key) reaches the kernels and the plain versions alike.
     """
     b, n, d = x.shape
     hc = w_qkv.shape[0] // 3
@@ -315,16 +355,12 @@ def flash_self_attention(
         w = w.reshape(3 * num_heads * cp, d)
         bias = F.pad(b_qkv.reshape(3, num_heads, c), (0, cp - c)).reshape(-1)
     qkv = _project_qkv(x, w.to(x.dtype), bias)
-    if kv_mask is not None:
-        if qkv.is_cuda or (torch.is_grad_enabled() and qkv.requires_grad):
-            raise NotImplementedError("the flash kernels take no kv_mask yet")
-        o, _ = flash_self_attention_ref(qkv, num_heads, scale, kv_mask=kv_mask)
-    elif torch.is_grad_enabled() and qkv.requires_grad:
-        o = FlashSelfAttentionFn.apply(qkv.contiguous(), num_heads, scale)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        o = FlashSelfAttentionFn.apply(qkv.contiguous(), num_heads, scale, kv_mask)
     elif qkv.is_cuda:
-        o, _ = flash_self_attention_cuda(qkv.contiguous(), num_heads, scale)
+        o, _ = flash_self_attention_cuda(qkv.contiguous(), num_heads, scale, kv_mask)
     else:
-        o, _ = flash_self_attention_ref(qkv, num_heads, scale)
+        o, _ = flash_self_attention_ref(qkv, num_heads, scale, kv_mask)
     if cp != c:
         o = o.reshape(b, n, num_heads, cp)[..., :c].reshape(b, n, hc)
     return o

@@ -16,9 +16,15 @@ card); per-module gradient clipping gated by ``clip_after_step``; AdamW
 with the decay mask; the EMA of the target. lr and wd are read at
 ``step + 1``, the momentum at ``step``.
 
+Mask modes: ``fixed`` samples exact-K masks from (seed, step) on the
+clips' device; ``padded`` takes the host collator's padded masks and
+validity weights from the batch (jepa_tpu/train/step.py:214-236): the key
+mask of the context encoder and the predictor is w > 0.5, and the loss
+and the variance regularizer are weighted. The tube mode is not ported.
+
 The state holds fp32 master parameters in modules, the target as a copy
 of the encoder, and the AdamW moments; the step updates it IN PLACE and
-returns it. Only fixed mask mode is ported.
+returns it.
 """
 
 from __future__ import annotations
@@ -105,6 +111,14 @@ def state_from_modules(encoder: VisionTransformer, predictor: Predictor,
     return state
 
 
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, step), so the draws of
+    a step depend on no earlier step (resume replays nothing)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed * 1_000_003 + step)
+    return gen
+
+
 MaskSampler = Callable[[int, int, torch.device], Tuple[List[torch.Tensor], List[torch.Tensor]]]
 
 
@@ -122,19 +136,22 @@ def build_train_step(
 ):
     """Returns step_fn(state, batch) -> (state, metrics).
 
-    batch: {"clips": [B*num_clips, T, H, W, C] float, normalized}.
+    batch: {"clips": [B*num_clips, T, H, W, C] float, normalized}; in
+    padded mode also "masks_enc" / "masks_pred" ([B, cap] int per mask
+    config) and "enc_weights" / "pred_weights" ([B, cap] float validity).
     ``mask_sampler(step, batch_size, device) -> (masks_enc, masks_pred)``
-    replaces the default sampler (a test seam: parity tests hand in the
-    JAX package's masks); the default draws from a generator seeded with
-    (seed, step), so the masks of a step do not depend on earlier steps.
+    replaces the default fixed-mode sampler (a test seam: parity tests
+    hand in the JAX package's masks); the default draws from a generator
+    seeded with (seed, step), so the masks of a step do not depend on
+    earlier steps.
     """
-    if train_cfg.mask_mode != "fixed":
+    if train_cfg.mask_mode not in ("fixed", "padded"):
         raise NotImplementedError(f"mask_mode {train_cfg.mask_mode!r}: only "
-                                  "'fixed' is ported")
+                                  "'fixed' and 'padded' are ported (tube: ROADMAP "
+                                  "Queue 1)")
 
     def default_sampler(step, batch_size, device):
-        gen = torch.Generator(device=device)
-        gen.manual_seed(train_cfg.seed * 1_000_003 + step)
+        gen = step_generator(train_cfg.seed, step, device)
         return sample_masks_for_specs(gen, batch_size, mask_specs, grid, keep_counts)
 
     sampler = mask_sampler or default_sampler
@@ -157,13 +174,26 @@ def build_train_step(
         clips = batch["clips"]
         total_b = clips.shape[0]
         sample_b = total_b // train_cfg.num_clips
-        masks_enc, masks_pred = sampler(step, sample_b, clips.device)
-        masks_enc = [m.to(clips.device) for m in masks_enc]
-        masks_pred = [m.to(clips.device) for m in masks_pred]
+        dev = clips.device
+        if train_cfg.mask_mode == "padded":
+            masks_enc, masks_pred = batch["masks_enc"], batch["masks_pred"]
+            enc_w = [torch.as_tensor(w, device=dev) for w in batch["enc_weights"]]
+            pred_w = [torch.as_tensor(w, device=dev) for w in batch["pred_weights"]]
+        else:
+            masks_enc, masks_pred = sampler(step, sample_b, dev)
+            enc_w = [None] * len(masks_enc)
+            pred_w = [None] * len(masks_pred)
+        masks_enc = [torch.as_tensor(m, device=dev) for m in masks_enc]
+        masks_pred = [torch.as_tensor(m, device=dev) for m in masks_pred]
         if train_cfg.num_clips > 1:
-            rep = lambda m: repeat_interleave_batch(m, sample_b, train_cfg.num_clips)
+            rep = lambda m: (None if m is None else
+                             repeat_interleave_batch(m, sample_b, train_cfg.num_clips))
             masks_enc = [rep(m) for m in masks_enc]
             masks_pred = [rep(m) for m in masks_pred]
+            enc_w = [rep(w) for w in enc_w]
+            pred_w = [rep(w) for w in pred_w]
+        kv_enc = [None if w is None else w > 0.5 for w in enc_w]
+        kv_pred = [None if w is None else w > 0.5 for w in pred_w]
 
         # target features, no gradients: full forward, feature LN, gather
         with torch.no_grad():
@@ -176,14 +206,15 @@ def build_train_step(
             p.grad = None
         preds = []
         for i, (me, mp) in enumerate(zip(masks_enc, masks_pred)):
-            z = vit_forward(state.encoder, clips, masks=me)
-            preds.append(predictor_forward(state.predictor, z, me, mp, mask_index=i))
-        l_jepa = jepa_loss(preds, targets, train_cfg.loss_exp)
+            z = vit_forward(state.encoder, clips, masks=me, kv_mask=kv_enc[i])
+            preds.append(predictor_forward(state.predictor, z, me, mp, mask_index=i,
+                                           kv_mask_ctxt=kv_enc[i], kv_mask_tgt=kv_pred[i]))
+        l_jepa = jepa_loss(preds, targets, train_cfg.loss_exp, pred_w)
         if train_cfg.reg_coeff != 0.0:
-            l_reg = variance_reg(preds)
+            l_reg = variance_reg(preds, pred_w)
         else:  # metric only: no gradient path through the regularizer
             with torch.no_grad():
-                l_reg = variance_reg([p.detach() for p in preds])
+                l_reg = variance_reg([p.detach() for p in preds], pred_w)
         loss = l_jepa + train_cfg.reg_coeff * l_reg
         loss.backward()
         del preds, targets

@@ -325,7 +325,8 @@ def test_num_clips_tiles_the_masks():
 
 
 def test_non_fixed_mask_mode_raises():
+    """Fixed and padded are ported; the tube mode raises."""
     enc = ViTCfg(**GEO, embed_dim=32, depth=1, num_heads=2)
-    with pytest.raises(NotImplementedError):
-        build_train_step(enc, predictor_cfg_for(enc), TrainCfg(mask_mode="padded"),
+    with pytest.raises(NotImplementedError, match="tube"):
+        build_train_step(enc, predictor_cfg_for(enc), TrainCfg(mask_mode="tube"),
                          *schedulers.build_schedules(**SCHED), [], None, [])
