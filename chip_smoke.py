@@ -42,7 +42,24 @@ Phases (any failure raises and exits non-zero):
      per epoch, in a temporary folder: fixed mode for 2 epochs, a resume
      to 3 (step count, CSV rows, and api.load_encoder reading the app's
      checkpoint), then padded mode for 1 epoch with the launches of the
-     masked kernels per update checked.
+     masked kernels per update checked;
+  9. fp32 kernels (the frozen evals with use_bfloat16: false): H1-fp32 at
+     (B=2, N=1568, c=64) and (B=1, N=1568, c=80), H3-fp32 at ViT-L's and
+     ViT-H's fc1, against their plain versions in fp32 (TF32 off), timed
+     beside SDPA / cuBLASLt in fp32 and their FFMA bounds; K2's and K3's
+     geometry (B=1, N=4608, c=80) is timed in phases 4 and 4b;
+ 10. the video eval (jepa_tpu_torch.evals.video_classification_frozen.main)
+     on configs/evals/vitl16_k400_16x8x3.yaml at full ViT-L width and depth
+     with the seeded encoder and synthetic videos: bf16 at the config's
+     batch 4 for 1 epoch, then a resume to 2 (per train step 32 clips, per
+     val step 96 clips, 24 H1 and 24 H3 launches each), then fp32 at batch 1
+     (24 H1-fp32 and 24 H3-fp32 per step, the bf16 counters still);
+ 11. the image probe's device path at configs/evals/vitl16_in1k.yaml's
+     geometry: 16 images at 224 px repeated over 16 frames, AutoAugment
+     'original' on the card, 2 train steps and 1 val step through the
+     module-level steps the image eval's main calls, and the features
+     against the plain versions.
+Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -90,7 +107,19 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak (data sheet)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_EXP2_PER_S = 132 * 16 * 1.98e9  # 132 SMs x 16 exp2/clock/SM (sm_90 SFU
                                      # throughput) at the 1,980 MHz max SM clock
+PEAK_F32_FLOPS = 132 * 128 * 2 * 1.98e9  # fp32 FFMA on the CUDA cores: 132 SMs x
+                                         # 128 lanes x 2 flops at 1,980 MHz = 66.9e12
+F32_TOL = 1e-4     # H1-fp32 |o|, |lse| abs; H3-fp32 |d| <= 1e-4 * max(|ref|, 1): fp32
+                   # everywhere, so only the order of the fp32 sums differs
+# (B, N, H, c) of H1-fp32 and (M, K, F) of H3-fp32: ViT-L (one eval batch's
+# 8 clips of 1568 tokens for H3) and ViT-H
+F32_H1_SHAPES = ((2, 1568, 16, 64), (1, 1568, 16, 80))
+F32_H3_SHAPES = ((8 * 1568, 1024, 4096), (4 * 1568, 1280, 5120))
 PROB_TOL = 1e-3
+EVAL_BF16_ENTRIES = (8, 6)  # (train, val) synthetic videos of the bf16 video eval at
+                            # batch 4: 2 train steps, 2 val steps (the last one padded)
+EVAL_F32_ENTRIES = (2, 1)   # the fp32 video eval at batch 1: 2 train, 1 val step
+IMAGE_TRAIN_STEPS = 2
 APP_IPE = 5        # app updates per epoch (the config's ipe is 300)
 
 
@@ -163,6 +192,17 @@ def phase_kernels(torch, n_train):
         if not (err_o <= H1_O_TOL and err_l <= H1_LSE_TOL):
             raise RuntimeError(f"H1 B={b} N={n} c={c} disagrees with its plain version")
         h1["max_abs_err"] = max(h1["max_abs_err"], err_o)
+        if (b, n, c) == (1, 4608, 80):  # K2's geometry (the vith16_384 encoder)
+            k2 = dict(ms=time_ms(torch, lambda: fa.flash_self_attention_cuda(qkv, h, scale)),
+                      plain_ms=time_ms(torch, lambda: fa.flash_self_attention_ref(qkv, h, scale)),
+                      library_ms=_sdpa_fwd_ms(torch, qkv, h, scale),
+                      bound=attn_bound_ms(b, n, h, c, 2, qkv.numel() * 2,
+                                          b * n * h * c * 2 + b * h * n * 4))
+            report["k2"] = k2
+            log(f"K2 geometry, H1 B={b} N={n} H={h} c={c} time: kernel {k2['ms']:.4f} ms, "
+                f"plain {k2['plain_ms']:.4f} ms, library (SDPA forward) "
+                f"{k2['library_ms']:.4f} ms, bound "
+                f"{k2['bound'][0]:.4f} ms ({k2['bound'][2]})")
         if (b, n, c) == (2, 1568, 64):
             h1["ms"] = time_ms(torch, lambda: fa.flash_self_attention_cuda(qkv, h, scale))
             h1["plain_ms"] = time_ms(torch, lambda: fa.flash_self_attention_ref(qkv, h, scale))
@@ -215,6 +255,88 @@ def phase_kernels(torch, n_train):
         del x, y, y_ref, d
     report["h3"] = h3
     return report
+
+
+def phase_f32_kernels(torch):
+    """H1-fp32 and H3-fp32 (the frozen evals with use_bfloat16: false)
+    against their plain versions on the card, in fp32 on both sides, with
+    times, bounds (FFMA peak, exp2, bytes) and the fp32 library calls."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("TF32 is on: the fp32 plain versions would not be fp32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rep = {"h1": {"max_abs_err": 0.0}, "h3": {"max_abs_err": 0.0}}
+    for b, n, h, c in F32_H1_SHAPES:
+        qkv = torch.randn((b, n, 3 * h * c), generator=gen, device="cuda")
+        scale = c**-0.5
+        o, lse = fa.flash_self_attention_cuda(qkv, h, scale)
+        o_ref, lse_ref = fa.flash_self_attention_ref(qkv, h, scale)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
+            raise RuntimeError(f"H1-fp32 B={b} N={n} c={c}: non-finite output")
+        err_o = (o - o_ref).abs().max().item()
+        err_l = (lse - lse_ref).abs().max().item()
+        del o_ref, lse_ref
+        log(f"H1-fp32 B={b} N={n} H={h} c={c}: max|do| {err_o:.3e} max|dlse| {err_l:.3e} "
+            f"(tol {F32_TOL} each)")
+        if not (err_o <= F32_TOL and err_l <= F32_TOL):
+            raise RuntimeError(f"H1-fp32 B={b} N={n} c={c} disagrees with its plain version")
+        rep["h1"]["max_abs_err"] = max(rep["h1"]["max_abs_err"], err_o, err_l)
+        flops = 4.0 * b * h * n * n * c
+        io = 4 * (qkv.numel() + b * n * h * c + b * h * n)
+        r = dict(ms=time_ms(torch, lambda: fa.flash_self_attention_cuda(qkv, h, scale)),
+                 plain_ms=time_ms(torch, lambda: fa.flash_self_attention_ref(qkv, h, scale)),
+                 library_ms=_sdpa_fwd_ms(torch, qkv, h, scale),
+                 bound=f32_bound_ms(flops, b * h * n * n, io))
+        log(f"H1-fp32 B={b} N={n} c={c} time: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library (SDPA fp32) {r['library_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][2]}); {flops / r['ms'] / 1e9:.1f} TFLOP/s")
+        if c == 64:
+            rep["h1"].update(r)
+        del qkv, o, lse
+    for m, k, f in F32_H3_SHAPES:
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        w = torch.randn((f, k), generator=gen, device="cuda") / 32
+        bias = torch.randn((f,), generator=gen, device="cuda") * 0.1
+        y = fm.linear_gelu_cuda(x, w, bias)
+        y_ref = fm.linear_gelu_ref(x, w, bias)
+        torch.cuda.synchronize()
+        if not torch.isfinite(y).all():
+            raise RuntimeError(f"H3-fp32 M={m}: non-finite output")
+        d = (y - y_ref).abs()
+        err = d.max().item()
+        excess = (d - F32_TOL * y_ref.abs().clamp(min=1)).max().item()
+        log(f"H3-fp32 M={m} K={k} F={f}: max|d| {err:.3e}, worst margin {excess:.3e} "
+            f"(tol |d| <= {F32_TOL}*max(|ref|,1))")
+        if excess > 0:
+            raise RuntimeError(f"H3-fp32 M={m} disagrees with its plain version")
+        rep["h3"]["max_abs_err"] = max(rep["h3"]["max_abs_err"], err)
+        flops = 2.0 * m * k * f
+        r = dict(ms=time_ms(torch, lambda: fm.linear_gelu_cuda(x, w, bias)),
+                 plain_ms=time_ms(torch, lambda: fm.linear_gelu_ref(x, w, bias)),
+                 # cuBLASLt's fp32 GEMM + bias + tanh-GELU epilogue (timed only)
+                 library_ms=time_ms(torch, lambda: torch._addmm_activation(
+                     bias, x, w.t(), use_gelu=True)),
+                 bound=f32_bound_ms(flops, 0, 4 * (m * k + f * k + f + m * f)))
+        log(f"H3-fp32 M={m} K={k} F={f} time: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library (_addmm_activation fp32) {r['library_ms']:.4f} "
+            f"ms, bound {r['bound'][0]:.4f} ms ({r['bound'][2]}); "
+            f"{flops / r['ms'] / 1e9:.1f} TFLOP/s")
+        if k == 1024:
+            rep["h3"].update(r)
+        del x, w, bias, y, y_ref, d
+    return rep
+
+
+def f32_bound_ms(flops, exp2s, io_bytes):
+    """Least time of an fp32 kernel: its FLOP at the CUDA-core FFMA peak, its
+    exp2 at the SFU rate, or its bytes, whichever is largest."""
+    t = {"FFMA": flops / PEAK_F32_FLOPS * 1e3, "exp2": exp2s / PEAK_EXP2_PER_S * 1e3,
+         "bytes": io_bytes / PEAK_BYTES_PER_S * 1e3}
+    which = max(t, key=t.get)
+    return t[which], ("bytes" if which == "bytes" else "operations"), which
 
 
 def phase_autograd(torch):
@@ -374,6 +496,19 @@ def phase_bwd_kernels(torch, shapes):
             ms_dkv = time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(qkv, do, lse, delta, out, h, scale))
             ms_dq = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(qkv, do, lse, delta, out, h, scale))
             log(f"H2 {label} B={b} N={n} time: dkv {ms_dkv:.4f} ms, dq {ms_dq:.4f} ms")
+            if label.startswith("vith16_384"):  # K3's geometry: the merged backward's work
+                el = 2
+                qkv_b, o_b, vec_b = b * n * 3 * h * c * el, b * n * h * c * el, b * h * n * 4
+                rep["k3"] = dict(ms=ms_dkv + ms_dq, library_ms=_sdpa_bwd_ms(torch, qkv, do, h, scale),
+                                 plain_ms=time_ms(torch, lambda: fa.flash_self_attention_bwd_ref(
+                                     qkv, do, lse, delta, h, scale)),
+                                 bound=attn_bound_ms(b, n, h, c_real, 5,
+                                                     qkv_b + o_b + 2 * vec_b, qkv_b))
+                k3 = rep["k3"]
+                log(f"K3 geometry, H2 {label} B={b} N={n} H={h} c={c}: dkv + dq "
+                    f"{k3['ms']:.4f} ms, plain {k3['plain_ms']:.4f} ms, library (SDPA "
+                    f"backward) {k3['library_ms']:.4f} ms, "
+                    f"bound {k3['bound'][0]:.4f} ms ({k3['bound'][2]})")
         del qkv, do, o, lse, delta, dqkv, ref
     return rep
 
@@ -509,28 +644,42 @@ def plain_versions():
     return stack
 
 
+VITL16_GEO = dict(img_size=224, num_frames=16, tubelet_size=2, uniform_power=True)
+
+
+def write_seeded_encoder(torch, workdir: str) -> str:
+    """A seeded ViT-L/16 (224 px, 16 frames, tubelet 2, uniform_power) as
+    a zoo-layout .pth.tar in workdir (written once); returns its path."""
+    from jepa_tpu_torch.models.factory import vit_cfg
+    from jepa_tpu_torch.models.vit import init_vit
+
+    path = os.path.join(workdir, "vitl16.pth.tar")
+    if not os.path.exists(path):
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        model = init_vit(vit_cfg("vit_large", **VITL16_GEO), gen, device="cuda")
+        torch.save({"target_encoder": {k: v.cpu() for k, v in model.state_dict().items()},
+                    "epoch": 0}, path)
+    return path
+
+
 def phase_serve(torch, workdir: str):
     from jepa_tpu_torch import api
     from jepa_tpu_torch.models.attentive import AttentiveCfg, init_attentive_classifier
     from jepa_tpu_torch.models.factory import vit_cfg
-    from jepa_tpu_torch.models.vit import init_vit
     from jepa_tpu_torch.ops import flash_attention as fa
     from jepa_tpu_torch.ops import fused_mlp as fm
 
-    geo = dict(img_size=224, num_frames=16, tubelet_size=2, uniform_power=True)
+    geo = VITL16_GEO
     cfg = vit_cfg("vit_large", **geo)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
-    enc_path = os.path.join(workdir, "vitl16.pth.tar")
-    model = init_vit(cfg, gen, device="cuda")
-    torch.save({"target_encoder": {k: v.cpu() for k, v in model.state_dict().items()},
-                "epoch": 0}, enc_path)
+    enc_path = write_seeded_encoder(torch, workdir)
     acfg = AttentiveCfg(embed_dim=cfg.embed_dim, num_heads=cfg.num_heads, num_classes=400)
     probe = init_attentive_classifier(acfg, gen, device="cuda")
     probe_path = os.path.join(workdir, "probe.pth.tar")
     torch.save({"classifier": {k: v.cpu() for k, v in probe.state_dict().items()}},
                probe_path)
-    del model, probe
+    del probe
     enc = api.load_encoder(enc_path, "vit_large", **geo)  # device="cuda"
     clf = api.load_classifier(probe_path, enc, num_classes=400)
     torch.cuda.synchronize()
@@ -642,12 +791,13 @@ def expected_train_launches(setup) -> dict:
 def _counts(fa, fm) -> dict:
     return {"h1": fa.launches, "dkv": fa.dkv_launches, "dq": fa.dq_launches,
             "h3": fm.launches, "h1_c32": fa.launches_by_head_dim[32],
-            "h1_c64": fa.launches_by_head_dim[64]}
+            "h1_c64": fa.launches_by_head_dim[64],
+            "h1_f32": fa.f32_launches_by_head_dim[64], "h3_f32": fm.f32_launches}
 
 
 def _reset_counts(fa, fm) -> None:
     fa.reset_launch_counts()
-    fm.launches = 0
+    fm.launches = fm.f32_launches = 0
 
 
 def phase_train(torch, setup):
@@ -861,7 +1011,7 @@ def phase_app(torch, repo, setup, workdir):
         f"included); checkpoint {os.path.getsize(ckpt) / 2**30:.2f} GiB; launches {got}")
 
     # the app's checkpoint through the serving API: the EMA target's features
-    geo = dict(img_size=224, num_frames=16, tubelet_size=2, uniform_power=True)
+    geo = VITL16_GEO
     clips = np.random.default_rng(SEED).integers(0, 256, size=(2, 16, 224, 224, 3),
                                                  dtype=np.uint8)
     feats = api.load_encoder(ckpt, "vit_large", **geo).encode(clips)
@@ -920,6 +1070,270 @@ def phase_app(torch, repo, setup, workdir):
     return out
 
 
+def eval_config(repo, workdir, name, enc_path, n_train, n_val, **opt):
+    """configs/evals/vitl16_k400_16x8x3.yaml with the seeded encoder, the
+    synthetic decode and CSV manifests of n_train / n_val synthetic videos
+    (seeded labels in [0, 400)) in workdir/name; ``opt`` overrides keys of
+    its optimization section."""
+    import yaml
+
+    with open(os.path.join(repo, "configs", "evals", "vitl16_k400_16x8x3.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    folder = os.path.join(workdir, name)
+    os.makedirs(folder)
+    rng = np.random.default_rng(SEED)
+    for split, n in (("train", n_train), ("val", n_val)):
+        path = os.path.join(folder, f"{split}.csv")
+        with open(path, "w") as f:
+            f.writelines(f"synthetic://{name}-{split}{i} {rng.integers(0, 400)}\n"
+                         for i in range(n))
+        cfg["data"][f"dataset_{split}"] = path
+    cfg["data"]["decode_backend"] = "synthetic"
+    cfg["pretrain"].update(folder=folder, checkpoint=enc_path)
+    cfg["optimization"].update(opt)
+    return cfg
+
+
+@contextlib.contextmanager
+def spy_steps(torch, module, fa, fm):
+    """Record every call of ``module.train_step`` / ``module.val_step``:
+    its device-synchronised time, the interval since the start of the
+    previous step of the same kind when it came right before (the step's
+    wall time), the device-synchronised time of the transforms on the card
+    (``pretrain_augment``, ``multiview_crops``) since the previous step, the kernel
+    launches in it, the rows M of each H3 launch, the probe's step before
+    it, and its result."""
+    rec = {"train_step": [], "val_step": []}
+    real = {k: getattr(module, k) for k in rec}
+    real_h3 = fm.linear_gelu_cuda
+    transforms = [k for k in ("pretrain_augment", "multiview_crops") if hasattr(module, k)]
+    h3_rows = []
+    prev = [None, 0.0, 0.0]  # kind, start and time of the previous step
+    aug_ms = [0.0]  # transforms on the card since the previous step
+
+    def h3_spy(x, w, b):
+        h3_rows.append(x.shape[0])
+        return real_h3(x, w, b)
+
+    def aug_spy(fn):
+        def transform(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            aug_ms[0] += (time.perf_counter() - t0) * 1e3
+            return out
+        return transform
+
+    def wrap(kind):
+        def step(probe, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c0, r0, before = _counts(fa, fm), len(h3_rows), probe.step
+            out = real[kind](probe, *args, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            c1 = _counts(fa, fm)
+            wall = (t0 - prev[1]) * 1e3 if prev[0] == kind else None
+            rec[kind].append(dict(ms=ms, wall_ms=wall, prev_ms=prev[2], aug_ms=aug_ms[0],
+                                  out=out, step_before=before,
+                                  launches={k: c1[k] - c0[k] for k in c1},
+                                  h3_rows=sorted(set(h3_rows[r0:]))))
+            prev[:] = [kind, t0, ms]
+            aug_ms[0] = 0.0
+            return out
+        return step
+
+    with contextlib.ExitStack() as stack:
+        for kind in rec:
+            stack.enter_context(mock.patch.object(module, kind, wrap(kind)))
+        stack.enter_context(mock.patch.object(fm, "linear_gelu_cuda", h3_spy))
+        for k in transforms:
+            stack.enter_context(mock.patch.object(module, k, aug_spy(getattr(module, k))))
+        yield rec
+
+
+def _check_steps(rec, want, label):
+    """Every recorded step launched exactly ``want[kind]`` (zeros elsewhere)
+    and ran H3 at the expected rows; returns per kind (median step ms,
+    median host share, median augmentation share) of the wall of the
+    steps that came back to back: the wall between two step starts holds
+    the previous step, this step's transforms on the card, and the host
+    (the loader's decode, the copies to the card, the Python between)."""
+    out = {}
+    for kind, (launches, rows) in want.items():
+        steps = rec[kind]
+        for i, s in enumerate(steps):
+            got = {k: v for k, v in s["launches"].items() if v}
+            if got != launches or s["h3_rows"] != [rows]:
+                raise RuntimeError(f"{label} {kind} {i}: launches {got}, H3 rows "
+                                   f"{s['h3_rows']} != {launches}, [{rows}]")
+        walls = [s for s in steps if s["wall_ms"]]
+        host = [(s["wall_ms"] - s["prev_ms"] - s["aug_ms"]) / s["wall_ms"] for s in walls]
+        aug = [s["aug_ms"] / s["wall_ms"] for s in walls]
+        out[kind] = (statistics.median(s["ms"] for s in steps),
+                     statistics.median(host) if walls else None,
+                     statistics.median(aug) if walls else None)
+    return out
+
+
+def _fmt_host(share):
+    return "not measured (no back-to-back steps)" if share is None else f"{100 * share:.1f} %"
+
+
+def phase_eval_video(torch, repo, workdir, enc_path, bf16: bool):
+    """The video eval (jepa_tpu_torch.evals.video_classification_frozen.main)
+    on vitl16_k400_16x8x3.yaml at full ViT-L width and depth. bf16: the
+    config's batch 4, EVAL_BF16_ENTRIES synthetic videos, 1 epoch then a
+    resume to 2. fp32 (use_bfloat16: false): batch 1, EVAL_F32_ENTRIES, 1
+    epoch. Checks the launches and H3 rows of every step, the resume step,
+    the CSV, the probe checkpoint and finite results."""
+    from jepa_tpu_torch.evals import video_classification_frozen as vcf
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+
+    batch = 4 if bf16 else 1
+    n_train, n_val = EVAL_BF16_ENTRIES if bf16 else EVAL_F32_ENTRIES
+    name = "k400_bf16" if bf16 else "k400_fp32"
+    cfg = eval_config(repo, workdir, name, enc_path, n_train, n_val, batch_size=batch,
+                      num_epochs=1, use_bfloat16=bf16)
+    d = cfg["data"]
+    s, v = d["num_segments"], d["num_views_per_segment"]
+    n_tok = (d["frames_per_clip"] // 2) * (224 // 16) ** 2
+    keys = ("h1_c64", "h3") if bf16 else ("h1_f32", "h3_f32")
+    per_step = {k: DEPTH for k in keys}
+    if bf16:
+        per_step["h1"] = DEPTH  # the bf16 total counter moves with its c=64 instance
+    want = {"train_step": (per_step, batch * s * n_tok),
+            "val_step": (per_step, batch * s * v * n_tok)}
+    log(f"eval {name}: vitl16_k400_16x8x3.yaml, batch {batch}, {s} segments x {v} views, "
+        f"{n_train} train / {n_val} val synthetic videos; expected per step {per_step}, "
+        f"H3 rows train {want['train_step'][1]} / val {want['val_step'][1]}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(fa, fm)
+    t0 = time.perf_counter()
+    with spy_steps(torch, vcf, fa, fm) as rec:
+        accs = vcf.main(cfg)  # device="cuda"
+        if bf16:  # resume to 2 epochs from the probe checkpoint
+            cfg["optimization"]["num_epochs"] = 2
+            cfg["resume_checkpoint"] = True
+            accs += vcf.main(cfg)
+    secs = time.perf_counter() - t0
+    launches = _counts(fa, fm)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    epochs = 2 if bf16 else 1
+    ipe, n_val_steps = n_train // batch, -(-n_val // batch)
+    if len(rec["train_step"]) != epochs * ipe or len(rec["val_step"]) != epochs * n_val_steps:
+        raise RuntimeError(f"eval {name}: {len(rec['train_step'])} train and "
+                           f"{len(rec['val_step'])} val steps")
+    times = _check_steps(rec, want, f"eval {name}")
+    losses = [float(s["out"]["loss"]) for s in rec["train_step"]]
+    if not (all(np.isfinite(losses)) and len(accs) == epochs
+            and all(0.0 <= a <= 100.0 for a in accs)):
+        raise RuntimeError(f"eval {name}: losses {losses}, val accs {accs}")
+    folder = os.path.join(cfg["pretrain"]["folder"], "video_classification_frozen",
+                          cfg["tag"])
+    tag = cfg["pretrain"]["write_tag"]
+    saved = torch.load(os.path.join(folder, f"{tag}-latest.pth.tar"), weights_only=True)
+    rows = open(os.path.join(folder, f"{tag}_r0.csv")).read().strip().splitlines()
+    if (saved["opt"]["step"] != epochs * ipe or saved["epoch"] != epochs
+            or len([r for r in rows if r[0].isdigit()]) != epochs):
+        raise RuntimeError(f"eval {name}: checkpoint step {saved['opt']['step']} epoch "
+                           f"{saved['epoch']}, CSV {rows}")
+    if bf16 and rec["train_step"][ipe]["step_before"] != ipe:
+        raise RuntimeError(f"eval {name}: the resumed run started at probe step "
+                           f"{rec['train_step'][ipe]['step_before']}, not {ipe}")
+    (tr_ms, tr_host, tr_aug), (va_ms, va_host, _) = times["train_step"], times["val_step"]
+    log(f"eval {name}: {epochs} epoch(s) in {secs:.1f} s (loaders and checkpoints "
+        f"included){'; resumed at probe step ' + str(ipe) if bf16 else ''}; train losses "
+        f"{[round(x, 4) for x in losses]}, val accs {accs}; median train step {tr_ms:.1f} ms "
+        f"(host share of the wall {_fmt_host(tr_host)}, augmentation on the card "
+        f"{_fmt_host(tr_aug)}), median val step {va_ms:.1f} ms "
+        f"(host share {_fmt_host(va_host)}); peak allocated {peak:.2f} GiB; launches "
+        f"{ {k: x for k, x in launches.items() if x} }")
+    return dict(launches=launches, train_ms=tr_ms, val_ms=va_ms, train_host=tr_host,
+                train_aug=tr_aug, val_host=va_host, peak_gib=peak)
+
+
+def phase_image_probe(torch, repo, enc_path):
+    """The image probe's device path at vitl16_in1k.yaml's geometry: B=16
+    images at 224 px through the seeded ViT-L/16 (each image repeated over
+    16 frames), AutoAugment 'original' on the card, IMAGE_TRAIN_STEPS train
+    steps and one val step through the module-level steps the image eval's
+    main calls; then the features through the kernels against the plain
+    versions."""
+    import yaml
+
+    from jepa_tpu_torch.data.transforms import normalize
+    from jepa_tpu_torch.evals import image_classification_frozen as icf
+    from jepa_tpu_torch.evals.video_classification_frozen import load_frozen_encoder, make_probe
+    from jepa_tpu_torch.models.factory import vit_cfg
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+    from jepa_tpu_torch.train.step import step_generator
+    from jepa_tpu_torch.utils.schedulers import CosineWD, WarmupCosine
+
+    with open(os.path.join(repo, "configs", "evals", "vitl16_in1k.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    p, d, o = cfg["pretrain"], cfg["data"], cfg["optimization"]
+    res, b = d["resolution"], o["batch_size"]
+    enc_cfg = vit_cfg(p["model_name"], img_size=res, patch_size=p["patch_size"],
+                      num_frames=p["frames_per_clip"], tubelet_size=p["tubelet_size"],
+                      uniform_power=p["uniform_power"], compute_dtype=torch.bfloat16,
+                      fused_mlp=True)
+    encoder = load_frozen_encoder(enc_path, enc_cfg, p["checkpoint_key"], "cuda")
+    t_max = o["num_epochs"] * IMAGE_TRAIN_STEPS
+    scheds = (WarmupCosine(warmup_steps=0, start_lr=o["start_lr"], ref_lr=o["lr"],
+                           final_lr=o["final_lr"], t_max=t_max),
+              CosineWD(ref_wd=o["weight_decay"], final_wd=1e-6, t_max=t_max))
+    probe = make_probe(encoder, enc_cfg, d["num_classes"], *scheds, "cuda")
+    aug_cfg = icf.train_augment_cfg(res)  # the config's default: AutoAugment 'original'
+    rng = np.random.default_rng(SEED)
+    # host loader outputs: train images at 256/224 of the resolution, val at it
+    train_imgs = torch.from_numpy(rng.integers(0, 256, (b, res * 256 // 224, res * 256 // 224, 3),
+                                               dtype=np.uint8)).cuda()
+    val_imgs = torch.from_numpy(rng.integers(0, 256, (b, res, res, 3), dtype=np.uint8)).cuda()
+    labels = torch.from_numpy(rng.integers(0, d["num_classes"], b)).cuda()
+    weights = torch.ones(b, device="cuda")
+    per_step = {"h1": DEPTH, "h1_c64": DEPTH, "h3": DEPTH}
+    want = {"train_step": (per_step, b * enc_cfg.num_patches),
+            "val_step": (per_step, b * enc_cfg.num_patches)}
+    log(f"image probe: vitl16_in1k.yaml geometry, B={b} images at {res} px x "
+        f"{enc_cfg.num_frames} frames, auto_augment {aug_cfg.auto_augment!r}; expected "
+        f"per step {per_step}, H3 rows {want['train_step'][1]}")
+    _reset_counts(fa, fm)
+    with spy_steps(torch, icf, fa, fm) as rec:
+        for step in range(IMAGE_TRAIN_STEPS):
+            imgs = icf.augment_images(step_generator(icf.AUG_SEED, step, "cuda"), train_imgs,
+                                      aug_cfg, torch.bfloat16)
+            icf.train_step(probe, imgs, labels)
+        val_in = normalize(val_imgs.float()).to(torch.bfloat16)
+        correct, total = icf.val_step(probe, val_in, labels, weights)
+    launches = _counts(fa, fm)
+    times = _check_steps(rec, want, "image probe")
+    losses = [float(s["out"]["loss"]) for s in rec["train_step"]]
+    if not (all(np.isfinite(losses)) and float(total) == b and 0 <= float(correct) <= b):
+        raise RuntimeError(f"image probe: losses {losses}, correct {correct} of {total}")
+
+    # the features of the augmented batch, kernels vs plain versions
+    with torch.no_grad():
+        feats = icf.encode_images(probe, imgs)
+        with plain_versions():
+            feats_ref = icf.encode_images(probe, imgs)
+    cos = torch.nn.functional.cosine_similarity(feats, feats_ref, dim=-1).min().item()
+    log(f"image probe: train losses {[round(x, 4) for x in losses]}, val correct "
+        f"{float(correct):.0f} of {float(total):.0f}; step ms train "
+        f"{[round(s['ms'], 1) for s in rec['train_step']]}, val "
+        f"{[round(s['ms'], 1) for s in rec['val_step']]}; features kernels vs plain "
+        f"min cosine {cos:.6f} (min {FEAT_COS_MIN}); launches "
+        f"{ {k: x for k, x in launches.items() if x} }")
+    if not (torch.isfinite(feats).all() and cos >= FEAT_COS_MIN):
+        raise RuntimeError("image probe features disagree with the plain versions")
+    return dict(launches=launches, train_ms=times["train_step"][0],
+                val_ms=times["val_step"][0])
+
+
 def kernel_entry(name, source, replaces, launches, rep) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
@@ -937,12 +1351,14 @@ def main() -> int:
     phase_autograd(torch)
     setup = train_setup(repo)
     kern = phase_kernels(torch, setup["enc_cfg"].num_patches)
+    f32 = phase_f32_kernels(torch)
     (ke0, kp0), (ke1, kp1) = setup["keep"]
     bwd = phase_bwd_kernels(torch, [
         ("predictor, mask 1", TRAIN_BATCH, ke0 + kp0, 16, 32, 24),
         ("predictor, mask 2", TRAIN_BATCH, ke1 + kp1, 16, 32, 24),
         ("encoder context", TRAIN_BATCH, ke0, 16, 64, 64),
         ("ragged c=80", 1, 333, 16, 80, 80),
+        ("vith16_384 encoder geometry", 1, 4608, 16, 80, 80),
         ("384px predictor geometry", 1, 4608, 16, 32, 24),
     ])
     kern["h1"]["max_abs_err"] = max(kern["h1"]["max_abs_err"], bwd["h1"]["max_abs_err"])
@@ -955,21 +1371,32 @@ def main() -> int:
     ])
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
         serve = phase_serve(torch, workdir)
+        enc_path = write_seeded_encoder(torch, workdir)
+        ev16 = phase_eval_video(torch, repo, workdir, enc_path, bf16=True)
+        ev32 = phase_eval_video(torch, repo, workdir, enc_path, bf16=False)
+        img = phase_image_probe(torch, repo, enc_path)
     train = phase_train(torch, setup)
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
         app = phase_app(torch, repo, setup, workdir)
     sl, tl, al = serve["launches"], train["launches"], app["padded"]["launches"]
+    el, fl, il = ev16["launches"], ev32["launches"], img["launches"]
     fa_src, bwd_src = "jepa_tpu_torch/csrc/flash_attention.cu", "jepa_tpu_torch/csrc/flash_attention_bwd.cu"
     fa_py = "jepa_tpu/ops/flash_attention.py"
     kernels = [
         kernel_entry("flash_self_attention_fwd", fa_src, f"{fa_py}:955",
-                     sl["h1"] + tl["h1_c64"], kern["h1"]),
+                     sl["h1"] + tl["h1_c64"] + el["h1_c64"] + il["h1_c64"], kern["h1"]),
         kernel_entry("flash_self_attention_fwd_c32", fa_src, f"{fa_py}:955",
                      tl["h1_c32"], bwd["h1_c32"]),
         kernel_entry("flash_bwd_dkv", bwd_src, f"{fa_py}:1452", tl["dkv"], bwd["dkv"]),
         kernel_entry("flash_bwd_dq", bwd_src, f"{fa_py}:1400", tl["dq"], bwd["dq"]),
         kernel_entry("linear_gelu_fwd", "jepa_tpu_torch/csrc/fused_mlp.cu",
-                     "jepa_tpu/ops/fused_mlp.py:92", sl["h3"] + tl["h3"], kern["h3"]),
+                     "jepa_tpu/ops/fused_mlp.py:92", sl["h3"] + tl["h3"] + el["h3"] + il["h3"],
+                     kern["h3"]),
+        # the fp32 instances: the fp32 video eval's launches
+        kernel_entry("flash_self_attention_fwd_f32", fa_src, f"{fa_py}:955", fl["h1_f32"],
+                     f32["h1"]),
+        kernel_entry("linear_gelu_fwd_f32", "jepa_tpu_torch/csrc/fused_mlp.cu",
+                     "jepa_tpu/ops/fused_mlp.py:92", fl["h3_f32"], f32["h3"]),
         # the key-masked instances: the padded-mode app's launches
         kernel_entry("flash_self_attention_fwd_masked", fa_src, f"{fa_py}:955",
                      al["h1_c64_masked"], masked["h1_c64"]),
@@ -983,6 +1410,17 @@ def main() -> int:
     log(f"card: {card}; serve median {serve['median_ms']:.3f} ms/request (B=2), "
         f"peak {serve['peak_gib']:.3f} GiB; train median {train['median_ms']:.1f} "
         f"ms/step (B={TRAIN_BATCH}), peak {train['peak_gib']:.2f} GiB")
+    for name, e in (("bf16, batch 4", ev16), ("fp32, batch 1", ev32)):
+        log(f"card: {card}; K400 16x8x3 eval {name}: median train step {e['train_ms']:.1f} ms "
+            f"(host share {_fmt_host(e['train_host'])}, augmentation "
+            f"{_fmt_host(e['train_aug'])}), val step {e['val_ms']:.1f} ms (host share "
+            f"{_fmt_host(e['val_host'])}), peak {e['peak_gib']:.2f} GiB")
+    log(f"card: {card}; image probe (B=16): median train step {img['train_ms']:.1f} ms, "
+        f"val step {img['val_ms']:.1f} ms")
+    for k, r in (("K2 (H1, B=1 N=4608 c=80)", kern["k2"]),
+                 ("K3 (H2 dkv + dq, B=1 N=4608 c=80)", bwd["k3"])):
+        log(f"card: {card}; {k}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][2]})")
     for mode in ("fixed", "padded"):
         a = app[mode]
         log(f"card: {card}; app {mode} (B={TRAIN_BATCH}): median step {a['step_ms']:.0f} ms, "

@@ -109,9 +109,6 @@ def main(args: dict, resume_preempt: bool = False, device="cuda"):
             "rand-m7-n4-mstd0.5-inc1" if cfgs_aug.get("auto_augment", False) else None
         ),
     )
-    if aug_cfg.auto_augment:
-        raise NotImplementedError("data_aug.auto_augment (RandAugment) is not ported to "
-                                  "jepa_tpu_torch yet (ROADMAP Queue 1)")
 
     cfgs_loss = args.get("loss", {})
     loss_exp = float(cfgs_loss.get("loss_exp", 1.0))

@@ -1,4 +1,5 @@
-// H1: flash self-attention forward over the fused qkv projection, bf16.
+// H1: flash self-attention forward over the fused qkv projection, bf16
+// (and, at the end of this file, H1-fp32 for fp32 qkv).
 //
 // Replaces jepa_tpu/ops/flash_attention.py:_fwd_tm_kernel (the one-shot
 // token-major TPU kernel) and computes the same math as its kv-blocked
@@ -243,6 +244,133 @@ int launch(const void* qkv, const void* kvm, void* o, void* lse, int B, int N,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// H1-fp32: the same forward for fp32 qkv (the frozen evals with
+// optimization.use_bfloat16: false), the fp32 instance of _fwd_tm_kernel.
+//
+// The reference's rounding points are dtype-generic, and for fp32 they are
+// no-ops: q * (scale*log2e) stays fp32, QK^T and PV are fp32 products with
+// fp32 sums, p stays fp32. Same base-2 online softmax as above. No key
+// mask (no eval passes one; the wrapper raises on a mask).
+//
+// What bounds it on the H100: fp32 has no dense tensor-core path (TF32 is
+// not fp32), so the 4*N^2*C flops per head run on the CUDA cores (FFMA,
+// 66.9 TFLOP/s): at ViT-L (N=1568, C=64) the flops are ~1,000 per byte
+// moved, so it is FFMA-bound. Design: one thread owns one query row and
+// keeps q[C] and the output accumulator o[C] in registers; K/V stream
+// through shared memory in 32-key tiles, and every thread of the block
+// reads the same K/V element at once (a broadcast, no bank conflicts). The
+// 32 scores of a tile stay in registers; the QK^T loop runs c-outer so its
+// 32 dot products are independent FFMA chains. A simple first kernel: no
+// register tiling over several rows, no cp.async pipelining.
+constexpr int F32_ROWS = 128;  // query rows per block, one per thread
+constexpr int F32_BKV = 32;    // keys per kv step
+
+template <int C>
+__global__ void __launch_bounds__(F32_ROWS)
+flash_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ o,
+                     float* __restrict__ lse, int N, int H, float qscale) {
+  constexpr int V4 = C / 4;  // float4 vectors per head row
+  __shared__ __align__(16) float sK[F32_BKV * C];
+  __shared__ __align__(16) float sV[F32_BKV * C];
+
+  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int row = blockIdx.x * F32_ROWS + tid;
+  const int HC = H * C;
+  const size_t rs = 3 * (size_t)HC;  // token row stride of qkv
+  const float* base = qkv + (size_t)b * N * rs;
+
+  float q[C], acc[C];
+#pragma unroll
+  for (int v = 0; v < V4; ++v) {
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < N) x = *reinterpret_cast<const float4*>(base + row * rs + h * C + 4 * v);
+    q[4 * v] = x.x * qscale;
+    q[4 * v + 1] = x.y * qscale;
+    q[4 * v + 2] = x.z * qscale;
+    q[4 * v + 3] = x.w * qscale;
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.f;
+  float m = -INFINITY, l = 0.f;
+
+  for (int k0 = 0; k0 < N; k0 += F32_BKV) {
+    __syncthreads();  // every thread is done with the previous K/V tile
+    for (int i = tid; i < F32_BKV * V4; i += F32_ROWS) {
+      const int r = i / V4, cv = i % V4, n = k0 + r;
+      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
+      if (n < N) {
+        const float* src = base + n * rs + h * C + 4 * cv;
+        kv = *reinterpret_cast<const float4*>(src + HC);
+        vv = *reinterpret_cast<const float4*>(src + 2 * HC);
+      }
+      *reinterpret_cast<float4*>(&sK[r * C + 4 * cv]) = kv;
+      *reinterpret_cast<float4*>(&sV[r * C + 4 * cv]) = vv;
+    }
+    __syncthreads();
+
+    float s[F32_BKV];
+#pragma unroll
+    for (int j = 0; j < F32_BKV; ++j) s[j] = 0.f;
+#pragma unroll
+    for (int v = 0; v < V4; ++v) {
+#pragma unroll
+      for (int j = 0; j < F32_BKV; ++j) {
+        const float4 kk = *reinterpret_cast<const float4*>(&sK[j * C + 4 * v]);
+        s[j] = fmaf(q[4 * v], kk.x, s[j]);
+        s[j] = fmaf(q[4 * v + 1], kk.y, s[j]);
+        s[j] = fmaf(q[4 * v + 2], kk.z, s[j]);
+        s[j] = fmaf(q[4 * v + 3], kk.w, s[j]);
+      }
+    }
+    float mx = m;
+#pragma unroll
+    for (int j = 0; j < F32_BKV; ++j) {
+      if (k0 + j >= N) s[j] = -INFINITY;  // ragged kv edge: no weight
+      mx = fmaxf(mx, s[j]);
+    }
+    // key 0 lies in the first tile, so the max is finite from here on
+    const float alpha = exp2f(m - mx);
+    m = mx;
+    l *= alpha;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] *= alpha;
+#pragma unroll
+    for (int j = 0; j < F32_BKV; ++j) {
+      const float p = exp2f(s[j] - m);
+      l += p;
+#pragma unroll
+      for (int v = 0; v < V4; ++v) {
+        const float4 vv = *reinterpret_cast<const float4*>(&sV[j * C + 4 * v]);
+        acc[4 * v] = fmaf(p, vv.x, acc[4 * v]);
+        acc[4 * v + 1] = fmaf(p, vv.y, acc[4 * v + 1]);
+        acc[4 * v + 2] = fmaf(p, vv.z, acc[4 * v + 2]);
+        acc[4 * v + 3] = fmaf(p, vv.w, acc[4 * v + 3]);
+      }
+    }
+  }
+
+  if (row < N) {
+    const float inv = 1.f / l;
+    float* orow = o + ((size_t)b * N + row) * HC + h * C;
+#pragma unroll
+    for (int v = 0; v < V4; ++v)
+      *reinterpret_cast<float4*>(orow + 4 * v) =
+          make_float4(acc[4 * v] * inv, acc[4 * v + 1] * inv, acc[4 * v + 2] * inv,
+                      acc[4 * v + 3] * inv);
+    lse[((size_t)b * H + h) * N + row] = m + log2f(l);
+  }
+}
+
+template <int C>
+int launch_f32(const void* qkv, void* o, void* lse, int B, int N, int H, float qscale,
+               void* stream) {
+  const dim3 grid((N + F32_ROWS - 1) / F32_ROWS, H, B);
+  flash_fwd_f32_kernel<C><<<grid, F32_ROWS, 0, (cudaStream_t)stream>>>(
+      (const float*)qkv, (float*)o, (float*)lse, N, H, qscale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 #define JT_FWD_ENTRY(C)                                                         \
@@ -255,3 +383,13 @@ int launch(const void* qkv, const void* kvm, void* o, void* lse, int B, int N,
 JT_FWD_ENTRY(32)
 JT_FWD_ENTRY(64)
 JT_FWD_ENTRY(80)
+
+#define JT_FWD_F32_ENTRY(C)                                                     \
+  extern "C" int jt_flash_fwd_f32_c##C(const void* qkv, void* o, void* lse,     \
+                                       int B, int N, int H, float qscale,       \
+                                       void* stream) {                          \
+    return launch_f32<C>(qkv, o, lse, B, N, H, qscale, stream);                 \
+  }
+
+JT_FWD_F32_ENTRY(64)
+JT_FWD_F32_ENTRY(80)

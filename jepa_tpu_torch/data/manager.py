@@ -1,7 +1,7 @@
 """Dataset factory: one entry point for every dataset family (counterpart
 of jepa_tpu/data/manager.py; reference src/datasets/data_manager.py:15-91),
-returning (dataset, loader, sampler). The image datasets belong to the
-image-eval slice and are not ported yet: they raise.
+returning (dataset, loader, sampler): the video loader, or the image
+evals' ImageFolder loader.
 """
 
 from __future__ import annotations
@@ -32,6 +32,10 @@ def init_data(
     decode_backend: str = "auto",
     decode_size=None,
     drop_last: bool = True,
+    # image args
+    image_folder: str = "",
+    output_size: int = 256,
+    resize_short=None,
     **unused,
 ) -> Tuple:
     """Returns (dataset, loader, sampler)."""
@@ -56,6 +60,11 @@ def init_data(
             seed=seed, training=training, drop_last=drop_last,
         )
     if kind in _IMAGE_DATASETS:
-        raise NotImplementedError(f"dataset {data!r}: the image datasets are not "
-                                  "ported to jepa_tpu_torch yet (ROADMAP Queue 1)")
+        from jepa_tpu_torch.data.image_dataset import make_image_loader
+
+        return make_image_loader(
+            root_path=root_path, image_folder=image_folder, batch_size=batch_size,
+            training=training, output_size=output_size, resize_short=resize_short,
+            rank=rank, world_size=world_size, num_workers=num_workers, seed=seed,
+            drop_last=drop_last if training else False)
     raise ValueError(f"unknown dataset type {data!r}")

@@ -1,5 +1,5 @@
-"""Video augmentation on the clips' device (counterpart of
-jepa_tpu/data/transforms.py: AugmentCfg and pretrain_augment).
+"""Video augmentation and the eval transforms on the clips' device
+(counterpart of jepa_tpu/data/transforms.py).
 
 The decode workers hand over raw uint8 frames; everything after decode
 runs as batched torch ops on the device the clips lie on, drawing from an
@@ -18,10 +18,17 @@ explicit ``torch.Generator`` (the app seeds one per step):
   * the cube random erase (RandomErasing pixel mode, cube=True; reference
     randerase.py:116-156).
 
+  * ``auto_augment``: 'original' runs AutoAugment's ImageNet policy, any
+    other string the RandAugment it names (``data.randaugment``), on the
+    full frames before the crop, as the JAX package does.
+
 The draws come from torch's generator, so the boxes differ from the JAX
 package's ``jax.random`` ones; the resampling and normalization are the
 same arithmetic (tests hold them against the JAX functions on one box).
-RandAugment (``auto_augment``) is not ported yet and raises.
+
+The eval side: ``multiview_crops`` (the video probe's validation views,
+with or without the letterbox ``valid_hw``) and ``eval_transform``
+(short-side resize, centre crop, normalize).
 """
 
 from __future__ import annotations
@@ -174,11 +181,19 @@ def pretrain_augment(gen: torch.Generator, clips_uint8: torch.Tensor, cfg: Augme
                      valid_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, T, H, W, C] uint8 -> [B, T, crop, crop, C] fp32 normalized, on
     the clips' device (the reference's pretrain VideoTransform,
-    app/vjepa/transforms.py:86-115)."""
+    app/vjepa/transforms.py:86-115, with the probes' auto-augment)."""
+    x = clips_uint8
     if cfg.auto_augment:
-        raise NotImplementedError("auto_augment (RandAugment) is not ported to "
-                                  "jepa_tpu_torch yet (ROADMAP Queue 1)")
-    out = random_resized_crop(gen, clips_uint8, cfg, valid_hw)
+        from jepa_tpu_torch.data import randaugment as ra
+
+        x = clips_uint8.float()
+        if cfg.auto_augment == "original":
+            # AutoAugment's ImageNet policy, the reference image probe's default
+            # (reference evals/image_classification_frozen/eval.py:394-403)
+            ra.autoaugment_original_batch(gen, x)
+        else:
+            ra.randaugment_batch(gen, x, ra.RandAugmentCfg.from_string(cfg.auto_augment))
+    out = random_resized_crop(gen, x, cfg, valid_hw)
     if cfg.random_horizontal_flip:
         flip = torch.rand((out.shape[0],), generator=gen, device=out.device) < 0.5
         out = torch.where(flip[:, None, None, None, None], out.flip(3), out)
@@ -186,3 +201,65 @@ def pretrain_augment(gen: torch.Generator, clips_uint8: torch.Tensor, cfg: Augme
     if cfg.reprob > 0:
         out = erase_cube(gen, out, cfg.reprob)
     return out
+
+
+def multiview_crops(clips: torch.Tensor, crop_size: int, num_views: int,
+                    mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                    valid_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Validation views: ``num_views`` square crops slid along the long side
+    of frames whose short side is ``crop_size``, normalized (reference
+    EvalVideoTransform, evals/video_classification_frozen/utils.py:286-323).
+
+    clips [B, S, T, H, W, C] uint8; ``valid_hw`` [B, 2] gives each sample's
+    un-letterboxed region (aspect-preserving decode), whose true long side
+    the views slide along. Returns [B, S, num_views, T, crop, crop, C] fp32.
+    """
+    b, s, t, h, w, c = clips.shape
+    denom = max(1, num_views - 1)
+    if valid_hw is None:
+        step = (max(h, w) - crop_size) // denom
+        span = lambda i: slice(i * step, i * step + crop_size)
+        views = [clips[:, :, :, span(i)] if h > w else clips[:, :, :, :, span(i)]
+                 for i in range(num_views)]
+        out = torch.stack(views, dim=2)
+    else:
+        hv, wv = valid_hw[:, 0].long(), valid_hw[:, 1].long()
+        step = torch.clamp(torch.maximum(hv, wv) - crop_size, min=0).float() / denom
+        tall = hv > wv
+        per_sample = []
+        for i in range(num_views):
+            start = torch.round(i * step).long()
+            sy = torch.where(tall, start, 0).clamp(0, h - crop_size).tolist()
+            sx = torch.where(tall, 0, start).clamp(0, w - crop_size).tolist()
+            per_sample.append(torch.stack([
+                clips[k, :, :, sy[k]:sy[k] + crop_size, sx[k]:sx[k] + crop_size]
+                for k in range(b)]))
+        out = torch.stack(per_sample, dim=2)
+    return normalize(out.float(), mean, std)
+
+
+def resize_short_side(clips_uint8: torch.Tensor, out_size: int) -> torch.Tensor:
+    """[B, T, H, W, C] -> fp32 frames resized so the short side is
+    ``out_size``, bilinear with antialiasing when it shrinks (what
+    ``jax.image.resize(..., 'bilinear')`` computes)."""
+    b, t, h, w, c = clips_uint8.shape
+    scale = out_size / min(h, w)
+    nh, nw = int(round(h * scale)), int(round(w * scale))
+    x = clips_uint8.float().reshape(b * t, h, w, c).permute(0, 3, 1, 2)
+    x = torch.nn.functional.interpolate(x, size=(nh, nw), mode="bilinear",
+                                        align_corners=False, antialias=True)
+    return x.permute(0, 2, 3, 1).reshape(b, t, nh, nw, c)
+
+
+def eval_transform(clips_uint8: torch.Tensor, crop_size: int = 224,
+                   resize_size: Optional[int] = None,
+                   mean=IMAGENET_MEAN, std=IMAGENET_STD) -> torch.Tensor:
+    """Validation transform: short-side resize (default crop * 256/224),
+    centre crop, normalize. [B, T, H, W, C] uint8 -> [B, T, crop, crop, C]
+    fp32 (reference EvalVideoTransform)."""
+    if resize_size is None:
+        resize_size = int(crop_size * 256 / 224)
+    x = resize_short_side(clips_uint8, resize_size)
+    i = (x.shape[2] - crop_size) // 2
+    j = (x.shape[3] - crop_size) // 2
+    return normalize(x[:, :, i:i + crop_size, j:j + crop_size], mean, std)

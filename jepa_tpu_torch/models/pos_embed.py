@@ -28,6 +28,11 @@ def sincos_1d(embed_dim: int, positions: np.ndarray) -> np.ndarray:
     return np.concatenate([np.sin(out), np.cos(out)], axis=1)
 
 
+def get_1d_sincos_pos_embed(embed_dim: int, grid_size: int) -> np.ndarray:
+    """[grid_size, embed_dim]; row p embeds position p."""
+    return sincos_1d(embed_dim, np.arange(grid_size, dtype=np.float64))
+
+
 def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int) -> np.ndarray:
     """[grid_size**2, embed_dim]; rows indexed (h, w) row-major."""
     grid = np.arange(grid_size, dtype=np.float64)

@@ -46,8 +46,11 @@ _SIGNATURES = {
     # qkv, key mask, do, lse, delta, dqkv, B, N, H, scale*log2e, scale, stream
     **{f"jt_flash_bwd_dq_c{c}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P]
        for c in (32, 64, 80)},
+    # fp32 qkv, o, lse, B, N, H, scale*log2e, stream (no key mask)
+    **{f"jt_flash_fwd_f32_c{c}": [_P, _P, _P, _I, _I, _I, _F, _P] for c in (64, 80)},
     # x, w, b, out, M, K, F, stream
     "jt_linear_gelu_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "jt_linear_gelu_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

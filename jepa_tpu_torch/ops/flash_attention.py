@@ -44,6 +44,12 @@ backward kernels), as the TPU kernels do, so masked keys get dk = dv = 0.
 The pads may sit anywhere in the row (the predictor's mask is
 concat(context valid, target valid)). A row with no valid key is out of
 scope: the padded mode always keeps a context token.
+
+fp32 (the frozen evals with ``use_bfloat16: false``): a CUDA fp32 qkv
+launches H1-fp32, the same forward on the CUDA cores, where every rounding
+point above is a no-op (fp32 q*(scale*log2e), fp32 p). It takes the
+encoders' head dims 64 and 80, no key mask and no backward: an fp32
+tensor reaching a bf16-only entry (H2, the masked H1) raises.
 """
 
 from __future__ import annotations
@@ -56,11 +62,13 @@ import torch.nn.functional as F
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIMS = (32, 64, 80)
+F32_HEAD_DIMS = (64, 80)  # H1-fp32: the encoders' head dims (ViT-L, ViT-H)
 
 # wrapper-counted launches in this process
-launches = 0      # H1, every head dim, masked or not
+launches = 0      # H1 (bf16), every head dim, masked or not
 launches_by_head_dim = {c: 0 for c in KERNEL_HEAD_DIMS}  # H1 unmasked, per instance
 masked_launches_by_head_dim = {c: 0 for c in KERNEL_HEAD_DIMS}  # H1 with a key mask
+f32_launches_by_head_dim = {c: 0 for c in F32_HEAD_DIMS}  # H1-fp32
 dkv_launches = 0  # H2, dk/dv kernel, masked or not
 dq_launches = 0   # H2, dq kernel, masked or not
 dkv_masked_launches = 0  # of which with a key mask
@@ -70,7 +78,8 @@ dq_masked_launches = 0
 def reset_launch_counts() -> None:
     global launches, dkv_launches, dq_launches, dkv_masked_launches, dq_masked_launches
     launches = dkv_launches = dq_launches = dkv_masked_launches = dq_masked_launches = 0
-    for counts in (launches_by_head_dim, masked_launches_by_head_dim):
+    for counts in (launches_by_head_dim, masked_launches_by_head_dim,
+                   f32_launches_by_head_dim):
         for c in counts:
             counts[c] = 0
 
@@ -113,19 +122,20 @@ def flash_self_attention_ref(
     return o, lse
 
 
-def _check_qkv(qkv: torch.Tensor, num_heads: int, name: str) -> int:
+def _check_qkv(qkv: torch.Tensor, num_heads: int, name: str,
+               dtype: torch.dtype = torch.bfloat16, head_dims=KERNEL_HEAD_DIMS) -> int:
     """Validate a kernel's qkv operand; return its head dim."""
     if not qkv.is_cuda:
         raise ValueError(f"{name}: qkv must be a CUDA tensor")
-    if qkv.dtype != torch.bfloat16:
-        raise NotImplementedError(f"{name} takes bf16 qkv, got {qkv.dtype}")
+    if qkv.dtype != dtype:
+        raise NotImplementedError(f"{name} takes {dtype} qkv here, got {qkv.dtype}")
     if qkv.dim() != 3 or qkv.shape[2] % (3 * num_heads):
         raise ValueError(f"{name}: bad qkv shape {tuple(qkv.shape)} for "
                          f"{num_heads} heads")
     b, n, w3 = qkv.shape
     c = w3 // (3 * num_heads)
-    if c not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(f"{name}: head dim {c} not in {KERNEL_HEAD_DIMS}")
+    if c not in head_dims:
+        raise NotImplementedError(f"{name}: head dim {c} not in {head_dims}")
     if n < 1 or b < 1:
         raise ValueError(f"{name}: empty input")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
@@ -149,26 +159,41 @@ def flash_self_attention_cuda(
     qkv: torch.Tensor, num_heads: int, scale: float,
     kv_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch H1 on qkv's current stream. qkv [B, N, 3*H*c] bf16, c in
-    {32, 64, 80}; kv_mask [B, N] (True = valid key) or None.
-    Differentiable only through ``FlashSelfAttentionFn``."""
+    """Launch H1 on qkv's current stream. qkv [B, N, 3*H*c]: bf16 with c in
+    {32, 64, 80} and kv_mask [B, N] (True = valid key) or None, or fp32
+    (H1-fp32) with c in {64, 80} and no mask. Differentiable only through
+    ``FlashSelfAttentionFn`` (bf16)."""
     global launches
     from jepa_tpu_torch.ops._build import check, load_library
 
+    name = "flash_self_attention_cuda"
     if torch.is_grad_enabled() and qkv.requires_grad:
-        raise NotImplementedError("flash_self_attention_cuda has no autograd "
-                                  "of its own; use FlashSelfAttentionFn")
-    c = _check_qkv(qkv, num_heads, "flash_self_attention_cuda")
-    mask = _kernel_mask(kv_mask, qkv, "flash_self_attention_cuda")
+        raise NotImplementedError(f"{name} has no autograd of its own; use "
+                                  "FlashSelfAttentionFn")
+    qscale = float(scale) * _LOG2E
+    if qkv.dtype == torch.float32:
+        if kv_mask is not None:
+            raise NotImplementedError(f"{name}: the fp32 instance takes no key mask")
+        c = _check_qkv(qkv, num_heads, name, torch.float32, F32_HEAD_DIMS)
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        b, n, _ = qkv.shape
+        o = torch.empty((b, n, num_heads * c), dtype=qkv.dtype, device=qkv.device)
+        lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
+        entry = f"jt_flash_fwd_f32_c{c}"
+        check(getattr(load_library(), entry)(qkv.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                                             b, n, num_heads, qscale, stream), entry)
+        f32_launches_by_head_dim[c] += 1
+        return o, lse
+    c = _check_qkv(qkv, num_heads, name)
+    mask = _kernel_mask(kv_mask, qkv, name)
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
     b, n, _ = qkv.shape
     o = torch.empty((b, n, num_heads * c), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
-    lib = load_library()
-    fn = getattr(lib, f"jt_flash_fwd_c{c}")
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    check(fn(qkv.data_ptr(), None if mask is None else mask.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), b, n, num_heads, float(scale) * _LOG2E, stream),
-          f"jt_flash_fwd_c{c}")
+    entry = f"jt_flash_fwd_c{c}"
+    check(getattr(load_library(), entry)(
+        qkv.data_ptr(), None if mask is None else mask.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b, n, num_heads, qscale, stream), entry)
     launches += 1
     (launches_by_head_dim if mask is None else masked_launches_by_head_dim)[c] += 1
     return o, lse

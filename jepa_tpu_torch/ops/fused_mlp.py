@@ -1,10 +1,11 @@
 """Fused fc1 matmul + bias + GELU (counterpart of jepa_tpu/ops/fused_mlp.py).
 
 ``linear_gelu`` is the MLP's first layer on grad-free forwards. For a CUDA
-tensor it launches the hand-written Hopper kernel H3
-(``csrc/fused_mlp.cu``); for a CPU tensor it runs ``linear_gelu_ref``, the
-plain PyTorch version of the same math. Weights keep the ``nn.Linear``
-layout [F, K].
+tensor it launches a hand-written Hopper kernel from ``csrc/fused_mlp.cu``:
+H3 for bf16 (tensor cores), H3-fp32 for fp32 (CUDA-core FFMA; the frozen
+evals with ``use_bfloat16: false``). For a CPU tensor it runs
+``linear_gelu_ref``, the plain PyTorch version of the same math. Weights
+keep the ``nn.Linear`` layout [F, K].
 
 Numerics, as the JAX package: fp32 accumulation, the bias added in fp32,
 z rounded to the compute dtype before the activation, then the exp2-erfc
@@ -23,7 +24,11 @@ _LN2 = 0.6931471805599453
 _ERF_G = (1.6279511504838011, 0.9179117972647749, 0.15048427545502158,
           -0.03191463214715457, 0.004236621237891429, -0.00025575246004894803)
 
-launches = 0  # H3 launches in this process (wrapper-counted)
+_KERNEL_K_STEP = {torch.bfloat16: 32, torch.float32: 16}  # each kernel's k panel
+
+# wrapper-counted launches in this process
+launches = 0      # H3 (bf16)
+f32_launches = 0  # H3-fp32
 
 
 def _erf(x: torch.Tensor) -> torch.Tensor:
@@ -92,16 +97,17 @@ def linear_gelu_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.
 
 
 def linear_gelu_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch H3 on x's current stream. x [M, K] bf16, w [F, K] bf16, b [F]."""
-    global launches
+    """Launch H3 on x's current stream: x [M, K] and w [F, K] both bf16 (H3)
+    or both fp32 (H3-fp32), b [F]; the output has x's dtype."""
+    global launches, f32_launches
     from jepa_tpu_torch.ops._build import check, load_library
 
     if not (x.is_cuda and w.device == x.device and b.device == x.device):
         raise ValueError("linear_gelu_cuda: x, w, b must be on one CUDA device")
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+    if x.dtype != w.dtype or x.dtype not in _KERNEL_K_STEP:
         raise NotImplementedError(
-            f"linear_gelu_cuda takes bf16 x and w, got {x.dtype}/{w.dtype} "
-            "(the fp32 H3 variant is not written yet)")
+            f"linear_gelu_cuda takes bf16 or fp32 x and w of one dtype, got "
+            f"{x.dtype}/{w.dtype}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
                                     or b.requires_grad):
         raise NotImplementedError("linear_gelu_cuda is forward-only; call it "
@@ -111,22 +117,32 @@ def linear_gelu_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch
                          f"w{tuple(w.shape)} b{tuple(b.shape)}")
     m, k = x.shape
     f, k2 = w.shape
-    if k != k2 or k % 32 or f % 128 or m < 1:
-        raise ValueError(f"linear_gelu_cuda: needs K % 32 == 0 and F % 128 == 0, "
+    k_step = _KERNEL_K_STEP[x.dtype]
+    if k != k2 or k % k_step or f % 128 or m < 1:
+        raise ValueError(f"linear_gelu_cuda: needs K % {k_step} == 0 and F % 128 == 0, "
                          f"got M={m} K={k} F={f}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("linear_gelu_cuda: x and w must be contiguous")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("linear_gelu_cuda: x and w must be 16-byte aligned")
     b = b.float().contiguous()
-    out = torch.empty((m, f), dtype=torch.bfloat16, device=x.device)
-    lib = load_library()
+    if x.data_ptr() % 16 or w.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("linear_gelu_cuda: x, w and b must be 16-byte aligned")
+    out = torch.empty((m, f), dtype=x.dtype, device=x.device)
+    entry = "jt_linear_gelu_bf16" if x.dtype == torch.bfloat16 else "jt_linear_gelu_f32"
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    check(lib.jt_linear_gelu_bf16(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                  out.data_ptr(), m, k, f, stream),
-          "jt_linear_gelu_bf16")
-    launches += 1
+    check(getattr(load_library(), entry)(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                         out.data_ptr(), m, k, f, stream), entry)
+    if x.dtype == torch.bfloat16:
+        launches += 1
+    else:
+        f32_launches += 1
     return out
+
+
+def fused_tiling(m: int, k: int, f: int) -> bool:
+    """Do the kernels take x [M, K] @ w [F, K]^T? The JAX kernel's tiling
+    rule (jepa_tpu/ops/fused_mlp.py:277); other shapes take the plain
+    exact-erf path in both packages."""
+    return not (k % 128 or f % 256 or m < 8)
 
 
 def linear_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -140,7 +156,7 @@ def linear_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     k = x.shape[-1]
     f = w.shape[0]
     m = x.numel() // k if k else 0
-    if k % 128 or f % 256 or m < 8:  # the JAX kernel's tiling rule
+    if not fused_tiling(m, k, f):
         h = torch.matmul(x.float(), w.float().t()) + b.float()
         return torch.nn.functional.gelu(h).to(x.dtype)
     x2 = x.reshape(m, k)

@@ -12,6 +12,12 @@ moments ``mu`` / ``nu`` keyed like ``TrainState.named_params``),
 reads the app's own checkpoint. Files are written to a temporary name and
 renamed, so a crash mid-write never leaves a truncated ``-latest``.
 Schedules are pure functions of the step, so a resume replays nothing.
+
+The frozen evals' probe checkpoints (``save_probe_checkpoint``) use the
+same naming and atomic write and hold what the JAX evals save:
+``classifier`` (the AttentiveClassifier state_dict, which
+``api.load_classifier`` reads), ``opt`` (``step`` and the AdamW moments
+keyed by parameter name) and ``epoch``.
 """
 
 from __future__ import annotations
@@ -61,6 +67,17 @@ def save_checkpoint(folder: str, tag: str, state, epoch: int, save_every_freq: i
     logger.info("saved checkpoint at epoch %d", epoch)
 
 
+def _restore_moments(path: str, opt: dict, state) -> None:
+    """Copy the saved AdamW moments ``opt['mu']`` / ``opt['nu']`` into
+    ``state.mu`` / ``state.nu`` in place; their names must match."""
+    with torch.no_grad():
+        for moments, saved in ((state.mu, opt["mu"]), (state.nu, opt["nu"])):
+            if set(moments) != set(saved):
+                raise ValueError(f"{path}: optimizer moments do not match the model")
+            for name, t in moments.items():
+                t.copy_(saved[name])
+
+
 def load_checkpoint(folder: str, tag: str, state,
                     read_path: Optional[str] = None) -> Tuple[object, int]:
     """Restore params, target, moments and step into ``state`` in place;
@@ -78,14 +95,36 @@ def load_checkpoint(folder: str, tag: str, state,
     state.encoder.load_state_dict(ckpt["encoder"])
     state.predictor.load_state_dict(ckpt["predictor"])
     state.target.load_state_dict(ckpt["target_encoder"])
-    opt = ckpt["opt"]
-    with torch.no_grad():
-        for moments, saved in ((state.mu, opt["mu"]), (state.nu, opt["nu"])):
-            if set(moments) != set(saved):
-                raise ValueError(f"{path}: optimizer moments do not match the model")
-            for name, t in moments.items():
-                t.copy_(saved[name])
-    state.step = int(opt["step"])
+    _restore_moments(path, ckpt["opt"], state)
+    state.step = int(ckpt["opt"]["step"])
     epoch = int(ckpt["epoch"])
     logger.info("restored checkpoint from %s (epoch %d)", path, epoch)
     return state, epoch
+
+
+def save_probe_checkpoint(folder: str, tag: str, probe, epoch: int) -> None:
+    """Write ``<tag>-latest.pth.tar`` from an eval probe (an object with
+    ``classifier``, ``mu``, ``nu`` and ``step``)."""
+    obj = {
+        "classifier": probe.classifier.state_dict(),
+        "opt": {"step": int(probe.step), "mu": probe.mu, "nu": probe.nu},
+        "epoch": int(epoch),
+    }
+    _save_atomic(obj, checkpoint_path(folder, tag))
+    logger.info("saved probe checkpoint at epoch %d", epoch)
+
+
+def load_probe_checkpoint(folder: str, tag: str, probe) -> int:
+    """Restore the classifier, its moments and step into ``probe`` in
+    place; returns the start epoch (0 when there is no checkpoint)."""
+    path = checkpoint_path(folder, tag)
+    if not os.path.exists(path):
+        logger.info("no probe checkpoint at %s; starting fresh", path)
+        return 0
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    probe.classifier.load_state_dict(ckpt["classifier"])
+    _restore_moments(path, ckpt["opt"], probe)
+    probe.step = int(ckpt["opt"]["step"])
+    epoch = int(ckpt["epoch"])
+    logger.info("restored probe checkpoint from %s (epoch %d)", path, epoch)
+    return epoch

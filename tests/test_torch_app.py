@@ -22,6 +22,16 @@ _FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "pretrain_smoke.y
 HEADER = "epoch,itr,loss,loss-jepa,reg-loss,enc-grad-norm,pred-grad-norm,step-time(ms),wall-time(ms)"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes: torch's intra-op threads only contend with the other
+    test workers (under pytest-xdist they multiplied this module's time)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture()
 def smoke_cfg(tmp_path):
     with open(_FIXTURE) as f:
@@ -81,9 +91,10 @@ def test_app_cli_and_unported_options(smoke_cfg, tmp_path):
     path.write_text(yaml.safe_dump(smoke_cfg))
     state = cli_main(["--fname", str(path), "--devices", "cpu"])
     assert state.step == 1
+    # RandAugment (data_aug.auto_augment, ported with the frozen evals) runs
     smoke_cfg["data_aug"]["auto_augment"] = True
-    with pytest.raises(NotImplementedError, match="RandAugment"):
-        train_main(smoke_cfg, device="cpu")
+    smoke_cfg["logging"]["folder"] = str(tmp_path / "randaugment")  # no checkpoint to resume
+    assert train_main(smoke_cfg, device="cpu").step == 1
     smoke_cfg["data_aug"]["auto_augment"] = False
     smoke_cfg["data"]["mask_type"] = "random_tube"
     with pytest.raises(NotImplementedError, match="tube"):

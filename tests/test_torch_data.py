@@ -98,8 +98,18 @@ def test_loader_batches_match_jax(tmp_path):
                          clip_len=4, frame_sample_rate=2, decode_backend="synthetic",
                          decode_size=(24, 32), num_workers=1, seed=11)
     assert len(dl) == 2
-    with pytest.raises(NotImplementedError):
-        init_data("imagenet", batch_size=2)
+    # the image branch (ported with the image eval): a tiny ImageFolder
+    from PIL import Image
+
+    for i, cls in enumerate(("a", "a", "b")):
+        (tmp_path / "imgs" / "train" / cls).mkdir(parents=True, exist_ok=True)
+        Image.fromarray(np.full((20, 30, 3), 40 * i, np.uint8)).save(
+            tmp_path / "imgs" / "train" / cls / f"{i}.png")
+    ds, dl, _ = init_data("imagenet", batch_size=2, root_path=str(tmp_path),
+                          image_folder="imgs", output_size=16, num_workers=1)
+    assert len(ds) == 3 and len(dl) == 1 and ds.class_to_idx == {"a": 0, "b": 1}
+    batch = next(iter(dl))
+    assert batch["images"].shape == (2, 16, 16, 3) and batch["images"].dtype == np.uint8
     with pytest.raises(NotImplementedError, match="native"):
         video_dataset.get_backend("native")
     assert isinstance(video_dataset.get_backend("auto"), video_dataset.NpyBackend)
@@ -161,6 +171,7 @@ def test_pretrain_augment_shapes_and_seed():
     again = transforms.pretrain_augment(torch.Generator().manual_seed(3), clips, cfg)
     assert out.shape == (3, 4, 16, 16, 3) and torch.isfinite(out).all()
     assert torch.equal(out, again)
-    with pytest.raises(NotImplementedError, match="RandAugment"):
-        transforms.pretrain_augment(torch.Generator(), clips,
-                                    transforms.AugmentCfg(auto_augment="rand-m7-n4"))
+    # the probes' RandAugment branch (ported with the frozen evals) runs too
+    ra = transforms.pretrain_augment(torch.Generator().manual_seed(3), clips,
+                                     transforms.AugmentCfg(crop_size=16, auto_augment="rand-m7-n4"))
+    assert ra.shape == (3, 4, 16, 16, 3) and torch.isfinite(ra).all()

@@ -1,4 +1,5 @@
-"""The PyTorch port imports torch and numpy only: no JAX, no jepa_tpu.
+"""The PyTorch port imports torch and numpy only (and PIL inside the image
+loader): no JAX, no jepa_tpu.
 That holds for the package and for chip_smoke.py, including imports made
 inside functions."""
 
@@ -17,7 +18,9 @@ for need in ("train.step", "train.optimizer", "train.losses", "masks.multiblock3
              "models.predictor", "utils.schedulers", "masks.padding", "data.loader",
              "data.video_dataset", "data.manager", "data.synthetic", "data.transforms",
              "utils.logging", "utils.checkpoint", "configs", "apps.scaffold", "apps.main",
-             "apps.vjepa.train"):
+             "apps.vjepa.train", "data.randaugment", "data.image_dataset", "evals.aggregation",
+             "evals.video_classification_frozen", "evals.image_classification_frozen",
+             "evals.scaffold", "evals.main"):
     assert "jepa_tpu_torch." + need in names, need
 for name in names:
     importlib.import_module(name)
@@ -33,7 +36,7 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 37, res.stdout  # serving, the training step and the app
+    assert n_modules >= 47, res.stdout  # serving, the training step, the app, the evals
 
 
 def test_port_sources_import_no_jax():
@@ -49,4 +52,4 @@ def test_port_sources_import_no_jax():
                 continue
             bad += [f"{path.name}: {m}" for m in mods
                     if m.split(".")[0] in ("jax", "jaxlib", "jepa_tpu")]
-    assert len(files) > 38 and not bad, bad
+    assert len(files) > 46 and not bad, bad
