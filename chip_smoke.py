@@ -111,10 +111,13 @@ PEAK_F32_FLOPS = 132 * 128 * 2 * 1.98e9  # fp32 FFMA on the CUDA cores: 132 SMs 
                                          # 128 lanes x 2 flops at 1,980 MHz = 66.9e12
 F32_TOL = 1e-4     # H1-fp32 |o|, |lse| abs; H3-fp32 |d| <= 1e-4 * max(|ref|, 1): fp32
                    # everywhere, so only the order of the fp32 sums differs
-# (B, N, H, c) of H1-fp32 and (M, K, F) of H3-fp32: ViT-L (one eval batch's
-# 8 clips of 1568 tokens for H3) and ViT-H
-F32_H1_SHAPES = ((2, 1568, 16, 64), (1, 1568, 16, 80))
-F32_H3_SHAPES = ((8 * 1568, 1024, 4096), (4 * 1568, 1280, 5120))
+# (B, N, H, c) of H1-fp32 and (M, K, F) of H3-fp32: ViT-L and ViT-H, then
+# the fp32 video eval's launch shapes (batch 1: the train step's 8 clips,
+# the val step's 24). The first shape of each is the one the JSON line reports.
+F32_H1_SHAPES = ((2, 1568, 16, 64), (1, 1568, 16, 80), (8, 1568, 16, 64), (24, 1568, 16, 64))
+F32_H3_SHAPES = ((8 * 1568, 1024, 4096), (4 * 1568, 1280, 5120), (24 * 1568, 1024, 4096))
+F32_FEAT_COS_MIN = 0.99999  # fp32 eval features, kernels vs plain: only the order
+                            # of fp32 sums differs
 PROB_TOL = 1e-3
 EVAL_BF16_ENTRIES = (8, 6)  # (train, val) synthetic videos of the bf16 video eval at
                             # batch 4: 2 train steps, 2 val steps (the last one padded)
@@ -293,7 +296,7 @@ def phase_f32_kernels(torch):
         log(f"H1-fp32 B={b} N={n} c={c} time: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library (SDPA fp32) {r['library_ms']:.4f} ms, bound "
             f"{r['bound'][0]:.4f} ms ({r['bound'][2]}); {flops / r['ms'] / 1e9:.1f} TFLOP/s")
-        if c == 64:
+        if "ms" not in rep["h1"]:
             rep["h1"].update(r)
         del qkv, o, lse
     for m, k, f in F32_H3_SHAPES:
@@ -324,7 +327,7 @@ def phase_f32_kernels(torch):
             f"{r['plain_ms']:.4f} ms, library (_addmm_activation fp32) {r['library_ms']:.4f} "
             f"ms, bound {r['bound'][0]:.4f} ms ({r['bound'][2]}); "
             f"{flops / r['ms'] / 1e9:.1f} TFLOP/s")
-        if k == 1024:
+        if "ms" not in rep["h3"]:
             rep["h3"].update(r)
         del x, w, bias, y, y_ref, d
     return rep
@@ -649,20 +652,21 @@ VITL16_GEO = dict(img_size=224, num_frames=16, tubelet_size=2, uniform_power=Tru
 
 def write_seeded_encoder(torch, workdir: str) -> str:
     """A seeded ViT-L/16 (224 px, 16 frames, tubelet 2, uniform_power) as
-    a zoo-layout .pth.tar in workdir (written once); returns its path."""
+    a zoo-layout .pth.tar in workdir; returns its path."""
     from jepa_tpu_torch.models.factory import vit_cfg
     from jepa_tpu_torch.models.vit import init_vit
 
     path = os.path.join(workdir, "vitl16.pth.tar")
-    if not os.path.exists(path):
-        gen = torch.Generator(device="cuda").manual_seed(SEED)
-        model = init_vit(vit_cfg("vit_large", **VITL16_GEO), gen, device="cuda")
-        torch.save({"target_encoder": {k: v.cpu() for k, v in model.state_dict().items()},
-                    "epoch": 0}, path)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = init_vit(vit_cfg("vit_large", **VITL16_GEO), gen, device="cuda")
+    torch.save({"target_encoder": {k: v.cpu() for k, v in model.state_dict().items()},
+                "epoch": 0}, path)
     return path
 
 
 def phase_serve(torch, workdir: str):
+    """Serving through jepa_tpu_torch.api on a seeded ViT-L/16 .pth.tar,
+    which it writes to workdir and returns (``enc_path``) for the evals."""
     from jepa_tpu_torch import api
     from jepa_tpu_torch.models.attentive import AttentiveCfg, init_attentive_classifier
     from jepa_tpu_torch.models.factory import vit_cfg
@@ -733,7 +737,7 @@ def phase_serve(torch, workdir: str):
         f"(tol {PROB_TOL})")
     if cos < FEAT_COS_MIN or p_err > PROB_TOL:
         raise RuntimeError("serving path disagrees with its plain version")
-    return {"launches": launches, "median_ms": med, "peak_gib": peak_gib}
+    return {"launches": launches, "median_ms": med, "peak_gib": peak_gib, "enc_path": enc_path}
 
 
 def train_setup(repo: str):
@@ -1102,9 +1106,13 @@ def spy_steps(torch, module, fa, fm):
     wall time), the device-synchronised time of the transforms on the card
     (``pretrain_augment``, ``multiview_crops``) since the previous step, the kernel
     launches in it, the rows M of each H3 launch, the probe's step before
-    it, and its result."""
-    rec = {"train_step": [], "val_step": []}
-    real = {k: getattr(module, k) for k in rec}
+    it, and its result; ``rec["inputs"][kind]`` keeps the (probe, clips on
+    the host, keywords) of the first step of each kind since it was last
+    emptied."""
+    kinds = ("train_step", "val_step")
+    rec = {k: [] for k in kinds}
+    rec["inputs"] = {}
+    real = {k: getattr(module, k) for k in kinds}
     real_h3 = fm.linear_gelu_cuda
     transforms = [k for k in ("pretrain_augment", "multiview_crops") if hasattr(module, k)]
     h3_rows = []
@@ -1127,6 +1135,8 @@ def spy_steps(torch, module, fa, fm):
 
     def wrap(kind):
         def step(probe, *args, **kw):
+            if kind not in rec["inputs"]:  # kept on the host: no device memory held
+                rec["inputs"][kind] = (probe, args[0].cpu(), kw)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             c0, r0, before = _counts(fa, fm), len(h3_rows), probe.step
@@ -1145,7 +1155,7 @@ def spy_steps(torch, module, fa, fm):
         return step
 
     with contextlib.ExitStack() as stack:
-        for kind in rec:
+        for kind in kinds:
             stack.enter_context(mock.patch.object(module, kind, wrap(kind)))
         stack.enter_context(mock.patch.object(fm, "linear_gelu_cuda", h3_spy))
         for k in transforms:
@@ -1177,6 +1187,39 @@ def _check_steps(rec, want, label):
     return out
 
 
+def eval_features_vs_plain(torch, vcf, inputs, cos_min, label):
+    """The frozen features of an eval run's first train and first val batch
+    (its steps' launch shapes) through the kernels, against the plain
+    versions on the same clips. The plain side takes one sample at a time:
+    the encoder sees each clip alone, so that is the same function at a
+    fraction of the plain attention's memory. Returns the min cosine per
+    kind."""
+    out = {}
+    with torch.no_grad():
+        for kind, (probe, clips, kw) in inputs.items():
+            clips = clips.cuda()
+            across, pos, ci = (kw["attend_across_segments"], kw.get("pos_table"),
+                               kw.get("clip_indices"))
+            feats = vcf.encode_views(probe, clips, across, pos, ci)
+            with plain_versions():
+                per_sample = [vcf.encode_views(probe, clips[i:i + 1], across, pos,
+                                               None if ci is None else ci[i:i + 1])
+                              for i in range(clips.shape[0])]
+            refs = [torch.cat(views) for views in zip(*per_sample)]
+            finite = all(torch.isfinite(f).all().item() for f in feats)
+            cos = min(torch.nn.functional.cosine_similarity(f.float(), r.float(), dim=-1)
+                      .min().item() for f, r in zip(feats, refs))
+            err = max((f.float() - r.float()).abs().max().item() for f, r in zip(feats, refs))
+            log(f"eval {label} {kind} batch ({clips.shape[0] * clips.shape[1] * clips.shape[2]} "
+                f"clips) features, kernels vs plain: min cosine {cos:.7f} (min {cos_min}), "
+                f"max|d| {err:.3e}, {len(feats)} x {tuple(feats[0].shape)}")
+            if not finite or cos < cos_min:
+                raise RuntimeError(f"eval {label} {kind} features disagree with the plain versions")
+            out[kind] = cos
+            del feats, per_sample, refs
+    return out
+
+
 def _fmt_host(share):
     return "not measured (no back-to-back steps)" if share is None else f"{100 * share:.1f} %"
 
@@ -1187,7 +1230,8 @@ def phase_eval_video(torch, repo, workdir, enc_path, bf16: bool):
     config's batch 4, EVAL_BF16_ENTRIES synthetic videos, 1 epoch then a
     resume to 2. fp32 (use_bfloat16: false): batch 1, EVAL_F32_ENTRIES, 1
     epoch. Checks the launches and H3 rows of every step, the resume step,
-    the CSV, the probe checkpoint and finite results."""
+    the CSV, the probe checkpoint and finite results, then the features of
+    the first train and val batch against the plain versions."""
     from jepa_tpu_torch.evals import video_classification_frozen as vcf
     from jepa_tpu_torch.ops import flash_attention as fa
     from jepa_tpu_torch.ops import fused_mlp as fm
@@ -1218,10 +1262,13 @@ def phase_eval_video(torch, repo, workdir, enc_path, bf16: bool):
         if bf16:  # resume to 2 epochs from the probe checkpoint
             cfg["optimization"]["num_epochs"] = 2
             cfg["resume_checkpoint"] = True
+            rec["inputs"].clear()  # so the first run's probe and encoder can go
             accs += vcf.main(cfg)
     secs = time.perf_counter() - t0
     launches = _counts(fa, fm)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    cos = eval_features_vs_plain(torch, vcf, rec.pop("inputs"),
+                                 FEAT_COS_MIN if bf16 else F32_FEAT_COS_MIN, name)
     epochs = 2 if bf16 else 1
     ipe, n_val_steps = n_train // batch, -(-n_val // batch)
     if len(rec["train_step"]) != epochs * ipe or len(rec["val_step"]) != epochs * n_val_steps:
@@ -1253,7 +1300,7 @@ def phase_eval_video(torch, repo, workdir, enc_path, bf16: bool):
         f"(host share {_fmt_host(va_host)}); peak allocated {peak:.2f} GiB; launches "
         f"{ {k: x for k, x in launches.items() if x} }")
     return dict(launches=launches, train_ms=tr_ms, val_ms=va_ms, train_host=tr_host,
-                train_aug=tr_aug, val_host=va_host, peak_gib=peak)
+                train_aug=tr_aug, val_host=va_host, peak_gib=peak, feat_cos=cos)
 
 
 def phase_image_probe(torch, repo, enc_path):
@@ -1267,12 +1314,15 @@ def phase_image_probe(torch, repo, enc_path):
 
     from jepa_tpu_torch.data.transforms import normalize
     from jepa_tpu_torch.evals import image_classification_frozen as icf
-    from jepa_tpu_torch.evals.video_classification_frozen import load_frozen_encoder, make_probe
+    from jepa_tpu_torch.evals.video_classification_frozen import (
+        load_frozen_encoder,
+        make_probe,
+        probe_schedules,
+    )
     from jepa_tpu_torch.models.factory import vit_cfg
     from jepa_tpu_torch.ops import flash_attention as fa
     from jepa_tpu_torch.ops import fused_mlp as fm
     from jepa_tpu_torch.train.step import step_generator
-    from jepa_tpu_torch.utils.schedulers import CosineWD, WarmupCosine
 
     with open(os.path.join(repo, "configs", "evals", "vitl16_in1k.yaml")) as f:
         cfg = yaml.safe_load(f)
@@ -1283,10 +1333,8 @@ def phase_image_probe(torch, repo, enc_path):
                       uniform_power=p["uniform_power"], compute_dtype=torch.bfloat16,
                       fused_mlp=True)
     encoder = load_frozen_encoder(enc_path, enc_cfg, p["checkpoint_key"], "cuda")
-    t_max = o["num_epochs"] * IMAGE_TRAIN_STEPS
-    scheds = (WarmupCosine(warmup_steps=0, start_lr=o["start_lr"], ref_lr=o["lr"],
-                           final_lr=o["final_lr"], t_max=t_max),
-              CosineWD(ref_wd=o["weight_decay"], final_wd=1e-6, t_max=t_max))
+    scheds = probe_schedules(IMAGE_TRAIN_STEPS, o["num_epochs"], 0.0, o["start_lr"], o["lr"],
+                             o["final_lr"], o["weight_decay"])
     probe = make_probe(encoder, enc_cfg, d["num_classes"], *scheds, "cuda")
     aug_cfg = icf.train_augment_cfg(res)  # the config's default: AutoAugment 'original'
     rng = np.random.default_rng(SEED)
@@ -1371,7 +1419,7 @@ def main() -> int:
     ])
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
         serve = phase_serve(torch, workdir)
-        enc_path = write_seeded_encoder(torch, workdir)
+        enc_path = serve["enc_path"]
         ev16 = phase_eval_video(torch, repo, workdir, enc_path, bf16=True)
         ev32 = phase_eval_video(torch, repo, workdir, enc_path, bf16=False)
         img = phase_image_probe(torch, repo, enc_path)
@@ -1414,7 +1462,9 @@ def main() -> int:
         log(f"card: {card}; K400 16x8x3 eval {name}: median train step {e['train_ms']:.1f} ms "
             f"(host share {_fmt_host(e['train_host'])}, augmentation "
             f"{_fmt_host(e['train_aug'])}), val step {e['val_ms']:.1f} ms (host share "
-            f"{_fmt_host(e['val_host'])}), peak {e['peak_gib']:.2f} GiB")
+            f"{_fmt_host(e['val_host'])}), peak {e['peak_gib']:.2f} GiB; features vs plain "
+            f"min cosine train {e['feat_cos']['train_step']:.7f} / val "
+            f"{e['feat_cos']['val_step']:.7f}")
     log(f"card: {card}; image probe (B=16): median train step {img['train_ms']:.1f} ms, "
         f"val step {img['val_ms']:.1f} ms")
     for k, r in (("K2 (H1, B=1 N=4608 c=80)", kern["k2"]),

@@ -204,7 +204,6 @@ def pretrain_augment(gen: torch.Generator, clips_uint8: torch.Tensor, cfg: Augme
 
 
 def multiview_crops(clips: torch.Tensor, crop_size: int, num_views: int,
-                    mean=IMAGENET_MEAN, std=IMAGENET_STD,
                     valid_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Validation views: ``num_views`` square crops slid along the long side
     of frames whose short side is ``crop_size``, normalized (reference
@@ -235,7 +234,7 @@ def multiview_crops(clips: torch.Tensor, crop_size: int, num_views: int,
                 clips[k, :, :, sy[k]:sy[k] + crop_size, sx[k]:sx[k] + crop_size]
                 for k in range(b)]))
         out = torch.stack(per_sample, dim=2)
-    return normalize(out.float(), mean, std)
+    return normalize(out.float())
 
 
 def resize_short_side(clips_uint8: torch.Tensor, out_size: int) -> torch.Tensor:
@@ -252,8 +251,7 @@ def resize_short_side(clips_uint8: torch.Tensor, out_size: int) -> torch.Tensor:
 
 
 def eval_transform(clips_uint8: torch.Tensor, crop_size: int = 224,
-                   resize_size: Optional[int] = None,
-                   mean=IMAGENET_MEAN, std=IMAGENET_STD) -> torch.Tensor:
+                   resize_size: Optional[int] = None) -> torch.Tensor:
     """Validation transform: short-side resize (default crop * 256/224),
     centre crop, normalize. [B, T, H, W, C] uint8 -> [B, T, crop, crop, C]
     fp32 (reference EvalVideoTransform)."""
@@ -262,4 +260,4 @@ def eval_transform(clips_uint8: torch.Tensor, crop_size: int = 224,
     x = resize_short_side(clips_uint8, resize_size)
     i = (x.shape[2] - crop_size) // 2
     j = (x.shape[3] - crop_size) // 2
-    return normalize(x[:, :, i:i + crop_size, j:j + crop_size], mean, std)
+    return normalize(x[:, :, i:i + crop_size, j:j + crop_size])

@@ -33,14 +33,15 @@ from jepa_tpu_torch.evals.video_classification_frozen import (
     load_frozen_encoder,
     make_probe,
     probe_correct,
+    probe_schedules,
     probe_update,
+    run_epochs,
+    val_accuracy,
 )
 from jepa_tpu_torch.models.factory import vit_cfg
 from jepa_tpu_torch.models.vit import vit_forward
 from jepa_tpu_torch.train.step import step_generator
-from jepa_tpu_torch.utils import checkpoint as ckpt_lib
-from jepa_tpu_torch.utils.logging import AverageMeter, CSVLogger, get_logger
-from jepa_tpu_torch.utils.schedulers import CosineWD, WarmupCosine
+from jepa_tpu_torch.utils.logging import AverageMeter, get_logger
 
 AUG_SEED = 4321  # the JAX eval's augmentation key
 
@@ -154,21 +155,11 @@ def main(args_eval: dict, resume_preempt: bool = False, device="cuda"):
     ipe = len(train_loader)
     logger.info("train iterations per epoch: %d", ipe)
 
-    lr_sched = WarmupCosine(warmup_steps=int(warmup * ipe), start_lr=start_lr, ref_lr=lr,
-                            final_lr=final_lr, t_max=int(num_epochs * ipe))
-    wd_sched = CosineWD(ref_wd=wd, final_wd=1e-6, t_max=int(num_epochs * ipe))
-    probe = make_probe(encoder, enc_cfg, num_classes, lr_sched, wd_sched, dev)
+    probe = make_probe(encoder, enc_cfg, num_classes,
+                       *probe_schedules(ipe, num_epochs, warmup, start_lr, lr, final_lr, wd), dev)
     aug_cfg = train_augment_cfg(resolution, args_data.get("auto_augment", True))
 
-    start_epoch = 0
-    if resume_checkpoint and os.path.exists(ckpt_lib.checkpoint_path(folder, tag)):
-        start_epoch = ckpt_lib.load_probe_checkpoint(folder, tag, probe)
-    csv_logger = CSVLogger(os.path.join(folder, f"{tag}_r{rank}.csv"),
-                           ("%d", "epoch"), ("%.5f", "loss"), ("%.5f", "acc"))
-
-    val_accs = []
-    for epoch in range(start_epoch, num_epochs):
-        logger.info("Epoch %d", epoch + 1)
+    def train_epoch(epoch):
         train_sampler.set_epoch(epoch)
         meter = AverageMeter()
         for itr, np_batch in enumerate(train_loader):
@@ -180,30 +171,18 @@ def main(args_eval: dict, resume_preempt: bool = False, device="cuda"):
             if itr % 20 == 0:
                 logger.info("[%5d] train acc %.3f%% (loss %.3f)", itr, meter.avg,
                             float(metrics["loss"]))
+        return meter.avg
 
-        # zero weight on the non-drop_last sampler's repeats and on the
-        # padding of the last partial batch (see the video eval)
-        correct = total = 0.0
-        k_item = 0
-        for np_batch in val_loader:
-            b = len(np_batch["labels"])
-            pos = rank + (k_item + np.arange(b)) * world_size
-            w = (pos < len(val_ds)).astype(np.float32)
-            k_item += b
-            images, labels = np.asarray(np_batch["images"]), np.asarray(np_batch["labels"])
-            if b < batch_size:
-                pad = batch_size - b
-                images = np.concatenate([images, np.repeat(images[-1:], pad, 0)])
-                labels = np.concatenate([labels, np.zeros(pad, labels.dtype)])
-                w = np.concatenate([w, np.zeros(pad, np.float32)])
-            imgs = normalize(torch.from_numpy(images).to(dev).float()).to(compute_dtype)
-            c, t = val_step(probe, imgs, torch.from_numpy(labels).to(dev),
-                            torch.from_numpy(w).to(dev))
-            correct += float(c)
-            total += float(t)
-        val_acc = 100.0 * correct / max(1, total)
-        val_accs.append(val_acc)
-        logger.info("[%5d] train: %.3f%% test: %.3f%%", epoch + 1, meter.avg, val_acc)
-        csv_logger.log(epoch + 1, meter.avg, val_acc)
-        ckpt_lib.save_probe_checkpoint(folder, tag, probe, epoch + 1)
-    return val_accs
+    def val_batch(np_batch, w, pad):
+        images, labels = np.asarray(np_batch["images"]), np.asarray(np_batch["labels"])
+        if pad:
+            images = np.concatenate([images, np.repeat(images[-1:], pad, 0)])
+            labels = np.concatenate([labels, np.zeros(pad, labels.dtype)])
+        imgs = normalize(torch.from_numpy(images).to(dev).float()).to(compute_dtype)
+        return val_step(probe, imgs, torch.from_numpy(labels).to(dev),
+                        torch.from_numpy(w).to(dev))
+
+    return run_epochs(
+        folder, tag, probe, num_epochs, resume_checkpoint, train_epoch,
+        lambda: val_accuracy(val_loader, len(val_ds), batch_size, val_batch, rank, world_size),
+        logger, rank)

@@ -175,6 +175,61 @@ def val_step(probe: Probe, clips: torch.Tensor, labels: torch.Tensor, weights: t
     return probe_correct(probe, feats, labels, weights)
 
 
+def probe_schedules(ipe: int, num_epochs: int, warmup: float, start_lr: float, lr: float,
+                    final_lr: float, wd: float):
+    """The probe's lr (warmup-cosine) and wd (cosine to 1e-6, the
+    reference's init_opt default) over num_epochs * ipe steps."""
+    t_max = int(num_epochs * ipe)
+    return (WarmupCosine(warmup_steps=int(warmup * ipe), start_lr=start_lr, ref_lr=lr,
+                         final_lr=final_lr, t_max=t_max),
+            CosineWD(ref_wd=wd, final_wd=1e-6, t_max=t_max))
+
+
+def val_accuracy(val_loader, n_items: int, batch_size: int, step, rank: int = 0,
+                 world_size: int = 1) -> float:
+    """Top-1 (%) over the validation set. ``step(np_batch, w, pad)`` pads a
+    partial last batch of b samples with pad = batch_size - b repeats, so
+    every val step has the configured shape, and returns (correct, total)
+    under the weights w [batch_size]: zero for the non-drop_last sampler's
+    repeats (positions >= n_items) and for the padding."""
+    correct = total = 0.0
+    k_item = 0
+    for np_batch in val_loader:
+        b = len(np_batch["labels"])
+        pos = rank + (k_item + np.arange(b)) * world_size
+        k_item += b
+        w = np.zeros(batch_size, np.float32)
+        w[:b] = pos < n_items
+        c, t = step(np_batch, w, batch_size - b)
+        correct += float(c)
+        total += float(t)
+    return 100.0 * correct / max(1, total)
+
+
+def run_epochs(folder: str, tag: str, probe: Probe, num_epochs: int, resume: bool,
+               train_epoch, val_epoch, logger, rank: int = 0) -> List[float]:
+    """The evals' epoch loop: resume from ``<tag>-latest.pth.tar`` when asked
+    and present; per epoch ``train_epoch(epoch)`` (-> mean train acc) and
+    ``val_epoch()`` (-> val acc), a CSV row (epoch, train acc under "loss",
+    val acc under "acc", as the JAX eval writes them) and the probe
+    checkpoint. Returns the val accuracies."""
+    start_epoch = 0
+    if resume and os.path.exists(ckpt_lib.checkpoint_path(folder, tag)):
+        start_epoch = ckpt_lib.load_probe_checkpoint(folder, tag, probe)
+    csv_logger = CSVLogger(os.path.join(folder, f"{tag}_r{rank}.csv"),
+                           ("%d", "epoch"), ("%.5f", "loss"), ("%.5f", "acc"))
+    val_accs = []
+    for epoch in range(start_epoch, num_epochs):
+        logger.info("Epoch %d", epoch + 1)
+        train_acc = train_epoch(epoch)
+        val_acc = val_epoch()
+        val_accs.append(val_acc)
+        logger.info("[%5d] train: %.3f%% test: %.3f%%", epoch + 1, train_acc, val_acc)
+        csv_logger.log(epoch + 1, train_acc, val_acc)
+        ckpt_lib.save_probe_checkpoint(folder, tag, probe, epoch + 1)
+    return val_accs
+
+
 def pad_clip_major(arr, segments: int, pad: int) -> np.ndarray:
     """Pad a clip-major [S*B, ...] batch to [S*(B+pad), ...] by repeating
     each segment's last sample (consumed with zero weight)."""
@@ -281,10 +336,8 @@ def main(args_eval: dict, resume_preempt: bool = False, device="cuda"):
     logger.info("train iterations per epoch: %d", ipe)
 
     # ---- probe ------------------------------------------------------------------
-    lr_sched = WarmupCosine(warmup_steps=int(warmup * ipe), start_lr=start_lr, ref_lr=lr,
-                            final_lr=final_lr, t_max=int(num_epochs * ipe))
-    wd_sched = CosineWD(ref_wd=wd, final_wd=1e-6, t_max=int(num_epochs * ipe))
-    probe = make_probe(encoder, enc_cfg, num_classes, lr_sched, wd_sched, dev)
+    probe = make_probe(encoder, enc_cfg, num_classes,
+                       *probe_schedules(ipe, num_epochs, warmup, start_lr, lr, final_lr, wd), dev)
     aug_cfg = AugmentCfg(
         crop_size=resolution, random_resize_scale=(0.08, 1.0),
         random_resize_aspect_ratio=(0.75, 4 / 3), random_horizontal_flip=False,
@@ -331,16 +384,7 @@ def main(args_eval: dict, resume_preempt: bool = False, device="cuda"):
                               eval_num_views_per_segment, valid_hw=vhw)
         return out.to(compute_dtype)
 
-    # ---- resume ---------------------------------------------------------------
-    start_epoch = 0
-    if resume_checkpoint and os.path.exists(ckpt_lib.checkpoint_path(folder, tag)):
-        start_epoch = ckpt_lib.load_probe_checkpoint(folder, tag, probe)
-    csv_logger = CSVLogger(os.path.join(folder, f"{tag}_r{rank}.csv"),
-                           ("%d", "epoch"), ("%.5f", "loss"), ("%.5f", "acc"))
-
-    val_accs = []
-    for epoch in range(start_epoch, num_epochs):
-        logger.info("Epoch %d", epoch + 1)
+    def train_epoch(epoch):
         train_sampler.set_epoch(epoch)
         train_meter = AverageMeter()
         for itr, np_batch in enumerate(train_loader):
@@ -352,35 +396,20 @@ def main(args_eval: dict, resume_preempt: bool = False, device="cuda"):
             if itr % 20 == 0:
                 logger.info("[%5d] train acc %.3f%% (loss %.3f, lr %.1e)", itr,
                             train_meter.avg, float(metrics["loss"]), float(metrics["lr"]))
+        return train_meter.avg
 
-        # top-1 over the validation set; the padded duplicates of the
-        # non-drop_last sampler (positions >= len(val_ds)) get zero weight
-        correct = total = 0.0
-        k_item = 0
-        for np_batch in val_loader:
-            b = len(np_batch["labels"])
-            pos = rank + (k_item + np.arange(b)) * world_size
-            w = (pos < len(val_ds)).astype(np.float32)
-            k_item += b
-            ci = clip_indices(np_batch, pad=batch_size - b)
-            if b < batch_size:
-                # pad the final partial batch with zero-weight repeats, so
-                # every val step has the configured shape
-                pad = batch_size - b
-                np_batch = dict(np_batch)
-                for key in ("clips", "valid_hw"):
-                    np_batch[key] = pad_clip_major(np_batch[key], eval_num_segments, pad)
-                np_batch["labels"] = np.concatenate(
-                    [np_batch["labels"], np.zeros(pad, np_batch["labels"].dtype)])
-                w = np.concatenate([w, np.zeros(pad, np.float32)])
-            c, t = val_step(probe, val_views(np_batch),
-                            torch.from_numpy(np_batch["labels"]).to(dev),
-                            torch.from_numpy(w).to(dev), clip_indices=ci, **steps_kw)
-            correct += float(c)
-            total += float(t)
-        val_acc = 100.0 * correct / max(1, total)
-        val_accs.append(val_acc)
-        logger.info("[%5d] train: %.3f%% test: %.3f%%", epoch + 1, train_meter.avg, val_acc)
-        csv_logger.log(epoch + 1, train_meter.avg, val_acc)
-        ckpt_lib.save_probe_checkpoint(folder, tag, probe, epoch + 1)
-    return val_accs
+    def val_batch(np_batch, w, pad):
+        ci = clip_indices(np_batch, pad=pad)
+        if pad:
+            np_batch = dict(np_batch)
+            for key in ("clips", "valid_hw"):
+                np_batch[key] = pad_clip_major(np_batch[key], eval_num_segments, pad)
+            np_batch["labels"] = np.concatenate(
+                [np_batch["labels"], np.zeros(pad, np_batch["labels"].dtype)])
+        return val_step(probe, val_views(np_batch), torch.from_numpy(np_batch["labels"]).to(dev),
+                        torch.from_numpy(w).to(dev), clip_indices=ci, **steps_kw)
+
+    return run_epochs(
+        folder, tag, probe, num_epochs, resume_checkpoint, train_epoch,
+        lambda: val_accuracy(val_loader, len(val_ds), batch_size, val_batch, rank, world_size),
+        logger, rank)

@@ -9,6 +9,11 @@ differentiated H1, H3 by K/F tiling and dtype) or the documented eager
 path: attention with fewer than 128 queries or keys (the probe's 1-query
 cross-attention, short contexts), and the differentiated fc1 (probe,
 context encoder, predictor). No model runs. ``pytest -s`` prints the table.
+
+The call lists (``_eval_calls``, ``_pretrain_calls``) restate the call
+graph of models/{vit,transformer,attentive,predictor}.py and of the evals'
+and the train step's batching: a change there that adds, drops or
+reshapes an attention or fc1 call must be made here too.
 """
 
 import dataclasses
