@@ -60,6 +60,27 @@ Phases (any failure raises and exits non-zero):
      module-level steps the image eval's main calls, and the features
      against the plain versions.
 Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
+ 12. head-major kernels (vit_tiny's encoder, 3 heads of 64, which has no
+     token-major head split): H4 (forward) at vit_tiny's serving and target
+     shapes, the padded context rungs with a key mask and a 1-query
+     cross-attention; H7 (merged backward) at the fixed contexts and the
+     masked rungs; H5 + H6 (the split backward) at (24, 3, 1568, 64), once
+     alone and once through flash_attention_packed under autograd (the
+     launches the JSON line reports); masked keys' dk and dv exactly 0;
+ 13. H1 and H2 at head dim 128 (vit_tiny's 384-wide predictor, 3 heads),
+     masked and not, at the predictor's shapes;
+ 14. vit_tiny serving: a seeded vit_tiny .pth.tar and probe through
+     api.load_encoder / load_classifier, 12 H4 and no H1 or H3 per request,
+     features against the plain versions;
+ 15. vit_tiny pretraining: vitl16.yaml with model_name vit_tiny through
+     build_train_step (TRAIN_STEPS updates at B=24, profile, the B=2 update
+     against the plain versions) and through the app (fixed 2 epochs, a
+     resume, padded 1 epoch), with the launches per update of the routes:
+     H4 for the target and the contexts, H7 for the contexts' backward, H1
+     and H2 c=128 for the predictor, no H3 (K=192 takes the eager fc1).
+Phases 12-13 run after phase 7, phases 14-15 after phase 8. Launch counts
+are checked as whole dicts of every counter (``_counts``): a kernel that
+should not run must count 0.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -124,6 +145,8 @@ EVAL_BF16_ENTRIES = (8, 6)  # (train, val) synthetic videos of the bf16 video ev
 EVAL_F32_ENTRIES = (2, 1)   # the fp32 video eval at batch 1: 2 train, 1 val step
 IMAGE_TRAIN_STEPS = 2
 APP_IPE = 5        # app updates per epoch (the config's ipe is 300)
+HM_O_TOL, HM_LSE_TOL = H1_O_TOL, H1_LSE_TOL  # H4 vs its plain version: the same p rounding
+                                             # against a running vs the global max as H1
 
 
 def log(msg: str) -> None:
@@ -632,6 +655,270 @@ def phase_masked_kernels(torch, shapes):
     return rep
 
 
+def _hm_inputs(torch, gen, b, h, nq, nk, c):
+    """Seeded bf16 operands as the head-major path sees them: for self-attention
+    the q, k, v planes of a token-major [B, N, 3, H, c] projection (strided
+    views), else separate [B, H, N, c] tensors; do [B, H, Nq, c] token-major
+    (as o's gradient arrives through the transpose back)."""
+    if nq == nk:
+        qkv = torch.randn((b, nq, 3, h, c), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    else:
+        q, k, v = (torch.randn((b, h, n, c), generator=gen, device="cuda").to(torch.bfloat16)
+                   for n in (nq, nk, nk))
+    do = torch.randn((b, nq, h, c), generator=gen, device="cuda").to(torch.bfloat16)
+    return q, k, v, do.transpose(1, 2)
+
+
+def _sdpa_hm_ms(torch, q, k, v, do, scale, mask=None):
+    """Library yardstick on head-major operands: SDPA (bool mask where
+    masked), (forward ms, backward-alone ms); timed only."""
+    q, k, v = (t.contiguous().requires_grad_(True) for t in (q, k, v))
+    am = None if mask is None else mask[:, None, None, :]
+    f = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        fwd = time_ms(torch, lambda: f(q, k, v, attn_mask=am, scale=scale))
+    out = f(q, k, v, attn_mask=am, scale=scale)
+    g = do.contiguous()
+    bwd = time_ms(torch, lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True))
+    return fwd, bwd
+
+
+def _check_grads(label, got, want, names, mask=None):
+    """Each gradient within H2_REL * max|ref| of its plain version; with a
+    key mask the masked keys' dk and dv exactly 0. Returns the max |d|."""
+    worst = 0.0
+    for name, g, w in zip(names, got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        tol = H2_REL * w.float().abs().max().item()
+        masked = 0.0
+        if mask is not None and name in ("dk", "dv"):
+            masked = g.transpose(1, 2)[~mask].abs().max().item()
+        log(f"{label}: {name} max|d| {err:.3e} (tol {tol:.3e} = 2^-6 * max|ref|)"
+            + ("" if mask is None or name == "dq" else f", masked keys max|{name}| {masked:.1e}"))
+        if not (_finite(g) and err <= tol and masked == 0.0):
+            raise RuntimeError(f"{label} {name} disagrees with its plain version")
+        worst = max(worst, err)
+    return worst
+
+
+def _finite(t) -> bool:
+    return bool(t.float().isfinite().all().item())
+
+
+def phase_hm_kernels(torch, setup, caps):
+    """H4-H7 (the head-major kernels) against their plain versions on the
+    card at vit_tiny's shapes: ``setup`` the vit_tiny train setup (its fixed
+    contexts), ``caps`` the padded mode's context rungs. Returns a report per
+    kernel (H4, H4 masked, H5, H6, H7, H7 masked) and the launches of the
+    split backward driven through flash_attention_packed under autograd."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    rng = np.random.default_rng(SEED + 4)
+    h, c = setup["enc_cfg"].num_heads, setup["enc_cfg"].embed_dim // setup["enc_cfg"].num_heads
+    n_full = setup["enc_cfg"].num_patches
+    scale = c**-0.5
+    rep = {k: {"max_abs_err": 0.0} for k in ("fwd", "fwd_masked", "dq", "dkv", "dqkv",
+                                             "dqkv_masked")}
+
+    def io_bytes(b, nq, nk, outs):  # bf16 [B, H, N, c] operands, fp32 [B, H, Nq] rows
+        return b * h * c * 2 * (nq + 2 * nk), b * h * c * 2 * outs, b * h * nq * 4
+
+    # H4: serving, the target, the padded contexts (masked), a 1-query probe
+    fwd_shapes = ([("serving", 2, n_full, n_full, False), ("target", TRAIN_BATCH, n_full, n_full, False)]
+                  + [(f"context rung {n}", TRAIN_BATCH, n, n, True) for n in caps]
+                  + [("probe cross-attention", 2, 1, n_full, True)])
+    for label, b, nq, nk, masked in fwd_shapes:
+        q, k, v, do = _hm_inputs(torch, gen, b, h, nq, nk, c)
+        mask = padded_key_mask(torch, rng, b, nk, 0) if masked else None
+        o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale, mask)
+        o_ref, lse_ref = fa.flash_fwd_hm_ref(q, k, v, scale, mask)
+        torch.cuda.synchronize()
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_l = (lse - lse_ref).abs().max().item()
+        log(f"H4 {label} B={b} H={h} Nq={nq} Nk={nk} c={c}{' masked' if masked else ''}: "
+            f"max|do| {err_o:.3e} (tol {HM_O_TOL}) max|dlse| {err_l:.3e} (tol {HM_LSE_TOL})")
+        if not (_finite(o) and _finite(lse) and err_o <= HM_O_TOL
+                and err_l <= HM_LSE_TOL):
+            raise RuntimeError(f"H4 {label} disagrees with its plain version")
+        r = rep["fwd_masked" if masked else "fwd"]
+        r["max_abs_err"] = max(r["max_abs_err"], err_o)
+        pairs = int(mask.sum().item()) * nq if masked else b * nq * nk
+        in_b, out_b, vec_b = io_bytes(b, nq, nk, 1)
+        t = dict(ms=time_ms(torch, lambda: fa.flash_fwd_hm_cuda(q, k, v, scale, mask)),
+                 plain_ms=time_ms(torch, lambda: fa.flash_fwd_hm_ref(q, k, v, scale, mask)),
+                 library_ms=_sdpa_hm_ms(torch, q, k, v, do, scale, mask)[0],
+                 bound=attn_bound_ms(b, nq, h, c, 2, in_b + (b * nk if masked else 0),
+                                     out_b + vec_b, pairs), shape=(b, h, nq, nk, c))
+        log(f"H4 {label} time: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+            f"(SDPA fwd) {t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ({t['bound'][2]})")
+        if label == "target" or (masked and "ms" not in r):
+            r.update(t)
+        rep.setdefault("fwd_times", {})[label] = t
+        del q, k, v, do, o, lse, o_ref, lse_ref
+
+    # H7: the fixed contexts unmasked, the padded rungs masked
+    bwd_shapes = ([(f"context {i}", ke, False) for i, (ke, _) in enumerate(setup["keep"])
+                   if ke >= 128]  # shorter contexts run eager
+                  + [(f"context rung {n}", n, True) for n in caps])
+    for label, n, masked in bwd_shapes:
+        if not fa.merged_bwd(n, n, c):
+            raise RuntimeError(f"H7 {label}: N={n} does not take the merged backward")
+        q, k, v, do = _hm_inputs(torch, gen, TRAIN_BATCH, h, n, n, c)
+        mask = padded_key_mask(torch, rng, TRAIN_BATCH, n, 0) if masked else None
+        o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale, mask)
+        delta = fa.hm_delta(do, o)
+        got = fa.flash_bwd_dqkv_hm_cuda(q, k, v, do, lse, delta, scale, mask)
+        want = fa.flash_bwd_dqkv_hm_ref(q, k, v, do, lse, delta, scale, mask)
+        torch.cuda.synchronize()
+        r = rep["dqkv_masked" if masked else "dqkv"]
+        r["max_abs_err"] = max(r["max_abs_err"], _check_grads(
+            f"H7 {label} B={TRAIN_BATCH} N={n}", got, want, ("dq", "dk", "dv"), mask))
+        if "ms" not in r:
+            b = TRAIN_BATCH
+            in_b, out_b, vec_b = io_bytes(b, n, n, 3)
+            pairs = int(mask.sum().item()) * n if masked else b * n * n
+            r.update(ms=time_ms(torch, lambda: fa.flash_bwd_dqkv_hm_cuda(
+                         q, k, v, do, lse, delta, scale, mask)),
+                     plain_ms=time_ms(torch, lambda: fa.flash_bwd_dqkv_hm_ref(
+                         q, k, v, do, lse, delta, scale, mask)),
+                     library_ms=_sdpa_hm_ms(torch, q, k, v, do, scale, mask)[1],
+                     bound=attn_bound_ms(b, n, h, c, 5, in_b + b * n * c * h * 2 + 2 * vec_b
+                                         + (b * n if masked else 0), out_b, pairs),
+                     shape=(b, h, n, n, c))
+            log(f"H7 {label} time: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"library (SDPA backward) {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} "
+                f"ms ({r['bound'][2]})")
+        del q, k, v, do, o, lse, delta, got, want
+
+    # H5 + H6: the split backward at (24, 3, 1568, 64)
+    n, b = n_full, TRAIN_BATCH
+    if fa.merged_bwd(n, n, c):
+        raise RuntimeError(f"N={n} takes the merged backward, not H5 + H6")
+    q, k, v, do = _hm_inputs(torch, gen, b, h, n, n, c)
+    o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale)
+    delta = fa.hm_delta(do, o)
+    dq = fa.flash_bwd_dq_hm_cuda(q, k, v, do, lse, delta, scale)
+    dk, dv = fa.flash_bwd_dkv_hm_cuda(q, k, v, do, lse, delta, scale)
+    dq_ref = fa.flash_bwd_dq_hm_ref(q, k, v, do, lse, delta, scale)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_hm_ref(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    rep["dq"]["max_abs_err"] = _check_grads(f"H5 B={b} N={n}", (dq,), (dq_ref,), ("dq",))
+    rep["dkv"]["max_abs_err"] = _check_grads(f"H6 B={b} N={n}", (dk, dv), (dk_ref, dv_ref),
+                                             ("dk", "dv"))
+    in_b, out_b, vec_b = io_bytes(b, n, n, 1)
+    lib = _sdpa_hm_ms(torch, q, k, v, do, scale)[1]
+    for kind, fn, ref, products, outs in (
+            ("dq", fa.flash_bwd_dq_hm_cuda, fa.flash_bwd_dq_hm_ref, 3, 1),
+            ("dkv", fa.flash_bwd_dkv_hm_cuda, fa.flash_bwd_dkv_hm_ref, 4, 2)):
+        rep[kind].update(
+            ms=time_ms(torch, lambda: fn(q, k, v, do, lse, delta, scale)),
+            plain_ms=time_ms(torch, lambda: ref(q, k, v, do, lse, delta, scale)),
+            library_ms=lib, shape=(b, h, n, n, c),
+            bound=attn_bound_ms(b, n, h, c, products, in_b + out_b + 2 * vec_b, outs * out_b))
+        r = rep[kind]
+        log(f"H{5 if kind == 'dq' else 6} B={b} N={n} time: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library (SDPA backward) {lib:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][2]})")
+    del o, lse, delta, dq, dk, dv, dq_ref, dk_ref, dv_ref
+
+    # the split backward driven through the public op under autograd, its
+    # launches counted; the same op through the plain versions holds its grads
+    grads = []
+    for plain in (False, True):
+        # the token-major projection [B, N, 3, H, c] and its [3, B, H, N, c] view
+        tok = torch.stack((q, k, v)).permute(1, 3, 0, 2, 4).contiguous().requires_grad_(True)
+        with plain_versions() if plain else contextlib.nullcontext():
+            fa.reset_launch_counts()
+            o = fa.flash_attention_packed(tok.permute(2, 0, 3, 1, 4), scale=scale)
+            o.backward(do)
+            torch.cuda.synchronize()
+            if not plain:
+                rep["split_launches"] = {k: fa.hm_launches[k] for k in fa.HM_KINDS}
+        grads.append(tok.grad.permute(2, 0, 3, 1, 4))
+    if rep["split_launches"] != {"fwd": 1, "dq": 1, "dkv": 1, "dqkv": 0}:
+        raise RuntimeError(f"flash_attention_packed's split backward launched "
+                           f"{rep['split_launches']}")
+    _check_grads(f"flash_attention_packed B={b} N={n} under autograd, kernels vs plain",
+                 grads[0].unbind(0), grads[1].unbind(0), ("dq", "dk", "dv"))
+    log(f"H5 + H6 through flash_attention_packed: launches {rep['split_launches']}")
+    return rep
+
+
+def phase_c128_kernels(torch, setup, pred_caps):
+    """H1 and both H2 kernels at head dim 128 (vit_tiny's 384-wide
+    predictor, 3 heads) against their plain versions on the card: the fixed
+    predictor sequences unmasked, the padded predictor rungs ``pred_caps``
+    ((context cap, target cap) pairs) with the key mask."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rng = np.random.default_rng(SEED + 5)
+    h = setup["pred_cfg"].num_heads
+    c = setup["pred_cfg"].predictor_embed_dim // h
+    if c != 128:
+        raise RuntimeError(f"the predictor's head dim is {c}, not 128")
+    scale = c**-0.5
+    rep = {k: {"max_abs_err": 0.0} for k in ("fwd", "fwd_masked", "dkv", "dq", "dkv_masked",
+                                             "dq_masked")}
+    shapes = ([(f"predictor, mask {i}", ke + kp, 0) for i, (ke, kp) in enumerate(setup["keep"])]
+              + [(f"predictor rung {ce}+{cp}", ce + cp, ce) for ce, cp in pred_caps])
+    b = TRAIN_BATCH
+    for label, n, mid in shapes:
+        masked = mid > 0
+        sfx = "_masked" if masked else ""
+        qkv, do = _attn_inputs(torch, gen, b, n, h, c)
+        mask = padded_key_mask(torch, rng, b, n, mid) if masked else None
+        o, lse = fa.flash_self_attention_cuda(qkv, h, scale, mask)
+        o_ref, lse_ref = fa.flash_self_attention_ref(qkv, h, scale, mask)
+        torch.cuda.synchronize()
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_l = (lse - lse_ref).abs().max().item()
+        log(f"H1 c=128 {label} B={b} N={n}: max|do| {err_o:.3e} (tol {H1_O_TOL}) "
+            f"max|dlse| {err_l:.3e} (tol {H1_LSE_TOL})")
+        if not (_finite(o) and err_o <= H1_O_TOL and err_l <= H1_LSE_TOL):
+            raise RuntimeError(f"H1 c=128 {label} disagrees with its plain version")
+        rep["fwd" + sfx]["max_abs_err"] = max(rep["fwd" + sfx]["max_abs_err"], err_o)
+        delta = fa.attention_delta(do, o, h)
+        dqkv = fa.flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale, mask)
+        ref = fa.flash_self_attention_bwd_ref(qkv, do, lse, delta, h, scale, mask)
+        torch.cuda.synchronize()
+        hc = h * c
+        got, want = ([t[..., i * hc:(i + 1) * hc].reshape(b, n, h, c).transpose(1, 2)
+                      for i in range(3)] for t in (dqkv, ref))
+        for kind, sl, names in (("dq", slice(0, 1), ("dq",)), ("dkv", slice(1, 3), ("dk", "dv"))):
+            r = rep[kind + sfx]
+            r["max_abs_err"] = max(r["max_abs_err"], _check_grads(
+                f"H2 c=128 {label} B={b} N={n}", got[sl], want[sl], names, mask))
+        if "ms" not in rep["fwd" + sfx]:
+            fwd_lib, bwd_lib = (_sdpa_masked_ms(torch, qkv, do, h, scale, mask) if masked
+                                else (_sdpa_fwd_ms(torch, qkv, h, scale),
+                                      _sdpa_bwd_ms(torch, qkv, do, h, scale)))
+            qkv_b, o_b, vec_b = b * n * 3 * hc * 2, b * n * hc * 2, b * h * n * 4
+            m_b = b * n if masked else 0
+            pairs = int(mask.sum().item()) * n if masked else b * n * n
+            out = torch.empty_like(qkv)
+            for kind, fn, plain, lib, bound in (
+                    ("fwd", lambda: fa.flash_self_attention_cuda(qkv, h, scale, mask),
+                     lambda: fa.flash_self_attention_ref(qkv, h, scale, mask), fwd_lib,
+                     attn_bound_ms(b, n, h, c, 2, qkv_b + m_b, o_b + vec_b, pairs)),
+                    ("dkv", lambda: fa.flash_bwd_dkv_cuda(qkv, do, lse, delta, out, h, scale, mask),
+                     lambda: fa.flash_bwd_dkv_ref(qkv, do, lse, delta, h, scale, mask), bwd_lib,
+                     attn_bound_ms(b, n, h, c, 4, qkv_b + o_b + 2 * vec_b + m_b, 2 * o_b, pairs)),
+                    ("dq", lambda: fa.flash_bwd_dq_cuda(qkv, do, lse, delta, out, h, scale, mask),
+                     lambda: fa.flash_bwd_dq_ref(qkv, do, lse, delta, h, scale, mask), bwd_lib,
+                     attn_bound_ms(b, n, h, c, 3, qkv_b + o_b + 2 * vec_b + m_b, o_b, pairs))):
+                r = rep[kind + sfx]
+                r.update(ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain), library_ms=lib,
+                         bound=bound, shape=(b, n, h, c))
+                log(f"{kind}{sfx} c=128 {label} B={b} N={n} time: kernel {r['ms']:.4f} ms, "
+                    f"plain {r['plain_ms']:.4f} ms, library (SDPA) {lib:.4f} ms, bound "
+                    f"{r['bound'][0]:.4f} ms ({r['bound'][2]})")
+        del qkv, do, o, lse, o_ref, lse_ref, delta, dqkv, ref
+    return rep
+
+
 def plain_versions():
     """Context in which the kernel launchers run their plain versions
     (for comparison only; nothing is counted)."""
@@ -643,6 +930,9 @@ def plain_versions():
         fa, "flash_self_attention_cuda", fa.flash_self_attention_ref))
     stack.enter_context(mock.patch.object(
         fa, "flash_self_attention_bwd_cuda", fa.flash_self_attention_bwd_ref))
+    for kind in ("fwd", "bwd_dq", "bwd_dkv", "bwd_dqkv"):
+        stack.enter_context(mock.patch.object(
+            fa, f"flash_{kind}_hm_cuda", getattr(fa, f"flash_{kind}_hm_ref")))
     stack.enter_context(mock.patch.object(fm, "linear_gelu_cuda", fm.linear_gelu_ref))
     return stack
 
@@ -650,23 +940,25 @@ def plain_versions():
 VITL16_GEO = dict(img_size=224, num_frames=16, tubelet_size=2, uniform_power=True)
 
 
-def write_seeded_encoder(torch, workdir: str) -> str:
-    """A seeded ViT-L/16 (224 px, 16 frames, tubelet 2, uniform_power) as
-    a zoo-layout .pth.tar in workdir; returns its path."""
+def write_seeded_encoder(torch, workdir: str, model_name: str = "vit_large") -> str:
+    """A seeded encoder (224 px, 16 frames, tubelet 2, uniform_power) as a
+    zoo-layout .pth.tar in workdir; returns its path."""
     from jepa_tpu_torch.models.factory import vit_cfg
     from jepa_tpu_torch.models.vit import init_vit
 
-    path = os.path.join(workdir, "vitl16.pth.tar")
+    path = os.path.join(workdir, f"{model_name}.pth.tar")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    model = init_vit(vit_cfg("vit_large", **VITL16_GEO), gen, device="cuda")
+    model = init_vit(vit_cfg(model_name, **VITL16_GEO), gen, device="cuda")
     torch.save({"target_encoder": {k: v.cpu() for k, v in model.state_dict().items()},
                 "epoch": 0}, path)
     return path
 
 
-def phase_serve(torch, workdir: str):
-    """Serving through jepa_tpu_torch.api on a seeded ViT-L/16 .pth.tar,
-    which it writes to workdir and returns (``enc_path``) for the evals."""
+def phase_serve(torch, workdir: str, model_name: str = "vit_large"):
+    """Serving through jepa_tpu_torch.api on a seeded encoder .pth.tar (at
+    vitl16_k400_16x8x3.yaml's geometry), which it writes to workdir and
+    returns (``enc_path``) for the evals: 4 requests of 2 clips, each
+    launching exactly the kernels the routes give (``expected_launches``)."""
     from jepa_tpu_torch import api
     from jepa_tpu_torch.models.attentive import AttentiveCfg, init_attentive_classifier
     from jepa_tpu_torch.models.factory import vit_cfg
@@ -674,21 +966,22 @@ def phase_serve(torch, workdir: str):
     from jepa_tpu_torch.ops import fused_mlp as fm
 
     geo = VITL16_GEO
-    cfg = vit_cfg("vit_large", **geo)
+    cfg = vit_cfg(model_name, **geo)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
-    enc_path = write_seeded_encoder(torch, workdir)
+    enc_path = write_seeded_encoder(torch, workdir, model_name)
     acfg = AttentiveCfg(embed_dim=cfg.embed_dim, num_heads=cfg.num_heads, num_classes=400)
     probe = init_attentive_classifier(acfg, gen, device="cuda")
-    probe_path = os.path.join(workdir, "probe.pth.tar")
+    probe_path = os.path.join(workdir, f"{model_name}_probe.pth.tar")
     torch.save({"classifier": {k: v.cpu() for k, v in probe.state_dict().items()}},
                probe_path)
     del probe
-    enc = api.load_encoder(enc_path, "vit_large", **geo)  # device="cuda"
+    enc = api.load_encoder(enc_path, model_name, **geo)  # device="cuda"
     clf = api.load_classifier(probe_path, enc, num_classes=400)
     torch.cuda.synchronize()
-    log(f"serve: seeded ViT-L/16 + probe written and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
+    want = expected_launches(cfg)
+    log(f"serve {model_name}: seeded encoder + probe written and loaded in "
+        f"{time.perf_counter() - t0:.1f} s; expected launches per request {want}")
 
     rng = np.random.default_rng(SEED)
     requests = [rng.integers(0, 256, size=(2, 16, 224, 224, 3), dtype=np.uint8)
@@ -697,18 +990,18 @@ def phase_serve(torch, workdir: str):
     _reset_counts(fa, fm)
     times, deltas, probs_all = [], [], []
     for clips in requests:
-        a0, f0 = fa.launches, fm.launches
+        c0 = _counts(fa, fm)
         t0 = time.perf_counter()
         probs = clf.classify(clips)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        deltas.append((fa.launches - a0, fm.launches - f0))
+        deltas.append(_launch_diff(c0, _counts(fa, fm)))
         probs_all.append(probs)
-    launches = {"h1": fa.launches, "h3": fm.launches}
+    launches = _counts(fa, fm)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    log(f"serve: per-request launches (H1, H3) {deltas}")
-    if any(d != (DEPTH, DEPTH) for d in deltas):
-        raise RuntimeError(f"expected {DEPTH} H1 and {DEPTH} H3 launches per request")
+    log(f"serve {model_name}: per-request launches {deltas}")
+    if any(d != want for d in deltas):
+        raise RuntimeError(f"expected {want} launches per request")
     for probs in probs_all:
         if tuple(probs.shape) != (2, 400) or not torch.isfinite(probs).all():
             raise RuntimeError(f"bad probabilities: shape {tuple(probs.shape)}")
@@ -716,7 +1009,7 @@ def phase_serve(torch, workdir: str):
         if s_err > 1e-4:
             raise RuntimeError(f"probabilities sum to 1 +- {s_err}")
     med = statistics.median(times[1:])
-    log(f"serve: ms/request (B=2) {[round(t, 3) for t in times]}; median after "
+    log(f"serve {model_name}: ms/request (B=2) {[round(t, 3) for t in times]}; median after "
         f"warm-up {med:.3f} ms; peak allocated {peak_gib:.3f} GiB")
 
     # the same model through the plain versions on the card
@@ -732,19 +1025,21 @@ def phase_serve(torch, workdir: str):
     cos = torch.nn.functional.cosine_similarity(feats, feats_ref, dim=-1).min().item()
     f_err = (feats - feats_ref).abs().max().item()
     p_err = (probs_all[0] - probs_ref).abs().max().item()
-    log(f"serve: kernel vs plain path, features min cosine {cos:.6f} (min "
+    log(f"serve {model_name}: kernel vs plain path, features min cosine {cos:.6f} (min "
         f"{FEAT_COS_MIN}), max|d| {f_err:.3e}; probabilities max|d| {p_err:.3e} "
         f"(tol {PROB_TOL})")
     if cos < FEAT_COS_MIN or p_err > PROB_TOL:
         raise RuntimeError("serving path disagrees with its plain version")
-    return {"launches": launches, "median_ms": med, "peak_gib": peak_gib, "enc_path": enc_path}
+    return {"launches": launches, "median_ms": med, "peak_gib": peak_gib, "enc_path": enc_path,
+            "feat_cos": cos}
 
 
-def train_setup(repo: str):
+def train_setup(repo: str, model_name: str = None):
     """Configs of configs/pretrain/vitl16.yaml (model, data geometry, mask,
-    loss and optimization sections): ViT-L/16 + the 12 x 384 predictor at
-    full width and depth, fixed masks with K calibrated at the config's
-    per-card batch, the config's schedules (ipe 300, warmup 40)."""
+    loss and optimization sections): ViT-L/16 (or ``model_name``) + the
+    12 x 384 predictor at full width and depth, fixed masks with K
+    calibrated at the config's per-card batch, the config's schedules (ipe
+    300, warmup 40)."""
     import yaml
 
     from jepa_tpu_torch.masks.multiblock3d import MaskGrid, MaskSpec, calibrate_keep_counts
@@ -755,6 +1050,7 @@ def train_setup(repo: str):
     with open(os.path.join(repo, "configs", "pretrain", "vitl16.yaml")) as f:
         cfg = yaml.safe_load(f)
     m, d, lo, o = cfg["model"], cfg["data"], cfg["loss"], cfg["optimization"]
+    m["model_name"] = model_name or m["model_name"]
     enc_cfg = vit_cfg(m["model_name"], img_size=d["crop_size"], patch_size=d["patch_size"],
                       num_frames=d["num_frames"], tubelet_size=d["tubelet_size"],
                       uniform_power=m["uniform_power"])
@@ -777,26 +1073,81 @@ def train_setup(repo: str):
                   seed=cfg["meta"]["seed"])
     step_fn = build_train_step(enc_cfg, pred_cfg, tc, *scheds, specs, grid, keep)
     return dict(enc_cfg=enc_cfg, pred_cfg=pred_cfg, keep=keep, step_fn=step_fn,
-                specs=specs, grid=grid, yaml_batch=d["batch_size"], clip_shape=(d["num_frames"], d["crop_size"],
-                                                        d["crop_size"], 3))
+                specs=specs, grid=grid, yaml_batch=d["batch_size"], model_name=m["model_name"],
+                clip_shape=(d["num_frames"], d["crop_size"], d["crop_size"], 3))
 
 
-def expected_train_launches(setup) -> dict:
-    """Per-step launches the path implies: H1 once per flash block forward
-    (target always; a context or predictor sequence when it has >= 128
-    tokens, the flash rule), H2 dk/dv and dq once per differentiated H1,
-    H3 once per target block."""
-    depth, pdepth = setup["enc_cfg"].depth, setup["pred_cfg"].depth
-    ctx = sum(depth for ke, _ in setup["keep"] if ke >= 128)
-    pred = sum(pdepth for ke, kp in setup["keep"] if ke + kp >= 128)
-    return {"h1": depth + ctx + pred, "dkv": ctx + pred, "dq": ctx + pred, "h3": depth}
+def expected_launches(enc_cfg, pred_cfg=None, pairs=(), masked=False) -> dict:
+    """The launches the routes imply, zero counters left out: per request of
+    a grad-free encoder (``enc_cfg`` alone), or per update (with
+    ``pred_cfg`` and ``pairs``, the (context, target) token counts of each
+    mask config): the target forward, then per mask the context encoder
+    and the predictor, forward and backward, with the key mask in the
+    padded mode (``masked``). A sequence under 128 tokens runs eager (the
+    flash rule); otherwise ``self_attention_route`` picks H1/H2 ('tm', at
+    the padded head dim) or H4 with H7 or H5 + H6 ('hm', ``merged_bwd``).
+    H3 runs in the grad-free encoder where its tiling takes the fc1."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops.fused_mlp import fused_tiling
+
+    want = {}
+
+    def add(key, n):
+        want[key] = want.get(key, 0) + n
+
+    def attn(n, heads, c, depth, grad, mask):
+        route = fa.self_attention_route(heads, c, n)
+        if n < 128 or route == "eager":
+            return
+        sfx = "_masked" if mask else ""
+        if route == "tm":
+            cp = fa.padded_head_dim(c)
+            add("h1", depth)
+            add(f"h1_c{cp}{sfx}", depth)
+            for k in ("dkv", "dq") if grad else ():
+                add(k, depth)
+                add(f"{k}_c{cp}", depth)
+                if mask:
+                    add(f"{k}_masked", depth)
+            return
+        kinds = ["fwd"] + (["dqkv"] if fa.merged_bwd(n, n, c) else ["dq", "dkv"]) * grad
+        for k in kinds:
+            add(f"hm_{k}", depth)
+            if mask:
+                add(f"hm_{k}_masked", depth)
+
+    c = enc_cfg.embed_dim // enc_cfg.num_heads
+    attn(enc_cfg.num_patches, enc_cfg.num_heads, c, enc_cfg.depth, False, False)
+    for ke, kp in pairs:
+        attn(ke, enc_cfg.num_heads, c, enc_cfg.depth, True, masked)
+        attn(ke + kp, pred_cfg.num_heads, pred_cfg.predictor_embed_dim // pred_cfg.num_heads,
+             pred_cfg.depth, True, masked)
+    if fused_tiling(8, enc_cfg.embed_dim, enc_cfg.mlp_hidden):
+        add("h3", enc_cfg.depth)
+    return want
 
 
 def _counts(fa, fm) -> dict:
-    return {"h1": fa.launches, "dkv": fa.dkv_launches, "dq": fa.dq_launches,
-            "h3": fm.launches, "h1_c32": fa.launches_by_head_dim[32],
-            "h1_c64": fa.launches_by_head_dim[64],
-            "h1_f32": fa.f32_launches_by_head_dim[64], "h3_f32": fm.f32_launches}
+    """Every wrapper's launch counter, by kernel, instance and mask."""
+    c = {"h1": fa.launches, "dkv": fa.dkv_launches, "dq": fa.dq_launches,
+         "dkv_masked": fa.dkv_masked_launches, "dq_masked": fa.dq_masked_launches,
+         "h3": fm.launches, "h3_f32": fm.f32_launches,
+         "h1_f32": fa.f32_launches_by_head_dim[64], "h1_f32_c80": fa.f32_launches_by_head_dim[80]}
+    for hd in fa.KERNEL_HEAD_DIMS:
+        c.update({f"h1_c{hd}": fa.launches_by_head_dim[hd],
+                  f"h1_c{hd}_masked": fa.masked_launches_by_head_dim[hd],
+                  f"dkv_c{hd}": fa.dkv_launches_by_head_dim[hd],
+                  f"dq_c{hd}": fa.dq_launches_by_head_dim[hd]})
+    for k in fa.HM_KINDS:
+        c.update({f"hm_{k}": fa.hm_launches[k], f"hm_{k}_masked": fa.hm_masked_launches[k]})
+    return c
+
+
+def _launch_diff(before: dict, after: dict, steps: int = 1) -> dict:
+    """The counters that moved between two ``_counts`` (``before`` {}: since
+    zero), per step."""
+    return {k: (v - before.get(k, 0)) / steps for k, v in after.items()
+            if v != before.get(k, 0)}
 
 
 def _reset_counts(fa, fm) -> None:
@@ -814,8 +1165,8 @@ def phase_train(torch, setup):
     from jepa_tpu_torch.ops import fused_mlp as fm
     from jepa_tpu_torch.train.step import init_train_state
 
-    want = expected_train_launches(setup)
-    log(f"train: vitl16.yaml, ViT-L/16 + predictor {setup['pred_cfg'].depth}x"
+    want = expected_launches(setup["enc_cfg"], setup["pred_cfg"], setup["keep"])
+    log(f"train: vitl16.yaml, {setup['model_name']} + predictor {setup['pred_cfg'].depth}x"
         f"{setup['pred_cfg'].predictor_embed_dim}, batch {TRAIN_BATCH} (config "
         f"{setup['yaml_batch']}), keep counts {setup['keep']}, expected launches/step {want}")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -835,8 +1186,7 @@ def phase_train(torch, setup):
         state, metrics = step_fn(state, {"clips": clips})
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        after = _counts(fa, fm)
-        per_step.append({k: after[k] - before[k] for k in want})
+        per_step.append(_launch_diff(before, _counts(fa, fm)))
         vals = {k: metrics[k].item() for k in ("loss", "enc_grad_norm", "pred_grad_norm", "lr")}
         log(f"train: step {state.step}: {times[-1]:.1f} ms, " +
             ", ".join(f"{k} {v:.6g}" for k, v in vals.items()))
@@ -903,9 +1253,11 @@ def profile_step(torch, step_fn, state, clips):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     total = sum(r[1] for r in rows)
     groups = {"H1 flash_fwd": 0.0, "H2 flash_bwd_dkv": 0.0, "H2 flash_bwd_dq": 0.0,
-              "H3 linear_gelu": 0.0, "GEMM (cuBLAS)": 0.0, "other": 0.0}
+              "H4-H7 flash_hm": 0.0, "H3 linear_gelu": 0.0, "GEMM (cuBLAS)": 0.0, "other": 0.0}
     for name, ms, _ in rows:
-        if "flash_fwd_kernel" in name:
+        if "flash_hm" in name:
+            groups["H4-H7 flash_hm"] += ms
+        elif "flash_fwd_kernel" in name:
             groups["H1 flash_fwd"] += ms
         elif "flash_bwd_dkv" in name:
             groups["H2 flash_bwd_dkv"] += ms
@@ -930,24 +1282,6 @@ def profile_step(torch, step_fn, state, clips):
     return {"device_ms": total, "groups": groups}
 
 
-def expected_padded_launches(setup, ladder_caps) -> dict:
-    """Per-update launches of the padded mode: the unmasked H1 and H3 of
-    the target, a masked H1 per context block whose cap is >= 128 (c=64)
-    and per predictor block (c=32), a masked dk/dv and dq per masked H1."""
-    depth, pdepth = setup["enc_cfg"].depth, setup["pred_cfg"].depth
-    ctx = sum(depth for ce, _ in ladder_caps if ce >= 128)
-    pred = sum(pdepth for ce, cp in ladder_caps if ce + cp >= 128)
-    return {"h1_c64": depth, "h1_c32": 0, "h1_c64_masked": ctx, "h1_c32_masked": pred,
-            "dkv_masked": ctx + pred, "dq_masked": ctx + pred, "dkv": ctx + pred,
-            "dq": ctx + pred, "h3": depth}
-
-
-def _app_counts(fa, fm) -> dict:
-    return {**_counts(fa, fm), "h1_c64_masked": fa.masked_launches_by_head_dim[64],
-            "h1_c32_masked": fa.masked_launches_by_head_dim[32],
-            "dkv_masked": fa.dkv_masked_launches, "dq_masked": fa.dq_masked_launches}
-
-
 def _csv_times(path):
     """(median step ms, median wall ms, median host share of the wall) over
     the rows after each run's first (the CSV's own integer ms)."""
@@ -967,10 +1301,11 @@ def _csv_times(path):
 
 
 def phase_app(torch, repo, setup, workdir):
-    """The pretrain app on vitl16.yaml with synthetic data, APP_IPE updates
-    per epoch: fixed mode 2 epochs, a resume to 3, then padded mode 1
-    epoch, each with the launch counts set to 0 just before and read just
-    after; api.load_encoder reads the fixed run's checkpoint."""
+    """The pretrain app on vitl16.yaml (with ``setup``'s model) on
+    synthetic data, APP_IPE updates per epoch: fixed mode 2 epochs, a resume
+    to 3, then padded mode 1 epoch, each with the launch counts set to 0
+    just before and read just after; api.load_encoder reads the fixed run's
+    checkpoint."""
     import shutil
 
     import yaml
@@ -984,16 +1319,17 @@ def phase_app(torch, repo, setup, workdir):
     with open(os.path.join(repo, "configs", "pretrain", "vitl16.yaml")) as f:
         cfg = yaml.safe_load(f)
     cfg["data"]["dataset_type"] = "synthetic"
+    cfg["model"]["model_name"] = setup["model_name"]
     cfg["optimization"]["ipe"] = APP_IPE
     cfg["optimization"]["epochs"] = 2
     cfg["logging"]["folder"] = os.path.join(workdir, "fixed")
     torch.cuda.empty_cache()  # a fresh allocator, as the app has in its own process
     retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
-    log(f"app: vitl16.yaml, synthetic data, ipe {APP_IPE}, batch {cfg['data']['batch_size']}, "
+    log(f"app: vitl16.yaml with {setup['model_name']}, synthetic data, ipe {APP_IPE}, batch {cfg['data']['batch_size']}, "
         f"{cfg['data']['num_workers']} loader workers; free disk "
         f"{shutil.disk_usage(workdir).free / 2**30:.1f} GiB")
     out = {}
-    want_fixed = expected_train_launches(setup)
+    want_fixed = expected_launches(setup["enc_cfg"], setup["pred_cfg"], setup["keep"])
 
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(fa, fm)
@@ -1005,8 +1341,9 @@ def phase_app(torch, repo, setup, workdir):
     steps = 2 * APP_IPE
     if state.step != steps:
         raise RuntimeError(f"app fixed: step {state.step} != {steps}")
-    if any(got[k] != steps * v for k, v in want_fixed.items()):
-        raise RuntimeError(f"app fixed: launches {got} != {steps} x {want_fixed}")
+    per_update = _launch_diff({}, got, steps)
+    if per_update != want_fixed:
+        raise RuntimeError(f"app fixed: launches per update {per_update} != {want_fixed}")
     tag = cfg["logging"]["write_tag"]
     csv = os.path.join(cfg["logging"]["folder"], f"{tag}_r0.csv")
     ckpt = os.path.join(cfg["logging"]["folder"], f"{tag}-latest.pth.tar")
@@ -1018,7 +1355,7 @@ def phase_app(torch, repo, setup, workdir):
     geo = VITL16_GEO
     clips = np.random.default_rng(SEED).integers(0, 256, size=(2, 16, 224, 224, 3),
                                                  dtype=np.uint8)
-    feats = api.load_encoder(ckpt, "vit_large", **geo).encode(clips)
+    feats = api.load_encoder(ckpt, setup["model_name"], **geo).encode(clips)
     want = api.Encoder(model=state.target, cfg=setup["enc_cfg"]).encode(clips)
     err = (feats - want).abs().max().item()
     log(f"app: api.load_encoder on {os.path.basename(ckpt)} vs the state's target, "
@@ -1029,15 +1366,19 @@ def phase_app(torch, repo, setup, workdir):
 
     # resume to 3 epochs
     cfg["optimization"]["epochs"] = 3
+    fixed_launches = got
     _reset_counts(fa, fm)
     state = train_main(cfg)
     got = _counts(fa, fm)
-    if state.step != 3 * APP_IPE or any(got[k] != APP_IPE * v for k, v in want_fixed.items()):
+    if (state.step != 3 * APP_IPE
+            or _launch_diff({}, got, APP_IPE) != want_fixed):
         raise RuntimeError(f"app resume: step {state.step}, launches {got}")
+    fixed_launches = {k: v + got[k] for k, v in fixed_launches.items()}
     step_ms, wall_ms, host, n_rows = _csv_times(csv)
     if n_rows != 3 * APP_IPE:
         raise RuntimeError(f"app: {n_rows} CSV rows != {3 * APP_IPE}")
-    out["fixed"] = dict(step_ms=step_ms, wall_ms=wall_ms, host=host, peak_gib=peak)
+    out["fixed"] = dict(step_ms=step_ms, wall_ms=wall_ms, host=host, peak_gib=peak,
+                        launches=fixed_launches)
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
     log(f"app fixed + resume: step {state.step}, {n_rows} CSV rows; median step "
         f"{step_ms:.0f} ms, wall {wall_ms:.0f} ms, host (loader + augment) share of the "
@@ -1052,14 +1393,15 @@ def phase_app(torch, repo, setup, workdir):
     cfg["logging"]["folder"] = os.path.join(workdir, "padded")
     specs_caps = calibrate_pad_ladders(
         setup["specs"], setup["grid"], cfg["data"]["batch_size"])
-    want_padded = expected_padded_launches(setup, [rungs[0] for rungs in specs_caps])
+    want_padded = expected_launches(setup["enc_cfg"], setup["pred_cfg"],
+                                    [rungs[0] for rungs in specs_caps], masked=True)
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(fa, fm)
     state = train_main(cfg)
     torch.cuda.synchronize()
-    got = _app_counts(fa, fm)
+    got = _counts(fa, fm)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    if state.step != APP_IPE or any(got[k] != APP_IPE * v for k, v in want_padded.items()):
+    if state.step != APP_IPE or _launch_diff({}, got, APP_IPE) != want_padded:
         raise RuntimeError(f"app padded: step {state.step}, launches {got} != "
                            f"{APP_IPE} x {want_padded}")
     step_ms, wall_ms, host, n_rows = _csv_times(
@@ -1067,7 +1409,7 @@ def phase_app(torch, repo, setup, workdir):
     out["padded"] = dict(step_ms=step_ms, wall_ms=wall_ms, host=host, peak_gib=peak,
                          launches=got, ladders=specs_caps)
     log(f"app padded: step {state.step}, cap ladders {specs_caps}; launches per update "
-        f"{ {k: v // APP_IPE for k, v in got.items()} }; median step {step_ms:.0f} ms, wall "
+        f"{_launch_diff({}, got, APP_IPE)}; median step {step_ms:.0f} ms, wall "
         f"{wall_ms:.0f} ms, host share {100 * host:.1f} %, peak allocated {peak:.2f} GiB")
     del state
     torch.cuda.empty_cache()
@@ -1382,6 +1724,15 @@ def phase_image_probe(torch, repo, enc_path):
                 val_ms=times["val_step"][0])
 
 
+def tiny_setup(repo):
+    """vitl16.yaml with model_name vit_tiny (``train_setup``) and the padded
+    mode's cap ladders of its mask configs at TRAIN_BATCH."""
+    from jepa_tpu_torch.masks.multiblock3d import calibrate_pad_ladders
+
+    setup = train_setup(repo, "vit_tiny")
+    return setup, calibrate_pad_ladders(setup["specs"], setup["grid"], TRAIN_BATCH)
+
+
 def kernel_entry(name, source, replaces, launches, rep) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
@@ -1417,6 +1768,11 @@ def main() -> int:
         ("predictor, short-range", TRAIN_BATCH, 384 + 768, 16, 32, 24, 384),
         ("predictor, top rungs", TRAIN_BATCH, 256 + 1408, 16, 32, 24, 256),
     ])
+    tiny, ladders = tiny_setup(repo)
+    hm = phase_hm_kernels(torch, tiny, sorted({ce for rungs in ladders for ce, _ in rungs
+                                               if ce >= 128}, reverse=True))
+    c128 = phase_c128_kernels(torch, tiny, sorted({r for rungs in ladders for r in rungs},
+                                                  reverse=True))
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
         serve = phase_serve(torch, workdir)
         enc_path = serve["enc_path"]
@@ -1426,6 +1782,11 @@ def main() -> int:
     train = phase_train(torch, setup)
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
         app = phase_app(torch, repo, setup, workdir)
+    # vit_tiny: its serving, updates and app, through the head-major kernels
+    with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
+        tiny_serve = phase_serve(torch, workdir, "vit_tiny")
+        tiny_train = phase_train(torch, tiny)
+        tiny_app = phase_app(torch, repo, tiny, workdir)
     sl, tl, al = serve["launches"], train["launches"], app["padded"]["launches"]
     el, fl, il = ev16["launches"], ev32["launches"], img["launches"]
     fa_src, bwd_src = "jepa_tpu_torch/csrc/flash_attention.cu", "jepa_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -1455,6 +1816,47 @@ def main() -> int:
         kernel_entry("flash_bwd_dq_masked", bwd_src, f"{fa_py}:1400", al["dq_masked"],
                      masked["dq"]),
     ]
+    # the head-major kernels and the c=128 instances: vit_tiny's serving, its
+    # timed updates, its app (fixed + resume, padded), and H5 + H6 through
+    # flash_attention_packed under autograd
+    hm_src = "jepa_tpu_torch/csrc/flash_attention_hm.cu"
+    ts, tt = tiny_serve["launches"], tiny_train["launches"]
+    tf, tp = tiny_app["fixed"]["launches"], tiny_app["padded"]["launches"]
+    tiny_runs = lambda k: ts[k] + tt[k] + tf[k] + tp[k]
+    kernels += [
+        kernel_entry("flash_attention_hm_fwd", hm_src, f"{fa_py}:122",
+                     tiny_runs("hm_fwd") - tp["hm_fwd_masked"], hm["fwd"]),
+        kernel_entry("flash_attention_hm_fwd_masked", hm_src, f"{fa_py}:122",
+                     tp["hm_fwd_masked"], hm["fwd_masked"]),
+        kernel_entry("flash_attention_hm_bwd_dq", hm_src, f"{fa_py}:225",
+                     hm["split_launches"]["dq"], hm["dq"]),
+        kernel_entry("flash_attention_hm_bwd_dkv", hm_src, f"{fa_py}:254",
+                     hm["split_launches"]["dkv"], hm["dkv"]),
+        kernel_entry("flash_attention_hm_bwd_merged", hm_src, f"{fa_py}:318",
+                     tiny_runs("hm_dqkv") - tp["hm_dqkv_masked"], hm["dqkv"]),
+        kernel_entry("flash_attention_hm_bwd_merged_masked", hm_src, f"{fa_py}:318",
+                     tp["hm_dqkv_masked"], hm["dqkv_masked"]),
+        kernel_entry("flash_self_attention_fwd_c128", fa_src, f"{fa_py}:955",
+                     tiny_runs("h1_c128"), c128["fwd"]),
+        kernel_entry("flash_self_attention_fwd_masked_c128", fa_src, f"{fa_py}:955",
+                     tp["h1_c128_masked"], c128["fwd_masked"]),
+        kernel_entry("flash_bwd_dkv_c128", bwd_src, f"{fa_py}:1452",
+                     tiny_runs("dkv_c128") - tp["dkv_masked"], c128["dkv"]),
+        kernel_entry("flash_bwd_dq_c128", bwd_src, f"{fa_py}:1400",
+                     tiny_runs("dq_c128") - tp["dq_masked"], c128["dq"]),
+        kernel_entry("flash_bwd_dkv_masked_c128", bwd_src, f"{fa_py}:1452",
+                     tp["dkv_masked"], c128["dkv_masked"]),
+        kernel_entry("flash_bwd_dq_masked_c128", bwd_src, f"{fa_py}:1400",
+                     tp["dq_masked"], c128["dq_masked"]),
+    ]
+    log(f"card: {card}; vit_tiny serve median {tiny_serve['median_ms']:.3f} ms/request (B=2), "
+        f"peak {tiny_serve['peak_gib']:.3f} GiB; train median {tiny_train['median_ms']:.1f} "
+        f"ms/step (B={TRAIN_BATCH}), peak {tiny_train['peak_gib']:.2f} GiB")
+    for mode in ("fixed", "padded"):
+        a = tiny_app[mode]
+        log(f"card: {card}; vit_tiny app {mode} (B={TRAIN_BATCH}): median step "
+            f"{a['step_ms']:.0f} ms, wall {a['wall_ms']:.0f} ms, host share "
+            f"{100 * a['host']:.1f} %, peak {a['peak_gib']:.2f} GiB")
     log(f"card: {card}; serve median {serve['median_ms']:.3f} ms/request (B=2), "
         f"peak {serve['peak_gib']:.3f} GiB; train median {train['median_ms']:.1f} "
         f"ms/step (B={TRAIN_BATCH}), peak {train['peak_gib']:.2f} GiB")

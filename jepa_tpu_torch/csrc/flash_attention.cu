@@ -5,8 +5,11 @@
 // token-major TPU kernel) and computes the same math as its kv-blocked
 // sibling _fwd_tm_tiled_kernel.
 //
-// Head dims C in {32, 64, 80}: 64/80 for the encoders, 32 for the
-// predictors' 24 zero-padded to 32 (see ops/flash_attention.py).
+// Head dims C in {32, 64, 80, 128}: 64/80 for the encoders, 32 for the
+// predictors' 24 zero-padded to 32 (see ops/flash_attention.py), 128 for
+// vit_tiny's 384-wide predictor (3 heads) and gigantic's 104 padded to 128.
+// The tiles live in dynamic shared memory: at C=128 the three 64-row tiles
+// take 52 KB, past the 48 KB a block gets without opting in.
 //
 // Inputs: qkv [B, N, 3*H*C] bf16, the projection output read by stride
 // (columns q|k|v, each head-major), and an optional key mask kvm [B, N]
@@ -52,8 +55,13 @@ using jt::bf16;
 
 constexpr int BQ = 64;      // query rows per block, 16 per warp
 constexpr int BKV = 64;     // keys per kv step
-constexpr int THREADS = 128;
-constexpr int PAD = 8;      // shared-memory row padding, bf16 elements
+constexpr int THREADS = jt::kThreads;
+constexpr int PAD = jt::kPad;  // shared-memory row padding, bf16 elements
+
+// dynamic shared memory of flash_fwd_kernel<C>: Q, K and V tiles and the
+// tile's key mask
+template <int C>
+constexpr int fwd_smem() { return (BQ + 2 * BKV) * (C + PAD) * 2 + BKV; }
 
 template <int C, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
@@ -65,10 +73,10 @@ flash_fwd_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ kvm,
   constexpr int NT_S = BKV / 8;    // score tiles of 8 keys
   constexpr int NT_O = C / 8;      // output tiles of 8 dims
   constexpr int VEC = C / 8;       // 16-byte vectors per head row
-  __shared__ __align__(16) bf16 sQ[BQ * LD];
-  __shared__ __align__(16) bf16 sK[BKV * LD];
-  __shared__ __align__(16) bf16 sV[BKV * LD];
-  __shared__ uint8_t sM[BKV];  // key mask of the tile (MASKED only)
+  bf16* sQ = jt::smem_bf16();
+  bf16* sK = sQ + BQ * LD;
+  bf16* sV = sK + BKV * LD;
+  uint8_t* sM = reinterpret_cast<uint8_t*>(sV + BKV * LD);  // the tile's key mask (MASKED)
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * BQ;
@@ -235,13 +243,9 @@ template <int C>
 int launch(const void* qkv, const void* kvm, void* o, void* lse, int B, int N,
            int H, float qscale, void* stream) {
   const dim3 grid((N + BQ - 1) / BQ, H, B);
-  if (kvm)
-    flash_fwd_kernel<C, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const bf16*)qkv, (const uint8_t*)kvm, (bf16*)o, (float*)lse, N, H, qscale);
-  else
-    flash_fwd_kernel<C, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const bf16*)qkv, nullptr, (bf16*)o, (float*)lse, N, H, qscale);
-  return (int)cudaGetLastError();
+  return jt::launch(kvm ? flash_fwd_kernel<C, true> : flash_fwd_kernel<C, false>, grid,
+                    fwd_smem<C>(), stream, (const bf16*)qkv, (const uint8_t*)kvm,
+                    (bf16*)o, (float*)lse, N, H, qscale);
 }
 
 // ---------------------------------------------------------------------------
@@ -383,6 +387,7 @@ int launch_f32(const void* qkv, void* o, void* lse, int B, int N, int H, float q
 JT_FWD_ENTRY(32)
 JT_FWD_ENTRY(64)
 JT_FWD_ENTRY(80)
+JT_FWD_ENTRY(128)
 
 #define JT_FWD_F32_ENTRY(C)                                                     \
   extern "C" int jt_flash_fwd_f32_c##C(const void* qkv, void* o, void* lse,     \

@@ -39,118 +39,55 @@
 // stay in registers: the mma C-fragments of S^T/dS^T are re-packed as the
 // A-fragments of the next product. mma.sync m16n8k16 bf16 with fp32
 // accumulation; no cp.async pipelining, ldmatrix, wgmma or TMA yet.
+//
+// Head dim 128 (vit_tiny's 384-wide predictor): the dk/dv accumulators
+// alone take 128 registers a thread, so at C=128 a step covers 32 rows of
+// the other side (not 64) and the dk/dv kernel reads its K and V
+// fragments from shared memory instead of keeping them in registers. The
+// tiles live in dynamic shared memory (52 KB at C=128).
 #include "common.cuh"
 
 namespace {
 
 using jt::bf16;
+using jt::kPad;
 
 constexpr int BR = 64;      // rows a block owns, 16 per warp
-constexpr int BC = 64;      // rows of the other side per inner step
-constexpr int THREADS = 128;
-constexpr int PAD = 8;      // shared-memory row padding, bf16 elements
 constexpr float INV_LOG2E = 0.6931471805599453f;
 
-// rows [r0, r0 + ROWS) of one head's C columns (src points at the head's
-// first column of token 0, rows `rs` elements apart) into dst [ROWS][C+PAD];
-// rows past N are zero; with `scale` != 1 each value is multiplied in fp32
-// and rounded back to bf16.
-template <int C, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, size_t rs,
-                                          int r0, int N, float scale) {
-  constexpr int VEC = C / 8, LD = C + PAD;
-  for (int i = threadIdx.x; i < ROWS * VEC; i += THREADS) {
-    const int r = i / VEC, cv = i % VEC, n = r0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (n < N) val = *reinterpret_cast<const uint4*>(src + (size_t)n * rs + cv * 8);
-    if (scale != 1.f) {
-      bf16* e = reinterpret_cast<bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
-    }
-    *reinterpret_cast<uint4*>(&dst[r * LD + cv * 8]) = val;
-  }
+// rows of the other side per inner step
+template <int C>
+constexpr int kNB = C > 80 ? 32 : 64;
+// the dk/dv kernel keeps its K and V fragments in shared memory, not registers
+template <int C>
+constexpr bool kKvSmem = C > 80;
+
+template <int C>
+constexpr int dkv_smem() {
+  constexpr int NB = kNB<C>, LD = C + kPad;
+  constexpr int QROWS = kKvSmem<C> ? NB : BR;  // K/V are staged through sQ/sdO otherwise
+  return (2 * QROWS + (kKvSmem<C> ? 2 * BR : 0)) * LD * 2 + 2 * NB * 4;
 }
 
-// A-fragments (16 rows from `row`, all C columns) of a row-major tile
 template <int C>
-__device__ __forceinline__ void load_a(uint32_t (&a)[C / 16][4], const bf16* s,
-                                       int row, int t) {
-  constexpr int LD = C + PAD;
-#pragma unroll
-  for (int ks = 0; ks < C / 16; ++ks) {
-    const int c0 = ks * 16 + 2 * t;
-    a[ks][0] = jt::ld32(&s[row * LD + c0]);
-    a[ks][1] = jt::ld32(&s[(row + 8) * LD + c0]);
-    a[ks][2] = jt::ld32(&s[row * LD + c0 + 8]);
-    a[ks][3] = jt::ld32(&s[(row + 8) * LD + c0 + 8]);
-  }
-}
-
-// acc[16 x BC] = A (16 x C) . T^T, T a row-major [BC][C] tile in shared memory
-template <int C>
-__device__ __forceinline__ void mm_abt(float (&acc)[BC / 8][4],
-                                       const uint32_t (&a)[C / 16][4],
-                                       const bf16* T, int g, int t) {
-  constexpr int LD = C + PAD;
-#pragma unroll
-  for (int nt = 0; nt < BC / 8; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    const bf16* row = &T[(nt * 8 + g) * LD + 2 * t];
-#pragma unroll
-    for (int ks = 0; ks < C / 16; ++ks)
-      jt::mma_16816(acc[nt], a[ks], jt::ld32(row + ks * 16), jt::ld32(row + ks * 16 + 8));
-  }
-}
-
-// acc[16 x C] += A (16 x BC, as re-packed fragments) . T, T a row-major
-// [BC][C] tile in shared memory (B-fragments gathered with 16-bit reads)
-template <int C>
-__device__ __forceinline__ void mm_ab(float (&acc)[C / 8][4],
-                                      const uint32_t (&a)[BC / 16][4],
-                                      const bf16* T, int g, int t) {
-  constexpr int LD = C + PAD;
-#pragma unroll
-  for (int kk = 0; kk < BC / 16; ++kk) {
-    const bf16* t0 = &T[(kk * 16 + 2 * t) * LD + g];
-#pragma unroll
-    for (int ot = 0; ot < C / 8; ++ot) {
-      const bf16* v = t0 + ot * 8;
-      jt::mma_16816(acc[ot], a[kk], jt::pack2(v[0], v[LD]),
-                    jt::pack2(v[8 * LD], v[9 * LD]));
-    }
-  }
-}
-
-// write a warp's 16 x C fp32 accumulator rows (r0, r0 + 8) as bf16 * mul
-template <int C>
-__device__ __forceinline__ void store_rows(bf16* out, size_t rs, int r0, int N,
-                                           const float (&acc)[C / 8][4],
-                                           float mul, int t) {
-#pragma unroll
-  for (int ot = 0; ot < C / 8; ++ot) {
-    const int col = ot * 8 + 2 * t;
-    if (r0 < N)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r0 * rs + col) =
-          __floats2bfloat162_rn(acc[ot][0] * mul, acc[ot][1] * mul);
-    if (r0 + 8 < N)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(r0 + 8) * rs + col) =
-          __floats2bfloat162_rn(acc[ot][2] * mul, acc[ot][3] * mul);
-  }
-}
+constexpr int dq_smem() { return 2 * BR * (C + kPad) * 2 + kNB<C>; }
 
 // dk, dv of 64 kv rows of one (batch, head); loops over every q tile
 template <int C, bool MASKED>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(jt::kThreads)
 flash_bwd_dkv_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ kvm,
                      const bf16* __restrict__ dO,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      bf16* __restrict__ dqkv, int N, int H, float qscale) {
-  constexpr int LD = C + PAD;
-  __shared__ __align__(16) bf16 sQ[BC * LD];
-  __shared__ __align__(16) bf16 sdO[BC * LD];
-  __shared__ float sL[BC], sD[BC];
+  constexpr int NB = kNB<C>, LD = C + kPad;
+  constexpr bool KV_SMEM = kKvSmem<C>;
+  constexpr int QROWS = KV_SMEM ? NB : BR;
+  bf16* sQ = jt::smem_bf16();
+  bf16* sdO = sQ + QROWS * LD;
+  bf16* sK = sdO + QROWS * LD;  // KV_SMEM only
+  bf16* sV = sK + BR * LD;
+  float* sL = reinterpret_cast<float*>(KV_SMEM ? sV + BR * LD : sK);
+  float* sD = sL + NB;
 
   const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BR;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -161,15 +98,21 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ k
   const bf16* dob = dO + (size_t)b * N * HC + h * C;
   const float* lrow = lse + ((size_t)b * H + h) * N;
   const float* drow = delta + ((size_t)b * H + h) * N;
-
-  // K and V fragments of this warp's 16 kv rows, staged through sQ / sdO
-  load_tile<C, BR>(sQ, base + HC, rs, k0, N, 1.f);
-  load_tile<C, BR>(sdO, base + 2 * HC, rs, k0, N, 1.f);
-  __syncthreads();
   const int kr = warp * 16 + g;
-  uint32_t ka[C / 16][4], va[C / 16][4];
-  load_a<C>(ka, sQ, kr, t);
-  load_a<C>(va, sdO, kr, t);
+
+  // K and V of this block's 64 kv rows: tiles read at every step (KV_SMEM),
+  // or fragments of this warp's 16 rows in registers, staged through sQ / sdO
+  [[maybe_unused]] uint32_t ka[C / 16][4], va[C / 16][4];
+  if constexpr (KV_SMEM) {
+    jt::load_tile<C, BR>(sK, base + HC, rs, k0, N, 1.f);
+    jt::load_tile<C, BR>(sV, base + 2 * HC, rs, k0, N, 1.f);
+  } else {
+    jt::load_tile<C, BR>(sQ, base + HC, rs, k0, N, 1.f);
+    jt::load_tile<C, BR>(sdO, base + 2 * HC, rs, k0, N, 1.f);
+    __syncthreads();
+    jt::load_a<C>(ka, sQ, kr, t);
+    jt::load_a<C>(va, sdO, kr, t);
+  }
   // this thread's kv rows k0 + kr and k0 + kr + 8: masked (or past N) ones
   // get s = -1e30
   [[maybe_unused]] bool valid0 = true, valid1 = true;
@@ -185,24 +128,29 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ k
 #pragma unroll
     for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.f;
 
-  for (int q0 = 0; q0 < N; q0 += BC) {
+  for (int q0 = 0; q0 < N; q0 += NB) {
     __syncthreads();  // every warp is done with the previous tiles
-    load_tile<C, BC>(sQ, base, rs, q0, N, qscale);
-    load_tile<C, BC>(sdO, dob, HC, q0, N, 1.f);
-    for (int i = tid; i < BC; i += THREADS) {
+    jt::load_tile<C, NB>(sQ, base, rs, q0, N, qscale);
+    jt::load_tile<C, NB>(sdO, dob, HC, q0, N, 1.f);
+    for (int i = tid; i < NB; i += jt::kThreads) {
       const bool ok = q0 + i < N;
       sL[i] = ok ? lrow[q0 + i] : 0.f;
       sD[i] = ok ? drow[q0 + i] : 0.f;
     }
     __syncthreads();
 
-    float st[BC / 8][4], dpt[BC / 8][4];
-    mm_abt<C>(st, ka, sQ, g, t);    // S^T  = K Qs^T   (base-2 logits)
-    mm_abt<C>(dpt, va, sdO, g, t);  // dP^T = V dO^T
+    float st[NB / 8][4], dpt[NB / 8][4];
+    if constexpr (KV_SMEM) {
+      jt::mm_abt_s<C, NB>(st, sK, kr, sQ, g, t);    // S^T  = K Qs^T (base-2 logits)
+      jt::mm_abt_s<C, NB>(dpt, sV, kr, sdO, g, t);  // dP^T = V dO^T
+    } else {
+      jt::mm_abt<C, NB>(st, ka, sQ, g, t);
+      jt::mm_abt<C, NB>(dpt, va, sdO, g, t);
+    }
 
-    uint32_t pa[BC / 16][4], dsa[BC / 16][4];
+    uint32_t pa[NB / 16][4], dsa[NB / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < BC / 8; ++nt) {
+    for (int nt = 0; nt < NB / 8; ++nt) {
       float p[4], ds[4];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -224,27 +172,27 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ k
       dsa[kk][hi] = jt::pack2(__float2bfloat16(ds[0]), __float2bfloat16(ds[1]));
       dsa[kk][hi + 1] = jt::pack2(__float2bfloat16(ds[2]), __float2bfloat16(ds[3]));
     }
-    mm_ab<C>(dv, pa, sdO, g, t);   // dV += P^T dO
-    mm_ab<C>(dk, dsa, sQ, g, t);   // dK += dS^T Qs
+    jt::mm_ab<C, NB>(dv, pa, sdO, g, t);   // dV += P^T dO
+    jt::mm_ab<C, NB>(dk, dsa, sQ, g, t);   // dK += dS^T Qs
   }
 
   bf16* out = dqkv + (size_t)b * N * rs + h * C;
-  store_rows<C>(out + HC, rs, k0 + kr, N, dk, INV_LOG2E, t);
-  store_rows<C>(out + 2 * HC, rs, k0 + kr, N, dv, 1.f, t);
+  jt::store_rows<C>(out + HC, rs, k0 + kr, N, dk, INV_LOG2E, t);
+  jt::store_rows<C>(out + 2 * HC, rs, k0 + kr, N, dv, 1.f, t);
 }
 
 // dq of 64 q rows of one (batch, head); loops over every kv tile
 template <int C, bool MASKED>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(jt::kThreads)
 flash_bwd_dq_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ kvm,
                     const bf16* __restrict__ dO,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dqkv, int N, int H, float qscale,
                     float scale) {
-  constexpr int LD = C + PAD;
-  __shared__ __align__(16) bf16 sK[BC * LD];
-  __shared__ __align__(16) bf16 sV[BC * LD];
-  __shared__ uint8_t sM[BC];  // key mask of the kv tile (MASKED only)
+  constexpr int NB = kNB<C>, LD = C + kPad;
+  bf16* sK = jt::smem_bf16();  // BR rows: they stage Q and dO first
+  bf16* sV = sK + BR * LD;
+  uint8_t* sM = reinterpret_cast<uint8_t*>(sV + BR * LD);  // the kv tile's mask (MASKED)
 
   const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BR;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -255,13 +203,13 @@ flash_bwd_dq_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ kv
   const bf16* dob = dO + (size_t)b * N * HC + h * C;
 
   // Qs and dO fragments of this warp's 16 q rows, staged through sK / sV
-  load_tile<C, BR>(sK, base, rs, q0, N, qscale);
-  load_tile<C, BR>(sV, dob, HC, q0, N, 1.f);
+  jt::load_tile<C, BR>(sK, base, rs, q0, N, qscale);
+  jt::load_tile<C, BR>(sV, dob, HC, q0, N, 1.f);
   __syncthreads();
   const int qr = warp * 16 + g;
   uint32_t qa[C / 16][4], da[C / 16][4];
-  load_a<C>(qa, sK, qr, t);
-  load_a<C>(da, sV, qr, t);
+  jt::load_a<C>(qa, sK, qr, t);
+  jt::load_a<C>(da, sV, qr, t);
   const int r0 = q0 + qr, r1 = r0 + 8;
   const float* lrow = lse + ((size_t)b * H + h) * N;
   const float* drow = delta + ((size_t)b * H + h) * N;
@@ -272,22 +220,22 @@ flash_bwd_dq_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ kv
 #pragma unroll
   for (int i = 0; i < C / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
 
-  for (int k0 = 0; k0 < N; k0 += BC) {
+  for (int k0 = 0; k0 < N; k0 += NB) {
     __syncthreads();
-    load_tile<C, BC>(sK, base + HC, rs, k0, N, 1.f);
-    load_tile<C, BC>(sV, base + 2 * HC, rs, k0, N, 1.f);
+    jt::load_tile<C, NB>(sK, base + HC, rs, k0, N, 1.f);
+    jt::load_tile<C, NB>(sV, base + 2 * HC, rs, k0, N, 1.f);
     if constexpr (MASKED) {
-      if (tid < BC) sM[tid] = k0 + tid < N ? kvm[(size_t)b * N + k0 + tid] : 0;
+      if (tid < NB) sM[tid] = k0 + tid < N ? kvm[(size_t)b * N + k0 + tid] : 0;
     }
     __syncthreads();
 
-    float s[BC / 8][4], dp[BC / 8][4];
-    mm_abt<C>(s, qa, sK, g, t);   // S  = Qs K^T
-    mm_abt<C>(dp, da, sV, g, t);  // dP = dO V^T
+    float s[NB / 8][4], dp[NB / 8][4];
+    jt::mm_abt<C, NB>(s, qa, sK, g, t);   // S  = Qs K^T
+    jt::mm_abt<C, NB>(dp, da, sV, g, t);  // dP = dO V^T
 
-    uint32_t dsa[BC / 16][4];
+    uint32_t dsa[NB / 16][4];
 #pragma unroll
-    for (int nt = 0; nt < BC / 8; ++nt) {
+    for (int nt = 0; nt < NB / 8; ++nt) {
       float ds[4];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -302,10 +250,10 @@ flash_bwd_dq_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ kv
       dsa[kk][hi] = jt::pack2(__float2bfloat16(ds[0]), __float2bfloat16(ds[1]));
       dsa[kk][hi + 1] = jt::pack2(__float2bfloat16(ds[2]), __float2bfloat16(ds[3]));
     }
-    mm_ab<C>(dq, dsa, sK, g, t);  // dQ += dS K
+    jt::mm_ab<C, NB>(dq, dsa, sK, g, t);  // dQ += dS K
   }
 
-  store_rows<C>(dqkv + (size_t)b * N * rs + h * C, rs, r0, N, dq, scale, t);
+  jt::store_rows<C>(dqkv + (size_t)b * N * rs + h * C, rs, r0, N, dq, scale, t);
 }
 
 // kvm == nullptr launches the unmasked instances
@@ -314,12 +262,10 @@ int launch_dkv(const void* qkv, const void* kvm, const void* dO, const void* lse
                const void* delta, void* dqkv, int B, int N, int H, float qscale,
                void* stream) {
   const dim3 grid((N + BR - 1) / BR, H, B);
-  const auto* m = (const uint8_t*)kvm;
-  auto* kern = kvm ? flash_bwd_dkv_kernel<C, true> : flash_bwd_dkv_kernel<C, false>;
-  kern<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, m, (const bf16*)dO, (const float*)lse, (const float*)delta,
-      (bf16*)dqkv, N, H, qscale);
-  return (int)cudaGetLastError();
+  return jt::launch(kvm ? flash_bwd_dkv_kernel<C, true> : flash_bwd_dkv_kernel<C, false>,
+                    grid, dkv_smem<C>(), stream, (const bf16*)qkv, (const uint8_t*)kvm,
+                    (const bf16*)dO, (const float*)lse, (const float*)delta, (bf16*)dqkv,
+                    N, H, qscale);
 }
 
 template <int C>
@@ -327,12 +273,10 @@ int launch_dq(const void* qkv, const void* kvm, const void* dO, const void* lse,
               const void* delta, void* dqkv, int B, int N, int H, float qscale,
               float scale, void* stream) {
   const dim3 grid((N + BR - 1) / BR, H, B);
-  const auto* m = (const uint8_t*)kvm;
-  auto* kern = kvm ? flash_bwd_dq_kernel<C, true> : flash_bwd_dq_kernel<C, false>;
-  kern<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, m, (const bf16*)dO, (const float*)lse, (const float*)delta,
-      (bf16*)dqkv, N, H, qscale, scale);
-  return (int)cudaGetLastError();
+  return jt::launch(kvm ? flash_bwd_dq_kernel<C, true> : flash_bwd_dq_kernel<C, false>,
+                    grid, dq_smem<C>(), stream, (const bf16*)qkv, (const uint8_t*)kvm,
+                    (const bf16*)dO, (const float*)lse, (const float*)delta, (bf16*)dqkv,
+                    N, H, qscale, scale);
 }
 
 }  // namespace
@@ -358,3 +302,4 @@ int launch_dq(const void* qkv, const void* kvm, const void* dO, const void* lse,
 JT_BWD_ENTRIES(32)
 JT_BWD_ENTRIES(64)
 JT_BWD_ENTRIES(80)
+JT_BWD_ENTRIES(128)

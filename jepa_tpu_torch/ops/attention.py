@@ -1,10 +1,11 @@
 """Attention ops (counterpart of jepa_tpu/ops/attention.py).
 
 ``xla_attention`` is the plain eager path: an einsum with an fp32 softmax
-and the -1e30 key mask. It serves every attention the kernel does not
+and the -1e30 key mask. It serves every attention the kernels do not
 take, such as the probe's 1-query cross-attention, exactly as the JAX
-package sends those to XLA. The flash kernel (H1) runs through
-``ops.flash_attention.flash_self_attention``.
+package sends those to XLA. Self-attention over the fused projection runs
+through ``ops.flash_attention.flash_self_attention``; attention over
+separate q/k/v with the flash impl through ``ops.flash_attention.flash_attention``.
 
 Conventions: q/k/v are [B, N, H, Dh]; ``kv_mask`` [B, Nk] bool marks valid
 keys (False = padded, excluded).
@@ -64,15 +65,12 @@ def dot_product_attention(
     scale: Optional[float] = None,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """Attention over separate token-major [B, N, H, Dh] operands.
+    """Dispatching attention over token-major [B, N, H, Dh] operands.
+    impl: 'auto' | 'xla' | 'flash' (``resolve_flash``). The flash path is
+    ``flash_attention``: the head-major kernels H4-H7 on a CUDA tensor,
+    their plain versions on a CPU tensor."""
+    if resolve_flash(impl, q.shape[1], k.shape[1], q):
+        from jepa_tpu_torch.ops.flash_attention import flash_attention
 
-    The port has no kernel for separate q/k/v (the JAX package's head-major
-    K6 is still to port), so every impl runs ``xla_attention`` here except
-    'flash', which raises rather than silently taking the plain path."""
-    if impl == "flash":
-        raise NotImplementedError(
-            "flash attention over separate q/k/v (K6) is not ported; use "
-            "flash_self_attention over the fused qkv projection")
-    if impl not in ("auto", "xla"):
-        raise ValueError(f"unknown attention impl: {impl}")
+        return flash_attention(q, k, v, kv_mask=kv_mask, scale=scale)
     return xla_attention(q, k, v, kv_mask=kv_mask, scale=scale)

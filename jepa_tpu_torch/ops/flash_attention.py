@@ -17,7 +17,7 @@ output [B, N, 3*H*c] feeds ``FlashSelfAttentionFn``:
     kernel), for a CPU tensor ``flash_self_attention_bwd_ref``. Both
     return one token-major dqkv [B, N, 3*H*c].
 
-Head dims outside the kernels' {32, 64, 80} that are not multiples of 32
+Head dims outside the kernels' {32, 64, 80, 128} that are not multiples of 32
 (the predictors' 24) are zero-padded up to the next multiple of 32 in the
 projection's weight and bias, and o's pad lanes are sliced off, exactly
 as the JAX package does (flash_attention.py:1770-1812). That is exact: pad
@@ -50,10 +50,31 @@ launches H1-fp32, the same forward on the CUDA cores, where every rounding
 point above is a no-op (fp32 q*(scale*log2e), fp32 p). It takes the
 encoders' head dims 64 and 80, no key mask and no backward: an fp32
 tensor reaching a bf16-only entry (H2, the masked H1) raises.
+
+Head-major attention (the second half of this module; counterpart of
+``flash_attention_bhnd`` / ``flash_attention_packed`` / ``flash_attention``
+and their custom_vjps, jepa_tpu/ops/flash_attention.py:122-698): q/k/v
+[B, H, N, c] with Nq != Nk allowed, an optional key mask [B, Nk]. On CUDA
+tensors the hand-written kernels of ``csrc/flash_attention_hm.cu`` run:
+H4 forward (K6), H5 dq (K7), H6 dk/dv (K8) and H7, the merged backward
+(K9), which the backward takes exactly where the JAX package takes
+``_bwd_merged`` (``merged_bwd``, its ``_merged_fits`` rule). They read
+every operand by (b, h, n) strides, so the three planes of a packed
+[3, B, H, N, c] qkv, or a permuted view of the token-major projection,
+are read with no copy. bf16 with c in {32, 64}; fp32 and other head dims
+raise on CUDA (the plain versions take any). K6's numerics: row max, p in
+fp32, the denominator the fp32 sum of the *unrounded* p, p rounded to
+bf16 only as the PV operand, o / max(l, 1e-30), lse = m + log2(max(l,
+1e-30)); a fully masked row gives the uniform average.
+
+``flash_self_attention`` routes as the JAX package does
+(``self_attention_route``): the token-major H1/H2 where a head split
+exists, else the head-major kernels up to N = 2048, else the eager path.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -61,8 +82,9 @@ import torch.nn.functional as F
 
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
-KERNEL_HEAD_DIMS = (32, 64, 80)
+KERNEL_HEAD_DIMS = (32, 64, 80, 128)
 F32_HEAD_DIMS = (64, 80)  # H1-fp32: the encoders' head dims (ViT-L, ViT-H)
+HM_HEAD_DIMS = (32, 64)   # H4-H7, bf16
 
 # wrapper-counted launches in this process
 launches = 0      # H1 (bf16), every head dim, masked or not
@@ -73,13 +95,19 @@ dkv_launches = 0  # H2, dk/dv kernel, masked or not
 dq_launches = 0   # H2, dq kernel, masked or not
 dkv_masked_launches = 0  # of which with a key mask
 dq_masked_launches = 0
+dkv_launches_by_head_dim = {c: 0 for c in KERNEL_HEAD_DIMS}  # H2 dk/dv, per instance
+dq_launches_by_head_dim = {c: 0 for c in KERNEL_HEAD_DIMS}   # H2 dq, per instance
+HM_KINDS = ("fwd", "dq", "dkv", "dqkv")  # H4, H5, H6, H7
+hm_launches = dict.fromkeys(HM_KINDS, 0)         # masked or not
+hm_masked_launches = dict.fromkeys(HM_KINDS, 0)  # of which with a key mask
 
 
 def reset_launch_counts() -> None:
     global launches, dkv_launches, dq_launches, dkv_masked_launches, dq_masked_launches
     launches = dkv_launches = dq_launches = dkv_masked_launches = dq_masked_launches = 0
     for counts in (launches_by_head_dim, masked_launches_by_head_dim,
-                   f32_launches_by_head_dim):
+                   f32_launches_by_head_dim, dkv_launches_by_head_dim,
+                   dq_launches_by_head_dim, hm_launches, hm_masked_launches):
         for c in counts:
             counts[c] = 0
 
@@ -160,7 +188,7 @@ def flash_self_attention_cuda(
     kv_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch H1 on qkv's current stream. qkv [B, N, 3*H*c]: bf16 with c in
-    {32, 64, 80} and kv_mask [B, N] (True = valid key) or None, or fp32
+    {32, 64, 80, 128} and kv_mask [B, N] (True = valid key) or None, or fp32
     (H1-fp32) with c in {64, 80} and no mask. Differentiable only through
     ``FlashSelfAttentionFn`` (bf16)."""
     global launches
@@ -231,9 +259,11 @@ def _launch_bwd(kind: str, qkv, do, lse, delta, dqkv, num_heads: int,
     if kind == "dq":
         dq_launches += 1
         dq_masked_launches += mask is not None
+        dq_launches_by_head_dim[c] += 1
     else:
         dkv_launches += 1
         dkv_masked_launches += mask is not None
+        dkv_launches_by_head_dim[c] += 1
 
 
 def flash_bwd_dkv_cuda(qkv, do, lse, delta, dqkv, num_heads: int, scale: float,
@@ -343,11 +373,73 @@ class FlashSelfAttentionFn(torch.autograd.Function):
 
 
 def padded_head_dim(c: int) -> int:
-    """The head dim the flash path runs at: c itself when a kernel takes it
-    or it is a multiple of 32, else c rounded up to a multiple of 32."""
+    """The head dim the token-major path runs at: c itself when a kernel
+    takes it or it is a multiple of 32, else c rounded up to a multiple of 32."""
     if c in KERNEL_HEAD_DIMS or c % 32 == 0:
         return c
     return -(-c // 32) * 32
+
+
+# ---- the JAX package's dispatch rules, as pure integer functions ------------
+# (jepa_tpu/ops/flash_attention.py:66-107, 422-429, 736-751, 1776-1803)
+
+_BWD_TEMP_BUDGET = 11 * 2**20 + 2**19
+_MAX_NK = 8192          # beyond this the head-major entries run xla_attention
+_PACKED_SAFE_N = 2048   # beyond this flash_self_attention's head-major route runs eager
+_TM_MAX_UNROLLED_HEADS = 8
+DEFAULT_BLOCK_Q = 512
+DEFAULT_BLOCK_K = 512
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _pick_block(n: int, other_len: int, budget: int, requested: int) -> int:
+    """The JAX package's block size for an axis of length n (the largest
+    8-multiple divisor of the 128-rounded n that fits the budget)."""
+    n128, other_pad = _round_up(n, 128), _round_up(other_len, 128)
+    fits = lambda blk: blk * other_pad * 16 <= budget
+    for k in range(1, 65):
+        if n128 % k == 0:
+            blk = n128 // k
+            if blk % 8 == 0 and blk <= requested and (fits(blk) or blk == 128):
+                return blk
+    blk = max(128, (requested // 128) * 128)
+    while blk > 128 and not fits(blk):
+        blk //= 2
+    return blk
+
+
+def _merged_fits(nq: int, nk: int, d: int, block_k: int) -> bool:
+    """The JAX package's test for its merged head-major backward (K9)."""
+    nq_pad, d_pad = _round_up(nq, 128), _round_up(d, 128)
+    return block_k * nq_pad * 14 + nq_pad * d_pad * 12 <= _BWD_TEMP_BUDGET
+
+
+def merged_bwd(nq: int, nk: int, c: int, block_k: int = DEFAULT_BLOCK_K) -> bool:
+    """Does the head-major backward run the merged kernel H7 (else H5 + H6)?
+    Exactly where the JAX package runs ``_bwd_merged``."""
+    return _merged_fits(nq, nk, c, _pick_block(nk, nq, _BWD_TEMP_BUDGET, block_k))
+
+
+def _tm_split_exists(heads: int, c: int) -> bool:
+    """A token-major head split: s | heads with (heads*c/s) % 128 == 0 and
+    at most 8 heads per group (the split test of ``_pick_tm_params``)."""
+    return any(heads % s == 0 and (heads * c // s) % 128 == 0
+               and heads // s <= _TM_MAX_UNROLLED_HEADS for s in range(1, heads + 1))
+
+
+def self_attention_route(heads: int, c: int, n: int) -> str:
+    """Where ``flash_self_attention`` runs: 'tm' (H1/H2 over the fused qkv,
+    the head dim zero-padded to a multiple of 32 where that makes a split),
+    'hm' (the head-major kernels over the packed planes) or 'eager'
+    (``xla_attention``), the JAX package's answer on every factory geometry
+    (tests/test_torch_flash_attention_hm.py holds it against the pickers)."""
+    cp = c if _tm_split_exists(heads, c) or c % 32 == 0 else _round_up(c, 32)
+    if n <= _MAX_NK and _tm_split_exists(heads, cp):
+        return "tm"
+    return "eager" if n > _PACKED_SAFE_N else "hm"
 
 
 def flash_self_attention(
@@ -363,8 +455,12 @@ def flash_self_attention(
     x: [B, N, D] (compute dtype); w_qkv: [3*H*c, D] (nn.Linear layout; rows
     q|k|v, each head-major); b_qkv: [3*H*c]. Returns o [B, N, H*c]
     token-major, the input of the output projection. Differentiable in x,
-    w_qkv and b_qkv through ``FlashSelfAttentionFn``. ``kv_mask`` [B, N]
-    (True = valid key) reaches the kernels and the plain versions alike.
+    w_qkv and b_qkv. ``kv_mask`` [B, N] (True = valid key) reaches the
+    kernels and the plain versions alike. The route (``self_attention_route``)
+    is the JAX package's: 'tm' runs ``FlashSelfAttentionFn``; 'hm' runs
+    ``flash_attention_packed`` on a [3, B, H, N, c] view of the projection
+    (no copy: the kernels read it by stride and write o token-major);
+    'eager' runs ``xla_attention``.
     """
     b, n, d = x.shape
     hc = w_qkv.shape[0] // 3
@@ -373,6 +469,16 @@ def flash_self_attention(
     c = hc // num_heads
     if scale is None:
         scale = c**-0.5
+    route = self_attention_route(num_heads, c, n)
+    if route != "tm":
+        qkv = _project_qkv(x, w_qkv.to(x.dtype), b_qkv).view(b, n, 3, num_heads, c)
+        if route == "eager":
+            from jepa_tpu_torch.ops.attention import xla_attention
+
+            q, k, v = qkv.unbind(2)
+            return xla_attention(q, k, v, kv_mask=kv_mask, scale=scale).reshape(b, n, hc)
+        o = flash_attention_packed(qkv.permute(2, 0, 3, 1, 4), kv_mask=kv_mask, scale=scale)
+        return o.transpose(1, 2).reshape(b, n, hc)
     cp = padded_head_dim(c)
     w, bias = w_qkv, b_qkv
     if cp != c:
@@ -389,3 +495,337 @@ def flash_self_attention(
     if cp != c:
         o = o.reshape(b, n, num_heads, cp)[..., :c].reshape(b, n, hc)
     return o
+
+
+# ---- head-major attention: plain versions ------------------------------------
+
+
+def _hm_scores(q, k, scale, kv_mask):
+    """(q*(scale*log2e) rounded to q's dtype, as fp32; base-2 scores
+    [B, H, Nq, Nk] fp32 with masked keys at -1e30)."""
+    qs = (q.float() * (scale * _LOG2E)).to(q.dtype).float()
+    return qs, _masked_scores(qs @ k.float().transpose(-1, -2), kv_mask)
+
+
+def _into(out, values):
+    """Copy ``values`` into the tensors ``out`` (when given) and return them."""
+    if out is None:
+        return values
+    for dst, src in zip(out, values):
+        dst.copy_(src)
+    return tuple(out)
+
+
+def flash_fwd_hm_ref(q, k, v, scale: float, kv_mask=None):
+    """Plain version of H4 (K6): q [B, H, Nq, c], k/v [B, H, Nk, c] ->
+    (o [B, H, Nq, c] in q's dtype, lse [B, H, Nq] fp32 base 2). The
+    denominator is the fp32 sum of the unrounded p, clamped at 1e-30."""
+    _, s = _hm_scores(q, k, scale, kv_mask)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = (p.to(q.dtype).float() @ v.float()) / l
+    return o.to(q.dtype), (m + torch.log2(l)).squeeze(-1)
+
+
+def _hm_bwd_common(q, k, v, do, lse, delta, scale, kv_mask):
+    """(q scaled, p fp32, ds rounded to q's dtype) of the head-major backward."""
+    qs, s = _hm_scores(q, k, scale, kv_mask)
+    p = torch.exp2(s - lse[..., None])
+    dp = do.float() @ v.float().transpose(-1, -2)
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    return qs, p, ds
+
+
+def flash_bwd_dq_hm_ref(q, k, v, do, lse, delta, scale: float, kv_mask=None, out=None):
+    """Plain version of H5 (K7): dq [B, H, Nq, c]."""
+    _, _, ds = _hm_bwd_common(q, k, v, do, lse, delta, scale, kv_mask)
+    dq = ((ds @ k.float()) * scale).to(q.dtype)
+    return dq if out is None else _into((out,), (dq,))[0]
+
+
+def flash_bwd_dkv_hm_ref(q, k, v, do, lse, delta, scale: float, kv_mask=None, out=None):
+    """Plain version of H6 (K8): (dk, dv) [B, H, Nk, c]; masked keys get 0."""
+    qs, p, ds = _hm_bwd_common(q, k, v, do, lse, delta, scale, kv_mask)
+    dv = p.to(q.dtype).float().transpose(-1, -2) @ do.float()
+    dk = (ds.transpose(-1, -2) @ qs) * (1.0 / _LOG2E)
+    return _into(out, (dk.to(q.dtype), dv.to(q.dtype)))
+
+
+def flash_bwd_dqkv_hm_ref(q, k, v, do, lse, delta, scale: float, kv_mask=None, out=None):
+    """Plain version of H7 (K9): (dq, dk, dv), by construction the numbers
+    of H5 and H6."""
+    qs, p, ds = _hm_bwd_common(q, k, v, do, lse, delta, scale, kv_mask)
+    dq = (ds @ k.float()) * scale
+    dv = p.to(q.dtype).float().transpose(-1, -2) @ do.float()
+    dk = (ds.transpose(-1, -2) @ qs) * (1.0 / _LOG2E)
+    return _into(out, tuple(t.to(q.dtype) for t in (dq, dk, dv)))
+
+
+def hm_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """delta[b, h, n] = sum_c do*o in fp32, contiguous (the backward's preprocess)."""
+    return (do.float() * o.float()).sum(-1).contiguous()
+
+
+# ---- head-major attention: the CUDA kernels (csrc/flash_attention_hm.cu) -------
+
+
+_HM_STRIDED = ("q", "k", "v", "o", "do", "dq", "dk", "dv")  # the [B, H, N, c] operands
+
+
+class _HmArgs(ctypes.Structure):
+    """The C struct HmArgs of csrc/flash_attention_hm.cu, field for field.
+    Strides are (batch, head, row) in elements; the head dim is contiguous."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in
+                 ("q", "k", "v", "kvm", "o", "do", "lse", "delta", "dq", "dk", "dv", "ws")]
+                + [(f, ctypes.c_int) for f in ("B", "H", "Nq", "Nk")]
+                + [(f"{f}_s", ctypes.c_int * 3) for f in _HM_STRIDED]
+                + [("qscale", ctypes.c_float), ("scale", ctypes.c_float)])
+
+
+def _alloc_like(t: torch.Tensor) -> torch.Tensor:
+    """An uninitialised dense tensor shaped like t whose dims are laid out
+    in t's stride order (so an output shaped [B, H, N, c] of a token-major
+    input comes out token-major, and its transpose back is free)."""
+    order = sorted(range(t.dim()), key=lambda i: -t.stride(i))
+    buf = torch.empty([t.shape[i] for i in order], dtype=t.dtype, device=t.device)
+    return buf.permute([order.index(i) for i in range(t.dim())])
+
+
+def _hm_operand(t: torch.Tensor) -> torch.Tensor:
+    """t itself when the kernels can read it by stride (contiguous head dim,
+    16-byte aligned rows), else a contiguous copy."""
+    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+          and all(s % 8 == 0 and s < 2**31 for s in t.stride()[:-1]))
+    return t if ok else t.contiguous()
+
+
+def _check_hm(name: str, q, k, v, kv_mask, ops: dict):
+    """Validate the head-major kernels' operands: q, k, v and the named
+    [B, H, N, c] operands ``ops`` bf16 CUDA tensors of matching shapes with
+    a contiguous, 16-byte aligned head dim; lse and delta contiguous fp32
+    [B, H, Nq]; the workspace contiguous fp32 [ceil(Nk/64), B, H, Nq, c].
+    Returns (B, H, Nq, Nk, c, the uint8 key mask or None)."""
+    b, h, nq, c = q.shape if q.dim() == 4 else (0,) * 4
+    nk = k.shape[2] if k.dim() == 4 else 0
+    shapes = dict(q=(b, h, nq, c), k=(b, h, nk, c), v=(b, h, nk, c), o=(b, h, nq, c),
+                  do=(b, h, nq, c), dq=(b, h, nq, c), dk=(b, h, nk, c), dv=(b, h, nk, c))
+    for n, t in dict(q=q, k=k, v=v, **ops).items():
+        if not t.is_cuda:
+            raise ValueError(f"{name}: operands must be CUDA tensors")
+        if n in _HM_STRIDED:
+            if t.dtype != torch.bfloat16:
+                raise NotImplementedError(f"{name} takes bf16 operands, got {t.dtype}")
+            if (tuple(t.shape) != shapes[n] or t.stride(-1) != 1 or t.data_ptr() % 16
+                    or any(s % 8 or s >= 2**31 for s in t.stride()[:-1])):
+                raise ValueError(f"{name}: {n} must be {shapes[n]} = [B, H, N, c] with a "
+                                 f"contiguous, 16-byte aligned head dim")
+        elif (t.dtype != torch.float32 or not t.is_contiguous() or tuple(t.shape) != (
+                (-(-nk // 64), b, h, nq, c) if n == "ws" else (b, h, nq))):
+            raise ValueError(f"{name}: {n} must be contiguous fp32 "
+                             f"{'[ceil(Nk/64), B, H, Nq, c]' if n == 'ws' else '[B, H, Nq]'}")
+    if c not in HM_HEAD_DIMS:
+        raise NotImplementedError(f"{name}: head dim {c} not in {HM_HEAD_DIMS}")
+    if min(b, h, nq, nk) < 1:
+        raise ValueError(f"{name}: empty input")
+    mask = None
+    if kv_mask is not None:
+        if tuple(kv_mask.shape) != (b, nk) or kv_mask.device != q.device:
+            raise ValueError(f"{name}: kv_mask must be [B, Nk] = {(b, nk)} on {q.device}")
+        mask = kv_mask.to(torch.uint8).contiguous()
+    return b, h, nq, nk, c, mask
+
+
+def _launch_hm(kind: str, q, k, v, scale: float, kv_mask, **ops) -> None:
+    """Fill HmArgs from q, k, v, the mask and the named operands ``ops``
+    (o, do, lse, delta, dq, dk, dv, ws) and launch the H4-H7 entry ``kind``
+    on q's current stream."""
+    from jepa_tpu_torch.ops._build import check, load_library
+
+    name = f"flash_hm_{kind}_cuda"
+    b, h, nq, nk, c, mask = _check_hm(name, q, k, v, kv_mask, ops)
+    a = _HmArgs(B=b, H=h, Nq=nq, Nk=nk, qscale=float(scale) * _LOG2E, scale=float(scale))
+    for n, t in dict(q=q, k=k, v=v, kvm=mask, **ops).items():
+        if t is not None:
+            setattr(a, n, t.data_ptr())
+            if n in _HM_STRIDED:
+                setattr(a, f"{n}_s", (ctypes.c_int * 3)(*t.stride()[:3]))
+    entry = f"jt_flash_hm_{kind}_c{c}"
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    check(getattr(load_library(), entry)(ctypes.addressof(a), stream), entry)
+    hm_launches[kind] += 1
+    hm_masked_launches[kind] += mask is not None
+
+
+def flash_fwd_hm_cuda(q, k, v, scale: float, kv_mask=None):
+    """Launch H4 (K6): (o [B, H, Nq, c] laid out like q, lse [B, H, Nq] fp32)."""
+    o = _alloc_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch_hm("fwd", q, k, v, scale, kv_mask, o=o, lse=lse)
+    return o, lse
+
+
+def flash_bwd_dq_hm_cuda(q, k, v, do, lse, delta, scale: float, kv_mask=None, out=None):
+    """Launch H5 (K7): dq [B, H, Nq, c] (into ``out`` when given)."""
+    dq = _alloc_like(q) if out is None else out
+    _launch_hm("dq", q, k, v, scale, kv_mask, do=do, lse=lse, delta=delta, dq=dq)
+    return dq
+
+
+def flash_bwd_dkv_hm_cuda(q, k, v, do, lse, delta, scale: float, kv_mask=None, out=None):
+    """Launch H6 (K8): (dk, dv) [B, H, Nk, c] (into ``out`` when given);
+    masked keys get exactly 0."""
+    dk, dv = (_alloc_like(k), _alloc_like(v)) if out is None else out
+    _launch_hm("dkv", q, k, v, scale, kv_mask, do=do, lse=lse, delta=delta, dk=dk, dv=dv)
+    return dk, dv
+
+
+def flash_bwd_dqkv_hm_cuda(q, k, v, do, lse, delta, scale: float, kv_mask=None, out=None):
+    """Launch H7 (K9), the merged backward: (dq, dk, dv) (into ``out`` when
+    given). Each 64-key block stores its fp32 dq partial in its own slab of
+    a workspace [ceil(Nk/64), B, H, Nq, c]; the same entry then sums the
+    slabs in block order (deterministic), scales and casts."""
+    dq, dk, dv = (_alloc_like(q), _alloc_like(k), _alloc_like(v)) if out is None else out
+    ws = torch.empty((-(-k.shape[2] // 64), *q.shape), dtype=torch.float32, device=q.device)
+    _launch_hm("dqkv", q, k, v, scale, kv_mask, do=do, lse=lse, delta=delta, dq=dq, dk=dk,
+               dv=dv, ws=ws)
+    return dq, dk, dv
+
+
+# ---- head-major attention: autograd and the public entries --------------------
+
+
+def _hm_forward(q, k, v, scale, kv_mask):
+    if q.is_cuda:
+        q, k, v = map(_hm_operand, (q, k, v))
+        return flash_fwd_hm_cuda(q, k, v, scale, kv_mask)
+    return flash_fwd_hm_ref(q, k, v, scale, kv_mask)
+
+
+def _hm_backward(q, k, v, o, lse, do, scale, kv_mask, block_k, out):
+    """dq, dk, dv into ``out``: the merged H7 where the JAX package runs
+    ``_bwd_merged``, else H5 then H6 (their plain versions on the CPU)."""
+    delta = hm_delta(do, o)
+    if q.is_cuda:
+        q, k, v, do = map(_hm_operand, (q, k, v, do))
+    cuda = q.is_cuda
+    if merged_bwd(q.shape[2], k.shape[2], q.shape[3], block_k):
+        fn = flash_bwd_dqkv_hm_cuda if cuda else flash_bwd_dqkv_hm_ref
+        fn(q, k, v, do, lse, delta, scale, kv_mask, out=out)
+        return
+    (flash_bwd_dq_hm_cuda if cuda else flash_bwd_dq_hm_ref)(
+        q, k, v, do, lse, delta, scale, kv_mask, out=out[0])
+    (flash_bwd_dkv_hm_cuda if cuda else flash_bwd_dkv_hm_ref)(
+        q, k, v, do, lse, delta, scale, kv_mask, out=out[1:])
+
+
+class FlashAttentionHmFn(torch.autograd.Function):
+    """o = attention(q, k, v), head-major [B, H, N, c] (the JAX package's
+    ``_flash_nomask`` / ``_flash_masked``): saves (q, k, v, o, lse, mask);
+    the mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, scale, block_k):
+        o, lse = _hm_forward(q, k, v, scale, kv_mask)
+        ctx.save_for_backward(q, k, v, o, lse, kv_mask)
+        ctx.scale, ctx.block_k = scale, block_k
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_mask = ctx.saved_tensors
+        out = (_alloc_like(q), _alloc_like(k), _alloc_like(v))
+        _hm_backward(q, k, v, o, lse, do.to(o.dtype), ctx.scale, kv_mask, ctx.block_k, out)
+        return (*out, None, None, None)
+
+
+class FlashAttentionPackedFn(torch.autograd.Function):
+    """o = attention over a packed qkv [3, B, H, N, c] (the JAX package's
+    ``_flash_packed`` / ``_flash_packed_masked``): the kernels read the three
+    planes in place and write dq, dk, dv into the planes of one dqkv laid
+    out like qkv."""
+
+    @staticmethod
+    def forward(ctx, qkv, kv_mask, scale, block_k):
+        o, lse = _hm_forward(*qkv.unbind(0), scale, kv_mask)
+        ctx.save_for_backward(qkv, o, lse, kv_mask)
+        ctx.scale, ctx.block_k = scale, block_k
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, o, lse, kv_mask = ctx.saved_tensors
+        dqkv = _alloc_like(qkv)
+        _hm_backward(*qkv.unbind(0), o, lse, do.to(o.dtype), ctx.scale, kv_mask,
+                     ctx.block_k, dqkv.unbind(0))
+        return dqkv, None, None, None
+
+
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _xla_bhnd(q, k, v, kv_mask, scale):
+    """xla_attention on head-major operands (sequences past ``_MAX_NK``)."""
+    from jepa_tpu_torch.ops.attention import xla_attention
+
+    t = lambda a: a.transpose(1, 2)
+    return t(xla_attention(t(q), t(k), t(v), kv_mask=kv_mask, scale=scale))
+
+
+def flash_attention_packed(
+    qkv: torch.Tensor,
+    kv_mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    block_q: int = DEFAULT_BLOCK_Q,
+    block_k: int = DEFAULT_BLOCK_K,
+) -> torch.Tensor:
+    """Flash self-attention over a packed qkv [3, B, H, N, c] (any strides
+    with a contiguous head dim). Returns o [B, H, N, c]. ``block_q`` is kept
+    for the JAX signature; ``block_k`` enters the merged-backward rule."""
+    _, b, h, n, c = qkv.shape
+    if scale is None:
+        scale = c**-0.5
+    if n > _MAX_NK:
+        return _xla_bhnd(*qkv.unbind(0), kv_mask, scale)
+    if _wants_grad(qkv):
+        return FlashAttentionPackedFn.apply(qkv, kv_mask, scale, block_k)
+    return _hm_forward(*qkv.unbind(0), scale, kv_mask)[0]
+
+
+def flash_attention_bhnd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    block_q: int = DEFAULT_BLOCK_Q,
+    block_k: int = DEFAULT_BLOCK_K,
+) -> torch.Tensor:
+    """Flash attention on head-major operands: q [B, H, Nq, c], k/v
+    [B, H, Nk, c], kv_mask [B, Nk] bool (True = valid key). Returns
+    [B, H, Nq, c] in q's dtype, differentiable in q, k and v."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if k.shape[2] > _MAX_NK:
+        return _xla_bhnd(q, k, v, kv_mask, scale)
+    if _wants_grad(q, k, v):
+        return FlashAttentionHmFn.apply(q, k, v, kv_mask, scale, block_k)
+    return _hm_forward(q, k, v, scale, kv_mask)[0]
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    block_q: int = DEFAULT_BLOCK_Q,
+    block_k: int = DEFAULT_BLOCK_K,
+) -> torch.Tensor:
+    """Flash attention, token-major: q [B, Nq, H, c], k/v [B, Nk, H, c] ->
+    [B, Nq, H, c]. The head-major kernels read the transposed views by
+    stride, so no copy is made."""
+    o = flash_attention_bhnd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                             kv_mask=kv_mask, scale=scale, block_q=block_q, block_k=block_k)
+    return o.transpose(1, 2)

@@ -1,14 +1,17 @@
 """The shipped-config dispatch table: for each of the 3 pretrain and 15 eval
-YAMLs in configs/ (the evals in both use_bfloat16 settings), every
-attention and fc1 call shape the port's path makes, resolved through the
-port's own dispatch rules (resolve_flash, padded_head_dim, the kernels'
-head dims, fused_tiling, the kernels' k panels) on a stand-in for a CUDA
-tensor. Each call must reach a kernel instance that exists (a C entry the
-build binds and a source defines: H1 by head dim and dtype, H2 for a
-differentiated H1, H3 by K/F tiling and dtype) or the documented eager
-path: attention with fewer than 128 queries or keys (the probe's 1-query
-cross-attention, short contexts), and the differentiated fc1 (probe,
-context encoder, predictor). No model runs. ``pytest -s`` prints the table.
+YAMLs in configs/ (the evals in both use_bfloat16 settings), and for
+vitl16.yaml with model_name vit_tiny, every attention and fc1 call shape
+the port's path makes, resolved through the port's own dispatch rules
+(resolve_flash, self_attention_route, padded_head_dim, merged_bwd, the
+kernels' head dims, fused_tiling, the kernels' k panels) on a stand-in for
+a CUDA tensor. Each call must reach a kernel instance that exists (a C
+entry the build binds and a source defines: H1 by head dim and dtype, H2
+for a differentiated H1, H4 and H7 or H5 + H6 on the head-major route, H3
+by K/F tiling and dtype) or the documented eager path: attention with
+fewer than 128 queries or keys (the probe's 1-query cross-attention, short
+contexts), head-major sequences past 2048 tokens, and the differentiated
+fc1 (probe, context encoder, predictor). No model runs. ``pytest -s``
+prints the table.
 
 The call lists (``_eval_calls``, ``_pretrain_calls``) restate the call
 graph of models/{vit,transformer,attentive,predictor}.py and of the evals'
@@ -29,7 +32,14 @@ from jepa_tpu_torch.masks.multiblock3d import MaskGrid, MaskSpec, calibrate_keep
 from jepa_tpu_torch.models.factory import predictor_cfg_for, vit_cfg
 from jepa_tpu_torch.ops import _build
 from jepa_tpu_torch.ops.attention import resolve_flash
-from jepa_tpu_torch.ops.flash_attention import F32_HEAD_DIMS, KERNEL_HEAD_DIMS, padded_head_dim
+from jepa_tpu_torch.ops.flash_attention import (
+    F32_HEAD_DIMS,
+    HM_HEAD_DIMS,
+    KERNEL_HEAD_DIMS,
+    merged_bwd,
+    padded_head_dim,
+    self_attention_route,
+)
 from jepa_tpu_torch.ops.fused_mlp import _KERNEL_K_STEP, fused_tiling, resolve_fused_mlp
 
 _CONFIGS = pathlib.Path(__file__).resolve().parent.parent / "configs"
@@ -98,8 +108,9 @@ def _eval_calls(cfg, bf16):
     return calls
 
 
-def _pretrain_calls(cfg):
+def _pretrain_calls(cfg, model_name=None):
     m, d = cfg["model"], cfg["data"]
+    m["model_name"] = model_name or m["model_name"]
     dt = _DTYPES[str(cfg["meta"].get("dtype", "bfloat16"))]
     enc = vit_cfg(m["model_name"], img_size=d["crop_size"], patch_size=d["patch_size"],
                   num_frames=d["num_frames"], tubelet_size=d["tubelet_size"],
@@ -133,25 +144,43 @@ def _resolve(call):
             # package runs them in XLA ('auto' needs nq, nk >= 128)
             assert min(call.nq, call.nk) < 128, call
             return "eager xla_attention"
-        cp = padded_head_dim(call.c)
-        if call.dtype == torch.bfloat16:
-            assert cp in KERNEL_HEAD_DIMS, call
-            entries = [f"jt_flash_fwd_c{cp}"]
-            if call.grad:  # FlashSelfAttentionFn: H2 for the backward
-                entries += [f"jt_flash_bwd_dkv_c{cp}", f"jt_flash_bwd_dq_c{cp}"]
+        route = self_attention_route(call.heads, call.c, call.nq)
+        if route == "eager":  # no token-major split and past 2048 tokens
+            return "eager xla_attention"
+        if route == "hm":  # flash_attention_packed: H4, then H7 or H5 + H6
+            assert call.dtype == torch.bfloat16 and call.c in HM_HEAD_DIMS, call
+            entries = [f"jt_flash_hm_fwd_c{call.c}"]
+            if call.grad:
+                kinds = ["dqkv"] if merged_bwd(call.nq, call.nk, call.c) else ["dq", "dkv"]
+                entries += [f"jt_flash_hm_{k}_c{call.c}" for k in kinds]
         else:
-            assert cp in F32_HEAD_DIMS and not call.grad, call
-            entries = [f"jt_flash_fwd_f32_c{cp}"]
+            entries = _tm_entries(call)
     else:
         if not call.fused:
             return "eager linear + GELU (differentiated)"
-        assert resolve_fused_mlp(_CARD) and fused_tiling(call.m, call.k, call.f), call
+        if not fused_tiling(call.m, call.k, call.f):  # vit_tiny's K=192, in both packages
+            return "eager linear + exact GELU (outside H3's tiling)"
+        assert resolve_fused_mlp(_CARD), call
         assert call.k % _KERNEL_K_STEP[call.dtype] == 0 and call.f % 128 == 0, call
         entries = ["jt_linear_gelu_bf16" if call.dtype == torch.bfloat16
                    else "jt_linear_gelu_f32"]
     for e in entries:
         assert e in _build._SIGNATURES and e in _ENTRIES, (call, e)
     return " + ".join(entries)
+
+
+def _tm_entries(call):
+    """H1 (and H2 under a gradient) at the padded head dim and the dtype."""
+    cp = padded_head_dim(call.c)
+    if call.dtype == torch.bfloat16:
+        assert cp in KERNEL_HEAD_DIMS, call
+        entries = [f"jt_flash_fwd_c{cp}"]
+        if call.grad:  # FlashSelfAttentionFn: H2 for the backward
+            entries += [f"jt_flash_bwd_dkv_c{cp}", f"jt_flash_bwd_dq_c{cp}"]
+    else:
+        assert cp in F32_HEAD_DIMS and not call.grad, call
+        entries = [f"jt_flash_fwd_f32_c{cp}"]
+    return entries
 
 
 _CASES = ([(p.name, None) for p in sorted((_CONFIGS / "pretrain").glob("*.yaml"))]
@@ -180,3 +209,22 @@ def test_shipped_config_dispatch(name, bf16):
     # every shipped path runs the encoder's attention and fc1 through kernels
     assert all(how.startswith("jt_") for call, how in table
                if "encoder" in call.where or "target" in call.where)
+
+
+def test_vit_tiny_pretrain_dispatch():
+    """vitl16.yaml with model_name vit_tiny: the encoder (3 x 64, no
+    token-major split) runs the head-major kernels (the target H4, the long
+    context H4 + H7, the short context eager), the 384-wide predictor
+    (3 x 128) H1 + H2 at head dim 128, and the fc1 (K=192) the eager GELU."""
+    cfg = yaml.safe_load((_CONFIGS / "pretrain" / "vitl16.yaml").read_text())
+    table = [(call, _resolve(call)) for call in _pretrain_calls(cfg, "vit_tiny")]
+    for call, how in table:
+        print(f"  {call.where:32s} -> {how}")
+    got = {call.where: how for call, how in table}
+    assert got["target self-attn"] == "jt_flash_hm_fwd_c64"
+    assert got["target fc1"].startswith("eager")
+    assert got["mask 0 context self-attn"] == "jt_flash_hm_fwd_c64 + jt_flash_hm_dqkv_c64"
+    assert got["mask 1 context self-attn"] == "eager xla_attention"  # 96 keys
+    for i in (0, 1):
+        assert got[f"mask {i} predictor self-attn"] == (
+            "jt_flash_fwd_c128 + jt_flash_bwd_dkv_c128 + jt_flash_bwd_dq_c128")
