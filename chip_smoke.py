@@ -78,9 +78,22 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      resume, padded 1 epoch), with the launches per update of the routes:
      H4 for the target and the contexts, H7 for the contexts' backward, H1
      and H2 c=128 for the predictor, no H3 (K=192 takes the eager fc1).
-Phases 12-13 run after phase 7, phases 14-15 after phase 8. Launch counts
-are checked as whole dicts of every counter (``_counts``): a kernel that
-should not run must count 0.
+ 16. K11: H8 (fc1 + A&S erf GELU writing z) and H8-fp32 against their
+     plain version at the force update's context fc1 shapes (M = 24 x 376
+     and 24 x 96, K=1024, F=4096), LinearGelu's gradients through H8
+     against the plain version (bf16 and fp32, the fp32 launches those of
+     linear_gelu under autograd), then, after phase 6, the vitl16.yaml
+     update with the encoder's ``fused_mlp='force'`` (TRAIN_STEPS updates,
+     profile, the B=2 check; H8 24 per context forward, H3 24 for the
+     target) and the A/B against the default update in turns, with each
+     variant's peak memory.
+Phases 12-13 run after phase 7, phases 14-15 after phase 8, phase 16's
+kernel checks after phase 9. Launch counts are checked as whole dicts of
+every counter (``_counts``): a kernel that should not run must count 0.
+Every backward kernel (H2 at each head dim, masked or not, H5, H6, H7) and
+H8 is called a second time on the same inputs and must give bit-equal
+outputs, and vit_tiny's B=2 update is taken twice from one state and must
+give bit-equal metrics, parameters and moments.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -130,6 +143,9 @@ PEAK_EXP2_PER_S = 132 * 16 * 1.98e9  # 132 SMs x 16 exp2/clock/SM (sm_90 SFU
                                      # throughput) at the 1,980 MHz max SM clock
 PEAK_F32_FLOPS = 132 * 128 * 2 * 1.98e9  # fp32 FFMA on the CUDA cores: 132 SMs x
                                          # 128 lanes x 2 flops at 1,980 MHz = 66.9e12
+H8_GRAD_REL = 2.0**-6  # LinearGelu's dx, dw, db through H8 vs its plain version, per
+                       # gradient |d| <= 2^-6 * max|ref| (bf16): the backward is the same
+                       # plain torch; only the rare z rounding flips of H3_REL enter it
 F32_TOL = 1e-4     # H1-fp32 |o|, |lse| abs; H3-fp32 |d| <= 1e-4 * max(|ref|, 1): fp32
                    # everywhere, so only the order of the fp32 sums differs
 # (B, N, H, c) of H1-fp32 and (M, K, F) of H3-fp32: ViT-L and ViT-H, then
@@ -250,16 +266,7 @@ def phase_kernels(torch, n_train):
         y = fm.linear_gelu_cuda(x, w, bias)
         y_ref = fm.linear_gelu_ref(x, w, bias)
         torch.cuda.synchronize()
-        if not torch.isfinite(y.float()).all():
-            raise RuntimeError(f"H3 M={m}: non-finite output")
-        d = (y.float() - y_ref.float()).abs()
-        err = d.max().item()
-        excess = (d - H3_REL * y_ref.float().abs().clamp(min=1)).max().item()
-        differ = (d > 0).float().mean().item()
-        log(f"H3 M={m} K={k} F={f}: max|d| {err:.3e}, worst margin {excess:.3e} "
-            f"(tol |d| <= 2^-6*max(|ref|,1)), share of elements that differ {differ:.2e}")
-        if excess > 0 or differ > 1e-2:  # differences must be rare rounding flips
-            raise RuntimeError(f"H3 M={m} disagrees with its plain version")
+        err = _check_flips(f"H3 M={m} K={k} F={f}", y, y_ref)
         h3["max_abs_err"] = max(h3["max_abs_err"], err)
         if m == 2 * 1568:
             h3["ms"] = time_ms(torch, lambda: fm.linear_gelu_cuda(x, w, bias))
@@ -278,7 +285,7 @@ def phase_kernels(torch, n_train):
                 f"bound {h3['bound'][0]:.4f} ms ({h3['bound'][2]}); library "
                 f"(_addmm_activation, tanh-GELU epilogue) {h3['library_ms']:.4f} ms; the bf16 "
                 f"F.linear GEMM alone (a floor) {gemm_ms:.4f} ms")
-        del x, y, y_ref, d
+        del x, y, y_ref
     report["h3"] = h3
     return report
 
@@ -353,6 +360,148 @@ def phase_f32_kernels(torch):
         if "ms" not in rep["h3"]:
             rep["h3"].update(r)
         del x, w, bias, y, y_ref, d
+    return rep
+
+
+def _check_flips(label, got, ref) -> float:
+    """A bf16 fc1 output against its plain version: every |d| <= H3_REL *
+    max(|ref|, 1) and under 1 % of the elements differing (rare flips of
+    z's bf16 rounding, the fp32 sums running in another order). Returns
+    max |d|."""
+    if not _finite(got):
+        raise RuntimeError(f"{label}: non-finite output")
+    d = (got.float() - ref.float()).abs()
+    err = d.max().item()
+    excess = (d - H3_REL * ref.float().abs().clamp(min=1)).max().item()
+    differ = (d > 0).float().mean().item()
+    log(f"{label}: max|d| {err:.3e}, worst margin {excess:.3e} (tol |d| <= "
+        f"2^-6*max(|ref|,1)), share of elements that differ {differ:.2e}")
+    if excess > 0 or differ > 1e-2:
+        raise RuntimeError(f"{label} disagrees with its plain version")
+    return err
+
+
+def _same_bits(label, first, second) -> None:
+    """A kernel called twice on the same inputs must give bit-equal outputs."""
+    same = [a.equal(b) for a, b in zip(first, second)]
+    log(f"{label}: second call on the same inputs bit-equal {same}")
+    if not all(same):
+        raise RuntimeError(f"{label} is not deterministic: a second call differs")
+
+
+def _linear_gelu_grads(torch, fm, x, w, bias, dy):
+    """(o, dx, dw, db) of the public linear_gelu under autograd."""
+    x, w, bias = (t.detach().requires_grad_(True) for t in (x, w, bias))
+    o = fm.linear_gelu(x, w, bias)
+    o.backward(dy)
+    return o.detach(), x.grad, w.grad, bias.grad
+
+
+def phase_k11(torch, ms):
+    """H8 (K11's port: fc1 + A&S erf GELU writing z) against
+    linear_gelu_z_ref at the force update's context fc1 shapes (``ms`` =
+    TRAIN_BATCH x each context's tokens, K=1024, F=4096), o and z under
+    H3's flip rule, each called twice for bit-equal outputs; LinearGelu's
+    gradients through H8 against the plain version; H8-fp32 the same at
+    the first shape, its launches those of linear_gelu under autograd here.
+    Times by CUDA events, bounds (MMA or FFMA FLOP, or the bytes of x, w, b,
+    o and z), and the library's GEMM + GELU epilogue, which writes no z."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    k, f = 1024, 4096
+    rep = {"z": {"max_abs_err": 0.0}, "z_f32": {"max_abs_err": 0.0}, "rows": {}}
+    w = (torch.randn((f, k), generator=gen, device="cuda") / 32).to(torch.bfloat16)
+    bias = torch.randn((f,), generator=gen, device="cuda") * 0.1
+    for m in ms:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        o, z = fm.linear_gelu_z_cuda(x, w, bias)
+        o_ref, z_ref = fm.linear_gelu_z_ref(x, w, bias)
+        torch.cuda.synchronize()
+        err = max(_check_flips(f"H8 o M={m} K={k} F={f}", o, o_ref),
+                  _check_flips(f"H8 z M={m} K={k} F={f}", z, z_ref))
+        rep["z"]["max_abs_err"] = max(rep["z"]["max_abs_err"], err)
+        _same_bits(f"H8 M={m}", (o, z), fm.linear_gelu_z_cuda(x, w, bias))
+        bias_lp = bias.to(torch.bfloat16)
+        t_ops = 2.0 * m * k * f / PEAK_BF16_FLOPS * 1e3
+        t_bytes = (2 * m * k + 2 * f * k + 4 * f + 2 * 2 * m * f) / PEAK_BYTES_PER_S * 1e3
+        r = dict(ms=time_ms(torch, lambda: fm.linear_gelu_z_cuda(x, w, bias)),
+                 plain_ms=time_ms(torch, lambda: fm.linear_gelu_z_ref(x, w, bias)),
+                 # cuBLASLt's GEMM + bias + tanh-GELU epilogue: no z, not H8's
+                 # GELU to the bit; timed only, never used
+                 library_ms=time_ms(torch, lambda: torch._addmm_activation(
+                     bias_lp, x, w.t(), use_gelu=True)),
+                 bound=((t_ops, "operations", "MMA") if t_ops >= t_bytes
+                        else (t_bytes, "bytes", "bytes")))
+        log(f"H8 M={m} K={k} F={f} time: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library (_addmm_activation, no z) {r['library_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][2]})")
+        rep["rows"][m] = r
+        del x, o, z, o_ref, z_ref
+    rep["z"].update(rep["rows"][ms[0]])
+
+    # LinearGelu's gradients through H8, then through the plain version
+    m = ms[0]
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    dy = torch.randn((m, f), generator=gen, device="cuda").to(torch.bfloat16)
+    got = _linear_gelu_grads(torch, fm, x, w, bias, dy)
+    with plain_versions():
+        want = _linear_gelu_grads(torch, fm, x, w, bias, dy)
+    torch.cuda.synchronize()
+    _check_flips(f"LinearGelu o M={m}", got[0], want[0])
+    for name, g, r in zip(("dx", "dw", "db"), got[1:], want[1:]):
+        err = (g.float() - r.float()).abs().max().item()
+        tol = H8_GRAD_REL * r.float().abs().max().item()
+        log(f"LinearGelu M={m} through H8 vs plain: {name} max|d| {err:.3e} (tol {tol:.3e} = "
+            f"2^-6 * max|ref|)")
+        if not (_finite(g) and g.dtype == r.dtype and err <= tol):
+            raise RuntimeError(f"LinearGelu {name} through H8 disagrees with the plain version")
+    del x, dy, got, want
+
+    # fp32: H8-fp32 against its plain version, then linear_gelu under autograd
+    xf = torch.randn((m, k), generator=gen, device="cuda")
+    wf = torch.randn((f, k), generator=gen, device="cuda") / 32
+    dyf = torch.randn((m, f), generator=gen, device="cuda")
+    o, z = fm.linear_gelu_z_cuda(xf, wf, bias)
+    o_ref, z_ref = fm.linear_gelu_z_ref(xf, wf, bias)
+    torch.cuda.synchronize()
+    for name, a, b in (("o", o, o_ref), ("z", z, z_ref)):
+        d = (a - b).abs()
+        excess = (d - F32_TOL * b.abs().clamp(min=1)).max().item()
+        err = d.max().item()
+        log(f"H8-fp32 {name} M={m} K={k} F={f}: max|d| {err:.3e}, worst margin {excess:.3e} "
+            f"(tol |d| <= {F32_TOL}*max(|ref|,1))")
+        if not (_finite(a) and excess <= 0):
+            raise RuntimeError(f"H8-fp32 {name} disagrees with its plain version")
+        rep["z_f32"]["max_abs_err"] = max(rep["z_f32"]["max_abs_err"], err)
+    _same_bits(f"H8-fp32 M={m}", (o, z), fm.linear_gelu_z_cuda(xf, wf, bias))
+    flops = 2.0 * m * k * f
+    rep["z_f32"].update(
+        ms=time_ms(torch, lambda: fm.linear_gelu_z_cuda(xf, wf, bias)),
+        plain_ms=time_ms(torch, lambda: fm.linear_gelu_z_ref(xf, wf, bias)),
+        library_ms=time_ms(torch, lambda: torch._addmm_activation(bias, xf, wf.t(), use_gelu=True)),
+        bound=f32_bound_ms(flops, 0, 4 * (m * k + f * k + f + 2 * m * f)))
+    r = rep["z_f32"]
+    log(f"H8-fp32 M={m} time: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+        f"(_addmm_activation fp32, no z) {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+        f"({r['bound'][2]}); {flops / r['ms'] / 1e9:.1f} TFLOP/s")
+    del o, z, o_ref, z_ref
+    _reset_counts(fa, fm)
+    got = _linear_gelu_grads(torch, fm, xf, wf, bias, dyf)
+    torch.cuda.synchronize()
+    rep["f32_launches"] = {k: v for k, v in _counts(fa, fm).items() if v}
+    with plain_versions():
+        want = _linear_gelu_grads(torch, fm, xf, wf, bias, dyf)
+    for name, g, r in zip(("o", "dx", "dw", "db"), got, want):
+        err = (g - r).abs().max().item()
+        tol = F32_TOL * r.abs().max().item()
+        log(f"LinearGelu fp32 M={m} through H8-fp32 vs plain: {name} max|d| {err:.3e} "
+            f"(tol {tol:.3e} = {F32_TOL} * max|ref|)")
+        if not (_finite(g) and err <= tol):
+            raise RuntimeError(f"LinearGelu fp32 {name} disagrees with the plain version")
+    if rep["f32_launches"] != {"h8_f32": 1}:
+        raise RuntimeError(f"linear_gelu fp32 under autograd launched {rep['f32_launches']}")
     return rep
 
 
@@ -473,6 +622,8 @@ def phase_bwd_kernels(torch, shapes):
         torch.cuda.synchronize()
         if not torch.isfinite(dqkv.float()).all():
             raise RuntimeError(f"H2 {label}: non-finite output")
+        _same_bits(f"H2 dq/dk/dv {label}", (dqkv,),
+                   (fa.flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale),))
         hc = h * c
         for i, name in enumerate(("dq", "dk", "dv")):
             got = dqkv[..., i * hc:(i + 1) * hc].float()
@@ -604,6 +755,8 @@ def phase_masked_kernels(torch, shapes):
         torch.cuda.synchronize()
         if not torch.isfinite(dqkv.float()).all():
             raise RuntimeError(f"masked H2 {label}: non-finite output")
+        _same_bits(f"masked H2 dq/dk/dv {label}", (dqkv,),
+                   (fa.flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale, mask),))
         hc = h * c
         for i, name in enumerate(("dq", "dk", "dv")):
             got = dqkv[..., i * hc:(i + 1) * hc].float()
@@ -772,6 +925,8 @@ def phase_hm_kernels(torch, setup, caps):
         got = fa.flash_bwd_dqkv_hm_cuda(q, k, v, do, lse, delta, scale, mask)
         want = fa.flash_bwd_dqkv_hm_ref(q, k, v, do, lse, delta, scale, mask)
         torch.cuda.synchronize()
+        _same_bits(f"H7 {label}", got, fa.flash_bwd_dqkv_hm_cuda(q, k, v, do, lse, delta,
+                                                                 scale, mask))
         r = rep["dqkv_masked" if masked else "dqkv"]
         r["max_abs_err"] = max(r["max_abs_err"], _check_grads(
             f"H7 {label} B={TRAIN_BATCH} N={n}", got, want, ("dq", "dk", "dv"), mask))
@@ -804,6 +959,8 @@ def phase_hm_kernels(torch, setup, caps):
     dq_ref = fa.flash_bwd_dq_hm_ref(q, k, v, do, lse, delta, scale)
     dk_ref, dv_ref = fa.flash_bwd_dkv_hm_ref(q, k, v, do, lse, delta, scale)
     torch.cuda.synchronize()
+    _same_bits(f"H5 B={b} N={n}", (dq,), (fa.flash_bwd_dq_hm_cuda(q, k, v, do, lse, delta, scale),))
+    _same_bits(f"H6 B={b} N={n}", (dk, dv), fa.flash_bwd_dkv_hm_cuda(q, k, v, do, lse, delta, scale))
     rep["dq"]["max_abs_err"] = _check_grads(f"H5 B={b} N={n}", (dq,), (dq_ref,), ("dq",))
     rep["dkv"]["max_abs_err"] = _check_grads(f"H6 B={b} N={n}", (dk, dv), (dk_ref, dv_ref),
                                              ("dk", "dv"))
@@ -884,6 +1041,8 @@ def phase_c128_kernels(torch, setup, pred_caps):
         dqkv = fa.flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale, mask)
         ref = fa.flash_self_attention_bwd_ref(qkv, do, lse, delta, h, scale, mask)
         torch.cuda.synchronize()
+        _same_bits(f"H2 c=128 {label}", (dqkv,),
+                   (fa.flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale, mask),))
         hc = h * c
         got, want = ([t[..., i * hc:(i + 1) * hc].reshape(b, n, h, c).transpose(1, 2)
                       for i in range(3)] for t in (dqkv, ref))
@@ -934,6 +1093,7 @@ def plain_versions():
         stack.enter_context(mock.patch.object(
             fa, f"flash_{kind}_hm_cuda", getattr(fa, f"flash_{kind}_hm_ref")))
     stack.enter_context(mock.patch.object(fm, "linear_gelu_cuda", fm.linear_gelu_ref))
+    stack.enter_context(mock.patch.object(fm, "linear_gelu_z_cuda", fm.linear_gelu_z_ref))
     return stack
 
 
@@ -1034,12 +1194,13 @@ def phase_serve(torch, workdir: str, model_name: str = "vit_large"):
             "feat_cos": cos}
 
 
-def train_setup(repo: str, model_name: str = None):
+def train_setup(repo: str, model_name: str = None, fused_mlp=False):
     """Configs of configs/pretrain/vitl16.yaml (model, data geometry, mask,
     loss and optimization sections): ViT-L/16 (or ``model_name``) + the
     12 x 384 predictor at full width and depth, fixed masks with K
     calibrated at the config's per-card batch, the config's schedules (ipe
-    300, warmup 40)."""
+    300, warmup 40); ``fused_mlp`` the encoder's (``'force'``: the context
+    encoder's fc1 fused and differentiated, H8)."""
     import yaml
 
     from jepa_tpu_torch.masks.multiblock3d import MaskGrid, MaskSpec, calibrate_keep_counts
@@ -1053,7 +1214,7 @@ def train_setup(repo: str, model_name: str = None):
     m["model_name"] = model_name or m["model_name"]
     enc_cfg = vit_cfg(m["model_name"], img_size=d["crop_size"], patch_size=d["patch_size"],
                       num_frames=d["num_frames"], tubelet_size=d["tubelet_size"],
-                      uniform_power=m["uniform_power"])
+                      uniform_power=m["uniform_power"], fused_mlp=fused_mlp)
     pred_cfg = predictor_cfg_for(enc_cfg, predictor_embed_dim=m["pred_embed_dim"],
                                  depth=m["pred_depth"], use_mask_tokens=m["use_mask_tokens"],
                                  num_mask_tokens=len(cfg["mask"]),
@@ -1086,7 +1247,8 @@ def expected_launches(enc_cfg, pred_cfg=None, pairs=(), masked=False) -> dict:
     padded mode (``masked``). A sequence under 128 tokens runs eager (the
     flash rule); otherwise ``self_attention_route`` picks H1/H2 ('tm', at
     the padded head dim) or H4 with H7 or H5 + H6 ('hm', ``merged_bwd``).
-    H3 runs in the grad-free encoder where its tiling takes the fc1."""
+    H3 runs in the grad-free encoder where its tiling takes the fc1, H8 in
+    the context encoder under ``fused_mlp='force'`` (LinearGelu's forward)."""
     from jepa_tpu_torch.ops import flash_attention as fa
     from jepa_tpu_torch.ops.fused_mlp import fused_tiling
 
@@ -1124,6 +1286,8 @@ def expected_launches(enc_cfg, pred_cfg=None, pairs=(), masked=False) -> dict:
              pred_cfg.depth, True, masked)
     if fused_tiling(8, enc_cfg.embed_dim, enc_cfg.mlp_hidden):
         add("h3", enc_cfg.depth)
+        if pairs and enc_cfg.fused_mlp == "force":
+            add("h8", enc_cfg.depth * len(pairs))
     return want
 
 
@@ -1132,6 +1296,7 @@ def _counts(fa, fm) -> dict:
     c = {"h1": fa.launches, "dkv": fa.dkv_launches, "dq": fa.dq_launches,
          "dkv_masked": fa.dkv_masked_launches, "dq_masked": fa.dq_masked_launches,
          "h3": fm.launches, "h3_f32": fm.f32_launches,
+         "h8": fm.z_launches, "h8_f32": fm.z_f32_launches,
          "h1_f32": fa.f32_launches_by_head_dim[64], "h1_f32_c80": fa.f32_launches_by_head_dim[80]}
     for hd in fa.KERNEL_HEAD_DIMS:
         c.update({f"h1_c{hd}": fa.launches_by_head_dim[hd],
@@ -1152,13 +1317,15 @@ def _launch_diff(before: dict, after: dict, steps: int = 1) -> dict:
 
 def _reset_counts(fa, fm) -> None:
     fa.reset_launch_counts()
-    fm.launches = fm.f32_launches = 0
+    fm.reset_launch_counts()
 
 
-def phase_train(torch, setup):
+def phase_train(torch, setup, determinism=False):
     """TRAIN_STEPS pretraining updates of vitl16.yaml (``train_setup``) at
     TRAIN_BATCH clips per card, then one update at B=2 through the kernels
-    and through their plain versions from the same state and batch."""
+    and through their plain versions from the same state and batch; with
+    ``determinism``, first two B=2 updates through the kernels from copies
+    of one state, which must agree to the bit."""
     import copy
 
     from jepa_tpu_torch.ops import flash_attention as fa
@@ -1166,7 +1333,8 @@ def phase_train(torch, setup):
     from jepa_tpu_torch.train.step import init_train_state
 
     want = expected_launches(setup["enc_cfg"], setup["pred_cfg"], setup["keep"])
-    log(f"train: vitl16.yaml, {setup['model_name']} + predictor {setup['pred_cfg'].depth}x"
+    log(f"train: vitl16.yaml, {setup['model_name']} (fused_mlp "
+        f"{setup['enc_cfg'].fused_mlp!r}) + predictor {setup['pred_cfg'].depth}x"
         f"{setup['pred_cfg'].predictor_embed_dim}, batch {TRAIN_BATCH} (config "
         f"{setup['yaml_batch']}), keep counts {setup['keep']}, expected launches/step {want}")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1203,9 +1371,11 @@ def phase_train(torch, setup):
     prof = profile_step(torch, step_fn, state, clips)
 
     # one update at B=2, kernels vs plain versions, from the same state and batch
-    twin = copy.deepcopy(state)
     small = {"clips": clips[:2].contiguous()}
     del clips
+    if determinism:
+        check_update_determinism(torch, step_fn, state, small)
+    twin = copy.deepcopy(state)
     modules = ("encoder", "predictor", "target")
     before = {m: [p.detach().clone() for p in getattr(state, m).parameters()]
               for m in modules}
@@ -1239,6 +1409,68 @@ def phase_train(torch, setup):
             "keep": setup["keep"]}
 
 
+def check_update_determinism(torch, step_fn, state, batch):
+    """Two updates from copies of ``state`` on ``batch``: the metrics, the
+    encoder, predictor and target and the AdamW moments must be bit-equal
+    (every kernel on the path sums in a fixed order)."""
+    import copy
+
+    runs = []
+    for _ in range(2):
+        twin = copy.deepcopy(state)
+        twin, metrics = step_fn(twin, batch)
+        runs.append((twin, metrics))
+    torch.cuda.synchronize()
+    (a, ma), (b, mb) = runs
+    differ = [k for k, v in ma.items() if torch.is_tensor(v) and not v.equal(mb[k])]
+    for m in ("encoder", "predictor", "target"):
+        differ += [f"{m}.{n}" for (n, p), q in zip(getattr(a, m).named_parameters(),
+                                                  getattr(b, m).parameters())
+                   if not p.equal(q)]
+    differ += [f"moments of {n}" for n in a.mu
+               if not (a.mu[n].equal(b.mu[n]) and a.nu[n].equal(b.nu[n]))]
+    log(f"train B={batch['clips'].shape[0]}: two updates from one state, losses "
+        f"{ma['loss'].item():.9g} / {mb['loss'].item():.9g}; metrics, parameters and "
+        f"moments that differ: {len(differ)}")
+    if differ:
+        raise RuntimeError(f"two updates from one state differ: {differ[:8]}")
+
+
+def phase_force_ab(torch, setup, force):
+    """The A/B of the trainable fc1 on one seeded state at TRAIN_BATCH: the
+    default update (eager fc1 + GeluFast) and the ``fused_mlp='force'``
+    update (H8 + LinearGelu's backward) in turns, D F F D D F F D after one
+    warm-up of each; each update timed by the host clock to a synchronise,
+    with its own peak of allocated memory."""
+    from jepa_tpu_torch.train.step import init_train_state
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state = init_train_state(setup["enc_cfg"], setup["pred_cfg"], gen)
+    batch = {"clips": torch.randn((TRAIN_BATCH, *setup["clip_shape"]), generator=gen,
+                                  device="cuda")}
+    fns = {"default": setup["step_fn"], "force": force["step_fn"]}
+    times = {k: [] for k in fns}
+    peaks = dict.fromkeys(fns, 0.0)
+    for i, name in enumerate(("default", "force") + ("default", "force", "force", "default") * 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, _ = fns[name](state, batch)
+        torch.cuda.synchronize()
+        if i >= 2:  # after each variant's warm-up
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 2**30)
+    out = {k: dict(median_ms=statistics.median(v), times=v, peak_gib=peaks[k])
+           for k, v in times.items()}
+    d, f = out["default"], out["force"]
+    log(f"A/B fused trainable fc1 (B={TRAIN_BATCH}, in turns): default "
+        f"{[round(t, 1) for t in d['times']]} ms, median {d['median_ms']:.1f} ms, peak "
+        f"{d['peak_gib']:.2f} GiB; force {[round(t, 1) for t in f['times']]} ms, median "
+        f"{f['median_ms']:.1f} ms, peak {f['peak_gib']:.2f} GiB; force - default "
+        f"{f['median_ms'] - d['median_ms']:+.1f} ms")
+    return out
+
+
 def profile_step(torch, step_fn, state, clips):
     """One more update under torch.profiler: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -1253,7 +1485,8 @@ def profile_step(torch, step_fn, state, clips):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     total = sum(r[1] for r in rows)
     groups = {"H1 flash_fwd": 0.0, "H2 flash_bwd_dkv": 0.0, "H2 flash_bwd_dq": 0.0,
-              "H4-H7 flash_hm": 0.0, "H3 linear_gelu": 0.0, "GEMM (cuBLAS)": 0.0, "other": 0.0}
+              "H4-H7 flash_hm": 0.0, "H3/H8 linear_gelu": 0.0, "GEMM (cuBLAS)": 0.0,
+              "other": 0.0}
     for name, ms, _ in rows:
         if "flash_hm" in name:
             groups["H4-H7 flash_hm"] += ms
@@ -1264,7 +1497,7 @@ def profile_step(torch, step_fn, state, clips):
         elif "flash_bwd_dq" in name:
             groups["H2 flash_bwd_dq"] += ms
         elif "linear_gelu" in name:
-            groups["H3 linear_gelu"] += ms
+            groups["H3/H8 linear_gelu"] += ms
         elif any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "nvjet")):
             groups["GEMM (cuBLAS)"] += ms
         else:
@@ -1752,6 +1985,7 @@ def main() -> int:
     kern = phase_kernels(torch, setup["enc_cfg"].num_patches)
     f32 = phase_f32_kernels(torch)
     (ke0, kp0), (ke1, kp1) = setup["keep"]
+    k11 = phase_k11(torch, [TRAIN_BATCH * ke0, TRAIN_BATCH * ke1])
     bwd = phase_bwd_kernels(torch, [
         ("predictor, mask 1", TRAIN_BATCH, ke0 + kp0, 16, 32, 24),
         ("predictor, mask 2", TRAIN_BATCH, ke1 + kp1, 16, 32, 24),
@@ -1780,12 +2014,16 @@ def main() -> int:
         ev32 = phase_eval_video(torch, repo, workdir, enc_path, bf16=False)
         img = phase_image_probe(torch, repo, enc_path)
     train = phase_train(torch, setup)
+    # the context encoder's fc1 fused and differentiated: H8 + LinearGelu
+    force = train_setup(repo, fused_mlp="force")
+    train_force = phase_train(torch, force)
+    ab = phase_force_ab(torch, setup, force)
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
         app = phase_app(torch, repo, setup, workdir)
     # vit_tiny: its serving, updates and app, through the head-major kernels
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
         tiny_serve = phase_serve(torch, workdir, "vit_tiny")
-        tiny_train = phase_train(torch, tiny)
+        tiny_train = phase_train(torch, tiny, determinism=True)
         tiny_app = phase_app(torch, repo, tiny, workdir)
     sl, tl, al = serve["launches"], train["launches"], app["padded"]["launches"]
     el, fl, il = ev16["launches"], ev32["launches"], img["launches"]
@@ -1815,6 +2053,12 @@ def main() -> int:
                      masked["dkv"]),
         kernel_entry("flash_bwd_dq_masked", bwd_src, f"{fa_py}:1400", al["dq_masked"],
                      masked["dq"]),
+        # K11: the force update's context encoder; fp32: linear_gelu under autograd
+        kernel_entry("linear_gelu_fwd_z", "jepa_tpu_torch/csrc/fused_mlp.cu",
+                     "jepa_tpu/ops/fused_mlp.py:112", train_force["launches"]["h8"], k11["z"]),
+        kernel_entry("linear_gelu_fwd_z_f32", "jepa_tpu_torch/csrc/fused_mlp.cu",
+                     "jepa_tpu/ops/fused_mlp.py:112", k11["f32_launches"]["h8_f32"],
+                     k11["z_f32"]),
     ]
     # the head-major kernels and the c=128 instances: vit_tiny's serving, its
     # timed updates, its app (fixed + resume, padded), and H5 + H6 through
@@ -1860,6 +2104,13 @@ def main() -> int:
     log(f"card: {card}; serve median {serve['median_ms']:.3f} ms/request (B=2), "
         f"peak {serve['peak_gib']:.3f} GiB; train median {train['median_ms']:.1f} "
         f"ms/step (B={TRAIN_BATCH}), peak {train['peak_gib']:.2f} GiB")
+    log(f"card: {card}; force update (fused trainable fc1, H8) median "
+        f"{train_force['median_ms']:.1f} ms/step, peak {train_force['peak_gib']:.2f} GiB; A/B in "
+        f"turns: default {ab['default']['median_ms']:.1f} ms / {ab['default']['peak_gib']:.2f} "
+        f"GiB, force {ab['force']['median_ms']:.1f} ms / {ab['force']['peak_gib']:.2f} GiB")
+    for m, r in k11["rows"].items():
+        log(f"card: {card}; H8 M={m}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][2]})")
     for name, e in (("bf16, batch 4", ev16), ("fp32, batch 1", ev32)):
         log(f"card: {card}; K400 16x8x3 eval {name}: median train step {e['train_ms']:.1f} ms "
             f"(host share {_fmt_host(e['train_host'])}, augmentation "

@@ -8,9 +8,10 @@ forward math lives in functions that mirror the JAX package's rounding:
   * LayerNorm runs in fp32 and returns the input dtype.
   * ``linear`` sums in fp32 and adds the bias in fp32 before the cast to
     the compute dtype.
-  * MLP activation: fused fc1 (``ops.fused_mlp.linear_gelu``) on
-    grad-free forwards when enabled; otherwise linear, then the exp2-erfc
-    GELU for bf16 or exact erf for fp32.
+  * MLP activation: fused fc1 (``ops.fused_mlp.linear_gelu``) when
+    enabled: H3 on grad-free forwards, H8 and its plain backward under a
+    gradient (``fused_mlp='force'`` on a trainable block); otherwise
+    linear, then the exp2-erfc GELU for bf16 or exact erf for fp32.
   * Residual adds happen in the compute dtype.
 
 Blocks are an ``nn.ModuleList`` run by a Python loop.
@@ -43,7 +44,8 @@ class BlockCfg:
     attn_impl: str = "auto"
     qk_scale: Optional[float] = None
     # fused fc1 + GELU kernel: False | True (on CUDA tensors) | 'force'
-    # (always; on the CPU that is the kernel's plain version)
+    # (always; on the CPU that is the kernel's plain version). Under a
+    # gradient it runs H8 and the A&S erf GELU, as the JAX package's vjp.
     fused_mlp: object = False
 
     def __post_init__(self):

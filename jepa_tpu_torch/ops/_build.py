@@ -55,6 +55,9 @@ _SIGNATURES = {
     # x, w, b, out, M, K, F, stream
     "jt_linear_gelu_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "jt_linear_gelu_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, w, b, out, z, M, K, F, stream
+    "jt_linear_gelu_z_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "jt_linear_gelu_z_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

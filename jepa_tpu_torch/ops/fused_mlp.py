@@ -1,18 +1,23 @@
 """Fused fc1 matmul + bias + GELU (counterpart of jepa_tpu/ops/fused_mlp.py).
 
-``linear_gelu`` is the MLP's first layer on grad-free forwards. For a CUDA
-tensor it launches a hand-written Hopper kernel from ``csrc/fused_mlp.cu``:
-H3 for bf16 (tensor cores), H3-fp32 for fp32 (CUDA-core FFMA; the frozen
-evals with ``use_bfloat16: false``). For a CPU tensor it runs
-``linear_gelu_ref``, the plain PyTorch version of the same math. Weights
-keep the ``nn.Linear`` layout [F, K].
+``linear_gelu`` is the MLP's fused first layer. For a CUDA tensor it
+launches a hand-written Hopper kernel from ``csrc/fused_mlp.cu``; for a CPU
+tensor it runs the kernel's plain PyTorch version beside it. Weights keep
+the ``nn.Linear`` layout [F, K].
+
+  * Grad-free calls: H3 (``linear_gelu_cuda`` / ``linear_gelu_ref``), bf16
+    on the tensor cores, fp32 on the CUDA cores (the frozen evals with
+    ``use_bfloat16: false``); K10's port.
+  * Differentiated calls: ``LinearGelu``, whose forward is H8
+    (``linear_gelu_z_cuda`` / ``linear_gelu_z_ref``, K11's port), which
+    also writes z for the backward; the backward is plain torch.
 
 Numerics, as the JAX package: fp32 accumulation, the bias added in fp32,
 z rounded to the compute dtype before the activation, then the exp2-erfc
-polynomial GELU (``_gelu_fast``) for bf16 outputs and the A&S 7.1.26 erf
-GELU (``_gelu``) for fp32 outputs. Shapes outside the kernel's tiling
-(jepa_tpu/ops/fused_mlp.py:277) take the plain exact-erf path in both
-packages.
+polynomial GELU (``_gelu_fast``) for H3's bf16 outputs and the A&S 7.1.26
+erf GELU (``_gelu``) for H3's fp32 outputs and all of H8's. Shapes outside
+the kernels' tiling (jepa_tpu/ops/fused_mlp.py:277) take the plain
+exact-erf path in both packages.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import torch
 
 _INV_SQRT2 = 0.7071067811865476
+_INV_SQRT2PI = 0.3989422804014327
 _LN2 = 0.6931471805599453
 _ERF_G = (1.6279511504838011, 0.9179117972647749, 0.15048427545502158,
           -0.03191463214715457, 0.004236621237891429, -0.00025575246004894803)
@@ -27,8 +33,15 @@ _ERF_G = (1.6279511504838011, 0.9179117972647749, 0.15048427545502158,
 _KERNEL_K_STEP = {torch.bfloat16: 32, torch.float32: 16}  # each kernel's k panel
 
 # wrapper-counted launches in this process
-launches = 0      # H3 (bf16)
-f32_launches = 0  # H3-fp32
+launches = 0        # H3 (bf16)
+f32_launches = 0    # H3-fp32
+z_launches = 0      # H8 (bf16)
+z_f32_launches = 0  # H8-fp32
+
+
+def reset_launch_counts() -> None:
+    global launches, f32_launches, z_launches, z_f32_launches
+    launches = f32_launches = z_launches = z_f32_launches = 0
 
 
 def _erf(x: torch.Tensor) -> torch.Tensor:
@@ -90,52 +103,125 @@ def linear_gelu_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.
     """Plain version of H3. x [M, K], w [F, K], b [F] -> [M, F] in x.dtype.
     Operands are upcast to fp32 (exact for bf16), so the sum is fp32 and
     the bias is added before any rounding."""
-    z = torch.matmul(x.float(), w.float().t()) + b.float()
-    z = z.to(x.dtype).float()
+    z = _z_ref(x, w, b).float()
     act = _gelu_fast if x.dtype == torch.bfloat16 else _gelu
     return act(z).to(x.dtype)
+
+
+def _z_ref(x, w, b):
+    """x @ w.T + b with fp32 sums and the bias added in fp32, rounded to
+    x's dtype."""
+    return (torch.matmul(x.float(), w.float().t()) + b.float()).to(x.dtype)
+
+
+def linear_gelu_z_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """Plain version of H8 (K11, jepa_tpu/ops/fused_mlp.py:112): (o, z),
+    both [M, F] in x.dtype; z as ``linear_gelu_ref`` rounds it, o the A&S
+    erf GELU of z in either dtype."""
+    z = _z_ref(x, w, b)
+    return _gelu(z.float()).to(x.dtype), z
+
+
+def _checked_operands(name, x, w, b):
+    """x, w and an fp32 contiguous b after the launchers' checks."""
+    if not (x.is_cuda and w.device == x.device and b.device == x.device):
+        raise ValueError(f"{name}: x, w, b must be on one CUDA device")
+    if x.dtype != w.dtype or x.dtype not in _KERNEL_K_STEP:
+        raise NotImplementedError(
+            f"{name} takes bf16 or fp32 x and w of one dtype, got {x.dtype}/{w.dtype}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                    or b.requires_grad):
+        raise NotImplementedError(f"{name} is forward-only; call it under "
+                                  "torch.no_grad() (linear_gelu differentiates)")
+    if x.dim() != 2 or w.dim() != 2 or b.shape != (w.shape[0],):
+        raise ValueError(f"{name}: bad shapes x{tuple(x.shape)} "
+                         f"w{tuple(w.shape)} b{tuple(b.shape)}")
+    m, k = x.shape
+    f, k2 = w.shape
+    k_step = _KERNEL_K_STEP[x.dtype]
+    if k != k2 or k % k_step or f % 128 or m < 1:
+        raise ValueError(f"{name}: needs K % {k_step} == 0 and F % 128 == 0, "
+                         f"got M={m} K={k} F={f}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{name}: x and w must be contiguous")
+    b = b.float().contiguous()
+    if x.data_ptr() % 16 or w.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f"{name}: x, w and b must be 16-byte aligned")
+    return x, w, b
+
+
+def _launch(entry, x, w, b, *outs):
+    from jepa_tpu_torch.ops._build import check, load_library
+
+    m, k = x.shape
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    check(getattr(load_library(), entry)(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                         *(o.data_ptr() for o in outs), m, k,
+                                         w.shape[0], stream), entry)
 
 
 def linear_gelu_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch H3 on x's current stream: x [M, K] and w [F, K] both bf16 (H3)
     or both fp32 (H3-fp32), b [F]; the output has x's dtype."""
     global launches, f32_launches
-    from jepa_tpu_torch.ops._build import check, load_library
-
-    if not (x.is_cuda and w.device == x.device and b.device == x.device):
-        raise ValueError("linear_gelu_cuda: x, w, b must be on one CUDA device")
-    if x.dtype != w.dtype or x.dtype not in _KERNEL_K_STEP:
-        raise NotImplementedError(
-            f"linear_gelu_cuda takes bf16 or fp32 x and w of one dtype, got "
-            f"{x.dtype}/{w.dtype}")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
-                                    or b.requires_grad):
-        raise NotImplementedError("linear_gelu_cuda is forward-only; call it "
-                                  "under torch.no_grad()")
-    if x.dim() != 2 or w.dim() != 2 or b.shape != (w.shape[0],):
-        raise ValueError(f"linear_gelu_cuda: bad shapes x{tuple(x.shape)} "
-                         f"w{tuple(w.shape)} b{tuple(b.shape)}")
-    m, k = x.shape
-    f, k2 = w.shape
-    k_step = _KERNEL_K_STEP[x.dtype]
-    if k != k2 or k % k_step or f % 128 or m < 1:
-        raise ValueError(f"linear_gelu_cuda: needs K % {k_step} == 0 and F % 128 == 0, "
-                         f"got M={m} K={k} F={f}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("linear_gelu_cuda: x and w must be contiguous")
-    b = b.float().contiguous()
-    if x.data_ptr() % 16 or w.data_ptr() % 16 or b.data_ptr() % 16:
-        raise ValueError("linear_gelu_cuda: x, w and b must be 16-byte aligned")
-    out = torch.empty((m, f), dtype=x.dtype, device=x.device)
-    entry = "jt_linear_gelu_bf16" if x.dtype == torch.bfloat16 else "jt_linear_gelu_f32"
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    check(getattr(load_library(), entry)(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                         out.data_ptr(), m, k, f, stream), entry)
-    if x.dtype == torch.bfloat16:
+    x, w, b = _checked_operands("linear_gelu_cuda", x, w, b)
+    out = torch.empty((x.shape[0], w.shape[0]), dtype=x.dtype, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    _launch("jt_linear_gelu_bf16" if bf16 else "jt_linear_gelu_f32", x, w, b, out)
+    if bf16:
         launches += 1
     else:
         f32_launches += 1
     return out
+
+
+def linear_gelu_z_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """Launch H8 on x's current stream, with linear_gelu_cuda's operands:
+    returns (o, z), both [M, F] in x's dtype (H8 for bf16, H8-fp32)."""
+    global z_launches, z_f32_launches
+    x, w, b = _checked_operands("linear_gelu_z_cuda", x, w, b)
+    o, z = (torch.empty((x.shape[0], w.shape[0]), dtype=x.dtype, device=x.device)
+            for _ in range(2))
+    bf16 = x.dtype == torch.bfloat16
+    _launch("jt_linear_gelu_z_bf16" if bf16 else "jt_linear_gelu_z_f32", x, w, b, o, z)
+    if bf16:
+        z_launches += 1
+    else:
+        z_f32_launches += 1
+    return o, z
+
+
+class LinearGelu(torch.autograd.Function):
+    """gelu(x @ w.T + b) under autodiff: the JAX package's ``_linear_gelu``
+    custom_vjp (jepa_tpu/ops/fused_mlp.py:222-254). The forward runs H8 on
+    the card (K11's port; ``linear_gelu_z_ref`` on the CPU) and keeps
+    (z, x, w); the backward is ``_linear_gelu_bwd`` in plain torch: the
+    exact-erf dgelu of z in fp32, g rounded to x's dtype, dx = g @ w and
+    dw = g.T @ x with fp32 sums rounded to x's and w's dtypes, db the fp32
+    column sum of g. x [M, K], w [F, K], b [F]."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        if x.is_cuda:
+            o, z = linear_gelu_z_cuda(x.contiguous(), w.contiguous(), b)
+        else:
+            o, z = linear_gelu_z_ref(x, w, b)
+        ctx.save_for_backward(z, x, w)
+        return o
+
+    @staticmethod
+    def backward(ctx, dy):
+        from jepa_tpu_torch.models.transformer import _mm_f32
+
+        z, x, w = ctx.saved_tensors
+        zf = z.float()
+        phi = torch.exp(-0.5 * zf * zf) * _INV_SQRT2PI
+        cdf = 0.5 * (1.0 + torch.erf(zf * _INV_SQRT2))
+        g = (dy.float() * (cdf + zf * phi)).to(x.dtype)
+        dx = _mm_f32(g, w).to(x.dtype) if ctx.needs_input_grad[0] else None
+        dw = _mm_f32(g.t(), x).to(w.dtype) if ctx.needs_input_grad[1] else None
+        db = g.float().sum(0) if ctx.needs_input_grad[2] else None
+        return dx, dw, db
 
 
 def fused_tiling(m: int, k: int, f: int) -> bool:
@@ -149,8 +235,11 @@ def linear_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     """gelu(x @ w.T + b) with the GELU fused into the matmul epilogue.
 
     x: [..., K] (compute dtype); w: [F, K]; b: [F]. Returns [..., F] in
-    x's dtype. Shapes the kernel's tiling does not cover take the plain
-    exact-erf path, as in jepa_tpu/ops/fused_mlp.py:277.
+    x's dtype. A differentiated call (grad mode on and x, w or b requiring
+    grad) goes through ``LinearGelu`` (H8, the A&S erf GELU), a grad-free
+    one through H3 (the exp2-erfc GELU for bf16): JAX's vjp/primal split.
+    Shapes the kernels' tiling does not cover take the plain exact-erf
+    path, as in jepa_tpu/ops/fused_mlp.py:277.
     """
     lead = x.shape[:-1]
     k = x.shape[-1]
@@ -160,7 +249,9 @@ def linear_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
         h = torch.matmul(x.float(), w.float().t()) + b.float()
         return torch.nn.functional.gelu(h).to(x.dtype)
     x2 = x.reshape(m, k)
-    if x2.is_cuda:
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
+        out = LinearGelu.apply(x2, w, b)
+    elif x2.is_cuda:
         out = linear_gelu_cuda(x2.contiguous(), w.contiguous(), b)
     else:
         out = linear_gelu_ref(x2, w, b)

@@ -9,7 +9,9 @@ jepa_tpu/train/step.py::build_train_step; reference app/vjepa/train.py:414-498).
 The update, in the JAX package's order: masks for this step; the target
 forward without gradients (fused fc1 + GELU, H3, on the card) with the
 feature LayerNorm and the gather at the target indices; for each mask
-config the context encoder on the kept tokens and the predictor over
+config the context encoder on the kept tokens (run with ``enc_cfg``, as
+the JAX package runs it: ``fused_mlp='force'`` sends its fc1 through H8
+and its plain backward) and the predictor over
 [context || mask tokens]; the L1 loss (plus the variance regularizer when
 its coefficient is not 0); the backward (H1's saved outputs feed H2 on the
 card); per-module gradient clipping gated by ``clip_after_step``; AdamW
@@ -206,7 +208,7 @@ def build_train_step(
             p.grad = None
         preds = []
         for i, (me, mp) in enumerate(zip(masks_enc, masks_pred)):
-            z = vit_forward(state.encoder, clips, masks=me, kv_mask=kv_enc[i])
+            z = vit_forward(state.encoder, clips, cfg=enc_cfg, masks=me, kv_mask=kv_enc[i])
             preds.append(predictor_forward(state.predictor, z, me, mp, mask_index=i,
                                            kv_mask_ctxt=kv_enc[i], kv_mask_tgt=kv_pred[i]))
         l_jepa = jepa_loss(preds, targets, train_cfg.loss_exp, pred_w)

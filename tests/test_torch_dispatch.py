@@ -7,10 +7,12 @@ kernels' head dims, fused_tiling, the kernels' k panels) on a stand-in for
 a CUDA tensor. Each call must reach a kernel instance that exists (a C
 entry the build binds and a source defines: H1 by head dim and dtype, H2
 for a differentiated H1, H4 and H7 or H5 + H6 on the head-major route, H3
-by K/F tiling and dtype) or the documented eager path: attention with
-fewer than 128 queries or keys (the probe's 1-query cross-attention, short
-contexts), head-major sequences past 2048 tokens, and the differentiated
-fc1 (probe, context encoder, predictor). No model runs. ``pytest -s``
+by K/F tiling and dtype, H8 for a fused fc1 under a gradient) or the
+documented eager path: attention with fewer than 128 queries or keys (the
+probe's 1-query cross-attention, short contexts), head-major sequences past
+2048 tokens, the unfused differentiated fc1 (probe, predictor, the context
+encoder unless ``fused_mlp='force'``) and an fc1 outside the kernels'
+tiling. No model runs. ``pytest -s``
 prints the table.
 
 The call lists (``_eval_calls``, ``_pretrain_calls``) restate the call
@@ -81,6 +83,7 @@ class Fc1:
     f: int
     dtype: torch.dtype
     fused: bool
+    grad: bool = False
 
 
 def _eval_calls(cfg, bf16):
@@ -108,7 +111,9 @@ def _eval_calls(cfg, bf16):
     return calls
 
 
-def _pretrain_calls(cfg, model_name=None):
+def _pretrain_calls(cfg, model_name=None, force=False):
+    """``force``: the encoder built with ``fused_mlp='force'`` (the context
+    fc1 fused and differentiated)."""
     m, d = cfg["model"], cfg["data"]
     m["model_name"] = model_name or m["model_name"]
     dt = _DTYPES[str(cfg["meta"].get("dtype", "bfloat16"))]
@@ -127,11 +132,12 @@ def _pretrain_calls(cfg, model_name=None):
              Fc1("target fc1", b * n, enc.embed_dim, enc.mlp_hidden, dt, True)]
     for i, (ke, kp) in enumerate(keep):
         calls += [Attn(f"mask {i} context self-attn", ke, ke, enc.num_heads, c, dt, True),
-                  Fc1(f"mask {i} context fc1", b * ke, enc.embed_dim, enc.mlp_hidden, dt, False),
+                  Fc1(f"mask {i} context fc1", b * ke, enc.embed_dim, enc.mlp_hidden, dt,
+                      force, True),
                   Attn(f"mask {i} predictor self-attn", ke + kp, ke + kp, pred.num_heads, pc,
                        dt, True),
                   Fc1(f"mask {i} predictor fc1", b * (ke + kp), pred.predictor_embed_dim,
-                      int(pred.predictor_embed_dim * pred.mlp_ratio), dt, False)]
+                      int(pred.predictor_embed_dim * pred.mlp_ratio), dt, False, True)]
     return calls
 
 
@@ -159,11 +165,12 @@ def _resolve(call):
         if not call.fused:
             return "eager linear + GELU (differentiated)"
         if not fused_tiling(call.m, call.k, call.f):  # vit_tiny's K=192, in both packages
-            return "eager linear + exact GELU (outside H3's tiling)"
+            return "eager linear + exact GELU (outside the kernels' tiling)"
         assert resolve_fused_mlp(_CARD), call
         assert call.k % _KERNEL_K_STEP[call.dtype] == 0 and call.f % 128 == 0, call
-        entries = ["jt_linear_gelu_bf16" if call.dtype == torch.bfloat16
-                   else "jt_linear_gelu_f32"]
+        kind = "_z" if call.grad else ""  # H8 (LinearGelu's forward) or H3
+        entries = [f"jt_linear_gelu{kind}_bf16" if call.dtype == torch.bfloat16
+                   else f"jt_linear_gelu{kind}_f32"]
     for e in entries:
         assert e in _build._SIGNATURES and e in _ENTRIES, (call, e)
     return " + ".join(entries)
@@ -228,3 +235,24 @@ def test_vit_tiny_pretrain_dispatch():
     for i in (0, 1):
         assert got[f"mask {i} predictor self-attn"] == (
             "jt_flash_fwd_c128 + jt_flash_bwd_dkv_c128 + jt_flash_bwd_dq_c128")
+
+
+@pytest.mark.parametrize("model_name", ["vit_large", "vit_tiny"])
+def test_force_fused_mlp_pretrain_dispatch(model_name):
+    """vitl16.yaml with the encoder's ``fused_mlp='force'``: ViT-L's context
+    fc1 (K=1024, F=4096, M = 24 x each context) is differentiated and
+    resolves to H8, the target's to H3, the predictor's stays eager;
+    vit_tiny's fc1 (K=192) is outside the kernels' tiling, so it stays on
+    the plain path under a gradient as without, in both packages."""
+    cfg = yaml.safe_load((_CONFIGS / "pretrain" / "vitl16.yaml").read_text())
+    got = {call.where: _resolve(call) for call in _pretrain_calls(cfg, model_name, force=True)}
+    for where, how in got.items():
+        print(f"  {where:32s} -> {how}")
+    tiled = model_name == "vit_large"
+    for i in (0, 1):
+        assert got[f"mask {i} context fc1"] == (
+            "jt_linear_gelu_z_bf16" if tiled
+            else "eager linear + exact GELU (outside the kernels' tiling)")
+        assert got[f"mask {i} predictor fc1"] == "eager linear + GELU (differentiated)"
+    assert got["target fc1"] == ("jt_linear_gelu_bf16" if tiled
+                                 else "eager linear + exact GELU (outside the kernels' tiling)")
