@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (jepa_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                   # the smoke run below
+    python3 chip_smoke.py --b2-spread [--seeds 0,1,2] [--other DIR]...
+                                            # only the spread of phase 6's B=2
+                                            # check (phase_b2_spread)
+    python3 chip_smoke.py --kernel-ab --other DIR...
+                                            # only bf16 H1/H3/H8 against another
+                                            # checkout's (phase_kernel_ab)
 
 Phases (any failure raises and exits non-zero):
   1. device: require CUDA, print the card's name and power limit, turn
@@ -17,6 +23,10 @@ Phases (any failure raises and exits non-zero):
      attention backward, dk/dv and dq kernels) and H1 at the training
      shapes (the predictor's head dim 24 padded to 32, the encoder
      context, and a ragged N at head dim 80);
+     then (phase_edges) the Hopper kernels at their tiles' edges: H1 at
+     N = 40 and N = 129 (1 mod 128) for every head dim, and with two whole
+     128-key tiles of pads mid-sequence at c = 24->32, 64 and 128; H3 and
+     H8 at M = 8, 200 and 2305;
   5. serve 4 requests through jepa_tpu_torch.api: a seeded ViT-L/16
      (224 px, 16 frames, tubelet 2, uniform_power) and a 400-class
      attentive probe, written as .pth.tar files and loaded back; each
@@ -29,9 +39,11 @@ Phases (any failure raises and exits non-zero):
      weights and normalized clips, TRAIN_BATCH clips) through
      jepa_tpu_torch.train.step; checks finite loss and grad norms and the
      H1/H2/H3 launches per step the path implies, times the steps,
-     profiles one more, then holds one B=2 update through the kernels
-     against the same update through the plain versions (loss, grad norms,
-     and the change of the encoder, the predictor and the EMA target);
+     profiles one more, and holds one B=2 update through the kernels
+     against the same update through the plain versions from the seeded
+     state and from the trained state (loss and grad norms at both; from
+     the trained state also the change of the encoder, the predictor and
+     the EMA target; ``check_b2`` says why);
   7. masked kernels: H1 (c=64 and c=24->32) and both H2 kernels with a key
      mask, against their plain versions at the padded mode's shapes
      (B=24; context N 128/384/640 at c=64, predictor N 1152/1664 at
@@ -90,10 +102,11 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
 Phases 12-13 run after phase 7, phases 14-15 after phase 8, phase 16's
 kernel checks after phase 9. Launch counts are checked as whole dicts of
 every counter (``_counts``): a kernel that should not run must count 0.
-Every backward kernel (H2 at each head dim, masked or not, H5, H6, H7) and
-H8 is called a second time on the same inputs and must give bit-equal
-outputs, and vit_tiny's B=2 update is taken twice from one state and must
-give bit-equal metrics, parameters and moments.
+H1 (each head dim, masked or not), H2 likewise, H3, H5, H6, H7, H8 and
+H8-fp32 are each called a second time on the same inputs wherever they
+are held against their plain versions, and must give bit-equal outputs,
+and vit_tiny's B=2 update is taken twice from one state and must give
+bit-equal metrics, parameters and moments.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -222,17 +235,7 @@ def phase_kernels(torch, n_train):
                        (TRAIN_BATCH, n_train, 16, 64)):
         qkv = torch.randn((b, n, 3 * h * c), generator=gen, device=dev).to(torch.bfloat16)
         scale = c**-0.5
-        o, lse = fa.flash_self_attention_cuda(qkv, h, scale)
-        o_ref, lse_ref = fa.flash_self_attention_ref(qkv, h, scale)
-        torch.cuda.synchronize()
-        if not (torch.isfinite(o.float()).all() and torch.isfinite(lse).all()):
-            raise RuntimeError(f"H1 B={b} N={n} c={c}: non-finite output")
-        err_o = (o.float() - o_ref.float()).abs().max().item()
-        err_l = (lse - lse_ref).abs().max().item()
-        log(f"H1 B={b} N={n} H={h} c={c}: max|do| {err_o:.3e} (tol {H1_O_TOL}) "
-            f"max|dlse| {err_l:.3e} (tol {H1_LSE_TOL})")
-        if not (err_o <= H1_O_TOL and err_l <= H1_LSE_TOL):
-            raise RuntimeError(f"H1 B={b} N={n} c={c} disagrees with its plain version")
+        o, lse, err_o = _check_h1(torch, f"H1 B={b} N={n} H={h} c={c}", qkv, h, scale)
         h1["max_abs_err"] = max(h1["max_abs_err"], err_o)
         if (b, n, c) == (1, 4608, 80):  # K2's geometry (the vith16_384 encoder)
             k2 = dict(ms=time_ms(torch, lambda: fa.flash_self_attention_cuda(qkv, h, scale)),
@@ -254,7 +257,7 @@ def phase_kernels(torch, n_train):
             log(f"H1 ViT-L time: kernel {h1['ms']:.4f} ms, plain {h1['plain_ms']:.4f} ms, "
                 f"library (SDPA forward) {h1['library_ms']:.4f} ms, bound "
                 f"{h1['bound'][0]:.4f} ms ({h1['bound'][2]})")
-        del qkv, o, lse, o_ref, lse_ref
+        del qkv, o, lse
     report["h1"] = h1
 
     h3 = {"max_abs_err": 0.0}
@@ -263,10 +266,7 @@ def phase_kernels(torch, n_train):
     bias = torch.randn((f,), generator=gen, device=dev) * 0.1
     for m in (2 * 1568, 1570, TRAIN_BATCH * n_train):
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        y = fm.linear_gelu_cuda(x, w, bias)
-        y_ref = fm.linear_gelu_ref(x, w, bias)
-        torch.cuda.synchronize()
-        err = _check_flips(f"H3 M={m} K={k} F={f}", y, y_ref)
+        err = _check_h3(torch, f"H3 M={m} K={k} F={f}", x, w, bias)
         h3["max_abs_err"] = max(h3["max_abs_err"], err)
         if m == 2 * 1568:
             h3["ms"] = time_ms(torch, lambda: fm.linear_gelu_cuda(x, w, bias))
@@ -277,15 +277,12 @@ def phase_kernels(torch, n_train):
             h3["library_ms"] = time_ms(torch, lambda: torch._addmm_activation(
                 bias_lp, x, w.t(), use_gelu=True))
             gemm_ms = time_ms(torch, lambda: torch.nn.functional.linear(x, w, bias_lp))
-            t_ops = 2.0 * m * k * f / PEAK_BF16_FLOPS * 1e3
-            t_bytes = (2 * m * k + 2 * f * k + 4 * f + 2 * m * f) / PEAK_BYTES_PER_S * 1e3
-            h3["bound"] = ((t_ops, "operations", "MMA") if t_ops >= t_bytes
-                           else (t_bytes, "bytes", "bytes"))
+            h3["bound"] = fc1_bound_ms(m, k, f, outputs=1)
             log(f"H3 ViT-L fc1 time: kernel {h3['ms']:.4f} ms, plain {h3['plain_ms']:.4f} ms, "
                 f"bound {h3['bound'][0]:.4f} ms ({h3['bound'][2]}); library "
                 f"(_addmm_activation, tanh-GELU epilogue) {h3['library_ms']:.4f} ms; the bf16 "
                 f"F.linear GEMM alone (a floor) {gemm_ms:.4f} ms")
-        del x, y, y_ref
+        del x
     report["h3"] = h3
     return report
 
@@ -389,6 +386,91 @@ def _same_bits(label, first, second) -> None:
         raise RuntimeError(f"{label} is not deterministic: a second call differs")
 
 
+def _check_h1(torch, label, qkv, h, scale, mask=None):
+    """H1 on qkv (with a key mask or none) against its plain version on the
+    card (finite, |do| <= H1_O_TOL, |dlse| <= H1_LSE_TOL), then called a
+    second time on the same inputs, which must give bit-equal o and lse.
+    Returns (o, lse, max|do|)."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    o, lse = fa.flash_self_attention_cuda(qkv, h, scale, mask)
+    o_ref, lse_ref = fa.flash_self_attention_ref(qkv, h, scale, mask)
+    torch.cuda.synchronize()
+    if not (_finite(o) and _finite(lse)):
+        raise RuntimeError(f"{label}: non-finite output")
+    err_o = (o.float() - o_ref.float()).abs().max().item()
+    err_l = (lse - lse_ref).abs().max().item()
+    log(f"{label}: max|do| {err_o:.3e} (tol {H1_O_TOL}) max|dlse| {err_l:.3e} "
+        f"(tol {H1_LSE_TOL})")
+    if not (err_o <= H1_O_TOL and err_l <= H1_LSE_TOL):
+        raise RuntimeError(f"{label} disagrees with its plain version")
+    _same_bits(label, (o, lse), fa.flash_self_attention_cuda(qkv, h, scale, mask))
+    return o, lse, err_o
+
+
+def _check_h3(torch, label, x, w, bias) -> float:
+    """H3 against its plain version under the flip rule, then called a
+    second time on the same inputs, which must be bit-equal. Returns max|d|."""
+    from jepa_tpu_torch.ops import fused_mlp as fm
+
+    y = fm.linear_gelu_cuda(x, w, bias)
+    torch.cuda.synchronize()
+    err = _check_flips(label, y, fm.linear_gelu_ref(x, w, bias))
+    _same_bits(label, (y,), (fm.linear_gelu_cuda(x, w, bias),))
+    return err
+
+
+def _check_h8(torch, label, x, w, bias) -> float:
+    """H8's o and z against its plain version under the flip rule, then a
+    second call, bit-equal. Returns max|d| over o and z."""
+    from jepa_tpu_torch.ops import fused_mlp as fm
+
+    o, z = fm.linear_gelu_z_cuda(x, w, bias)
+    torch.cuda.synchronize()
+    o_ref, z_ref = fm.linear_gelu_z_ref(x, w, bias)
+    err = max(_check_flips(f"{label} o", o, o_ref), _check_flips(f"{label} z", z, z_ref))
+    _same_bits(label, (o, z), fm.linear_gelu_z_cuda(x, w, bias))
+    return err
+
+
+def phase_edges(torch):
+    """The Hopper kernels at the edges of their tiles (H1: 128 query rows
+    and 128 keys a tile; H3 and H8: 128 x 128 output tiles, 64-deep k
+    panels), each against its plain version and called twice for bit-equal
+    outputs: H1 at N = 40 (one partial key tile) and at N = 129 (1 mod 128)
+    for every head dim; H1 with a key mask whose keys [128, 384), two whole
+    key tiles mid-sequence, are all pads, at c = 24->32, 64 and 128; H3 and
+    H8 at M = 8, 200 and 2305; H8 at an identity probe that feeds its
+    epilogue every bf16 z."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rng = np.random.default_rng(SEED + 7)
+    for b, n, h, c, c_real in ((2, 40, 16, 64, 64), (2, 129, 16, 32, 24), (2, 129, 16, 64, 64),
+                               (1, 129, 16, 80, 80), (2, 129, 3, 128, 128)):
+        qkv, _ = _attn_inputs(torch, gen, b, n, h, c, c_real)
+        _check_h1(torch, f"H1 edge B={b} N={n} H={h} c={c_real}->{c}", qkv, h, c_real**-0.5)
+    for b, n, h, c, c_real in ((4, 640, 16, 32, 24), (4, 640, 16, 64, 64), (4, 640, 3, 128, 128)):
+        qkv, _ = _attn_inputs(torch, gen, b, n, h, c, c_real)
+        mask = padded_key_mask(torch, rng, b, n, 0)
+        mask[:, 128:384] = False
+        _check_h1(torch, f"masked H1 edge B={b} N={n} H={h} c={c_real}->{c}, keys [128, 384) "
+                  "all pads", qkv, h, c_real**-0.5, mask)
+    k, f = 1024, 4096
+    w = (torch.randn((f, k), generator=gen, device="cuda") / 32).to(torch.bfloat16)
+    bias = torch.randn((f,), generator=gen, device="cuda") * 0.1
+    for m in (8, 200, 2305):
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        _check_h3(torch, f"H3 edge M={m} K={k} F={f}", x, w, bias)
+        _check_h8(torch, f"H8 edge M={m} K={k} F={f}", x, w, bias)
+    # an identity probe: x holds every finite bf16 value once (non-finite
+    # patterns as 0), w = I, b = 0, so z = x and H8's epilogue meets every
+    # bf16 z
+    bits = torch.arange(-32768, 32768, dtype=torch.int32, device="cuda").to(torch.int16)
+    x = bits.view(torch.bfloat16).reshape(512, 128)
+    x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    eye = torch.eye(128, device="cuda", dtype=torch.bfloat16)
+    _check_h8(torch, "H8 identity probe, every bf16 z", x, eye, torch.zeros(128, device="cuda"))
+
+
 def _linear_gelu_grads(torch, fm, x, w, bias, dy):
     """(o, dx, dw, db) of the public linear_gelu under autograd."""
     x, w, bias = (t.detach().requires_grad_(True) for t in (x, w, bias))
@@ -416,29 +498,21 @@ def phase_k11(torch, ms):
     bias = torch.randn((f,), generator=gen, device="cuda") * 0.1
     for m in ms:
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
-        o, z = fm.linear_gelu_z_cuda(x, w, bias)
-        o_ref, z_ref = fm.linear_gelu_z_ref(x, w, bias)
-        torch.cuda.synchronize()
-        err = max(_check_flips(f"H8 o M={m} K={k} F={f}", o, o_ref),
-                  _check_flips(f"H8 z M={m} K={k} F={f}", z, z_ref))
+        err = _check_h8(torch, f"H8 M={m} K={k} F={f}", x, w, bias)
         rep["z"]["max_abs_err"] = max(rep["z"]["max_abs_err"], err)
-        _same_bits(f"H8 M={m}", (o, z), fm.linear_gelu_z_cuda(x, w, bias))
         bias_lp = bias.to(torch.bfloat16)
-        t_ops = 2.0 * m * k * f / PEAK_BF16_FLOPS * 1e3
-        t_bytes = (2 * m * k + 2 * f * k + 4 * f + 2 * 2 * m * f) / PEAK_BYTES_PER_S * 1e3
         r = dict(ms=time_ms(torch, lambda: fm.linear_gelu_z_cuda(x, w, bias)),
                  plain_ms=time_ms(torch, lambda: fm.linear_gelu_z_ref(x, w, bias)),
                  # cuBLASLt's GEMM + bias + tanh-GELU epilogue: no z, not H8's
                  # GELU to the bit; timed only, never used
                  library_ms=time_ms(torch, lambda: torch._addmm_activation(
                      bias_lp, x, w.t(), use_gelu=True)),
-                 bound=((t_ops, "operations", "MMA") if t_ops >= t_bytes
-                        else (t_bytes, "bytes", "bytes")))
+                 bound=fc1_bound_ms(m, k, f, outputs=2))
         log(f"H8 M={m} K={k} F={f} time: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library (_addmm_activation, no z) {r['library_ms']:.4f} ms, bound "
             f"{r['bound'][0]:.4f} ms ({r['bound'][2]})")
         rep["rows"][m] = r
-        del x, o, z, o_ref, z_ref
+        del x
     rep["z"].update(rep["rows"][ms[0]])
 
     # LinearGelu's gradients through H8, then through the plain version
@@ -573,6 +647,15 @@ def _sdpa_fwd_ms(torch, qkv, h, scale):
     return time_ms(torch, lambda: f(q, k, v, scale=scale))
 
 
+def fc1_bound_ms(m, k, f, outputs):
+    """Least time of a bf16 fc1 (H3: ``outputs`` 1; H8, which also writes
+    z: 2): the product at the bf16 tensor-core peak, or reading x, w and
+    the fp32 bias and writing the bf16 outputs once."""
+    t_ops = 2.0 * m * k * f / PEAK_BF16_FLOPS * 1e3
+    t_bytes = (2 * m * k + 2 * f * k + 4 * f + outputs * 2 * m * f) / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations", "MMA") if t_ops >= t_bytes else (t_bytes, "bytes", "bytes")
+
+
 def attn_bound_ms(b, n, h, c, products, in_bytes, out_bytes, pairs=None):
     """Least time for one attention kernel: the largest of `products`
     N x N x c matmuls per (batch, head) at the bf16 tensor-core peak (c the
@@ -604,16 +687,7 @@ def phase_bwd_kernels(torch, shapes):
     for label, b, n, h, c, c_real in shapes:
         qkv, do = _attn_inputs(torch, gen, b, n, h, c, c_real)
         scale = c_real**-0.5
-        o, lse = fa.flash_self_attention_cuda(qkv, h, scale)
-        o_ref, lse_ref = fa.flash_self_attention_ref(qkv, h, scale)
-        torch.cuda.synchronize()
-        err_o = (o.float() - o_ref.float()).abs().max().item()
-        err_l = (lse - lse_ref).abs().max().item()
-        del o_ref, lse_ref
-        log(f"H1 c={c} {label} B={b} N={n} H={h}: max|do| {err_o:.3e} (tol "
-            f"{H1_O_TOL}) max|dlse| {err_l:.3e} (tol {H1_LSE_TOL})")
-        if not (err_o <= H1_O_TOL and err_l <= H1_LSE_TOL):
-            raise RuntimeError(f"H1 c={c} {label} disagrees with its plain version")
+        o, lse, err_o = _check_h1(torch, f"H1 c={c} {label} B={b} N={n} H={h}", qkv, h, scale)
         h1 = rep["h1_c32" if c == 32 else "h1"]
         h1["max_abs_err"] = max(h1["max_abs_err"], err_o)
         delta = fa.attention_delta(do, o, h)
@@ -734,19 +808,9 @@ def phase_masked_kernels(torch, shapes):
         qkv, do = _attn_inputs(torch, gen, b, n, h, c, c_real)
         mask = padded_key_mask(torch, rng, b, n, mid_run)
         scale = c_real**-0.5
-        o, lse = fa.flash_self_attention_cuda(qkv, h, scale, mask)
-        o_ref, lse_ref = fa.flash_self_attention_ref(qkv, h, scale, mask)
-        torch.cuda.synchronize()
-        if not (torch.isfinite(o.float()).all() and torch.isfinite(lse).all()):
-            raise RuntimeError(f"masked H1 {label}: non-finite output")
-        err_o = (o.float() - o_ref.float()).abs().max().item()
-        err_l = (lse - lse_ref).abs().max().item()
-        del o_ref, lse_ref
         valid = mask.float().mean().item()
-        log(f"masked H1 c={c} {label} B={b} N={n}: valid keys {valid:.3f}, max|do| "
-            f"{err_o:.3e} (tol {H1_O_TOL}) max|dlse| {err_l:.3e} (tol {H1_LSE_TOL})")
-        if not (err_o <= H1_O_TOL and err_l <= H1_LSE_TOL):
-            raise RuntimeError(f"masked H1 {label} disagrees with its plain version")
+        o, lse, err_o = _check_h1(torch, f"masked H1 c={c} {label} B={b} N={n}, valid keys "
+                                  f"{valid:.3f}", qkv, h, scale, mask)
         h1 = rep[f"h1_c{c}"]
         h1["max_abs_err"] = max(h1["max_abs_err"], err_o)
         delta = fa.attention_delta(do, o, h)
@@ -1027,15 +1091,7 @@ def phase_c128_kernels(torch, setup, pred_caps):
         sfx = "_masked" if masked else ""
         qkv, do = _attn_inputs(torch, gen, b, n, h, c)
         mask = padded_key_mask(torch, rng, b, n, mid) if masked else None
-        o, lse = fa.flash_self_attention_cuda(qkv, h, scale, mask)
-        o_ref, lse_ref = fa.flash_self_attention_ref(qkv, h, scale, mask)
-        torch.cuda.synchronize()
-        err_o = (o.float() - o_ref.float()).abs().max().item()
-        err_l = (lse - lse_ref).abs().max().item()
-        log(f"H1 c=128 {label} B={b} N={n}: max|do| {err_o:.3e} (tol {H1_O_TOL}) "
-            f"max|dlse| {err_l:.3e} (tol {H1_LSE_TOL})")
-        if not (_finite(o) and err_o <= H1_O_TOL and err_l <= H1_LSE_TOL):
-            raise RuntimeError(f"H1 c=128 {label} disagrees with its plain version")
+        o, lse, err_o = _check_h1(torch, f"H1 c=128 {label} B={b} N={n}", qkv, h, scale, mask)
         rep["fwd" + sfx]["max_abs_err"] = max(rep["fwd" + sfx]["max_abs_err"], err_o)
         delta = fa.attention_delta(do, o, h)
         dqkv = fa.flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale, mask)
@@ -1074,7 +1130,7 @@ def phase_c128_kernels(torch, setup, pred_caps):
                 log(f"{kind}{sfx} c=128 {label} B={b} N={n} time: kernel {r['ms']:.4f} ms, "
                     f"plain {r['plain_ms']:.4f} ms, library (SDPA) {lib:.4f} ms, bound "
                     f"{r['bound'][0]:.4f} ms ({r['bound'][2]})")
-        del qkv, do, o, lse, o_ref, lse_ref, delta, dqkv, ref
+        del qkv, do, o, lse, delta, dqkv, ref
     return rep
 
 
@@ -1171,6 +1227,7 @@ def phase_serve(torch, workdir: str, model_name: str = "vit_large"):
     med = statistics.median(times[1:])
     log(f"serve {model_name}: ms/request (B=2) {[round(t, 3) for t in times]}; median after "
         f"warm-up {med:.3f} ms; peak allocated {peak_gib:.3f} GiB")
+    prof = profile_device(torch, lambda: clf.classify(requests[0]), f"serve {model_name}")
 
     # the same model through the plain versions on the card
     feats = enc.encode(requests[0])
@@ -1191,7 +1248,7 @@ def phase_serve(torch, workdir: str, model_name: str = "vit_large"):
     if cos < FEAT_COS_MIN or p_err > PROB_TOL:
         raise RuntimeError("serving path disagrees with its plain version")
     return {"launches": launches, "median_ms": med, "peak_gib": peak_gib, "enc_path": enc_path,
-            "feat_cos": cos}
+            "feat_cos": cos, "prof": prof}
 
 
 def train_setup(repo: str, model_name: str = None, fused_mlp=False):
@@ -1322,12 +1379,11 @@ def _reset_counts(fa, fm) -> None:
 
 def phase_train(torch, setup, determinism=False):
     """TRAIN_STEPS pretraining updates of vitl16.yaml (``train_setup``) at
-    TRAIN_BATCH clips per card, then one update at B=2 through the kernels
-    and through their plain versions from the same state and batch; with
-    ``determinism``, first two B=2 updates through the kernels from copies
-    of one state, which must agree to the bit."""
-    import copy
-
+    TRAIN_BATCH clips per card, held against the plain versions by one
+    update at B=2 through both, from the seeded state and from the state
+    the timed updates leave (``check_b2``); with ``determinism``, first two
+    B=2 updates through the kernels from copies of the trained state, which
+    must agree to the bit."""
     from jepa_tpu_torch.ops import flash_attention as fa
     from jepa_tpu_torch.ops import fused_mlp as fm
     from jepa_tpu_torch.train.step import init_train_state
@@ -1345,6 +1401,8 @@ def phase_train(torch, setup, determinism=False):
     log(f"train: seeded state and clips in {time.perf_counter() - t0:.1f} s")
 
     step_fn = setup["step_fn"]
+    small = {"clips": clips[:2].contiguous()}
+    check_b2(torch, step_fn, state, small, trained=False)
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(fa, fm)
     times, per_step = [], []
@@ -1369,44 +1427,58 @@ def phase_train(torch, setup, determinism=False):
         f"{med:.1f} ms ({TRAIN_BATCH / med * 1e3:.2f} clips/s); peak allocated "
         f"{peak_gib:.2f} GiB; launches {launches}")
     prof = profile_step(torch, step_fn, state, clips)
-
-    # one update at B=2, kernels vs plain versions, from the same state and batch
-    small = {"clips": clips[:2].contiguous()}
     del clips
     if determinism:
         check_update_determinism(torch, step_fn, state, small)
-    twin = copy.deepcopy(state)
+    check_b2(torch, step_fn, state, small, trained=True)
+    return {"launches": launches, "median_ms": med, "peak_gib": peak_gib, "prof": prof,
+            "keep": setup["keep"]}
+
+
+def check_b2(torch, step_fn, state, batch, trained):
+    """One update of ``batch`` (B=2) through the kernels and through the plain
+    versions, each from a copy of ``state``. The loss and both grad norms
+    are held at both states (the seeded one and the one the timed updates
+    leave). Each module's change (cosine, relative distance) is held from
+    the trained state: the first AdamW step is ~sign(g), which flips on
+    gradients near 0, so from the seeded state it is logged.
+    ``phase_b2_spread`` measures how far these numbers move when only the
+    order of the plain versions' sums changes (PERF.md §6)."""
+    import copy
+
     modules = ("encoder", "predictor", "target")
+    label = "trained state" if trained else "seeded state"
     before = {m: [p.detach().clone() for p in getattr(state, m).parameters()]
               for m in modules}
-    state, mk = step_fn(state, small)
+    kern, mk = step_fn(copy.deepcopy(state), batch)
     with plain_versions():
-        twin, mp = step_fn(twin, small)
+        twin, mp = step_fn(copy.deepcopy(state), batch)
     torch.cuda.synchronize()
-    cmp = {}
-    for k in ("loss", "enc_grad_norm", "pred_grad_norm"):
-        a, b = mk[k].item(), mp[k].item()
-        cmp[k] = abs(a - b) / abs(b)
-    log(f"train B=2, kernels vs plain versions: loss {mk['loss'].item():.6f} vs "
-        f"{mp['loss'].item():.6f} (rel {cmp['loss']:.2e}, tol {TRAIN_LOSS_REL}); "
-        f"enc_grad_norm rel {cmp['enc_grad_norm']:.2e}, pred_grad_norm rel "
-        f"{cmp['pred_grad_norm']:.2e} (tol {TRAIN_GNORM_REL})")
+    cmp = {k: abs(mk[k].item() - mp[k].item()) / abs(mp[k].item())
+           for k in ("loss", "enc_grad_norm", "pred_grad_norm")}
+    log(f"train B={batch['clips'].shape[0]}, {label}, kernels vs plain versions: loss "
+        f"{mk['loss'].item():.6f} vs {mp['loss'].item():.6f} (rel {cmp['loss']:.2e}, tol "
+        f"{TRAIN_LOSS_REL}); enc_grad_norm {mk['enc_grad_norm'].item():.6g} vs "
+        f"{mp['enc_grad_norm'].item():.6g} (rel {cmp['enc_grad_norm']:.2e}), "
+        f"pred_grad_norm rel {cmp['pred_grad_norm']:.2e} (tol {TRAIN_GNORM_REL})")
     ok = (cmp["loss"] <= TRAIN_LOSS_REL and cmp["enc_grad_norm"] <= TRAIN_GNORM_REL
           and cmp["pred_grad_norm"] <= TRAIN_GNORM_REL)
     for m in modules:  # each module's change in this update, kernels vs plain
         dk = torch.cat([(p.detach() - p0).flatten()
-                        for p, p0 in zip(getattr(state, m).parameters(), before[m])])
+                        for p, p0 in zip(getattr(kern, m).parameters(), before[m])])
         dp = torch.cat([(p.detach() - p0).flatten()
                         for p, p0 in zip(getattr(twin, m).parameters(), before[m])])
         cos = torch.nn.functional.cosine_similarity(dk, dp, dim=0).item()
         rel = ((dk - dp).norm() / dp.norm()).item()
-        log(f"train B=2, {m} update: cosine {cos:.7f} (min {TRAIN_UPDATE_COS}), "
-            f"|dk - dp|/|dp| {rel:.3e} (tol {TRAIN_UPDATE_REL[m]})")
-        ok = ok and cos >= TRAIN_UPDATE_COS and rel <= TRAIN_UPDATE_REL[m]
+        held = (f"min {TRAIN_UPDATE_COS}, tol {TRAIN_UPDATE_REL[m]}" if trained
+                else "not held: the first AdamW step is ~sign(g)")
+        log(f"train B={batch['clips'].shape[0]}, {label}, {m} update: cosine {cos:.7f}, "
+            f"|dk - dp|/|dp| {rel:.3e} ({held})")
+        ok = ok and (not trained or (cos >= TRAIN_UPDATE_COS and rel <= TRAIN_UPDATE_REL[m]))
+    del kern, twin, before
     if not ok:
-        raise RuntimeError("the B=2 update through the kernels disagrees with the plain versions")
-    return {"launches": launches, "median_ms": med, "peak_gib": peak_gib, "prof": prof,
-            "keep": setup["keep"]}
+        raise RuntimeError(f"the B=2 update from the {label} through the kernels disagrees "
+                           "with the plain versions")
 
 
 def check_update_determinism(torch, step_fn, state, batch):
@@ -1473,10 +1545,16 @@ def phase_force_ab(torch, setup, force):
 
 def profile_step(torch, step_fn, state, clips):
     """One more update under torch.profiler: device time by kernel."""
+    return profile_device(torch, lambda: step_fn(state, {"clips": clips}), "train")
+
+
+def profile_device(torch, fn, label):
+    """fn() once under torch.profiler: device self time by kernel group, the
+    top kernels and the aten ops that launched the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step_fn(state, {"clips": clips})
+        fn()
         torch.cuda.synchronize()
     from torch.autograd import DeviceType
 
@@ -1502,14 +1580,14 @@ def profile_step(torch, step_fn, state, clips):
             groups["GEMM (cuBLAS)"] += ms
         else:
             groups["other"] += ms
-    log(f"train profile: device self time {total:.1f} ms in one step; " + "; ".join(
-        f"{k} {v:.1f} ms ({100 * v / max(total, 1e-9):.1f} %)" for k, v in groups.items()))
+    log(f"{label} profile: device self time {total:.2f} ms in one call; " + "; ".join(
+        f"{k} {v:.2f} ms ({100 * v / max(total, 1e-9):.1f} %)" for k, v in groups.items()))
     for name, ms, n in sorted(rows, key=lambda r: -r[1])[:12]:
         log(f"  {ms:9.3f} ms  x{n:<5d} {name[:110]}")
     ops = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
            if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
            and e.self_device_time_total > 0]
-    log("train profile, device time by the aten op that launched it:")
+    log(f"{label} profile, device time by the aten op that launched it:")
     for name, ms, n in sorted(ops, key=lambda r: -r[1])[:10]:
         log(f"  {ms:9.3f} ms  x{n:<5d} {name}")
     return {"device_ms": total, "groups": groups}
@@ -1966,11 +2044,317 @@ def tiny_setup(repo):
     return setup, calibrate_pad_ladders(setup["specs"], setup["grid"], TRAIN_BATCH)
 
 
+def _b2_metrics(torch, step_fn, state, batch, ctx=None) -> dict:
+    """Loss and grad norms of one update from a copy of ``state`` (inside
+    the context ``ctx``, if any)."""
+    import copy
+
+    twin = copy.deepcopy(state)
+    with ctx if ctx is not None else contextlib.nullcontext():
+        _, m = step_fn(twin, batch)
+    torch.cuda.synchronize()
+    del twin
+    return {k: m[k].item() for k in ("loss", "enc_grad_norm", "pred_grad_norm")}
+
+
+def reversed_plain_versions():
+    """plain_versions() with the sums taken in another order: every
+    attention on its keys reversed (token-major: all its tokens, with o, lse
+    and dqkv reversed back; head-major: k, v and the key mask, with dk and
+    dv reversed back; attention is equivariant under the permutation) and
+    every fc1 on its contraction dim reversed. The same functions, other
+    fp32 sum orders."""
+    import torch
+
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+
+    flip = lambda t: None if t is None else t.flip(1)  # noqa: E731
+    keys = lambda t: None if t is None else t.flip(-1)  # noqa: E731
+
+    def fwd(qkv, h, scale, kv_mask=None):
+        o, lse = fa.flash_self_attention_ref(qkv.flip(1), h, scale, flip(kv_mask))
+        return o.flip(1), lse.flip(2)
+
+    def bwd(qkv, do, lse, delta, h, scale, kv_mask=None):
+        return fa.flash_self_attention_bwd_ref(qkv.flip(1), do.flip(1), lse.flip(2),
+                                               delta.flip(2), h, scale, flip(kv_mask)).flip(1)
+
+    def hm(kind, back):
+        ref = getattr(fa, f"flash_{kind}_hm_ref")
+        n = 1 if kind == "fwd" else 4  # (scale) or (do, lse, delta, scale) before the mask
+
+        def call(q, k, v, *args, kv_mask=None, out=None):
+            args, kv_mask = args[:n], args[n] if len(args) > n else kv_mask
+            got = ref(q, k.flip(2), v.flip(2), *args, keys(kv_mask))
+            got = (got,) if isinstance(got, torch.Tensor) else tuple(got)
+            got = tuple(t.flip(2) if i in back else t for i, t in enumerate(got))
+            if out is not None:
+                got = fa._into(out if isinstance(out, tuple) else (out,), got)
+            return got[0] if len(got) == 1 else got
+        return call
+
+    stack = plain_versions()
+    stack.enter_context(mock.patch.object(fa, "flash_self_attention_cuda", fwd))
+    stack.enter_context(mock.patch.object(fa, "flash_self_attention_bwd_cuda", bwd))
+    for kind, back in (("fwd", ()), ("bwd_dq", ()), ("bwd_dkv", (0, 1)), ("bwd_dqkv", (1, 2))):
+        stack.enter_context(mock.patch.object(fa, f"flash_{kind}_hm_cuda", hm(kind, back)))
+    stack.enter_context(mock.patch.object(
+        fm, "linear_gelu_cuda", lambda x, w, b: fm.linear_gelu_ref(x.flip(-1), w.flip(-1), b)))
+    stack.enter_context(mock.patch.object(
+        fm, "linear_gelu_z_cuda", lambda x, w, b: fm.linear_gelu_z_ref(x.flip(-1), w.flip(-1), b)))
+    return stack
+
+
+def other_library(root):
+    """Another checkout's kernel library (the same C entry points), built
+    from its own sources by its own ``_build``."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        f"jt_other_build_{abs(hash(str(root)))}",
+        Path(root).resolve() / "jepa_tpu_torch" / "ops" / "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.load_library()
+
+
+@contextlib.contextmanager
+def other_kernels(lib):
+    """The kernel wrappers launch another build's C entry points (the same
+    names and signatures) instead of this checkout's."""
+    from jepa_tpu_torch.ops import _build
+
+    saved, _build._lib = _build._lib, lib
+    try:
+        yield
+    finally:
+        _build._lib = saved
+
+
+def _others() -> dict:
+    """{name: library} of every ``--other DIR`` on the command line."""
+    from pathlib import Path
+
+    dirs = [sys.argv[i + 1] for i, a in enumerate(sys.argv) if a == "--other"]
+    return {Path(d).resolve().name: other_library(d) for d in dirs}
+
+
+def phase_b2_spread(torch, repo, others, seeds):
+    """The spread of phase 6's B=2 check (``python3 chip_smoke.py
+    --b2-spread [--seeds 0,1,2] [--other DIR]...``, not part of the smoke
+    run). For ViT-L (each seed; ``fused_mlp='force'``, the first seed) and
+    vit_tiny (each seed): the seeded state and the state phase 6 checks
+    from (TRAIN_STEPS + 1 updates at TRAIN_BATCH through the kernels), then
+    one B=2 update from copies of each through the plain versions (the
+    reference) and through: the kernels; the kernels with H1 alone plain;
+    the plain versions with their sums in another order
+    (``reversed_plain_versions``); each other checkout's kernels (its
+    library, built from its sources, in this one's place). From the seeded
+    state on the first 2 training clips, and from the trained state on
+    those clips (phase 6's check) and on 2 fresh seeded clips. Prints each
+    signed (x - ref) / |ref|, a table of |rel| per variant over the seeds,
+    and a JSON line of every row."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.train.step import init_train_state
+
+    variants = {
+        "kernels": lambda: None,
+        "kernels, H1 plain": lambda: mock.patch.object(
+            fa, "flash_self_attention_cuda", fa.flash_self_attention_ref),
+        "plain, sums reversed": reversed_plain_versions,
+    }
+    for name, lib in others.items():
+        variants[f"{name}'s kernels"] = lambda lib=lib: other_kernels(lib)
+    rows = []
+
+    def spread(step_fn, state, batch, case, seed, batch_name):
+        ref = _b2_metrics(torch, step_fn, state, batch, plain_versions())
+        for name, ctx in variants.items():
+            got = _b2_metrics(torch, step_fn, state, batch, ctx())
+            rel = {k: (got[k] - ref[k]) / abs(ref[k]) for k in got}
+            log(f"B=2 spread, {case}, seed {seed}, {batch_name}, {name} vs plain: "
+                f"enc_grad_norm {got['enc_grad_norm']:.6g} vs {ref['enc_grad_norm']:.6g} "
+                f"(rel {rel['enc_grad_norm']:+.2e}), pred_grad_norm rel "
+                f"{rel['pred_grad_norm']:+.2e}, loss rel {rel['loss']:+.2e}")
+            rows.append(dict(case=case, seed=seed, batch=batch_name, variant=name, **rel))
+
+    for model, fused, case_seeds in (("vit_large", False, seeds), ("vit_large", "force", seeds[:1]),
+                                     ("vit_tiny", False, seeds)):
+        case = f"{model}, fused_mlp {fused!r}"
+        setup = train_setup(repo, model, fused_mlp=fused)
+        step_fn = setup["step_fn"]
+        for seed in case_seeds:
+            t0 = time.perf_counter()
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            state = init_train_state(setup["enc_cfg"], setup["pred_cfg"], gen)
+            clips = torch.randn((TRAIN_BATCH, *setup["clip_shape"]), generator=gen, device="cuda")
+            spread(step_fn, state, {"clips": clips[:2].contiguous()}, case, seed, "seeded state")
+            for _ in range(TRAIN_STEPS + 1):
+                state, _ = step_fn(state, {"clips": clips})
+            fresh = torch.randn((2, *setup["clip_shape"]), generator=gen, device="cuda")
+            spread(step_fn, state, {"clips": clips[:2].contiguous()}, case, seed, "trained clips")
+            spread(step_fn, state, {"clips": fresh}, case, seed, "fresh clips")
+            del state, clips, fresh
+            log(f"B=2 spread, {case}, seed {seed}: {time.perf_counter() - t0:.1f} s")
+    for case in dict.fromkeys(r["case"] for r in rows):
+        for batch_name in ("seeded state", "trained clips", "fresh clips"):
+            for name in variants:
+                vals = [r["enc_grad_norm"] for r in rows if (r["case"], r["batch"], r["variant"])
+                        == (case, batch_name, name)]
+                log(f"B=2 spread table, {case}, {batch_name}, {name}: enc_grad_norm rel "
+                    f"{' / '.join(f'{v:+.2e}' for v in vals)}; max |rel| "
+                    f"{max(abs(v) for v in vals):.2e} (limit {TRAIN_GNORM_REL})")
+    print(json.dumps({"b2_spread": rows}))
+    return rows
+
+
+# (label, B, N, H, c, c_real, mid) of the A/B mode's H1 rows: mid None = no
+# key mask, else the start of a run of pads (0: a random start) besides a
+# ragged tail of pads; then (label, M, K, F, outputs) of its fc1 rows
+AB_H1_ROWS = (
+    ("H1 c=64 B=2 N=1568 H=16 (ViT-L serving)", 2, 1568, 16, 64, 64, None),
+    ("H1 c=64 B=24 N=1568 H=16 (ViT-L target)", 24, 1568, 16, 64, 64, None),
+    ("H1 c=64 B=24 N=376 H=16 (ViT-L context)", 24, 376, 16, 64, 64, None),
+    ("H1 c=24->32 B=24 N=1109 H=16 (ViT-L predictor)", 24, 1109, 16, 32, 24, None),
+    ("H1 c=64 masked B=24 N=384 H=16", 24, 384, 16, 64, 64, 0),
+    ("H1 c=24->32 masked B=24 N=1152 H=16", 24, 1152, 16, 32, 24, 384),
+    ("H1 c=128 B=24 N=1109 H=3 (vit_tiny predictor)", 24, 1109, 3, 128, 128, None),
+    ("H1 c=128 masked B=24 N=1664 H=3", 24, 1664, 3, 128, 128, 256),
+    ("H1 c=80 B=1 N=4608 H=16 (K2 geometry)", 1, 4608, 16, 80, 80, None),
+)
+AB_FC1_ROWS = (
+    ("H3 M=3136 (ViT-L serving fc1)", 3136, 1024, 4096, 1),
+    ("H3 M=37632 (ViT-L target fc1)", 37632, 1024, 4096, 1),
+    ("H8 M=9024 (force, long context)", 9024, 1024, 4096, 2),
+    ("H8 M=2304 (force, short context)", 2304, 1024, 4096, 2),
+)
+
+
+def _host_us(torch, fn, n=48) -> float:
+    """Host time of one call of fn, in us: n calls enqueued back to back
+    (the card still busy with them), the wait for them excluded."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def phase_kernel_ab(torch, others):
+    """The bf16 H1, H3 and H8 of this checkout against each other
+    checkout's (``python3 chip_smoke.py --kernel-ab --other DIR...``, not
+    part of the smoke run), at the shapes of PERF.md's kernel table, both
+    called through the C entry points (shared names and signatures). Per
+    row: device times in turns (other, this, this, other), each with
+    ``time_ms``; the bound (``attn_bound_ms`` / ``fc1_bound_ms``) and its
+    share; the library call; max|this - other|; the host time of one call
+    (``_host_us``); for H1 the mean of lse - the plain version's lse over
+    every row (a bias in the denominators shows there; rounding alone
+    averages out). Prints a line per row and a JSON line of every row."""
+    import torch.nn.functional as F
+
+    from jepa_tpu_torch.ops import _build
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    libs = {"this": _build.load_library(), **others}
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    rows = []
+
+    def ab(row, entry, args, outs, after=None):
+        calls = {name: (lambda lib=lib: _build.check(getattr(lib, entry)(*args()), entry))
+                 for name, lib in libs.items()}
+        got = {}
+        for name, call in calls.items():
+            call()
+            torch.cuda.synchronize()
+            got[name] = [o.clone() for o in outs]
+            if after:
+                row[f"{name} extra"] = after()
+        for name in others:
+            o1, t1, t2, o2 = (time_ms(torch, calls[k]) for k in (name, "this", "this", name))
+            row[f"{name} ms"], row[f"{name} this ms"] = (o1 + o2) / 2, (t1 + t2) / 2
+            row[f"{name} speedup"] = row[f"{name} ms"] / row[f"{name} this ms"]
+            row[f"{name} max|this - other|"] = max(
+                (a.float() - b.float()).abs().max().item()
+                for a, b in zip(got["this"], got[name]))
+        row["ms"] = min(row[f"{name} this ms"] for name in others) if others else time_ms(
+            torch, calls["this"])
+        row["host_us"] = {name: _host_us(torch, call) for name, call in calls.items()}
+        row["bound_share"] = row["bound"][0] / row["ms"]
+        rows.append(row)
+        log(f"A/B {row['row']}: this {row['ms']:.4f} ms, " + ", ".join(
+            f"{n} {row[f'{n} ms']:.4f} ms (x{row[f'{n} speedup']:.2f}, max|d| "
+            f"{row[f'{n} max|this - other|']:.2e})" for n in others)
+            + f"; bound {row['bound'][0]:.4f} ms ({row['bound'][2]}, share "
+            f"{100 * row['bound_share']:.1f} %), library {row['library_ms']:.4f} ms; host us/call "
+            + ", ".join(f"{n} {v:.1f}" for n, v in row["host_us"].items())
+            + ("; mean lse - plain " + ", ".join(f"{n} {row[f'{n} extra']:+.3e}" for n in libs)
+               if after else ""))
+
+    for label, b, n, h, c, c_real, mid in AB_H1_ROWS:
+        x = torch.randn((b, n, 3, h, c), generator=gen, device="cuda")
+        x[..., c_real:] = 0
+        qkv = x.reshape(b, n, 3 * h * c).to(torch.bfloat16)
+        del x
+        mask = None
+        if mid is not None:
+            m = np.ones((b, n), dtype=bool)
+            for i in range(b):
+                a = mid if mid else int(rng.integers(1, n // 2))
+                m[i, a:a + int(rng.integers(1, n // 4))] = False
+                m[i, n - int(rng.integers(1, n // 8)):] = False
+            mask = torch.from_numpy(m).to("cuda")
+        m8 = None if mask is None else mask.to(torch.uint8).contiguous()
+        o = torch.empty((b, n, h * c), dtype=torch.bfloat16, device="cuda")
+        lse = torch.empty((b, h, n), dtype=torch.float32, device="cuda")
+        scale = c_real**-0.5
+        _, lse_ref = fa.flash_self_attention_ref(qkv, h, scale, mask)
+        entry = f"jt_flash_fwd_c{c}"
+        args = lambda: (qkv.data_ptr(), None if m8 is None else m8.data_ptr(),  # noqa: E731
+                        o.data_ptr(), lse.data_ptr(), b, n, h, scale * fa._LOG2E, stream())
+        q, k, v = (t.transpose(1, 2).contiguous() for t in qkv.reshape(b, n, 3, h, c).unbind(2))
+        am = None if mask is None else mask[:, None, None, :]
+        pairs = b * n * n if mask is None else int(mask.sum().item()) * n
+        row = dict(row=label, library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                       q, k, v, attn_mask=am, scale=scale)),
+                   bound=attn_bound_ms(b, n, h, c_real, 2, qkv.numel() * 2 + (0 if m8 is None else
+                                                                            b * n),
+                                       o.numel() * 2 + lse.numel() * 4, pairs))
+        del q, k, v
+        ab(row, entry, args, (o, lse), after=lambda: (lse - lse_ref).double().mean().item())
+        del qkv, o, lse, lse_ref
+    k, f = 1024, 4096
+    w = (torch.randn((f, k), generator=gen, device="cuda") / 32).to(torch.bfloat16)
+    bias = torch.randn((f,), generator=gen, device="cuda") * 0.1
+    bias_lp = bias.to(torch.bfloat16)
+    for label, m, k, f, outputs in AB_FC1_ROWS:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        outs = [torch.empty((m, f), dtype=torch.bfloat16, device="cuda") for _ in range(outputs)]
+        entry = "jt_linear_gelu_z_bf16" if outputs == 2 else "jt_linear_gelu_bf16"
+        args = lambda: (x.data_ptr(), w.data_ptr(), bias.data_ptr(),  # noqa: E731
+                        *(t.data_ptr() for t in outs), m, k, f, stream())
+        row = dict(row=label, bound=fc1_bound_ms(m, k, f, outputs),
+                   library_ms=time_ms(torch, lambda: torch._addmm_activation(
+                       bias_lp, x, w.t(), use_gelu=True)))
+        ab(row, entry, args, outs)
+        del x, outs
+    print(json.dumps({"kernel_ab": rows}))
+    return rows
+
+
 def kernel_entry(name, source, replaces, launches, rep) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound"][0],
-            "bound_by": rep["bound"][1], "library_ms": rep.get("library_ms")}
+            "bound_by": rep["bound"][1], "bound_share": rep["bound"][0] / rep["ms"],
+            "library_ms": rep.get("library_ms")}
 
 
 def main() -> int:
@@ -1980,9 +2364,18 @@ def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     phase_build()
+    if "--kernel-ab" in sys.argv or "--b2-spread" in sys.argv:
+        others = _others()
+        if "--kernel-ab" in sys.argv:
+            phase_kernel_ab(torch, others)
+        if "--b2-spread" in sys.argv:
+            seeds = sys.argv[sys.argv.index("--seeds") + 1] if "--seeds" in sys.argv else "0,1,2"
+            phase_b2_spread(torch, repo, others, tuple(int(x) for x in seeds.split(",")))
+        return 0
     phase_autograd(torch)
     setup = train_setup(repo)
     kern = phase_kernels(torch, setup["enc_cfg"].num_patches)
+    phase_edges(torch)
     f32 = phase_f32_kernels(torch)
     (ke0, kp0), (ke1, kp1) = setup["keep"]
     k11 = phase_k11(torch, [TRAIN_BATCH * ke0, TRAIN_BATCH * ke1])
@@ -2102,8 +2495,16 @@ def main() -> int:
             f"{a['step_ms']:.0f} ms, wall {a['wall_ms']:.0f} ms, host share "
             f"{100 * a['host']:.1f} %, peak {a['peak_gib']:.2f} GiB")
     log(f"card: {card}; serve median {serve['median_ms']:.3f} ms/request (B=2), "
-        f"peak {serve['peak_gib']:.3f} GiB; train median {train['median_ms']:.1f} "
-        f"ms/step (B={TRAIN_BATCH}), peak {train['peak_gib']:.2f} GiB")
+        f"peak {serve['peak_gib']:.3f} GiB, device {serve['prof']['device_ms']:.2f} ms/request "
+        f"(H1 {serve['prof']['groups']['H1 flash_fwd']:.2f}, H3 "
+        f"{serve['prof']['groups']['H3/H8 linear_gelu']:.2f}); train median "
+        f"{train['median_ms']:.1f} ms/step (B={TRAIN_BATCH}), peak {train['peak_gib']:.2f} GiB, "
+        f"device {train['prof']['device_ms']:.1f} ms/step (H1 "
+        f"{train['prof']['groups']['H1 flash_fwd']:.1f}, H3 "
+        f"{train['prof']['groups']['H3/H8 linear_gelu']:.1f}); force device "
+        f"{train_force['prof']['device_ms']:.1f} ms/step (H1 "
+        f"{train_force['prof']['groups']['H1 flash_fwd']:.1f}, H3 + H8 "
+        f"{train_force['prof']['groups']['H3/H8 linear_gelu']:.1f})")
     log(f"card: {card}; force update (fused trainable fc1, H8) median "
         f"{train_force['median_ms']:.1f} ms/step, peak {train_force['peak_gib']:.2f} GiB; A/B in "
         f"turns: default {ab['default']['median_ms']:.1f} ms / {ab['default']['peak_gib']:.2f} "

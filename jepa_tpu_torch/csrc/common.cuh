@@ -1,15 +1,37 @@
-// Shared device helpers for the port's hand-written Hopper kernels:
-// the bf16 tensor-core product (mma.sync m16n8k16, fp32 accumulators),
-// bf16 packing, 32-bit shared-memory fragment reads, the tile loads and
-// warp-level products of the flash-attention kernels (4 warps a block, 16
-// rows a warp), and a launcher for dynamic shared memory.
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// mma.sync (H2, H4-H7): the bf16 tensor-core product mma.sync m16n8k16
+// with fp32 accumulators, bf16 packing, 32-bit shared-memory fragment
+// reads, the tile loads and warp-level products of the flash-attention
+// kernels (4 warps a block, 16 rows a warp).
+//
+// Hopper (H1, H3, H8; section "TMA, mbarrier and wgmma" below):
+//   * mbarriers: mbar_init, mbar_expect_tx (arrive + expected bytes),
+//     mbar_arrive, mbar_wait (try_wait.parity spin), fence_barrier_init;
+//   * TMA: tma_load_2d / tma_load_3d into shared memory, completing on an
+//     mbarrier, tma_store_3d with its bulk-group commit and wait, and
+//     make_tensor_map (host: cuTensorMapEncodeTiled reached through
+//     cudaGetDriverEntryPoint, so nothing links libcuda), and sm_count
+//     (host: the device's SM count, asked once) for persistent grids;
+//   * fence_proxy_async, after generic shared-memory writes that wgmma or
+//     a TMA store reads;
+//   * wgmma: the shared-memory matrix descriptor (make_desc, with its
+//     swizzle mode), wgmma_fence / wgmma_commit / wgmma_wait<N>, the
+//     products wgmma_ss (A and B from shared memory, n64/n128) and
+//     wgmma_rs (A from registers, n8/n32/n64/n80/n128), bf16 in, fp32 out;
+//   * setmaxnreg (reg_alloc / reg_dealloc) and named barriers (bar_sync);
+// and a launcher for dynamic shared memory with the block's thread count.
 //
 // Fragment layout of mma.m16n8k16.row.col (lane = 4*g + t):
 //   A 16x16 row-major: a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)
 //   B 16x8  (k, n):    b0 (k=2t..2t+1, n=g)              b1 (k=2t+8.., n=g)
 //   C 16x8  fp32:      c0,c1 (g, 2t..2t+1)               c2,c3 (g+8, 2t..2t+1)
+// wgmma m64nNk16 per warpgroup: warp w holds rows 16w..16w+15 in the same
+// layouts, A as a0..a3 above (wgmma_rs) and the fp32 accumulator as
+// d[4j..4j+3] = C-fragment of columns 8j..8j+7, j < N/8.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -18,7 +40,7 @@ namespace jt {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;  // threads of every attention block: 4 warps
+constexpr int kThreads = 128;  // threads of every mma.sync attention block: 4 warps
 constexpr int kPad = 8;        // shared-memory row padding, bf16 elements
 
 __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a,
@@ -40,11 +62,21 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// the block's dynamic shared memory (one declaration for every kernel)
-__device__ __forceinline__ bf16* smem_bf16() {
-  extern __shared__ __align__(16) unsigned char jt_smem[];
-  return reinterpret_cast<bf16*>(jt_smem);
+// 2^x by the SFU alone (ex2.approx.ftz: a result below 2^-126 flushes to
+// 0, where exp2f spends three more instructions to keep it subnormal)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
+
+// the block's dynamic shared memory (one declaration for every kernel)
+__device__ __forceinline__ unsigned char* smem_bytes() {
+  extern __shared__ __align__(16) unsigned char jt_smem[];
+  return jt_smem;
+}
+
+__device__ __forceinline__ bf16* smem_bf16() { return reinterpret_cast<bf16*>(smem_bytes()); }
 
 // rows [r0, r0 + ROWS) of one head's C columns (src points at the head's
 // first column of row 0, rows `rs` elements apart) into dst [ROWS][C+kPad];
@@ -156,18 +188,350 @@ __device__ __forceinline__ void store_rows(bf16* out, size_t rs, int r0, int N,
   }
 }
 
-// launch kern<<<grid, kThreads, smem, stream>>>(args...), opting in to more
+// launch kern<<<grid, threads, smem, stream>>>(args...), opting in to more
 // than 48 KB of dynamic shared memory where it needs it; returns the launch's
 // cudaError_t
 template <typename... KArgs, typename... Args>
-int launch(void (*kern)(KArgs...), dim3 grid, int smem, void* stream, Args... args) {
+int launch(void (*kern)(KArgs...), dim3 grid, int threads, int smem, void* stream,
+           Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(args...);
+  kern<<<grid, threads, smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// TMA, mbarrier and wgmma (sm_90a)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// the dynamic shared memory from its first 1024-byte boundary (the swizzle
+// pattern's period); launches ask for 1024 bytes more than they use
+__device__ __forceinline__ unsigned char* smem_1024() {
+  unsigned char* p = smem_bytes();
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// make the barriers' initialisation visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also announces `bytes` of TMA traffic for this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// spin until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA tile loads (coordinates innermost first, in elements); zero fill past
+// the tensor's edge, completion counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// TMA tile store from shared memory; parts past the tensor's edge are not
+// written. tma_store_commit_and_wait() before the source is reused or the block
+// exits.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          (uint64_t)map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit_and_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// generic-proxy shared-memory writes become visible to wgmma and TMA
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier over `count` threads (id 0 is __syncthreads')
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// wgmma shared-memory matrix descriptor. Swizzle modes (bits 62-63) as
+// the matching TMA swizzle: 1 = 128 B, 2 = 64 B, 3 = 32 B rows.
+// K-major operand (rows of the contraction dim): sbo = 8 rows' bytes, lbo
+// unused (1). MN-major (wgmma's transpose bit): sbo = the stride of 8 rows
+// along K, lbo = the stride between swizzle-wide column blocks along MN.
+// Tile bases are aligned to the swizzle pattern (1024 B), so the base
+// offset field is 0; a k16 step inside a K-major swizzle row adds 32 B.
+// Mode 0 (no swizzle): 8-row x 16-byte core matrices, lbo the stride
+// between core matrices along K, sbo along MN.
+constexpr int kNoSwizzle = 0, kSwizzle128 = 1, kSwizzle64 = 2, kSwizzle32 = 3;
+
+__device__ __forceinline__ uint64_t make_desc(const void* smem, uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes, int swizzle) {
+  const uint32_t addr = smem_u32(smem);
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32) | ((uint64_t)swizzle << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of accumulator registers
+// across an asynchronous product
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The products, bf16 x bf16 -> fp32, m64nNk16 for one warpgroup; scale_d
+// = 0 overwrites d, 1 accumulates. Generated, one per shape.
+// D[64 x 64] (+)= A . B, A and B bf16 from shared memory (descriptors)
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransA), "n"(TransB));
+}
+
+// D[64 x 128] (+)= A . B, A and B bf16 from shared memory (descriptors)
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransA), "n"(TransB));
+}
+
+// D[64 x 8] (+)= A . B, A bf16 in registers (the m16n8k16 A layout per
+// warp), B bf16 from shared memory
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[4], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB));
+}
+
+// D[64 x 32] (+)= A . B, A bf16 in registers (the m16n8k16 A layout per
+// warp), B bf16 from shared memory
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB));
+}
+
+// D[64 x 64] (+)= A . B, A bf16 in registers (the m16n8k16 A layout per
+// warp), B bf16 from shared memory
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB));
+}
+
+// D[64 x 80] (+)= A . B, A bf16 in registers (the m16n8k16 A layout per
+// warp), B bf16 from shared memory
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB));
+}
+
+// D[64 x 128] (+)= A . B, A bf16 in registers (the m16n8k16 A layout per
+// warp), B bf16 from shared memory
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB));
+}
+
+// host: a tiled TMA map over a bf16 tensor of `rank` dims (innermost
+// first; strides in bytes for dims 1..rank-1), `box` elements per dim,
+// zero fill past the edges. Returns a cudaError_t (0 on success).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+// host: the current device's SM count, asked of the runtime once per
+// device and process (0 on an error)
+inline int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (!counts[dev] &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    counts[dev] = 0;
+  return counts[dev];
+}
+
+// swizzle: the descriptor's mode (kSwizzle128/64/32)
+inline int make_tensor_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
+                           const uint64_t* strides, const uint32_t* box, int swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const uint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw = swizzle == kSwizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : swizzle == kSwizzle64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                        : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(ptr),
+         (const cuuint64_t*)dims, (const cuuint64_t*)strides, (const cuuint32_t*)box,
+         (const cuuint32_t*)elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace jt

@@ -263,7 +263,7 @@ int launch_dkv(const void* qkv, const void* kvm, const void* dO, const void* lse
                void* stream) {
   const dim3 grid((N + BR - 1) / BR, H, B);
   return jt::launch(kvm ? flash_bwd_dkv_kernel<C, true> : flash_bwd_dkv_kernel<C, false>,
-                    grid, dkv_smem<C>(), stream, (const bf16*)qkv, (const uint8_t*)kvm,
+                    grid, jt::kThreads, dkv_smem<C>(), stream, (const bf16*)qkv, (const uint8_t*)kvm,
                     (const bf16*)dO, (const float*)lse, (const float*)delta, (bf16*)dqkv,
                     N, H, qscale);
 }
@@ -274,7 +274,7 @@ int launch_dq(const void* qkv, const void* kvm, const void* dO, const void* lse,
               float scale, void* stream) {
   const dim3 grid((N + BR - 1) / BR, H, B);
   return jt::launch(kvm ? flash_bwd_dq_kernel<C, true> : flash_bwd_dq_kernel<C, false>,
-                    grid, dq_smem<C>(), stream, (const bf16*)qkv, (const uint8_t*)kvm,
+                    grid, jt::kThreads, dq_smem<C>(), stream, (const bf16*)qkv, (const uint8_t*)kvm,
                     (const bf16*)dO, (const float*)lse, (const float*)delta, (bf16*)dqkv,
                     N, H, qscale, scale);
 }

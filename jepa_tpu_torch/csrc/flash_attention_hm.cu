@@ -432,32 +432,32 @@ dim3 grid_of(const HmArgs& a, int rows_per_block, int n) {
 template <int C>
 int launch_fwd(const HmArgs* a, void* stream) {
   return jt::launch(a->kvm ? flash_hm_fwd_kernel<C, true> : flash_hm_fwd_kernel<C, false>,
-                    grid_of(*a, 64, a->Nq), fwd_smem<C>(), stream, *a);
+                    grid_of(*a, 64, a->Nq), jt::kThreads, fwd_smem<C>(), stream, *a);
 }
 
 template <int C>
 int launch_dq(const HmArgs* a, void* stream) {
   return jt::launch(a->kvm ? flash_hm_dq_kernel<C, true> : flash_hm_dq_kernel<C, false>,
-                    grid_of(*a, BR, a->Nq), dq_smem<C>(), stream, *a);
+                    grid_of(*a, BR, a->Nq), jt::kThreads, dq_smem<C>(), stream, *a);
 }
 
 template <int C>
 int launch_dkv(const HmArgs* a, void* stream) {
   return jt::launch(
       a->kvm ? flash_hm_dkv_kernel<C, true, false> : flash_hm_dkv_kernel<C, false, false>,
-      grid_of(*a, BR, a->Nk), dkv_smem<C, false>(), stream, *a);
+      grid_of(*a, BR, a->Nk), jt::kThreads, dkv_smem<C, false>(), stream, *a);
 }
 
 template <int C>
 int launch_dqkv(const HmArgs* a, void* stream) {
   const int err = jt::launch(
       a->kvm ? flash_hm_dkv_kernel<C, true, true> : flash_hm_dkv_kernel<C, false, true>,
-      grid_of(*a, BR, a->Nk), dkv_smem<C, true>(), stream, *a);
+      grid_of(*a, BR, a->Nk), jt::kThreads, dkv_smem<C, true>(), stream, *a);
   if (err) return err;
   const size_t pairs = (size_t)a->B * a->H * a->Nq * (C / 2);
   const size_t blocks = (pairs + jt::kThreads - 1) / jt::kThreads;
-  return jt::launch(flash_hm_dq_finish_kernel<C>, dim3(blocks < 2112 ? blocks : 2112), 0,
-                    stream, *a);  // at most 16 blocks an SM, then a grid-stride loop
+  return jt::launch(flash_hm_dq_finish_kernel<C>, dim3(blocks < 2112 ? blocks : 2112),
+                    jt::kThreads, 0, stream, *a);  // at most 16 blocks an SM, then a grid-stride loop
 }
 
 }  // namespace

@@ -171,6 +171,21 @@ def _check_qkv(qkv: torch.Tensor, num_heads: int, name: str,
     return c
 
 
+def check_tma_layout(num_heads: int, c: int, elem_bytes: int = 2,
+                     name: str = "flash_self_attention_cuda") -> None:
+    """Raise unless H1's TMA maps can address qkv [B, N, 3*H*c] and o
+    [B, N, H*c]: the qkv row stride (3*H*c elements), each head's column
+    offset (h*c; K's and V's at +H*c and +2*H*c) and o's row stride (H*c)
+    must be multiples of 16 bytes. Pure integers, so the CPU tests hold
+    every shipped call shape against it."""
+    for what, nbytes in (("qkv row stride", 3 * num_heads * c * elem_bytes),
+                         ("head column offset", c * elem_bytes),
+                         ("o row stride", num_heads * c * elem_bytes)):
+        if nbytes % 16:
+            raise ValueError(f"{name}: the {what} ({nbytes} bytes at H={num_heads}, c={c}) "
+                             "is not a multiple of 16 bytes, as TMA needs")
+
+
 def _kernel_mask(kv_mask: Optional[torch.Tensor], qkv: torch.Tensor, name: str):
     """The kernels' key-mask operand: kv_mask [B, N] (bool or 0/1) as a
     contiguous uint8 tensor on qkv's device, or None."""
@@ -213,6 +228,7 @@ def flash_self_attention_cuda(
         f32_launches_by_head_dim[c] += 1
         return o, lse
     c = _check_qkv(qkv, num_heads, name)
+    check_tma_layout(num_heads, c, qkv.element_size(), name)
     mask = _kernel_mask(kv_mask, qkv, name)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     b, n, _ = qkv.shape

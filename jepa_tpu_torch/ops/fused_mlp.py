@@ -30,7 +30,8 @@ _LN2 = 0.6931471805599453
 _ERF_G = (1.6279511504838011, 0.9179117972647749, 0.15048427545502158,
           -0.03191463214715457, 0.004236621237891429, -0.00025575246004894803)
 
-_KERNEL_K_STEP = {torch.bfloat16: 32, torch.float32: 16}  # each kernel's k panel
+_KERNEL_K_STEP = {torch.bfloat16: 64, torch.float32: 16}  # each kernel's k panel
+_KERNEL_F_STEP = 128  # both kernels' output tile width
 
 # wrapper-counted launches in this process
 launches = 0        # H3 (bf16)
@@ -122,6 +123,19 @@ def linear_gelu_z_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     return _gelu(z.float()).to(x.dtype), z
 
 
+def check_kernel_tiling(m: int, k: int, f: int, dtype: torch.dtype,
+                        name: str = "linear_gelu") -> None:
+    """Raise unless the kernel for ``dtype`` takes x [M, K] @ w [F, K]^T: K a
+    multiple of its k panel (H3/H8: 64, one 128-byte TMA box, which also
+    makes the rows of x and w the 16-byte multiples TMA needs; fp32: 16), F
+    of the output tile width (128) and M >= 1. Pure integers, so the CPU
+    tests hold every shipped call shape against it."""
+    k_step, f_step = _KERNEL_K_STEP[dtype], _KERNEL_F_STEP
+    if k % k_step or f % f_step or m < 1:
+        raise ValueError(f"{name}: needs K % {k_step} == 0, F % {f_step} == 0 and M >= 1, "
+                         f"got M={m} K={k} F={f} ({dtype})")
+
+
 def _checked_operands(name, x, w, b):
     """x, w and an fp32 contiguous b after the launchers' checks."""
     if not (x.is_cuda and w.device == x.device and b.device == x.device):
@@ -138,10 +152,9 @@ def _checked_operands(name, x, w, b):
                          f"w{tuple(w.shape)} b{tuple(b.shape)}")
     m, k = x.shape
     f, k2 = w.shape
-    k_step = _KERNEL_K_STEP[x.dtype]
-    if k != k2 or k % k_step or f % 128 or m < 1:
-        raise ValueError(f"{name}: needs K % {k_step} == 0 and F % 128 == 0, "
-                         f"got M={m} K={k} F={f}")
+    if k != k2:
+        raise ValueError(f"{name}: x has K={k}, w has K={k2}")
+    check_kernel_tiling(m, k, f, x.dtype, name)
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"{name}: x and w must be contiguous")
     b = b.float().contiguous()

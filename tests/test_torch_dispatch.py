@@ -38,11 +38,12 @@ from jepa_tpu_torch.ops.flash_attention import (
     F32_HEAD_DIMS,
     HM_HEAD_DIMS,
     KERNEL_HEAD_DIMS,
+    check_tma_layout,
     merged_bwd,
     padded_head_dim,
     self_attention_route,
 )
-from jepa_tpu_torch.ops.fused_mlp import _KERNEL_K_STEP, fused_tiling, resolve_fused_mlp
+from jepa_tpu_torch.ops.fused_mlp import check_kernel_tiling, fused_tiling, resolve_fused_mlp
 
 _CONFIGS = pathlib.Path(__file__).resolve().parent.parent / "configs"
 _CARD = types.SimpleNamespace(is_cuda=True)  # what the dispatch reads of a CUDA tensor
@@ -167,7 +168,7 @@ def _resolve(call):
         if not fused_tiling(call.m, call.k, call.f):  # vit_tiny's K=192, in both packages
             return "eager linear + exact GELU (outside the kernels' tiling)"
         assert resolve_fused_mlp(_CARD), call
-        assert call.k % _KERNEL_K_STEP[call.dtype] == 0 and call.f % 128 == 0, call
+        check_kernel_tiling(call.m, call.k, call.f, call.dtype)  # the wrapper's own check
         kind = "_z" if call.grad else ""  # H8 (LinearGelu's forward) or H3
         entries = [f"jt_linear_gelu{kind}_bf16" if call.dtype == torch.bfloat16
                    else f"jt_linear_gelu{kind}_f32"]
@@ -181,6 +182,7 @@ def _tm_entries(call):
     cp = padded_head_dim(call.c)
     if call.dtype == torch.bfloat16:
         assert cp in KERNEL_HEAD_DIMS, call
+        check_tma_layout(call.heads, cp)  # H1's TMA maps, as the wrapper checks them
         entries = [f"jt_flash_fwd_c{cp}"]
         if call.grad:  # FlashSelfAttentionFn: H2 for the backward
             entries += [f"jt_flash_bwd_dkv_c{cp}", f"jt_flash_bwd_dq_c{cp}"]
@@ -256,3 +258,51 @@ def test_force_fused_mlp_pretrain_dispatch(model_name):
         assert got[f"mask {i} predictor fc1"] == "eager linear + GELU (differentiated)"
     assert got["target fc1"] == ("jt_linear_gelu_bf16" if tiled
                                  else "eager linear + exact GELU (outside the kernels' tiling)")
+
+
+@pytest.mark.parametrize("m,k,f,dtype,ok", [
+    (8, 1024, 4096, torch.bfloat16, True),       # fused_tiling's smallest M
+    (2305, 1280, 5120, torch.bfloat16, True),    # ViT-H's fc1, ragged M
+    (3136, 1088, 4096, torch.bfloat16, True),    # K a multiple of 64, not of 128
+    (3136, 1056, 4096, torch.bfloat16, False),   # K % 64 == 32: half a TMA box
+    (3136, 1024, 4224, torch.bfloat16, True),    # F % 256 == 128: the kernels' tile is 128
+    (3136, 1024, 4160, torch.bfloat16, False),   # F % 128 == 64: half a tile
+    (3136, 1024, 4160, torch.float32, False),
+    (3136, 1040, 4096, torch.float32, True),     # fp32: K % 16
+    (3136, 1032, 4096, torch.float32, False),
+    (0, 1024, 4096, torch.bfloat16, False),
+])
+def test_kernel_tiling_check(m, k, f, dtype, ok):
+    """The fc1 wrapper's pure-integer check of the kernels' K/F tiles."""
+    if ok:
+        check_kernel_tiling(m, k, f, dtype)
+    else:
+        with pytest.raises(ValueError):
+            check_kernel_tiling(m, k, f, dtype)
+
+
+@pytest.mark.parametrize("k", [128, 256, 1024, 1280, 1408])
+@pytest.mark.parametrize("f", [256, 4096, 5120, 6144])
+def test_fused_tiling_admits_only_kernel_shapes(k, f):
+    """Every shape the eligibility rule admits passes both kernels' checks."""
+    for m in (8, 9, 127, 129, 3136):
+        assert fused_tiling(m, k, f)
+        for dtype in (torch.bfloat16, torch.float32):
+            check_kernel_tiling(m, k, f, dtype)
+
+
+@pytest.mark.parametrize("heads,c,elem,ok", [
+    (16, 64, 2, True), (16, 80, 2, True), (16, 32, 2, True), (3, 128, 2, True),
+    (1, 32, 2, True), (16, 64, 4, True),
+    (16, 36, 2, False),   # a head offset of 72 bytes
+    (3, 20, 2, False),    # a head offset of 40 bytes
+    (4, 4, 2, False),     # 8-byte head offset
+    (2, 12, 4, True),     # fp32: 48-byte head offset, 96- and 288-byte rows
+])
+def test_tma_layout_check(heads, c, elem, ok):
+    """H1's pure-integer check of the strides and head offsets TMA needs."""
+    if ok:
+        check_tma_layout(heads, c, elem)
+    else:
+        with pytest.raises(ValueError):
+            check_tma_layout(heads, c, elem)
