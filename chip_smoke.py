@@ -6,8 +6,9 @@
                                             # only the spread of phase 6's B=2
                                             # check (phase_b2_spread)
     python3 chip_smoke.py --kernel-ab --other DIR...
-                                            # only bf16 H1/H3/H8 against another
-                                            # checkout's (phase_kernel_ab)
+                                            # only bf16 H1, H2, H3, H4 and H8
+                                            # against another checkout's
+                                            # (phase_kernel_ab)
 
 Phases (any failure raises and exits non-zero):
   1. device: require CUDA, print the card's name and power limit, turn
@@ -23,10 +24,12 @@ Phases (any failure raises and exits non-zero):
      attention backward, dk/dv and dq kernels) and H1 at the training
      shapes (the predictor's head dim 24 padded to 32, the encoder
      context, and a ragged N at head dim 80);
-     then (phase_edges) the Hopper kernels at their tiles' edges: H1 at
-     N = 40 and N = 129 (1 mod 128) for every head dim, and with two whole
-     128-key tiles of pads mid-sequence at c = 24->32, 64 and 128; H3 and
-     H8 at M = 8, 200 and 2305;
+     then (phase_edges) the Hopper kernels at their tiles' edges: H1 and
+     H2 at N = 40 and N = 129 (1 mod 128) for every head dim, and with two
+     whole 128-key tiles of pads mid-sequence at c = 24->32, 64 and 128;
+     H4 at N = 40 and 129, 1 and 376 queries over 1568 keys, on permuted
+     views and on the planes of a packed qkv; H3 and H8 at M = 8, 200 and
+     2305;
   5. serve 4 requests through jepa_tpu_torch.api: a seeded ViT-L/16
      (224 px, 16 frames, tubelet 2, uniform_power) and a 400-class
      attentive probe, written as .pth.tar files and loaded back; each
@@ -102,8 +105,8 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
 Phases 12-13 run after phase 7, phases 14-15 after phase 8, phase 16's
 kernel checks after phase 9. Launch counts are checked as whole dicts of
 every counter (``_counts``): a kernel that should not run must count 0.
-H1 (each head dim, masked or not), H2 likewise, H3, H5, H6, H7, H8 and
-H8-fp32 are each called a second time on the same inputs wherever they
+H1 (each head dim, masked or not), H2 likewise, H3, H4, H5, H6, H7, H8
+and H8-fp32 are each called a second time on the same inputs wherever they
 are held against their plain versions, and must give bit-equal outputs,
 and vit_tiny's B=2 update is taken twice from one state and must give
 bit-equal metrics, parameters and moments.
@@ -114,6 +117,7 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import statistics
@@ -408,6 +412,62 @@ def _check_h1(torch, label, qkv, h, scale, mask=None):
     return o, lse, err_o
 
 
+def _check_h2(torch, label, qkv, do, o, lse, h, scale, c_real, mask=None):
+    """Both H2 kernels on qkv (with a key mask or none) against their plain
+    versions on the card: finite, each gradient within H2_REL * max|ref|,
+    the pad lanes past c_real exactly 0 and, with a mask, the masked keys'
+    dk and dv exactly 0; then a second call on the same inputs, which must
+    be bit-equal. Returns (delta, {gradient: max|d|})."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    delta = fa.attention_delta(do, o, h)
+    dqkv = fa.flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale, mask)
+    ref = fa.flash_self_attention_bwd_ref(qkv, do, lse, delta, h, scale, mask)
+    torch.cuda.synchronize()
+    if not _finite(dqkv):
+        raise RuntimeError(f"{label}: non-finite output")
+    _same_bits(f"{label} dq/dk/dv", (dqkv,),
+               (fa.flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale, mask),))
+    b, n, w3 = qkv.shape
+    hc = w3 // 3
+    c = hc // h
+    errs = {}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        got = dqkv[..., i * hc:(i + 1) * hc].float()
+        want = ref[..., i * hc:(i + 1) * hc].float()
+        err = (got - want).abs().max().item()
+        tol = H2_REL * want.abs().max().item()
+        pad = got.reshape(b, n, h, c)[..., c_real:].abs().max().item() if c_real < c else 0.0
+        keys = mask is not None and name != "dq"
+        masked = got[~mask].abs().max().item() if keys else 0.0
+        log(f"{label} c={c_real}->{c}: {name} max|d| {err:.3e} (tol {tol:.3e} = 2^-6 * "
+            f"max|ref|), pad lanes max {pad:.1e}"
+            + (f", masked keys max|{name}| {masked:.1e} (must be 0)" if keys else ""))
+        if not (err <= tol and pad == 0.0 and masked == 0.0):
+            raise RuntimeError(f"{label} {name} disagrees with its plain version")
+        errs[name] = err
+    return delta, errs
+
+
+def _check_h4(torch, label, q, k, v, scale, mask=None):
+    """H4 on head-major q, k, v (with a key mask or none) against its plain
+    version on the card (finite, |do| <= HM_O_TOL, |dlse| <= HM_LSE_TOL),
+    then a second call on the same inputs, which must be bit-equal.
+    Returns (o, lse, max|do|)."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale, mask)
+    o_ref, lse_ref = fa.flash_fwd_hm_ref(q, k, v, scale, mask)
+    torch.cuda.synchronize()
+    err_o = (o.float() - o_ref.float()).abs().max().item()
+    err_l = (lse - lse_ref).abs().max().item()
+    log(f"{label}: max|do| {err_o:.3e} (tol {HM_O_TOL}) max|dlse| {err_l:.3e} (tol {HM_LSE_TOL})")
+    if not (_finite(o) and _finite(lse) and err_o <= HM_O_TOL and err_l <= HM_LSE_TOL):
+        raise RuntimeError(f"{label} disagrees with its plain version")
+    _same_bits(label, (o, lse), fa.flash_fwd_hm_cuda(q, k, v, scale, mask))
+    return o, lse, err_o
+
+
 def _check_h3(torch, label, x, w, bias) -> float:
     """H3 against its plain version under the flip rule, then called a
     second time on the same inputs, which must be bit-equal. Returns max|d|."""
@@ -435,25 +495,49 @@ def _check_h8(torch, label, x, w, bias) -> float:
 
 def phase_edges(torch):
     """The Hopper kernels at the edges of their tiles (H1: 128 query rows
-    and 128 keys a tile; H3 and H8: 128 x 128 output tiles, 64-deep k
-    panels), each against its plain version and called twice for bit-equal
-    outputs: H1 at N = 40 (one partial key tile) and at N = 129 (1 mod 128)
-    for every head dim; H1 with a key mask whose keys [128, 384), two whole
-    key tiles mid-sequence, are all pads, at c = 24->32, 64 and 128; H3 and
-    H8 at M = 8, 200 and 2305; H8 at an identity probe that feeds its
-    epilogue every bf16 z."""
+    and 128 keys a tile; H2: 128 rows a block, 64-key stages in dq, 64- or
+    32-row q stages in dk/dv; H4: 128 query rows, 128 keys a stage; H3 and
+    H8: 128 x 128 output tiles, 64-deep k panels), each against its plain
+    version and called twice for bit-equal outputs: H1 and H2 at N = 40
+    (one partial tile) and at N = 129 (1 mod 128) for every head dim; H1
+    and H2 with a key mask whose keys [128, 384), two whole key tiles
+    mid-sequence, are all pads, at c = 24->32, 64 and 128 (H2's masked
+    keys' dk and dv exactly 0); H4 at N = 40 and 129 on permuted views of
+    a token-major projection, at 1 and 376 queries over 1568 keys, and
+    masked on the planes of a packed [3, B, H, N, c] qkv; H3 and H8 at M =
+    8, 200 and 2305; H8 at an identity probe that feeds its epilogue every
+    bf16 z."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     rng = np.random.default_rng(SEED + 7)
-    for b, n, h, c, c_real in ((2, 40, 16, 64, 64), (2, 129, 16, 32, 24), (2, 129, 16, 64, 64),
+    for b, n, h, c, c_real in ((2, 40, 16, 32, 24), (2, 40, 16, 64, 64), (1, 40, 16, 80, 80),
+                               (2, 40, 3, 128, 128), (2, 129, 16, 32, 24), (2, 129, 16, 64, 64),
                                (1, 129, 16, 80, 80), (2, 129, 3, 128, 128)):
-        qkv, _ = _attn_inputs(torch, gen, b, n, h, c, c_real)
-        _check_h1(torch, f"H1 edge B={b} N={n} H={h} c={c_real}->{c}", qkv, h, c_real**-0.5)
+        qkv, do = _attn_inputs(torch, gen, b, n, h, c, c_real)
+        label = f"B={b} N={n} H={h}"
+        o, lse, _ = _check_h1(torch, f"H1 edge {label} c={c_real}->{c}", qkv, h, c_real**-0.5)
+        _check_h2(torch, f"H2 edge {label}", qkv, do, o, lse, h, c_real**-0.5, c_real)
     for b, n, h, c, c_real in ((4, 640, 16, 32, 24), (4, 640, 16, 64, 64), (4, 640, 3, 128, 128)):
-        qkv, _ = _attn_inputs(torch, gen, b, n, h, c, c_real)
+        qkv, do = _attn_inputs(torch, gen, b, n, h, c, c_real)
         mask = padded_key_mask(torch, rng, b, n, 0)
         mask[:, 128:384] = False
-        _check_h1(torch, f"masked H1 edge B={b} N={n} H={h} c={c_real}->{c}, keys [128, 384) "
-                  "all pads", qkv, h, c_real**-0.5, mask)
+        label = f"B={b} N={n} H={h}, keys [128, 384) all pads"
+        o, lse, _ = _check_h1(torch, f"masked H1 edge {label}, c={c_real}->{c}", qkv, h,
+                              c_real**-0.5, mask)
+        _check_h2(torch, f"masked H2 edge {label},", qkv, do, o, lse, h, c_real**-0.5, c_real,
+                  mask)
+    for b, h, nq, nk, c in ((2, 3, 40, 40, 64), (2, 3, 129, 129, 64), (2, 3, 129, 129, 32),
+                            (2, 3, 1, 1568, 64), (2, 3, 376, 1568, 64)):
+        q, k, v, _ = _hm_inputs(torch, gen, b, h, nq, nk, c)
+        mask = padded_key_mask(torch, rng, b, nk, 0) if nq == 1 else None
+        how = "permuted views of [B, N, 3, H, c]" if nq == nk else "[B, H, N, c] tensors"
+        _check_h4(torch, f"H4 edge B={b} H={h} Nq={nq} Nk={nk} c={c}{' masked' if nq == 1 else ''}"
+                  f", {how}", q, k, v, c**-0.5, mask)
+    q, k, v = torch.randn((3, 4, 3, 640, 64), generator=gen, device="cuda").to(
+        torch.bfloat16).unbind(0)
+    mask = padded_key_mask(torch, rng, 4, 640, 0)
+    mask[:, 128:384] = False
+    _check_h4(torch, "masked H4 edge B=4 H=3 N=640 c=64, planes of a packed [3, B, H, N, c], "
+              "keys [128, 384) all pads", q, k, v, 64**-0.5, mask)
     k, f = 1024, 4096
     w = (torch.randn((f, k), generator=gen, device="cuda") / 32).to(torch.bfloat16)
     bias = torch.randn((f,), generator=gen, device="cuda") * 0.1
@@ -690,77 +774,60 @@ def phase_bwd_kernels(torch, shapes):
         o, lse, err_o = _check_h1(torch, f"H1 c={c} {label} B={b} N={n} H={h}", qkv, h, scale)
         h1 = rep["h1_c32" if c == 32 else "h1"]
         h1["max_abs_err"] = max(h1["max_abs_err"], err_o)
-        delta = fa.attention_delta(do, o, h)
-        dqkv = fa.flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale)
-        ref = fa.flash_self_attention_bwd_ref(qkv, do, lse, delta, h, scale)
-        torch.cuda.synchronize()
-        if not torch.isfinite(dqkv.float()).all():
-            raise RuntimeError(f"H2 {label}: non-finite output")
-        _same_bits(f"H2 dq/dk/dv {label}", (dqkv,),
-                   (fa.flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale),))
-        hc = h * c
-        for i, name in enumerate(("dq", "dk", "dv")):
-            got = dqkv[..., i * hc:(i + 1) * hc].float()
-            want = ref[..., i * hc:(i + 1) * hc].float()
-            err = (got - want).abs().max().item()
-            tol = H2_REL * want.abs().max().item()
-            pad = got.reshape(b, n, h, c)[..., c_real:].abs().max().item() if c_real < c else 0.0
-            log(f"H2 {label} B={b} N={n} H={h} c={c_real}->{c}: {name} max|d| {err:.3e} "
-                f"(tol {tol:.3e} = 2^-6 * max|ref|), pad lanes max {pad:.1e}")
-            if not (err <= tol and pad == 0.0):
-                raise RuntimeError(f"H2 {label} {name} disagrees with its plain version")
+        delta, errs = _check_h2(torch, f"H2 {label} B={b} N={n} H={h}", qkv, do, o, lse, h,
+                                scale, c_real)
+        for name, err in errs.items():
             kern = "dq" if name == "dq" else "dkv"
             rep[kern]["max_abs_err"] = max(rep[kern]["max_abs_err"], err)
+        hc = h * c
+        # every row: both kernels' times and bounds beside SDPA's whole backward
+        el = 2  # bf16 bytes
+        qkv_b, o_b, vec_b = b * n * 3 * hc * el, b * n * hc * el, b * h * n * 4
+        out = torch.empty_like(qkv)
+        t = {"dkv": dict(ms=time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(
+                              qkv, do, lse, delta, out, h, scale)),
+                          bound=attn_bound_ms(b, n, h, c_real, 4, qkv_b + o_b + 2 * vec_b,
+                                              2 * o_b)),
+             "dq": dict(ms=time_ms(torch, lambda: fa.flash_bwd_dq_cuda(
+                             qkv, do, lse, delta, out, h, scale)),
+                        bound=attn_bound_ms(b, n, h, c_real, 3, qkv_b + o_b + 2 * vec_b, o_b))}
+        lib = _sdpa_bwd_ms(torch, qkv, do, h, scale)
+        whole = attn_bound_ms(b, n, h, c_real, 5, qkv_b + o_b + 2 * vec_b, qkv_b)
+        log(f"H2 {label} B={b} N={n} H={h} c={c_real}->{c} time: dkv {t['dkv']['ms']:.4f} ms "
+            f"(bound {t['dkv']['bound'][0]:.4f}, {t['dkv']['bound'][2]}), dq {t['dq']['ms']:.4f} "
+            f"ms (bound {t['dq']['bound'][0]:.4f}, {t['dq']['bound'][2]}); dkv + dq "
+            f"{t['dkv']['ms'] + t['dq']['ms']:.4f} ms, library (SDPA backward) {lib:.4f} ms, "
+            f"bound {whole[0]:.4f} ms ({whole[2]}; 5 products of 2*N^2*c per head at "
+            f"c={c_real}, one exp2 per score)")
         if label.startswith("predictor") and not timed:
             timed = True
-            el = 2  # bf16 bytes
-            qkv_b, o_b = b * n * 3 * hc * el, b * n * hc * el
-            vec_b = b * h * n * 4
-            out = torch.empty_like(qkv)
             rep["dkv"].update(
-                ms=time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(qkv, do, lse, delta, out, h, scale)),
                 plain_ms=time_ms(torch, lambda: fa.flash_bwd_dkv_ref(qkv, do, lse, delta, h, scale)),
-                bound=attn_bound_ms(b, n, h, c_real, 4, qkv_b + o_b + 2 * vec_b, 2 * o_b))
+                library_ms=lib, **t["dkv"])
             rep["dq"].update(
-                ms=time_ms(torch, lambda: fa.flash_bwd_dq_cuda(qkv, do, lse, delta, out, h, scale)),
                 plain_ms=time_ms(torch, lambda: fa.flash_bwd_dq_ref(qkv, do, lse, delta, h, scale)),
-                bound=attn_bound_ms(b, n, h, c_real, 3, qkv_b + o_b + 2 * vec_b, o_b))
-            lib = _sdpa_bwd_ms(torch, qkv, do, h, scale)
-            rep["dkv"]["library_ms"] = rep["dq"]["library_ms"] = lib
+                library_ms=lib, **t["dq"])
             rep["h1_c32"].update(
                 ms=time_ms(torch, lambda: fa.flash_self_attention_cuda(qkv, h, scale)),
                 plain_ms=time_ms(torch, lambda: fa.flash_self_attention_ref(qkv, h, scale)),
                 library_ms=_sdpa_fwd_ms(torch, qkv, h, scale),
                 bound=attn_bound_ms(b, n, h, c_real, 2, qkv_b, o_b + vec_b))
             rep["shape"] = (b, n, h, c)
-            whole = attn_bound_ms(b, n, h, c_real, 5, qkv_b + o_b + 2 * vec_b, qkv_b)
-            log(f"H2 {label} whole backward: dkv + dq {rep['dkv']['ms'] + rep['dq']['ms']:.4f} "
-                f"ms, SDPA backward {lib:.4f} ms, bound {whole[0]:.4f} ms ({whole[2]}; "
-                f"5 products of 2*N^2*c per head at c={c_real}, one exp2 per score)")
             for k in ("dkv", "dq", "h1_c32"):
                 r = rep[k]
                 log(f"{k} {label} B={b} N={n} H={h} c={c_real}->{c} time: kernel "
                     f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
                     f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][2]})")
-        else:
-            out = torch.empty_like(qkv)
-            ms_dkv = time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(qkv, do, lse, delta, out, h, scale))
-            ms_dq = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(qkv, do, lse, delta, out, h, scale))
-            log(f"H2 {label} B={b} N={n} time: dkv {ms_dkv:.4f} ms, dq {ms_dq:.4f} ms")
-            if label.startswith("vith16_384"):  # K3's geometry: the merged backward's work
-                el = 2
-                qkv_b, o_b, vec_b = b * n * 3 * h * c * el, b * n * h * c * el, b * h * n * 4
-                rep["k3"] = dict(ms=ms_dkv + ms_dq, library_ms=_sdpa_bwd_ms(torch, qkv, do, h, scale),
-                                 plain_ms=time_ms(torch, lambda: fa.flash_self_attention_bwd_ref(
-                                     qkv, do, lse, delta, h, scale)),
-                                 bound=attn_bound_ms(b, n, h, c_real, 5,
-                                                     qkv_b + o_b + 2 * vec_b, qkv_b))
-                k3 = rep["k3"]
-                log(f"K3 geometry, H2 {label} B={b} N={n} H={h} c={c}: dkv + dq "
-                    f"{k3['ms']:.4f} ms, plain {k3['plain_ms']:.4f} ms, library (SDPA "
-                    f"backward) {k3['library_ms']:.4f} ms, "
-                    f"bound {k3['bound'][0]:.4f} ms ({k3['bound'][2]})")
-        del qkv, do, o, lse, delta, dqkv, ref
+        if label.startswith("vith16_384"):  # K3's geometry: the merged backward's work
+            rep["k3"] = dict(ms=t["dkv"]["ms"] + t["dq"]["ms"], library_ms=lib, bound=whole,
+                             plain_ms=time_ms(torch, lambda: fa.flash_self_attention_bwd_ref(
+                                 qkv, do, lse, delta, h, scale)))
+            k3 = rep["k3"]
+            log(f"K3 geometry, H2 {label} B={b} N={n} H={h} c={c}: dkv + dq "
+                f"{k3['ms']:.4f} ms, plain {k3['plain_ms']:.4f} ms, library (SDPA "
+                f"backward) {k3['library_ms']:.4f} ms, "
+                f"bound {k3['bound'][0]:.4f} ms ({k3['bound'][2]})")
+        del qkv, do, o, lse, delta
     return rep
 
 
@@ -797,8 +864,9 @@ def phase_masked_kernels(torch, shapes):
     """H1 and both H2 kernels with a key mask (the padded mask mode)
     against their plain versions on the card.
 
-    shapes: (label, B, N, H, c, c_real, mid_run); the first of each head
-    dim is timed for the summary line."""
+    shapes: (label, B, N, H, c, c_real, mid_run); H1 and both H2 kernels
+    are timed at the first of each head dim (c=32's H2 under "dkv" and
+    "dq" for the summary line, c=64's under "dkv_c64" and "dq_c64")."""
     from jepa_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -813,32 +881,19 @@ def phase_masked_kernels(torch, shapes):
                                   f"{valid:.3f}", qkv, h, scale, mask)
         h1 = rep[f"h1_c{c}"]
         h1["max_abs_err"] = max(h1["max_abs_err"], err_o)
-        delta = fa.attention_delta(do, o, h)
-        dqkv = fa.flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale, mask)
-        ref = fa.flash_self_attention_bwd_ref(qkv, do, lse, delta, h, scale, mask)
-        torch.cuda.synchronize()
-        if not torch.isfinite(dqkv.float()).all():
-            raise RuntimeError(f"masked H2 {label}: non-finite output")
-        _same_bits(f"masked H2 dq/dk/dv {label}", (dqkv,),
-                   (fa.flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale, mask),))
-        hc = h * c
-        for i, name in enumerate(("dq", "dk", "dv")):
-            got = dqkv[..., i * hc:(i + 1) * hc].float()
-            want = ref[..., i * hc:(i + 1) * hc].float()
-            err = (got - want).abs().max().item()
-            tol = H2_REL * want.abs().max().item()
-            masked = got[~mask].abs().max().item() if name != "dq" else 0.0
-            log(f"masked H2 {label} c={c_real}->{c}: {name} max|d| {err:.3e} (tol "
-                f"{tol:.3e}), masked keys max|{name}| {masked:.1e} (must be 0)")
-            if not (err <= tol and masked == 0.0):
-                raise RuntimeError(f"masked H2 {label} {name} disagrees with its plain version")
+        delta, errs = _check_h2(torch, f"masked H2 {label}", qkv, do, o, lse, h, scale, c_real,
+                                mask)
+        for name, err in errs.items():
             kern = "dq" if name == "dq" else "dkv"
             rep[kern]["max_abs_err"] = max(rep[kern]["max_abs_err"], err)
+        hc = h * c
         el = 2
         qkv_b, o_b, vec_b, m_b = b * n * 3 * hc * el, b * n * hc * el, b * h * n * 4, b * n
         pairs = int(mask.sum().item()) * n  # every query row against the valid keys
-        if "ms" not in h1:
+        names = ("dkv", "dq") if c == 32 else (f"dkv_c{c}", f"dq_c{c}")  # c=32: the JSON line's
+        if "ms" not in h1 or "ms" not in rep.get(names[0], {}):
             fwd_lib, bwd_lib = _sdpa_masked_ms(torch, qkv, do, h, scale, mask)
+        if "ms" not in h1:
             h1.update(
                 ms=time_ms(torch, lambda: fa.flash_self_attention_cuda(qkv, h, scale, mask)),
                 plain_ms=time_ms(torch, lambda: fa.flash_self_attention_ref(qkv, h, scale, mask)),
@@ -848,27 +903,23 @@ def phase_masked_kernels(torch, shapes):
             log(f"masked H1 c={c_real}->{c} {label} B={b} N={n} time: kernel {h1['ms']:.4f} ms, "
                 f"plain {h1['plain_ms']:.4f} ms, library (SDPA fwd, bool mask) {fwd_lib:.4f} "
                 f"ms, bound {h1['bound'][0]:.4f} ms ({h1['bound'][2]})")
-            if c == 32:
-                out = torch.empty_like(qkv)
-                rep["dkv"].update(
-                    ms=time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(qkv, do, lse, delta, out, h, scale, mask)),
-                    plain_ms=time_ms(torch, lambda: fa.flash_bwd_dkv_ref(qkv, do, lse, delta, h, scale, mask)),
-                    library_ms=bwd_lib,
-                    bound=attn_bound_ms(b, n, h, c_real, 4, qkv_b + o_b + 2 * vec_b + m_b, 2 * o_b, pairs),
-                    shape=(b, n, h, c_real))
-                rep["dq"].update(
-                    ms=time_ms(torch, lambda: fa.flash_bwd_dq_cuda(qkv, do, lse, delta, out, h, scale, mask)),
-                    plain_ms=time_ms(torch, lambda: fa.flash_bwd_dq_ref(qkv, do, lse, delta, h, scale, mask)),
-                    library_ms=bwd_lib,
-                    bound=attn_bound_ms(b, n, h, c_real, 3, qkv_b + o_b + 2 * vec_b + m_b, o_b, pairs),
-                    shape=(b, n, h, c_real))
-                for k in ("dkv", "dq"):
-                    r = rep[k]
-                    log(f"masked {k} {label} B={b} N={n} c={c_real}->{c} time: kernel "
-                        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library (SDPA "
-                        f"backward, bool mask) {bwd_lib:.4f} ms, bound {r['bound'][0]:.4f} ms "
-                        f"({r['bound'][2]})")
-        del qkv, do, o, lse, delta, dqkv, ref, mask
+        if "ms" not in rep.get(names[0], {}):  # H2 at the first rung of each head dim
+            out = torch.empty_like(qkv)
+            for name, fn, plain, products, outs in (
+                    (names[0], fa.flash_bwd_dkv_cuda, fa.flash_bwd_dkv_ref, 4, 2),
+                    (names[1], fa.flash_bwd_dq_cuda, fa.flash_bwd_dq_ref, 3, 1)):
+                r = rep.setdefault(name, {})
+                r.update(
+                    ms=time_ms(torch, lambda: fn(qkv, do, lse, delta, out, h, scale, mask)),
+                    plain_ms=time_ms(torch, lambda: plain(qkv, do, lse, delta, h, scale, mask)),
+                    library_ms=bwd_lib, shape=(b, n, h, c_real),
+                    bound=attn_bound_ms(b, n, h, c_real, products,
+                                        qkv_b + o_b + 2 * vec_b + m_b, outs * o_b, pairs))
+                log(f"masked {name} {label} B={b} N={n} c={c_real}->{c} time: kernel "
+                    f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library (SDPA "
+                    f"backward, bool mask) {bwd_lib:.4f} ms, bound {r['bound'][0]:.4f} ms "
+                    f"({r['bound'][2]})")
+        del qkv, do, o, lse, delta, mask
     return rep
 
 
@@ -949,16 +1000,8 @@ def phase_hm_kernels(torch, setup, caps):
     for label, b, nq, nk, masked in fwd_shapes:
         q, k, v, do = _hm_inputs(torch, gen, b, h, nq, nk, c)
         mask = padded_key_mask(torch, rng, b, nk, 0) if masked else None
-        o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale, mask)
-        o_ref, lse_ref = fa.flash_fwd_hm_ref(q, k, v, scale, mask)
-        torch.cuda.synchronize()
-        err_o = (o.float() - o_ref.float()).abs().max().item()
-        err_l = (lse - lse_ref).abs().max().item()
-        log(f"H4 {label} B={b} H={h} Nq={nq} Nk={nk} c={c}{' masked' if masked else ''}: "
-            f"max|do| {err_o:.3e} (tol {HM_O_TOL}) max|dlse| {err_l:.3e} (tol {HM_LSE_TOL})")
-        if not (_finite(o) and _finite(lse) and err_o <= HM_O_TOL
-                and err_l <= HM_LSE_TOL):
-            raise RuntimeError(f"H4 {label} disagrees with its plain version")
+        o, lse, err_o = _check_h4(torch, f"H4 {label} B={b} H={h} Nq={nq} Nk={nk} c={c}"
+                                  f"{' masked' if masked else ''}", q, k, v, scale, mask)
         r = rep["fwd_masked" if masked else "fwd"]
         r["max_abs_err"] = max(r["max_abs_err"], err_o)
         pairs = int(mask.sum().item()) * nq if masked else b * nq * nk
@@ -973,7 +1016,7 @@ def phase_hm_kernels(torch, setup, caps):
         if label == "target" or (masked and "ms" not in r):
             r.update(t)
         rep.setdefault("fwd_times", {})[label] = t
-        del q, k, v, do, o, lse, o_ref, lse_ref
+        del q, k, v, do, o, lse
 
     # H7: the fixed contexts unmasked, the padded rungs masked
     bwd_shapes = ([(f"context {i}", ke, False) for i, (ke, _) in enumerate(setup["keep"])
@@ -2230,6 +2273,48 @@ AB_FC1_ROWS = (
     ("H8 M=9024 (force, long context)", 9024, 1024, 4096, 2),
     ("H8 M=2304 (force, short context)", 2304, 1024, 4096, 2),
 )
+# (label, B, H, Nq, Nk, c, masked) of the A/B mode's H4 rows (vit_tiny's
+# encoder: 3 heads of 64; self-attention on permuted views of the projection)
+AB_HM_ROWS = (
+    ("H4 B=2 N=1568 (vit_tiny serving)", 2, 3, 1568, 1568, 64, False),
+    ("H4 B=24 N=1568 (vit_tiny target)", 24, 3, 1568, 1568, 64, False),
+    ("H4 B=24 N=376 (vit_tiny fixed context)", 24, 3, 376, 376, 64, False),
+    ("H4 masked B=24 N=640 (vit_tiny top context rung)", 24, 3, 640, 640, 64, True),
+    ("H4 masked B=2 Nq=1 Nk=1568 (probe geometry)", 2, 3, 1, 1568, 64, True),
+)
+# (label, B, N, H, c, c_real, mid) of the A/B mode's H2 rows, as AB_H1_ROWS
+AB_H2_ROWS = (
+    ("H2 c=24->32 B=24 N=1109 H=16 (ViT-L predictor)", 24, 1109, 16, 32, 24, None),
+    ("H2 c=24->32 B=24 N=1191 H=16 (ViT-L predictor, mask 2)", 24, 1191, 16, 32, 24, None),
+    ("H2 c=64 B=24 N=376 H=16 (ViT-L context)", 24, 376, 16, 64, 64, None),
+    ("H2 c=64 masked B=24 N=128 H=16 (context rung)", 24, 128, 16, 64, 64, 0),
+    ("H2 c=64 masked B=24 N=384 H=16 (context rung)", 24, 384, 16, 64, 64, 0),
+    ("H2 c=64 masked B=24 N=640 H=16 (context rung)", 24, 640, 16, 64, 64, 0),
+    ("H2 c=24->32 masked B=24 N=1152 H=16 (predictor rung)", 24, 1152, 16, 32, 24, 384),
+    ("H2 c=24->32 masked B=24 N=1664 H=16 (predictor rung)", 24, 1664, 16, 32, 24, 256),
+    ("H2 c=128 B=24 N=1109 H=3 (vit_tiny predictor)", 24, 1109, 3, 128, 128, None),
+    ("H2 c=128 masked B=24 N=1664 H=3 (vit_tiny predictor rung)", 24, 1664, 3, 128, 128, 256),
+    ("H2 c=80 B=1 N=4608 H=16 (K3 geometry)", 1, 4608, 16, 80, 80, None),
+    ("H2 c=80 B=1 N=333 H=16 (ragged)", 1, 333, 16, 80, 80, None),
+)
+
+
+def queued_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """time_ms with the launches queued behind a ~1 ms spin kernel, so the
+    card runs them back to back even where one call's host time exceeds
+    its kernel's (rows near 0.02 ms, where time_ms would time the host)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000)  # cycles; longer than enqueuing `iters` calls
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def _host_us(torch, fn, n=48) -> float:
@@ -2246,16 +2331,19 @@ def _host_us(torch, fn, n=48) -> float:
 
 
 def phase_kernel_ab(torch, others):
-    """The bf16 H1, H3 and H8 of this checkout against each other
+    """The bf16 H1, H3, H8, H4 and H2 of this checkout against each other
     checkout's (``python3 chip_smoke.py --kernel-ab --other DIR...``, not
-    part of the smoke run), at the shapes of PERF.md's kernel table, both
+    part of the smoke run), at the shapes of PERF.md's kernel tables, both
     called through the C entry points (shared names and signatures). Per
     row: device times in turns (other, this, this, other), each with
-    ``time_ms``; the bound (``attn_bound_ms`` / ``fc1_bound_ms``) and its
+    ``queued_ms``; the bound (``attn_bound_ms`` / ``fc1_bound_ms``) and its
     share; the library call; max|this - other|; the host time of one call
     (``_host_us``); for H1 the mean of lse - the plain version's lse over
     every row (a bias in the denominators shows there; rounding alone
-    averages out). Prints a line per row and a JSON line of every row."""
+    averages out). H2's rows time the dk/dv and dq kernels each (both
+    write one dqkv; each row compares its own columns), then their sum
+    against SDPA's whole backward and the 5-product bound. Prints a line
+    per row and a JSON line of every row."""
     import torch.nn.functional as F
 
     from jepa_tpu_torch.ops import _build
@@ -2278,13 +2366,13 @@ def phase_kernel_ab(torch, others):
             if after:
                 row[f"{name} extra"] = after()
         for name in others:
-            o1, t1, t2, o2 = (time_ms(torch, calls[k]) for k in (name, "this", "this", name))
+            o1, t1, t2, o2 = (queued_ms(torch, calls[k]) for k in (name, "this", "this", name))
             row[f"{name} ms"], row[f"{name} this ms"] = (o1 + o2) / 2, (t1 + t2) / 2
             row[f"{name} speedup"] = row[f"{name} ms"] / row[f"{name} this ms"]
             row[f"{name} max|this - other|"] = max(
                 (a.float() - b.float()).abs().max().item()
                 for a, b in zip(got["this"], got[name]))
-        row["ms"] = min(row[f"{name} this ms"] for name in others) if others else time_ms(
+        row["ms"] = min(row[f"{name} this ms"] for name in others) if others else queued_ms(
             torch, calls["this"])
         row["host_us"] = {name: _host_us(torch, call) for name, call in calls.items()}
         row["bound_share"] = row["bound"][0] / row["ms"]
@@ -2303,14 +2391,7 @@ def phase_kernel_ab(torch, others):
         x[..., c_real:] = 0
         qkv = x.reshape(b, n, 3 * h * c).to(torch.bfloat16)
         del x
-        mask = None
-        if mid is not None:
-            m = np.ones((b, n), dtype=bool)
-            for i in range(b):
-                a = mid if mid else int(rng.integers(1, n // 2))
-                m[i, a:a + int(rng.integers(1, n // 4))] = False
-                m[i, n - int(rng.integers(1, n // 8)):] = False
-            mask = torch.from_numpy(m).to("cuda")
+        mask = None if mid is None else padded_key_mask(torch, rng, b, n, mid)
         m8 = None if mask is None else mask.to(torch.uint8).contiguous()
         o = torch.empty((b, n, h * c), dtype=torch.bfloat16, device="cuda")
         lse = torch.empty((b, h, n), dtype=torch.float32, device="cuda")
@@ -2345,6 +2426,66 @@ def phase_kernel_ab(torch, others):
                        bias_lp, x, w.t(), use_gelu=True)))
         ab(row, entry, args, outs)
         del x, outs
+    for label, b, h, nq, nk, c, masked in AB_HM_ROWS:
+        q, k, v, do = _hm_inputs(torch, gen, b, h, nq, nk, c)
+        mask = padded_key_mask(torch, rng, b, nk, 0) if masked else None
+        m8 = None if mask is None else mask.to(torch.uint8).contiguous()
+        o, lse = fa._alloc_like(q), torch.empty((b, h, nq), dtype=torch.float32, device="cuda")
+        scale = c**-0.5
+        hm = fa._HmArgs(B=b, H=h, Nq=nq, Nk=nk, qscale=scale * fa._LOG2E, scale=scale)
+        for name, t in dict(q=q, k=k, v=v, o=o, lse=lse, kvm=m8).items():
+            if t is not None:
+                setattr(hm, name, t.data_ptr())
+                if t.dim() == 4:
+                    setattr(hm, f"{name}_s", (ctypes.c_int * 3)(*t.stride()[:3]))
+        args = lambda hm=hm: (ctypes.addressof(hm), stream())  # noqa: E731
+        pairs = b * nq * nk if mask is None else int(mask.sum().item()) * nq
+        row = dict(row=label, library_ms=_sdpa_hm_ms(torch, q, k, v, do, scale, mask)[0],
+                   bound=attn_bound_ms(b, nq, h, c, 2, b * h * c * 2 * (nq + 2 * nk)
+                                       + (0 if m8 is None else b * nk),
+                                       o.numel() * 2 + lse.numel() * 4, pairs))
+        ab(row, f"jt_flash_hm_fwd_c{c}", args, (o, lse))
+        del q, k, v, do, o, lse
+    for label, b, n, h, c, c_real, mid in AB_H2_ROWS:
+        qkv, do = _attn_inputs(torch, gen, b, n, h, c, c_real)
+        mask = None if mid is None else padded_key_mask(torch, rng, b, n, mid)
+        m8 = None if mask is None else mask.to(torch.uint8).contiguous()
+        scale = c_real**-0.5
+        o, lse = fa.flash_self_attention_cuda(qkv, h, scale, mask)
+        delta = fa.attention_delta(do, o, h)
+        dqkv = torch.zeros_like(qkv)
+        hc = h * c
+        qkv_b, o_b, vec_b, m_b = qkv.numel() * 2, o.numel() * 2, lse.numel() * 4, (
+            0 if m8 is None else b * n)
+        pairs = b * n * n if mask is None else int(mask.sum().item()) * n
+        lib = (_sdpa_bwd_ms(torch, qkv, do, h, scale) if mask is None
+               else _sdpa_masked_ms(torch, qkv, do, h, scale, mask)[1])
+        pair = []
+        for kind, products, outs, cols in (("dkv", 4, 2, slice(hc, 3 * hc)),
+                                           ("dq", 3, 1, slice(0, hc))):
+            extra = (scale,) if kind == "dq" else ()
+            args = lambda extra=extra: (  # noqa: E731
+                qkv.data_ptr(), None if m8 is None else m8.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), b, n, h, scale * fa._LOG2E,
+                *extra, stream())
+            row = dict(row=f"{label} {kind}", library_ms=lib,
+                       bound=attn_bound_ms(b, n, h, c_real, products,
+                                           qkv_b + o_b + 2 * vec_b + m_b, outs * o_b, pairs))
+            ab(row, f"jt_flash_bwd_{kind}_c{c}", args, (dqkv[..., cols],))
+            pair.append(row)
+        whole = attn_bound_ms(b, n, h, c_real, 5, qkv_b + o_b + 2 * vec_b + m_b, qkv_b, pairs)
+        row = dict(row=f"{label} dkv + dq", library_ms=lib, bound=whole,
+                   ms=pair[0]["ms"] + pair[1]["ms"])
+        for name in others:
+            row[f"{name} ms"] = pair[0][f"{name} ms"] + pair[1][f"{name} ms"]
+            row[f"{name} speedup"] = row[f"{name} ms"] / row["ms"]
+        row["bound_share"] = whole[0] / row["ms"]
+        rows.append(row)
+        log(f"A/B {row['row']}: this {row['ms']:.4f} ms, " + ", ".join(
+            f"{n} {row[f'{n} ms']:.4f} ms (x{row[f'{n} speedup']:.2f})" for n in others)
+            + f"; bound {whole[0]:.4f} ms ({whole[2]}, share {100 * row['bound_share']:.1f} %), "
+            f"library (SDPA backward) {lib:.4f} ms (x{lib / row['ms']:.2f} of this)")
+        del qkv, do, o, lse, delta, dqkv
     print(json.dumps({"kernel_ab": rows}))
     return rows
 

@@ -1,24 +1,26 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// mma.sync (H2, H4-H7): the bf16 tensor-core product mma.sync m16n8k16
-// with fp32 accumulators, bf16 packing, 32-bit shared-memory fragment
-// reads, the tile loads and warp-level products of the flash-attention
+// mma.sync (H5-H7): the bf16 tensor-core product mma.sync m16n8k16 with
+// fp32 accumulators, bf16 packing, 32-bit shared-memory fragment reads,
+// the tile loads and warp-level products of the head-major backward
 // kernels (4 warps a block, 16 rows a warp).
 //
-// Hopper (H1, H3, H8; section "TMA, mbarrier and wgmma" below):
+// Hopper (H1, H2, H3, H4, H8; section "TMA, mbarrier and wgmma" below):
 //   * mbarriers: mbar_init, mbar_expect_tx (arrive + expected bytes),
 //     mbar_arrive, mbar_wait (try_wait.parity spin), fence_barrier_init;
-//   * TMA: tma_load_2d / tma_load_3d into shared memory, completing on an
-//     mbarrier, tma_store_3d with its bulk-group commit and wait, and
-//     make_tensor_map (host: cuTensorMapEncodeTiled reached through
+//   * TMA: tma_load_2d / 3d / 4d into shared memory, completing on an
+//     mbarrier, tma_store_3d / 4d with their bulk-group commit and wait,
+//     and make_tensor_map (host: cuTensorMapEncodeTiled reached through
 //     cudaGetDriverEntryPoint, so nothing links libcuda), and sm_count
 //     (host: the device's SM count, asked once) for persistent grids;
 //   * fence_proxy_async, after generic shared-memory writes that wgmma or
 //     a TMA store reads;
 //   * wgmma: the shared-memory matrix descriptor (make_desc, with its
 //     swizzle mode), wgmma_fence / wgmma_commit / wgmma_wait<N>, the
-//     products wgmma_ss (A and B from shared memory, n64/n128) and
-//     wgmma_rs (A from registers, n8/n32/n64/n80/n128), bf16 in, fp32 out;
+//     products wgmma_ss (A and B from shared memory, n32/n64/n128) and
+//     wgmma_rs (A from registers, n8/n32/n64/n80/n128), bf16 in, fp32 out,
+//     and fence_regs / keep_regs, which hold accumulators and register
+//     operands in place across an asynchronous product;
 //   * setmaxnreg (reg_alloc / reg_dealloc) and named barriers (bar_sync);
 // and a launcher for dynamic shared memory with the block's thread count.
 //
@@ -273,6 +275,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // TMA tile store from shared memory; parts past the tensor's edge are not
 // written. tma_store_commit_and_wait() before the source is reused or the block
 // exits.
@@ -282,6 +293,15 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
           (uint64_t)map),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          (uint64_t)map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -349,8 +369,30 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// keep the A fragments of an in-flight wgmma live until its wait
+template <int R>
+__device__ __forceinline__ void keep_regs(const uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" ::"r"(a[i][j]) : "memory");
+}
+
 // The products, bf16 x bf16 -> fp32, m64nNk16 for one warpgroup; scale_d
 // = 0 overwrites d, 1 accumulates. Generated, one per shape.
+// D[64 x 32] (+)= A . B, A and B bf16 from shared memory (descriptors)
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransA), "n"(TransB));
+}
+
 // D[64 x 64] (+)= A . B, A and B bf16 from shared memory (descriptors)
 template <int TransA, int TransB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
@@ -522,7 +564,7 @@ inline int make_tensor_map(CUtensorMap* map, const void* ptr, int rank, const ui
                            const uint64_t* strides, const uint32_t* box, int swizzle) {
   const EncodeTiledFn fn = encode_tiled();
   if (!fn) return (int)cudaErrorNotSupported;
-  const uint32_t elem[3] = {1, 1, 1};
+  const uint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUtensorMapSwizzle sw = swizzle == kSwizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : swizzle == kSwizzle64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                         : CU_TENSOR_MAP_SWIZZLE_32B;

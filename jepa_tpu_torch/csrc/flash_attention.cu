@@ -100,15 +100,6 @@ struct Geo {
   static constexpr int SMEM = TILE * (1 + 2 * STAGES) + 8 * (1 + 2 * STAGES) + 1024;
 };
 
-// keep the A fragments of an in-flight wgmma live until its wait
-template <int R>
-__device__ __forceinline__ void keep_regs(const uint32_t (&a)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" ::"r"(a[i][j]) : "memory");
-}
-
 // one 64-key half of a stage's scores (fragment columns 8j.., j in [J0,
 // J0 + 8)) for rows g and g+8: the running max (m0, m1) moves to the
 // half's, p is rounded to bf16 into PV's A fragments pa[J0/2 ..], and
@@ -295,7 +286,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tqkv, const __grid_constant
         a = softmax_half<BKV / 16>(sc, m0, m1, l0, l1, pa);
         jt::wgmma_wait<0>();
         jt::fence_regs(o);
-        keep_regs(pa);
+        jt::keep_regs(pa);
 #pragma unroll
         for (int j = 0; j < C / 8; ++j) {
           o[4 * j] *= a.x;
@@ -311,7 +302,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tqkv, const __grid_constant
       }
       jt::wgmma_wait<0>();
       jt::fence_regs(o);
-      keep_regs(pa);
+      jt::keep_regs(pa);
       if (lane == 0) jt::mbar_arrive(&empty[s]);  // this warp is done with the stage
     }
 

@@ -37,12 +37,41 @@
 // What bounds it on the H100: as H1/H2 (csrc/flash_attention{,_bwd}.cu),
 // 4*Nq*Nk*C forward and 10*Nq*Nk*C (merged) backward flops per head against
 // O((Nq + Nk)*C) bytes, compute-bound at vit_tiny's N = 1568 on the
-// tensor cores and the exp2 unit. Design, the simple first kernels: a
-// block of 4 warps owns 64 rows (q rows in H4 and H5, kv rows in H6 and
-// H7), each warp 16 of them with fp32 accumulators in registers, and loops
-// over the other side in 64-row tiles staged in shared memory; mma.sync
-// m16n8k16 bf16 with fp32 accumulation; score and gradient tiles stay in
-// registers, their C-fragments re-packed as the next product's A-fragments.
+// tensor cores and the exp2 unit.
+//
+// H4's design (Hopper, H1's shape with head-major addresses and K6's
+// denominator): a block takes 128 query rows of one (batch, head) with
+// three warpgroups. The producer warpgroup (setmaxnreg down to 40) has one
+// thread issue TMA loads from 4-D maps over (C, N, H, B), one per operand
+// with its own byte strides, so a permuted view or a packed plane is read
+// in place and rows past N come back as zeros, never as the next head's
+// rows: the Q tile once, then 128-key K and V tiles into a 3-stage ring,
+// each stage guarded by a full and an empty mbarrier. The box is the whole
+// head row: C=64 in the 128-byte swizzle, C=32 in the 64-byte swizzle.
+// Each consumer warpgroup (232 registers) owns 64 query rows: it scales
+// its Q rows by scale*log2e in fp32 in place (fence.proxy.async before
+// wgmma reads them), takes S = Q K^T by wgmma m64n128k16 from shared
+// memory, and runs the online softmax on the accumulator fragment one
+// 64-key half at a time: O += P V (wgmma m64nCk16, P from registers, V
+// MN-major through the descriptor's transpose bit) runs for the first
+// half while the second half's max, p and l are computed. The epilogue
+// divides by max(l, 1e-30), writes bf16 O into the warpgroup's rows of
+// the Q tile in the same swizzle and stores them through a 4-D map of o;
+// lse goes out directly.
+//
+// Numerics of H4 against the mma.sync kernel it replaced: the running max
+// moves every 64 keys, p = exp2f(s - m) (not the flushing ex2), each thread
+// sums its unrounded p in the m16n8k16 fragment order, l = l*alpha + rs,
+// then across the row's four threads; O is rescaled once per 64 keys and
+// every product is a chain of k16 tensor-core steps in the same order. So
+// its outputs are the same bits (chip_smoke.py --kernel-ab).
+//
+// H5-H7, the simple first kernels: a block of 4 warps owns 64 rows (q rows
+// in H5, kv rows in H6 and H7), each warp 16 of them with fp32 accumulators
+// in registers, and loops over the other side in 64-row tiles staged in
+// shared memory; mma.sync m16n8k16 bf16 with fp32 accumulation; score and
+// gradient tiles stay in registers, their C-fragments re-packed as the
+// next product's A-fragments.
 //
 // H7, the merged backward: per k-block dK/dV as in H6 plus dQ's partial
 // over the block's 64 keys, dS (written to shared memory, transposed) times
@@ -89,131 +118,259 @@ __device__ __forceinline__ bf16* rows(void* p, const int* s, int b, int h) {
 }
 
 template <int C>
-constexpr int fwd_smem() { return 3 * 64 * (C + kPad) * 2 + NB; }
-template <int C>
 constexpr int dq_smem() { return 2 * BR * (C + kPad) * 2 + NB; }
 template <int C, bool MERGED>
 constexpr int dkv_smem() {
   return (2 * NB + 2 * BR) * (C + kPad) * 2 + (MERGED ? NB * (BR + kPad) * 2 : 0) + 2 * NB * 4;
 }
 
-// H4: o and lse of 64 query rows of one (batch, head); loops over the keys
-template <int C, bool MASKED>
-__global__ void __launch_bounds__(jt::kThreads) flash_hm_fwd_kernel(const HmArgs a) {
-  constexpr int LD = C + kPad;
-  bf16* sQ = jt::smem_bf16();
-  bf16* sK = sQ + 64 * LD;
-  bf16* sV = sK + NB * LD;
-  uint8_t* sM = reinterpret_cast<uint8_t*>(sV + NB * LD);  // the key tile's mask (MASKED)
+// H4 geometry: the TMA box is the whole head row (C columns, one swizzle
+// row of RB bytes), 128 rows a box
+constexpr int FWD_BQ = 128;   // query rows per block: two consumer warpgroups x 64
+constexpr int FWD_BKV = 128;  // keys per ring stage: two halves of the running max's 64
+constexpr int FWD_WG = 128;   // threads of a warpgroup
+constexpr int FWD_THREADS = 3 * FWD_WG;
+constexpr int FWD_STAGES = 3;
 
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * 64;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int Nq = a.Nq, Nk = a.Nk;
-  const bf16* kb = rows(a.k, a.k_s, b, h);
-  const bf16* vb = rows(a.v, a.v_s, b, h);
+template <int C>
+struct FwdGeo {
+  static constexpr int RB = 2 * C;
+  static constexpr int SWZ = C == 64 ? jt::kSwizzle128 : jt::kSwizzle64;
+  static constexpr int SWZ_MASK = RB / 16 - 1;  // row bits XORed into the 16-byte chunk
+  static constexpr int TILE = 128 * RB;
+  static constexpr int SMEM = TILE * (1 + 2 * FWD_STAGES) + 8 * (1 + 2 * FWD_STAGES) + 1024;
+};
 
-  // Q tile, pre-scaled by scale*log2e in fp32 and rounded to bf16
-  jt::load_tile<C, 64>(sQ, rows(a.q, a.q_s, b, h), a.q_s[2], q0, Nq, a.qscale);
-  __syncthreads();
-  const int qr = warp * 16 + g;
-  uint32_t qa[C / 16][4];
-  jt::load_a<C>(qa, sQ, qr, t);
-
-  float acc[C / 8][4];
+// one 64-key half of a stage's scores (fragment columns 8j.., j in [J0,
+// J0 + 8)) for rows g and g+8, as K6: the running max (m0, m1) moves to
+// the half's, p = exp2f(s - m) in fp32 is rounded to bf16 only into PV's A
+// fragments pa[J0/2 ..], and this thread's part of l is rescaled and takes
+// the unrounded p in the m16n8k16 fragments' order; returns the factors
+// (alpha0, alpha1) that rescale O
+template <int J0>
+__device__ __forceinline__ float2 hm_softmax_half(const float (&sc)[FWD_BKV / 2], float& m0,
+                                                  float& m1, float& l0, float& l1,
+                                                  uint32_t (&pa)[FWD_BKV / 16][4]) {
+  float mx0 = m0, mx1 = m1;
 #pragma unroll
-  for (int i = 0; i < C / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  // rows g and g+8 of this warp's tile: running max, partial denominators
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  for (int k0 = 0; k0 < Nk; k0 += NB) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    jt::load_tile<C, NB>(sK, kb, a.k_s[2], k0, Nk, 1.f);
-    jt::load_tile<C, NB>(sV, vb, a.v_s[2], k0, Nk, 1.f);
-    if constexpr (MASKED) {
-      const uint8_t* kvm = static_cast<const uint8_t*>(a.kvm);
-      if (tid < NB) sM[tid] = k0 + tid < Nk ? kvm[(size_t)b * Nk + k0 + tid] : 0;
-    }
-    __syncthreads();
-
-    float s[NB / 8][4];
-    jt::mm_abt<C, NB>(s, qa, sK, g, t);  // S = Qs K^T (base-2 logits)
-#pragma unroll
-    for (int nt = 0; nt < NB / 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = nt * 8 + 2 * t + j;
-        if (k0 + col >= Nk) {  // ragged kv edge: no weight
-          s[nt][j] = s[nt][2 + j] = -INFINITY;
-        } else if constexpr (MASKED) {  // masked keys: -1e30 before the row max
-          if (!sM[col]) s[nt][j] = s[nt][2 + j] = -1e30f;
-        }
-      }
-
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nt = 0; nt < NB / 8; ++nt) {
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    // key 0 lies in the first tile, so the max is finite from here on
-    const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-
-    // the denominator sums the fp32 p; p is rounded to bf16 as the PV operand
-    uint32_t pa[NB / 16][4];
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NB / 8; ++nt) {
-      const float p00 = exp2f(s[nt][0] - m0), p01 = exp2f(s[nt][1] - m0);
-      const float p10 = exp2f(s[nt][2] - m1), p11 = exp2f(s[nt][3] - m1);
-      rs0 += p00 + p01;
-      rs1 += p10 + p11;
-      pa[nt / 2][(nt & 1) * 2 + 0] = jt::pack2(__float2bfloat16(p00), __float2bfloat16(p01));
-      pa[nt / 2][(nt & 1) * 2 + 1] = jt::pack2(__float2bfloat16(p10), __float2bfloat16(p11));
-    }
-    l0 = l0 * alpha0 + rs0;
-    l1 = l1 * alpha1 + rs1;
-#pragma unroll
-    for (int ot = 0; ot < C / 8; ++ot) {
-      acc[ot][0] *= alpha0;
-      acc[ot][1] *= alpha0;
-      acc[ot][2] *= alpha1;
-      acc[ot][3] *= alpha1;
-    }
-    jt::mm_ab<C, NB>(acc, pa, sV, g, t);  // O += P V
+  for (int j = J0; j < J0 + 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
   }
-
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
   }
-  l0 = fmaxf(l0, 1e-30f);
-  l1 = fmaxf(l1, 1e-30f);
-  const int r0 = q0 + qr, r1 = r0 + 8;
-  bf16* ob = rows(a.o, a.o_s, b, h);
-  const size_t ors = a.o_s[2];
+  // key 0 lies in the first half, so the max is finite from there on
+  const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-  for (int ot = 0; ot < C / 8; ++ot) {
-    const int col = ot * 8 + 2 * t;
-    if (r0 < Nq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r0 * ors + col) =
-          __floats2bfloat162_rn(acc[ot][0] / l0, acc[ot][1] / l0);
-    if (r1 < Nq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r1 * ors + col) =
-          __floats2bfloat162_rn(acc[ot][2] / l1, acc[ot][3] / l1);
+  for (int j = J0; j < J0 + 8; ++j) {
+    const float p00 = exp2f(sc[4 * j] - m0), p01 = exp2f(sc[4 * j + 1] - m0);
+    const float p10 = exp2f(sc[4 * j + 2] - m1), p11 = exp2f(sc[4 * j + 3] - m1);
+    rs0 += p00 + p01;
+    rs1 += p10 + p11;
+    pa[j / 2][(j & 1) * 2 + 0] = jt::pack2(__float2bfloat16(p00), __float2bfloat16(p01));
+    pa[j / 2][(j & 1) * 2 + 1] = jt::pack2(__float2bfloat16(p10), __float2bfloat16(p11));
   }
-  if (t == 0) {
-    float* lrow = static_cast<float*>(a.lse) + ((size_t)b * a.H + h) * Nq;
-    if (r0 < Nq) lrow[r0] = m0 + log2f(l0);
-    if (r1 < Nq) lrow[r1] = m1 + log2f(l1);
+  l0 = l0 * alpha0 + rs0;
+  l1 = l1 * alpha1 + rs1;
+  return make_float2(alpha0, alpha1);
+}
+
+// H4: o and lse of 128 query rows of one (batch, head); loops over the keys
+template <int C, bool MASKED>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+flash_hm_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                    const uint8_t* __restrict__ kvm, float* __restrict__ lse, int Nq, int Nk,
+                    int H, float qscale) {
+  using G = FwdGeo<C>;
+  unsigned char* smem = jt::smem_1024();
+  unsigned char* sQ = smem;
+  unsigned char* sKV = smem + G::TILE;  // stage s: K at 2s tiles, V at 2s + 1
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sKV + 2 * FWD_STAGES * G::TILE);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + FWD_STAGES;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * FWD_BQ;
+  const int wg = threadIdx.x / FWD_WG, tid = threadIdx.x % FWD_WG;
+  const int nkv = (Nk + FWD_BKV - 1) / FWD_BKV;
+
+  if (threadIdx.x == 0) {
+    jt::mbar_init(qbar, 1);
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      jt::mbar_init(&full[s], 1);   // the producer's arrive + the TMA bytes
+      jt::mbar_init(&empty[s], 8);  // one arrive per consumer warp
+    }
+    jt::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: one thread issues every load
+    jt::reg_dealloc<40>();
+    if (tid == 0) {
+      jt::mbar_expect_tx(qbar, G::TILE);
+      jt::tma_load_4d(sQ, &tq, qbar, 0, q0, h, b);
+      for (int it = 0; it < nkv; ++it) {
+        const int s = it % FWD_STAGES;
+        if (it >= FWD_STAGES) jt::mbar_wait(&empty[s], ((it / FWD_STAGES) + 1) & 1);
+        unsigned char* sk = sKV + 2 * s * G::TILE;
+        jt::mbar_expect_tx(&full[s], 2 * G::TILE);
+        jt::tma_load_4d(sk, &tk, &full[s], 0, it * FWD_BKV, h, b);
+        jt::tma_load_4d(sk + G::TILE, &tv, &full[s], 0, it * FWD_BKV, h, b);
+      }
+    }
+  } else {  // consumers: warpgroup wg owns query rows q0 + [64 wg, 64 wg + 64)
+    jt::reg_alloc<232>();
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    unsigned char* myq = sQ + wg * 64 * G::RB;  // this warpgroup's rows of the Q tile
+
+    // Q pre-scaled by scale*log2e in fp32 and rounded to bf16, in place
+    jt::mbar_wait(qbar, 0);
+    for (int v = tid; v < 64 * G::RB / 16; v += FWD_WG) {
+      uint4* p = reinterpret_cast<uint4*>(myq + v * 16);
+      uint4 val = *p;
+      bf16* e = reinterpret_cast<bf16*>(&val);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * qscale);
+      *p = val;
+    }
+    jt::fence_proxy_async();
+    jt::bar_sync(1 + wg, FWD_WG);
+
+    float o[C / 2];
+#pragma unroll
+    for (int i = 0; i < C / 2; ++i) o[i] = 0.f;
+    // rows g and g+8 of this warp's 16: running max, and this thread's part
+    // of the denominators
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+    for (int it = 0; it < nkv; ++it) {
+      const int s = it % FWD_STAGES, k0 = it * FWD_BKV;
+      const unsigned char* sk = sKV + 2 * s * G::TILE;
+      const unsigned char* sv = sk + G::TILE;
+      // the tile's key mask, read before the wait: lane l loads keys 4l..4l+3
+      // and four ballots give the warp every key's bit (key k: bit k/4 of
+      // word k%4); this thread's keys 8j + 2t + e sit in word 2(t&1) + e
+      // at bit 2j + t/2
+      uint32_t mw0 = 0, mw1 = 0;
+      if constexpr (MASKED) {
+        const uint8_t* mrow = kvm + (size_t)b * Nk + k0;
+        uint32_t bal[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = 4 * lane + i;
+          bal[i] = __ballot_sync(0xffffffffu, k0 + key < Nk && mrow[key]);
+        }
+        mw0 = (t & 1) ? bal[2] : bal[0];
+        mw1 = (t & 1) ? bal[3] : bal[1];
+      }
+      jt::mbar_wait(&full[s], (it / FWD_STAGES) & 1);
+
+      // S = Q K^T (base-2 logits), 64 x 128 per warpgroup
+      float sc[FWD_BKV / 2];
+      jt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+        jt::wgmma_ss<0, 0>(sc, jt::make_desc(myq + kk * 32, 16, 8 * G::RB, G::SWZ),
+                           jt::make_desc(sk + kk * 32, 16, 8 * G::RB, G::SWZ), kk > 0);
+      jt::wgmma_commit();
+      jt::wgmma_wait<0>();
+      jt::fence_regs(sc);
+
+      if constexpr (MASKED) {  // masked keys: -1e30 before the row max
+#pragma unroll
+        for (int j = 0; j < FWD_BKV / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (!(((e ? mw1 : mw0) >> (2 * j + (t >> 1))) & 1u))
+              sc[4 * j + e] = sc[4 * j + 2 + e] = -1e30f;
+      }
+      if (k0 + FWD_BKV > Nk) {  // ragged kv edge: keys past Nk get no weight
+#pragma unroll
+        for (int j = 0; j < FWD_BKV / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (k0 + 8 * j + 2 * t + e >= Nk) sc[4 * j + e] = sc[4 * j + 2 + e] = -INFINITY;
+      }
+
+      // the first 64 keys: max, p and l, O rescaled, then its P V in flight
+      uint32_t pa[FWD_BKV / 16][4];
+      float2 a = hm_softmax_half<0>(sc, m0, m1, l0, l1, pa);
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j) {
+        o[4 * j] *= a.x;
+        o[4 * j + 1] *= a.x;
+        o[4 * j + 2] *= a.y;
+        o[4 * j + 3] *= a.y;
+      }
+      // O += P V, V MN-major (keys down, the head's columns across)
+      jt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < FWD_BKV / 32; ++kk)
+        jt::wgmma_rs<1>(o, pa[kk], jt::make_desc(sv + kk * 16 * G::RB, G::TILE, 8 * G::RB, G::SWZ), 1);
+      jt::wgmma_commit();
+      if (k0 + FWD_BKV / 2 < Nk) {  // the second 64 keys hold a key below Nk
+        a = hm_softmax_half<FWD_BKV / 16>(sc, m0, m1, l0, l1, pa);
+        jt::wgmma_wait<0>();
+        jt::fence_regs(o);
+        jt::keep_regs(pa);
+#pragma unroll
+        for (int j = 0; j < C / 8; ++j) {
+          o[4 * j] *= a.x;
+          o[4 * j + 1] *= a.x;
+          o[4 * j + 2] *= a.y;
+          o[4 * j + 3] *= a.y;
+        }
+        jt::wgmma_fence();
+#pragma unroll
+        for (int kk = FWD_BKV / 32; kk < FWD_BKV / 16; ++kk)
+          jt::wgmma_rs<1>(o, pa[kk], jt::make_desc(sv + kk * 16 * G::RB, G::TILE, 8 * G::RB, G::SWZ), 1);
+        jt::wgmma_commit();
+      }
+      jt::wgmma_wait<0>();
+      jt::fence_regs(o);
+      jt::keep_regs(pa);
+      if (lane == 0) jt::mbar_arrive(&empty[s]);  // this warp is done with the stage
+    }
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {  // the row's four threads
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    l0 = fmaxf(l0, 1e-30f);
+    l1 = fmaxf(l1, 1e-30f);
+    // O / l as bf16 into this warpgroup's rows of the Q tile, in the TMA
+    // map's swizzle (the 16-byte chunk index XOR the row's low bits)
+    const int r0 = warp * 16 + g;
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int off = (r0 + 8 * half) * G::RB + col * 2;
+        const int phys = off ^ (((off >> 7) & G::SWZ_MASK) << 4);
+        const float l = half ? l1 : l0;
+        *reinterpret_cast<__nv_bfloat162*>(myq + phys) =
+            __floats2bfloat162_rn(o[4 * j + 2 * half] / l, o[4 * j + 2 * half + 1] / l);
+      }
+    }
+    if (t == 0) {
+      float* lrow = lse + ((size_t)b * H + h) * Nq;
+      const int row = q0 + wg * 64 + r0;
+      if (row < Nq) lrow[row] = m0 + log2f(l0);
+      if (row + 8 < Nq) lrow[row + 8] = m1 + log2f(l1);
+    }
+    jt::fence_proxy_async();
+    jt::bar_sync(1 + wg, FWD_WG);
+    if (tid == 0 && q0 + wg * 64 < Nq) {
+      jt::tma_store_4d(&to, myq, 0, q0 + wg * 64, h, b);
+      jt::tma_store_commit_and_wait();
+    }
   }
 }
 
@@ -429,10 +586,29 @@ dim3 grid_of(const HmArgs& a, int rows_per_block, int n) {
   return dim3((n + rows_per_block - 1) / rows_per_block, a.H, a.B);
 }
 
+// host: a 4-D TMA map (C, n, H, B) over one [B, H, n, C] operand read by
+// its (batch, head, row) element strides, boxes of `rows` rows x C
+template <int C>
+int hm_map(CUtensorMap* map, const void* p, const int* s, int n, const HmArgs& a, int rows) {
+  const uint64_t dims[4] = {(uint64_t)C, (uint64_t)n, (uint64_t)a.H, (uint64_t)a.B};
+  const uint64_t strides[3] = {2 * (uint64_t)s[2], 2 * (uint64_t)s[1], 2 * (uint64_t)s[0]};
+  const uint32_t box[4] = {(uint32_t)C, (uint32_t)rows, 1, 1};
+  return jt::make_tensor_map(map, p, 4, dims, strides, box, FwdGeo<C>::SWZ);
+}
+
+// H4's maps (Q, K and V boxes of 128 rows, o of 64: one warpgroup's rows),
+// then the launch; kvm == nullptr launches the unmasked instance
 template <int C>
 int launch_fwd(const HmArgs* a, void* stream) {
+  CUtensorMap tq, tk, tv, to;
+  int err = hm_map<C>(&tq, a->q, a->q_s, a->Nq, *a, FWD_BQ);
+  if (!err) err = hm_map<C>(&tk, a->k, a->k_s, a->Nk, *a, FWD_BKV);
+  if (!err) err = hm_map<C>(&tv, a->v, a->v_s, a->Nk, *a, FWD_BKV);
+  if (!err) err = hm_map<C>(&to, a->o, a->o_s, a->Nq, *a, 64);
+  if (err) return err;
   return jt::launch(a->kvm ? flash_hm_fwd_kernel<C, true> : flash_hm_fwd_kernel<C, false>,
-                    grid_of(*a, 64, a->Nq), jt::kThreads, fwd_smem<C>(), stream, *a);
+                    grid_of(*a, FWD_BQ, a->Nq), FWD_THREADS, FwdGeo<C>::SMEM, stream, tq, tk, tv,
+                    to, (const uint8_t*)a->kvm, (float*)a->lse, a->Nq, a->Nk, a->H, a->qscale);
 }
 
 template <int C>

@@ -186,6 +186,31 @@ def check_tma_layout(num_heads: int, c: int, elem_bytes: int = 2,
                              "is not a multiple of 16 bytes, as TMA needs")
 
 
+def _hm_tma_fault(ptr: int, strides, elem_bytes: int = 2) -> str:
+    """What keeps H4's 4-D TMA map (C, N, H, B) from addressing one
+    head-major operand, or '' if nothing: its base and its (batch, head,
+    row) strides, in elements, must be multiples of 16 bytes, positive
+    and below 2^31 elements."""
+    if ptr % 16:
+        return f"a base address {ptr:#x} that is not 16-byte aligned"
+    for what, st in zip(("batch", "head", "row"), strides):
+        if (st * elem_bytes) % 16 or not 0 < st < 2**31:
+            return f"a {what} stride of {st} elements ({st * elem_bytes} bytes)"
+    return ""
+
+
+def check_hm_tma_layout(ptr: int, strides, elem_bytes: int = 2,
+                        name: str = "flash_attention_hm_cuda") -> None:
+    """Raise unless H4's TMA maps can address a head-major [B, H, N, c]
+    operand with a contiguous head dim, its base at ``ptr`` and its
+    (batch, head, row) ``strides`` in elements: the base and each stride
+    must be a positive multiple of 16 bytes. Pure integers, so the CPU
+    tests hold the routes' strided operands against it."""
+    fault = _hm_tma_fault(ptr, strides, elem_bytes)
+    if fault:
+        raise ValueError(f"{name}: an operand has {fault}, and TMA needs multiples of 16 bytes")
+
+
 def _kernel_mask(kv_mask: Optional[torch.Tensor], qkv: torch.Tensor, name: str):
     """The kernels' key-mask operand: kv_mask [B, N] (bool or 0/1) as a
     contiguous uint8 tensor on qkv's device, or None."""
@@ -263,6 +288,7 @@ def _launch_bwd(kind: str, qkv, do, lse, delta, dqkv, num_heads: int,
             raise ValueError(f"{name}: {label} must be contiguous fp32 [B, H, N]")
     if do.data_ptr() % 16:
         raise ValueError(f"{name}: do must be 16-byte aligned")
+    check_tma_layout(num_heads, c, qkv.element_size(), name)
     if dqkv.shape != qkv.shape or dqkv.dtype != qkv.dtype or not dqkv.is_contiguous():
         raise ValueError(f"{name}: dqkv must be shaped like qkv")
     entry = f"jt_flash_bwd_{kind}_c{c}"
@@ -609,18 +635,19 @@ def _alloc_like(t: torch.Tensor) -> torch.Tensor:
 
 
 def _hm_operand(t: torch.Tensor) -> torch.Tensor:
-    """t itself when the kernels can read it by stride (contiguous head dim,
-    16-byte aligned rows), else a contiguous copy."""
-    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-          and all(s % 8 == 0 and s < 2**31 for s in t.stride()[:-1]))
+    """t itself when the kernels can read it by stride (a contiguous head
+    dim, the rest as TMA needs it: ``check_hm_tma_layout``), else a
+    contiguous copy."""
+    ok = t.stride(-1) == 1 and not _hm_tma_fault(t.data_ptr(), t.stride()[:-1], t.element_size())
     return t if ok else t.contiguous()
 
 
 def _check_hm(name: str, q, k, v, kv_mask, ops: dict):
     """Validate the head-major kernels' operands: q, k, v and the named
     [B, H, N, c] operands ``ops`` bf16 CUDA tensors of matching shapes with
-    a contiguous, 16-byte aligned head dim; lse and delta contiguous fp32
-    [B, H, Nq]; the workspace contiguous fp32 [ceil(Nk/64), B, H, Nq, c].
+    a contiguous head dim, laid out as TMA needs (``check_hm_tma_layout``);
+    lse and delta contiguous fp32 [B, H, Nq]; the workspace contiguous fp32
+    [ceil(Nk/64), B, H, Nq, c].
     Returns (B, H, Nq, Nk, c, the uint8 key mask or None)."""
     b, h, nq, c = q.shape if q.dim() == 4 else (0,) * 4
     nk = k.shape[2] if k.dim() == 4 else 0
@@ -632,10 +659,10 @@ def _check_hm(name: str, q, k, v, kv_mask, ops: dict):
         if n in _HM_STRIDED:
             if t.dtype != torch.bfloat16:
                 raise NotImplementedError(f"{name} takes bf16 operands, got {t.dtype}")
-            if (tuple(t.shape) != shapes[n] or t.stride(-1) != 1 or t.data_ptr() % 16
-                    or any(s % 8 or s >= 2**31 for s in t.stride()[:-1])):
+            if tuple(t.shape) != shapes[n] or t.stride(-1) != 1:
                 raise ValueError(f"{name}: {n} must be {shapes[n]} = [B, H, N, c] with a "
-                                 f"contiguous, 16-byte aligned head dim")
+                                 f"contiguous head dim")
+            check_hm_tma_layout(t.data_ptr(), t.stride()[:-1], t.element_size(), f"{name}: {n}")
         elif (t.dtype != torch.float32 or not t.is_contiguous() or tuple(t.shape) != (
                 (-(-nk // 64), b, h, nq, c) if n == "ws" else (b, h, nq))):
             raise ValueError(f"{name}: {n} must be contiguous fp32 "
