@@ -6,9 +6,9 @@
                                             # only the spread of phase 6's B=2
                                             # check (phase_b2_spread)
     python3 chip_smoke.py --kernel-ab --other DIR...
-                                            # only bf16 H1, H2, H3, H4 and H8
-                                            # against another checkout's
-                                            # (phase_kernel_ab)
+                                            # only bf16 H1, H2, H3, H4, H8,
+                                            # H6 and H1-fp32 against another
+                                            # checkout's (phase_kernel_ab)
 
 Phases (any failure raises and exits non-zero):
   1. device: require CUDA, print the card's name and power limit, turn
@@ -28,8 +28,10 @@ Phases (any failure raises and exits non-zero):
      H2 at N = 40 and N = 129 (1 mod 128) for every head dim, and with two
      whole 128-key tiles of pads mid-sequence at c = 24->32, 64 and 128;
      H4 at N = 40 and 129, 1 and 376 queries over 1568 keys, on permuted
-     views and on the planes of a packed qkv; H3 and H8 at M = 8, 200 and
-     2305;
+     views and on the planes of a packed qkv; H6 likewise at c = 32 and
+     64, masked with two all-pad key tiles into the planes of a packed
+     dqkv; H1-fp32 at N = 40, 129 and 333 at c = 64 and 80; H3 and H8 at
+     M = 8, 200 and 2305;
   5. serve 4 requests through jepa_tpu_torch.api: a seeded ViT-L/16
      (224 px, 16 frames, tubelet 2, uniform_power) and a 400-class
      attentive probe, written as .pth.tar files and loaded back; each
@@ -105,9 +107,9 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
 Phases 12-13 run after phase 7, phases 14-15 after phase 8, phase 16's
 kernel checks after phase 9. Launch counts are checked as whole dicts of
 every counter (``_counts``): a kernel that should not run must count 0.
-H1 (each head dim, masked or not), H2 likewise, H3, H4, H5, H6, H7, H8
-and H8-fp32 are each called a second time on the same inputs wherever they
-are held against their plain versions, and must give bit-equal outputs,
+H1 (each head dim, masked or not), H1-fp32, H2 likewise, H3, H4, H5, H6,
+H7, H8 and H8-fp32 are each called a second time on the same inputs wherever
+they are held against their plain versions, and must give bit-equal outputs,
 and vit_tiny's B=2 update is taken twice from one state and must give
 bit-equal metrics, parameters and moments.
 The line before the last is a JSON summary of the kernels; the last line
@@ -293,8 +295,9 @@ def phase_kernels(torch, n_train):
 
 def phase_f32_kernels(torch):
     """H1-fp32 and H3-fp32 (the frozen evals with use_bfloat16: false)
-    against their plain versions on the card, in fp32 on both sides, with
-    times, bounds (FFMA peak, exp2, bytes) and the fp32 library calls."""
+    against their plain versions on the card, in fp32 on both sides (H1-fp32
+    called twice for bit-equal outputs), with times, bounds (FFMA peak,
+    exp2, bytes) and the fp32 library calls."""
     from jepa_tpu_torch.ops import flash_attention as fa
     from jepa_tpu_torch.ops import fused_mlp as fm
 
@@ -305,19 +308,8 @@ def phase_f32_kernels(torch):
     for b, n, h, c in F32_H1_SHAPES:
         qkv = torch.randn((b, n, 3 * h * c), generator=gen, device="cuda")
         scale = c**-0.5
-        o, lse = fa.flash_self_attention_cuda(qkv, h, scale)
-        o_ref, lse_ref = fa.flash_self_attention_ref(qkv, h, scale)
-        torch.cuda.synchronize()
-        if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
-            raise RuntimeError(f"H1-fp32 B={b} N={n} c={c}: non-finite output")
-        err_o = (o - o_ref).abs().max().item()
-        err_l = (lse - lse_ref).abs().max().item()
-        del o_ref, lse_ref
-        log(f"H1-fp32 B={b} N={n} H={h} c={c}: max|do| {err_o:.3e} max|dlse| {err_l:.3e} "
-            f"(tol {F32_TOL} each)")
-        if not (err_o <= F32_TOL and err_l <= F32_TOL):
-            raise RuntimeError(f"H1-fp32 B={b} N={n} c={c} disagrees with its plain version")
-        rep["h1"]["max_abs_err"] = max(rep["h1"]["max_abs_err"], err_o, err_l)
+        err = _check_h1_f32(torch, f"H1-fp32 B={b} N={n} H={h} c={c}", qkv, h, scale)
+        rep["h1"]["max_abs_err"] = max(rep["h1"]["max_abs_err"], err)
         flops = 4.0 * b * h * n * n * c
         io = 4 * (qkv.numel() + b * n * h * c + b * h * n)
         r = dict(ms=time_ms(torch, lambda: fa.flash_self_attention_cuda(qkv, h, scale)),
@@ -329,7 +321,7 @@ def phase_f32_kernels(torch):
             f"{r['bound'][0]:.4f} ms ({r['bound'][2]}); {flops / r['ms'] / 1e9:.1f} TFLOP/s")
         if "ms" not in rep["h1"]:
             rep["h1"].update(r)
-        del qkv, o, lse
+        del qkv
     for m, k, f in F32_H3_SHAPES:
         x = torch.randn((m, k), generator=gen, device="cuda")
         w = torch.randn((f, k), generator=gen, device="cuda") / 32
@@ -468,6 +460,47 @@ def _check_h4(torch, label, q, k, v, scale, mask=None):
     return o, lse, err_o
 
 
+def _check_h6(torch, label, q, k, v, do, scale, mask=None, out=None):
+    """H6 (the head-major split dk/dv) on q, k, v and do, its lse and delta
+    from H4, against its plain version on the card: each gradient within
+    H2_REL * max|ref| and, with a key mask, the masked keys' dk and dv
+    exactly 0 (``_check_grads``); written into ``out`` (dk, dv) when given;
+    then a second call on the same inputs, which must be bit-equal. Returns
+    max|d|."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale, mask)
+    delta = fa.hm_delta(do, o)
+    got = fa.flash_bwd_dkv_hm_cuda(q, k, v, do, lse, delta, scale, mask, out=out)
+    want = fa.flash_bwd_dkv_hm_ref(q, k, v, do, lse, delta, scale, mask)
+    torch.cuda.synchronize()
+    got = tuple(t.clone() for t in got)
+    _same_bits(label, got, fa.flash_bwd_dkv_hm_cuda(q, k, v, do, lse, delta, scale, mask,
+                                                     out=out))
+    return _check_grads(label, got, want, ("dk", "dv"), mask)
+
+
+def _check_h1_f32(torch, label, qkv, h, scale):
+    """H1-fp32 on fp32 qkv against its plain version on the card (finite,
+    |do| and |dlse| <= F32_TOL), then a second call on the same inputs,
+    which must be bit-equal. Returns max(|do|, |dlse|)."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    o, lse = fa.flash_self_attention_cuda(qkv, h, scale)
+    o_ref, lse_ref = fa.flash_self_attention_ref(qkv, h, scale)
+    torch.cuda.synchronize()
+    if not (_finite(o) and _finite(lse)):
+        raise RuntimeError(f"{label}: non-finite output")
+    err_o = (o - o_ref).abs().max().item()
+    err_l = (lse - lse_ref).abs().max().item()
+    del o_ref, lse_ref
+    log(f"{label}: max|do| {err_o:.3e} max|dlse| {err_l:.3e} (tol {F32_TOL} each)")
+    if not (err_o <= F32_TOL and err_l <= F32_TOL):
+        raise RuntimeError(f"{label} disagrees with its plain version")
+    _same_bits(label, (o, lse), fa.flash_self_attention_cuda(qkv, h, scale))
+    return max(err_o, err_l)
+
+
 def _check_h3(torch, label, x, w, bias) -> float:
     """H3 against its plain version under the flip rule, then called a
     second time on the same inputs, which must be bit-equal. Returns max|d|."""
@@ -504,9 +537,14 @@ def phase_edges(torch):
     mid-sequence, are all pads, at c = 24->32, 64 and 128 (H2's masked
     keys' dk and dv exactly 0); H4 at N = 40 and 129 on permuted views of
     a token-major projection, at 1 and 376 queries over 1568 keys, and
-    masked on the planes of a packed [3, B, H, N, c] qkv; H3 and H8 at M =
-    8, 200 and 2305; H8 at an identity probe that feeds its epilogue every
-    bf16 z."""
+    masked on the planes of a packed [3, B, H, N, c] qkv; H6 (128 kv rows
+    a block, 64-row q stages) at N = 40 and 129 at c = 64 and 32 on
+    permuted views, at 1 and 376 queries over 1568 keys, and masked with
+    keys [128, 384) all pads on the planes of a packed qkv, writing the
+    planes of a packed dqkv (masked keys' dk and dv exactly 0); H1-fp32
+    (128 query rows a block, 32-key tiles) at N = 40, 129 and 333 at c = 64
+    and 80; H3 and H8 at M = 8, 200 and 2305; H8 at an identity probe that
+    feeds its epilogue every bf16 z."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     rng = np.random.default_rng(SEED + 7)
     for b, n, h, c, c_real in ((2, 40, 16, 32, 24), (2, 40, 16, 64, 64), (1, 40, 16, 80, 80),
@@ -538,6 +576,28 @@ def phase_edges(torch):
     mask[:, 128:384] = False
     _check_h4(torch, "masked H4 edge B=4 H=3 N=640 c=64, planes of a packed [3, B, H, N, c], "
               "keys [128, 384) all pads", q, k, v, 64**-0.5, mask)
+    # H6: 128 kv rows a block, 64-row q stages (Nq != Nk: the stages run
+    # over Nq, the grid over Nk)
+    for b, h, nq, nk, c in ((2, 3, 40, 40, 64), (2, 3, 129, 129, 64), (2, 3, 40, 40, 32),
+                            (2, 3, 129, 129, 32), (2, 3, 1, 1568, 64), (2, 3, 376, 1568, 64)):
+        q, k, v, do = _hm_inputs(torch, gen, b, h, nq, nk, c)
+        how = "permuted views of [B, N, 3, H, c]" if nq == nk else "[B, H, N, c] tensors"
+        _check_h6(torch, f"H6 edge B={b} H={h} Nq={nq} Nk={nk} c={c}, {how}", q, k, v, do,
+                  c**-0.5)
+    for c in (64, 32):
+        qkv = torch.randn((3, 4, 3, 640, c), generator=gen, device="cuda").to(torch.bfloat16)
+        do = torch.randn((4, 3, 640, c), generator=gen, device="cuda").to(torch.bfloat16)
+        mask = padded_key_mask(torch, rng, 4, 640, 0)
+        mask[:, 128:384] = False
+        dqkv = torch.zeros_like(qkv)
+        _check_h6(torch, f"masked H6 edge B=4 H=3 N=640 c={c}, planes of a packed [3, B, H, N, "
+                  "c] in and out, keys [128, 384) all pads", *qkv.unbind(0), do, c**-0.5, mask,
+                  out=(dqkv[1], dqkv[2]))
+    # H1-fp32: 128 query rows a block, 32-key tiles
+    for b, n, h, c in ((2, 40, 16, 64), (2, 129, 16, 64), (2, 333, 16, 64), (1, 40, 16, 80),
+                       (1, 129, 16, 80), (1, 333, 16, 80)):
+        qkv = torch.randn((b, n, 3 * h * c), generator=gen, device="cuda")
+        _check_h1_f32(torch, f"H1-fp32 edge B={b} N={n} H={h} c={c}", qkv, h, c**-0.5)
     k, f = 1024, 4096
     w = (torch.randn((f, k), generator=gen, device="cuda") / 32).to(torch.bfloat16)
     bias = torch.randn((f,), generator=gen, device="cuda") * 0.1
@@ -2282,6 +2342,14 @@ AB_HM_ROWS = (
     ("H4 masked B=24 N=640 (vit_tiny top context rung)", 24, 3, 640, 640, 64, True),
     ("H4 masked B=2 Nq=1 Nk=1568 (probe geometry)", 2, 3, 1, 1568, 64, True),
 )
+# (label, B, H, Nq, Nk, c, masked) of the A/B mode's H6 rows (vit_tiny's split
+# backward, N >= 1300; self-attention on permuted views of the projection)
+AB_H6_ROWS = (
+    ("H6 B=24 N=1568 H=3 c=64 (vit_tiny split backward)", 24, 3, 1568, 1568, 64, False),
+    ("H6 masked B=24 N=1568 H=3 c=64", 24, 3, 1568, 1568, 64, True),
+    ("H6 B=24 N=1568 H=6 c=32", 24, 6, 1568, 1568, 32, False),
+    ("H6 B=24 H=3 Nq=376 Nk=1568 c=64 (cross lengths)", 24, 3, 376, 1568, 64, False),
+)
 # (label, B, N, H, c, c_real, mid) of the A/B mode's H2 rows, as AB_H1_ROWS
 AB_H2_ROWS = (
     ("H2 c=24->32 B=24 N=1109 H=16 (ViT-L predictor)", 24, 1109, 16, 32, 24, None),
@@ -2331,8 +2399,8 @@ def _host_us(torch, fn, n=48) -> float:
 
 
 def phase_kernel_ab(torch, others):
-    """The bf16 H1, H3, H8, H4 and H2 of this checkout against each other
-    checkout's (``python3 chip_smoke.py --kernel-ab --other DIR...``, not
+    """The bf16 H1, H3, H8, H4 and H2, and H6 and H1-fp32, of this checkout
+    against each other checkout's (``python3 chip_smoke.py --kernel-ab --other DIR...``, not
     part of the smoke run), at the shapes of PERF.md's kernel tables, both
     called through the C entry points (shared names and signatures). Per
     row: device times in turns (other, this, this, other), each with
@@ -2486,6 +2554,42 @@ def phase_kernel_ab(torch, others):
             + f"; bound {whole[0]:.4f} ms ({whole[2]}, share {100 * row['bound_share']:.1f} %), "
             f"library (SDPA backward) {lib:.4f} ms (x{lib / row['ms']:.2f} of this)")
         del qkv, do, o, lse, delta, dqkv
+    for label, b, h, nq, nk, c, masked in AB_H6_ROWS:
+        q, k, v, do = _hm_inputs(torch, gen, b, h, nq, nk, c)
+        mask = padded_key_mask(torch, rng, b, nk, 0) if masked else None
+        m8 = None if mask is None else mask.to(torch.uint8).contiguous()
+        scale = c**-0.5
+        o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale, mask)
+        delta = fa.hm_delta(do, o)
+        dk, dv = fa._alloc_like(k), fa._alloc_like(v)
+        hm = fa._HmArgs(B=b, H=h, Nq=nq, Nk=nk, qscale=scale * fa._LOG2E, scale=scale)
+        for name, t in dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta, dk=dk, dv=dv,
+                            kvm=m8).items():
+            if t is not None:
+                setattr(hm, name, t.data_ptr())
+                if t.dim() == 4:
+                    setattr(hm, f"{name}_s", (ctypes.c_int * 3)(*t.stride()[:3]))
+        args = lambda hm=hm: (ctypes.addressof(hm), stream())  # noqa: E731
+        pairs = b * nq * nk if mask is None else int(mask.sum().item()) * nq
+        row = dict(row=label, library_ms=_sdpa_hm_ms(torch, q, k, v, do, scale, mask)[1],
+                   bound=attn_bound_ms(b, nq, h, c, 4, b * h * c * 2 * (2 * nq + 2 * nk)
+                                       + 2 * lse.numel() * 4 + (0 if m8 is None else b * nk),
+                                       b * h * c * 2 * 2 * nk, pairs))
+        ab(row, f"jt_flash_hm_dkv_c{c}", args, (dk, dv))
+        del q, k, v, do, o, lse, delta, dk, dv
+    for b, n, h, c in F32_H1_SHAPES:
+        qkv = torch.randn((b, n, 3 * h * c), generator=gen, device="cuda")
+        o = torch.empty((b, n, h * c), device="cuda")
+        lse = torch.empty((b, h, n), device="cuda")
+        scale = c**-0.5
+        args = lambda: (qkv.data_ptr(), o.data_ptr(), lse.data_ptr(), b, n, h,  # noqa: E731
+                        scale * fa._LOG2E, stream())
+        row = dict(row=f"H1-fp32 B={b} N={n} H={h} c={c}",
+                   library_ms=_sdpa_fwd_ms(torch, qkv, h, scale),
+                   bound=f32_bound_ms(4.0 * b * h * n * n * c, b * h * n * n,
+                                      4 * (qkv.numel() + o.numel() + lse.numel())))
+        ab(row, f"jt_flash_fwd_f32_c{c}", args, (o, lse))
+        del qkv, o, lse
     print(json.dumps({"kernel_ab": rows}))
     return rows
 

@@ -1,11 +1,14 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// mma.sync (H5-H7): the bf16 tensor-core product mma.sync m16n8k16 with
+// mma.sync (H5, H7): the bf16 tensor-core product mma.sync m16n8k16 with
 // fp32 accumulators, bf16 packing, 32-bit shared-memory fragment reads,
 // the tile loads and warp-level products of the head-major backward
 // kernels (4 warps a block, 16 rows a warp).
 //
-// Hopper (H1, H2, H3, H4, H8; section "TMA, mbarrier and wgmma" below):
+// cp.async (H1-fp32): cp_async16 with zero fill, cp_async_commit,
+// cp_async_wait_all.
+//
+// Hopper (H1, H2, H3, H4, H6, H8; section "TMA, mbarrier and wgmma" below):
 //   * mbarriers: mbar_init, mbar_expect_tx (arrive + expected bytes),
 //     mbar_arrive, mbar_wait (try_wait.parity spin), fence_barrier_init;
 //   * TMA: tma_load_2d / 3d / 4d into shared memory, completing on an
@@ -79,6 +82,25 @@ __device__ __forceinline__ unsigned char* smem_bytes() {
 }
 
 __device__ __forceinline__ bf16* smem_bf16() { return reinterpret_cast<bf16*>(smem_bytes()); }
+
+// cp.async (H1-fp32's K/V ring): 16 bytes global -> shared, bypassing
+// registers and L1; with `valid` false the destination is zero-filled and
+// nothing is read. commit closes this thread's group of copies; wait_all
+// returns once all of its groups have landed.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
 // rows [r0, r0 + ROWS) of one head's C columns (src points at the head's
 // first column of row 0, rows `rs` elements apart) into dst [ROWS][C+kPad];

@@ -3,8 +3,8 @@
 // Replaces the head-major TPU kernels of jepa_tpu/ops/flash_attention.py:
 //   H4 flash_hm_fwd_kernel                 <- _fwd_kernel   (K6, :122)
 //   H5 flash_hm_dq_kernel                  <- _dq_kernel    (K7, :225)
-//   H6 flash_hm_dkv_kernel<.., false>      <- _dkv_kernel   (K8, :254)
-//   H7 flash_hm_dkv_kernel<.., true> and
+//   H6 flash_hm_dkv_kernel                 <- _dkv_kernel   (K8, :254)
+//   H7 flash_hm_dqkv_kernel and
 //      flash_hm_dq_finish_kernel           <- _dqkv_kernel  (K9, :318)
 // They serve flash_attention_bhnd / flash_attention_packed /
 // flash_attention (ops/flash_attention.py), which the port reaches from
@@ -66,20 +66,44 @@
 // every product is a chain of k16 tensor-core steps in the same order. So
 // its outputs are the same bits (chip_smoke.py --kernel-ab).
 //
-// H5-H7, the simple first kernels: a block of 4 warps owns 64 rows (q rows
-// in H5, kv rows in H6 and H7), each warp 16 of them with fp32 accumulators
+// H6's design (Hopper): H2's dk/dv kernel (csrc/flash_attention_bwd.cu)
+// read and written through H4's 4-D maps. A block owns 128 kv rows of one
+// (batch, head) with three warpgroups. The producer warpgroup (setmaxnreg
+// down to 56) has one thread issue TMA loads from 4-D maps of q, k, v and
+// do built from their own strides: K and V of the block once, then Q and
+// dO in 64-row stages over Nq into a 3-stage ring; every producer thread
+// loads a share of the stage's lse and delta rows, waits for the stage's
+// bytes, scales its share of the Q stage by scale*log2e in fp32 in place,
+// rounding to bf16 (the Qs the mma.sync kernel's loader made), and arrives
+// on the stage's 128-arrival full barrier. Each consumer warpgroup (224
+// registers) owns 64 kv rows: S^T = K Qs^T and dP^T = V dO^T by wgmma
+// m64n64k16 (K-major as stored), p = exp2f(s - lse) and ds = p*(dp -
+// delta) in registers, dV += P^T dO and dK += dS^T Qs by wgmma m64nCk16
+// with P and dS from registers and dO and Qs MN-major (the descriptor's
+// transpose bit). The epilogue writes bf16 dk*(1/log2e) and dv into the
+// warpgroup's rows of the K and V tiles in the same swizzle and stores
+// them through 4-D maps of dk and dv (rows past Nk dropped), so the dk and
+// dv planes of a packed dqkv are written in place. The grid runs over Nk,
+// the stages over Nq. Numerics: dK and dV over the q rows ascending, S^T
+// and dP^T over the head dim, each one chain of k16 tensor-core steps in
+// the mma.sync kernel's order, with the same exp2f and roundings: the same
+// bits (chip_smoke.py --kernel-ab).
+//
+// H5 and H7, the simple first kernels: a block of 4 warps owns 64 rows (q
+// rows in H5, kv rows in H7), each warp 16 of them with fp32 accumulators
 // in registers, and loops over the other side in 64-row tiles staged in
 // shared memory; mma.sync m16n8k16 bf16 with fp32 accumulation; score and
 // gradient tiles stay in registers, their C-fragments re-packed as the
 // next product's A-fragments.
 //
-// H7, the merged backward: per k-block dK/dV as in H6 plus dQ's partial
-// over the block's 64 keys, dS (written to shared memory, transposed) times
-// K. Several k-blocks write every dq row, and Hopper's blocks run in no
-// order (K9 sums them in VMEM scratch because the TPU grid runs in order),
-// so each k-block stores its fp32 partial in its own slab of a workspace
-// [ceil(Nk/64), B, H, Nq, C], and a second kernel sums the slabs in k-block
-// order, scales and casts into dq: deterministic, at the cost of
+// H7, the merged backward: per k-block dK and dV (S^T = K Qs^T, dP^T =
+// V dO^T, dV += P^T dO, dK += dS^T Qs) plus dQ's partial over the block's
+// 64 keys, dS (written to shared memory, transposed) times K. Several
+// k-blocks write every dq row, and Hopper's blocks run in no order (K9
+// sums them in VMEM scratch because the TPU grid runs in order), so each
+// k-block stores its fp32 partial in its own slab of a workspace
+// [ceil(Nk/64), B, H, Nq, C], and a second kernel sums the slabs in
+// k-block order, scales and casts into dq: deterministic, at the cost of
 // ceil(Nk/64) times dq's size in fp32 scratch. K rows past Nk are zero in
 // the tile and their ds is 0, so both operands of the edge rows are zero,
 // as K9 zeroes them (:355-364).
@@ -119,9 +143,9 @@ __device__ __forceinline__ bf16* rows(void* p, const int* s, int b, int h) {
 
 template <int C>
 constexpr int dq_smem() { return 2 * BR * (C + kPad) * 2 + NB; }
-template <int C, bool MERGED>
-constexpr int dkv_smem() {
-  return (2 * NB + 2 * BR) * (C + kPad) * 2 + (MERGED ? NB * (BR + kPad) * 2 : 0) + 2 * NB * 4;
+template <int C>
+constexpr int dqkv_smem() {
+  return (2 * NB + 2 * BR) * (C + kPad) * 2 + NB * (BR + kPad) * 2 + 2 * NB * 4;
 }
 
 // H4 geometry: the TMA box is the whole head row (C columns, one swizzle
@@ -132,6 +156,12 @@ constexpr int FWD_WG = 128;   // threads of a warpgroup
 constexpr int FWD_THREADS = 3 * FWD_WG;
 constexpr int FWD_STAGES = 3;
 
+// H6 geometry: 128 kv rows a block (two consumer warpgroups x 64), q
+// stages of 64 rows, boxes as H4's (one swizzle row: the head row)
+constexpr int DKV_BR = 128;
+constexpr int DKV_STEP = 64;
+constexpr int DKV_STAGES = 3;
+
 template <int C>
 struct FwdGeo {
   static constexpr int RB = 2 * C;
@@ -139,6 +169,18 @@ struct FwdGeo {
   static constexpr int SWZ_MASK = RB / 16 - 1;  // row bits XORed into the 16-byte chunk
   static constexpr int TILE = 128 * RB;
   static constexpr int SMEM = TILE * (1 + 2 * FWD_STAGES) + 8 * (1 + 2 * FWD_STAGES) + 1024;
+  // H6: K and V tiles, the Q/dO ring with its lse and delta rows, barriers
+  static constexpr int DKV_SMEM = 2 * DKV_BR * RB + DKV_STAGES * 2 * DKV_STEP * (RB + 4) +
+                                  8 * (1 + 3 * DKV_STAGES) + 1024;
+  // wgmma operands: a K-major tile (its rows, the head dim contracted from
+  // column 16*kk), an MN-major tile of `rows` rows (rows contracted from
+  // row 16*kk, the head dim across)
+  __device__ static uint64_t kdesc(const unsigned char* tile, int kk) {
+    return jt::make_desc(tile + kk * 32, 16, 8 * RB, SWZ);
+  }
+  __device__ static uint64_t mndesc(const unsigned char* tile, int kk, int rows) {
+    return jt::make_desc(tile + kk * 16 * RB, rows * RB, 8 * RB, SWZ);
+  }
 };
 
 // one 64-key half of a stage's scores (fragment columns 8j.., j in [J0,
@@ -445,18 +487,199 @@ __global__ void __launch_bounds__(jt::kThreads) flash_hm_dq_kernel(const HmArgs 
   jt::store_rows<C>(rows(a.dq, a.dq_s, b, h), a.dq_s[2], r0, Nq, dq, a.scale, t);
 }
 
-// H6 (MERGED false): dk, dv of 64 kv rows of one (batch, head), looping
-// over the q tiles. H7 (MERGED true): the same plus this block's partial
-// dQ = dS K, stored in its k-block's slab of the fp32 workspace a.ws.
-template <int C, bool MASKED, bool MERGED>
-__global__ void __launch_bounds__(jt::kThreads) flash_hm_dkv_kernel(const HmArgs a) {
+// H6: dk, dv of 128 kv rows of one (batch, head); streams every q stage
+template <int C, bool MASKED>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+flash_hm_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
+                    const uint8_t* __restrict__ kvm, const float* __restrict__ lse,
+                    const float* __restrict__ delta, int Nq, int Nk, int H, float qscale) {
+  using G = FwdGeo<C>;
+  constexpr int STEP = DKV_STEP, STAGES = DKV_STAGES;
+  constexpr int TK = DKV_BR * G::RB, TQ = STEP * G::RB;
+  unsigned char* smem = jt::smem_1024();
+  unsigned char* sK = smem;
+  unsigned char* sV = sK + TK;
+  unsigned char* sQD = sV + TK;  // stage s: Qs at 2s tiles, dO at 2s + 1
+  float* sLD = reinterpret_cast<float*>(sQD + 2 * STAGES * TQ);  // stage s: lse, delta rows
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(sLD + 2 * STAGES * STEP);
+  uint64_t* loaded = kvbar + 1;
+  uint64_t* full = loaded + STAGES;
+  uint64_t* empty = full + STAGES;
+  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * DKV_BR;
+  const int wg = threadIdx.x / FWD_WG, tid = threadIdx.x % FWD_WG;
+  const int nq = (Nq + STEP - 1) / STEP;
+
+  if (threadIdx.x == 0) {
+    jt::mbar_init(kvbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      jt::mbar_init(&loaded[s], 1);     // the TMA bytes of the stage's Q and dO
+      jt::mbar_init(&full[s], FWD_WG);  // every producer thread: Q scaled, lse and delta in
+      jt::mbar_init(&empty[s], 8);      // one arrive per consumer warp
+    }
+    jt::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer warpgroup: loads, and scales each Q stage in place
+    jt::reg_dealloc<56>();
+    if (tid == 0) {
+      jt::mbar_expect_tx(kvbar, 2 * TK);
+      for (int r = 0; r < 2; ++r) {  // 64-row boxes: each consumer warpgroup's rows
+        jt::tma_load_4d(sK + r * 64 * G::RB, &tk, kvbar, 0, k0 + 64 * r, h, b);
+        jt::tma_load_4d(sV + r * 64 * G::RB, &tv, kvbar, 0, k0 + 64 * r, h, b);
+      }
+    }
+    const float* lrow = lse + ((size_t)b * H + h) * Nq;
+    const float* drow = delta + ((size_t)b * H + h) * Nq;
+    for (int it = 0; it < nq; ++it) {
+      const int s = it % STAGES, q0 = it * STEP;
+      if (it >= STAGES) jt::mbar_wait(&empty[s], ((it / STAGES) + 1) & 1);
+      unsigned char* sq = sQD + 2 * s * TQ;
+      if (tid == 0) {
+        jt::mbar_expect_tx(&loaded[s], 2 * TQ);
+        jt::tma_load_4d(sq, &tq, &loaded[s], 0, q0, h, b);
+        jt::tma_load_4d(sq + TQ, &tdo, &loaded[s], 0, q0, h, b);
+      }
+      float* sl = sLD + 2 * s * STEP;
+      for (int i = tid; i < STEP; i += FWD_WG) {
+        const bool ok = q0 + i < Nq;
+        sl[i] = ok ? lrow[q0 + i] : 0.f;
+        sl[STEP + i] = ok ? drow[q0 + i] : 0.f;
+      }
+      jt::mbar_wait(&loaded[s], (it / STAGES) & 1);
+      // Qs: q * (scale*log2e) in fp32, rounded to bf16, in place
+      for (int v = tid; v < TQ / 16; v += FWD_WG) {
+        uint4* p = reinterpret_cast<uint4*>(sq + v * 16);
+        uint4 val = *p;
+        bf16* e = reinterpret_cast<bf16*>(&val);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * qscale);
+        *p = val;
+      }
+      jt::fence_proxy_async();
+      jt::mbar_arrive(&full[s]);
+    }
+  } else {  // consumers: warpgroup wg owns kv rows k0 + [64 wg, 64 wg + 64)
+    jt::reg_alloc<224>();
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    unsigned char* myk = sK + wg * 64 * G::RB;
+    unsigned char* myv = sV + wg * 64 * G::RB;
+    // this thread's kv rows: masked (or past Nk) ones get s = -1e30
+    [[maybe_unused]] bool valid0 = true, valid1 = true;
+    if constexpr (MASKED) {
+      const int kr = k0 + wg * 64 + warp * 16 + g;
+      const uint8_t* mrow = kvm + (size_t)b * Nk;
+      valid0 = kr < Nk && mrow[kr];
+      valid1 = kr + 8 < Nk && mrow[kr + 8];
+    }
+    jt::mbar_wait(kvbar, 0);
+
+    float dk[C / 2], dv[C / 2];
+#pragma unroll
+    for (int i = 0; i < C / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    for (int it = 0; it < nq; ++it) {
+      const int s = it % STAGES, q0 = it * STEP;
+      const unsigned char* sq = sQD + 2 * s * TQ;
+      const unsigned char* sd = sq + TQ;
+      const float* sl = sLD + 2 * s * STEP;
+      jt::mbar_wait(&full[s], (it / STAGES) & 1);
+
+      // S^T = K Qs^T (base-2 logits) and dP^T = V dO^T, 64 x STEP per warpgroup
+      float st[STEP / 2], dpt[STEP / 2];
+      jt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+        jt::wgmma_ss<0, 0>(st, G::kdesc(myk, kk), G::kdesc(sq, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+        jt::wgmma_ss<0, 0>(dpt, G::kdesc(myv, kk), G::kdesc(sd, kk), kk > 0);
+      jt::wgmma_commit();
+      jt::wgmma_wait<0>();
+      jt::fence_regs(st);
+      jt::fence_regs(dpt);
+
+      uint32_t pa[STEP / 16][4], dsa[STEP / 16][4];
+#pragma unroll
+      for (int j = 0; j < STEP / 8; ++j) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * t + e;
+          const bool ok = q0 + col < Nq;
+          const float L = sl[col], D = sl[STEP + col];
+          if constexpr (MASKED) {
+            if (!valid0) st[4 * j + e] = -1e30f;
+            if (!valid1) st[4 * j + 2 + e] = -1e30f;
+          }
+          p[e] = ok ? exp2f(st[4 * j + e] - L) : 0.f;          // kv row g
+          p[2 + e] = ok ? exp2f(st[4 * j + 2 + e] - L) : 0.f;  // kv row g + 8
+          ds[e] = p[e] * (dpt[4 * j + e] - D);
+          ds[2 + e] = p[2 + e] * (dpt[4 * j + 2 + e] - D);
+        }
+        pa[j / 2][(j & 1) * 2] = jt::pack2(__float2bfloat16(p[0]), __float2bfloat16(p[1]));
+        pa[j / 2][(j & 1) * 2 + 1] = jt::pack2(__float2bfloat16(p[2]), __float2bfloat16(p[3]));
+        dsa[j / 2][(j & 1) * 2] = jt::pack2(__float2bfloat16(ds[0]), __float2bfloat16(ds[1]));
+        dsa[j / 2][(j & 1) * 2 + 1] = jt::pack2(__float2bfloat16(ds[2]), __float2bfloat16(ds[3]));
+      }
+      // dV += P^T dO and dK += dS^T Qs, dO and Qs MN-major (q rows down)
+      jt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < STEP / 16; ++kk)
+        jt::wgmma_rs<1>(dv, pa[kk], G::mndesc(sd, kk, STEP), 1);
+#pragma unroll
+      for (int kk = 0; kk < STEP / 16; ++kk)
+        jt::wgmma_rs<1>(dk, dsa[kk], G::mndesc(sq, kk, STEP), 1);
+      jt::wgmma_commit();
+      jt::wgmma_wait<0>();
+      jt::fence_regs(dv);
+      jt::fence_regs(dk);
+      jt::keep_regs(pa);
+      jt::keep_regs(dsa);
+      if (lane == 0) jt::mbar_arrive(&empty[s]);  // this warp is done with the stage
+    }
+
+    // dk / log2e and dv as bf16 into this warpgroup's rows of the K and V
+    // tiles, in the TMA maps' swizzle (the 16-byte chunk index XOR the
+    // row's low bits)
+    const int r0 = warp * 16 + g;
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int off = (r0 + 8 * half) * G::RB + col * 2;
+        const int phys = off ^ (((off >> 7) & G::SWZ_MASK) << 4);
+        const int i = 4 * j + 2 * half;
+        *reinterpret_cast<__nv_bfloat162*>(myk + phys) =
+            __floats2bfloat162_rn(dk[i] * INV_LOG2E, dk[i + 1] * INV_LOG2E);
+        *reinterpret_cast<__nv_bfloat162*>(myv + phys) = __floats2bfloat162_rn(dv[i], dv[i + 1]);
+      }
+    }
+    jt::fence_proxy_async();
+    jt::bar_sync(1 + wg, FWD_WG);
+    if (tid == 0 && k0 + wg * 64 < Nk) {
+      jt::tma_store_4d(&tdk, myk, 0, k0 + wg * 64, h, b);
+      jt::tma_store_4d(&tdv, myv, 0, k0 + wg * 64, h, b);
+      jt::tma_store_commit_and_wait();
+    }
+  }
+}
+
+// H7: dk, dv of 64 kv rows of one (batch, head), looping over the q
+// tiles, and this block's partial dQ = dS K, stored in its k-block's slab
+// of the fp32 workspace a.ws.
+template <int C, bool MASKED>
+__global__ void __launch_bounds__(jt::kThreads) flash_hm_dqkv_kernel(const HmArgs a) {
   constexpr int LD = C + kPad, LDS = BR + kPad;
   bf16* sQ = jt::smem_bf16();
   bf16* sdO = sQ + NB * LD;
   bf16* sK = sdO + NB * LD;
   bf16* sV = sK + BR * LD;
-  bf16* sdS = sV + BR * LD;  // MERGED: dS [NB q rows][BR kv rows]
-  float* sL = reinterpret_cast<float*>(sdS + (MERGED ? NB * LDS : 0));
+  bf16* sdS = sV + BR * LD;  // dS [NB q rows][BR kv rows]
+  float* sL = reinterpret_cast<float*>(sdS + NB * LDS);
   float* sD = sL + NB;
 
   const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BR;
@@ -470,7 +693,7 @@ __global__ void __launch_bounds__(jt::kThreads) flash_hm_dkv_kernel(const HmArgs
   const int kr = warp * 16 + g;
 
   // K and V of this block's kv rows, read from shared memory at every step
-  // (K is also the B operand of H7's dQ); rows past Nk are zero
+  // (K is also the B operand of dQ); rows past Nk are zero
   jt::load_tile<C, BR>(sK, rows(a.k, a.k_s, b, h), a.k_s[2], k0, Nk, 1.f);
   jt::load_tile<C, BR>(sV, rows(a.v, a.v_s, b, h), a.v_s[2], k0, Nk, 1.f);
   // this thread's kv rows k0 + kr and k0 + kr + 8: masked or past Nk ones
@@ -519,10 +742,8 @@ __global__ void __launch_bounds__(jt::kThreads) flash_hm_dkv_kernel(const HmArgs
         p[2 + j] = ok ? exp2f(st[nt][2 + j] - L) : 0.f;  // kv row g + 8
         ds[j] = __float2bfloat16(p[j] * (dpt[nt][j] - D));
         ds[2 + j] = __float2bfloat16(p[2 + j] * (dpt[nt][2 + j] - D));
-        if constexpr (MERGED) {  // dS, transposed: row = q, column = kv
-          sdS[col * LDS + kr] = ds[j];
-          sdS[col * LDS + kr + 8] = ds[2 + j];
-        }
+        sdS[col * LDS + kr] = ds[j];  // dS, transposed: row = q, column = kv
+        sdS[col * LDS + kr + 8] = ds[2 + j];
       }
       const int kk = nt / 2, hi = (nt & 1) * 2;
       pa[kk][hi] = jt::pack2(__float2bfloat16(p[0]), __float2bfloat16(p[1]));
@@ -533,26 +754,25 @@ __global__ void __launch_bounds__(jt::kThreads) flash_hm_dkv_kernel(const HmArgs
     jt::mm_ab<C, NB>(dv, pa, sdO, g, t);  // dV += P^T dO
     jt::mm_ab<C, NB>(dk, dsa, sQ, g, t);  // dK += dS^T Qs
 
-    if constexpr (MERGED) {  // dQ[q rows] += dS K over this block's kv rows
-      __syncthreads();       // every warp's dS is in sdS
-      uint32_t sa[BR / 16][4];
-      jt::load_a<BR>(sa, sdS, warp * 16 + g, t);  // this warp's 16 q rows
-      float dqp[C / 8][4];
+    // dQ[q rows] += dS K over this block's kv rows
+    __syncthreads();  // every warp's dS is in sdS
+    uint32_t sa[BR / 16][4];
+    jt::load_a<BR>(sa, sdS, warp * 16 + g, t);  // this warp's 16 q rows
+    float dqp[C / 8][4];
 #pragma unroll
-      for (int i = 0; i < C / 8; ++i) dqp[i][0] = dqp[i][1] = dqp[i][2] = dqp[i][3] = 0.f;
-      jt::mm_ab<C, BR>(dqp, sa, sK, g, t);
-      const int r0 = q0 + warp * 16 + g;
-      float* ws = a.ws + (((size_t)blockIdx.x * a.B + b) * a.H + h) * Nq * C;
+    for (int i = 0; i < C / 8; ++i) dqp[i][0] = dqp[i][1] = dqp[i][2] = dqp[i][3] = 0.f;
+    jt::mm_ab<C, BR>(dqp, sa, sK, g, t);
+    const int r0 = q0 + warp * 16 + g;
+    float* ws = a.ws + (((size_t)blockIdx.x * a.B + b) * a.H + h) * Nq * C;
 #pragma unroll
-      for (int ot = 0; ot < C / 8; ++ot) {
-        const int col = ot * 8 + 2 * t;
-        if (r0 < Nq)
-          *reinterpret_cast<float2*>(ws + (size_t)r0 * C + col) =
-              make_float2(dqp[ot][0], dqp[ot][1]);
-        if (r0 + 8 < Nq)
-          *reinterpret_cast<float2*>(ws + (size_t)(r0 + 8) * C + col) =
-              make_float2(dqp[ot][2], dqp[ot][3]);
-      }
+    for (int ot = 0; ot < C / 8; ++ot) {
+      const int col = ot * 8 + 2 * t;
+      if (r0 < Nq)
+        *reinterpret_cast<float2*>(ws + (size_t)r0 * C + col) =
+            make_float2(dqp[ot][0], dqp[ot][1]);
+      if (r0 + 8 < Nq)
+        *reinterpret_cast<float2*>(ws + (size_t)(r0 + 8) * C + col) =
+            make_float2(dqp[ot][2], dqp[ot][3]);
     }
   }
 
@@ -617,18 +837,29 @@ int launch_dq(const HmArgs* a, void* stream) {
                     grid_of(*a, BR, a->Nq), jt::kThreads, dq_smem<C>(), stream, *a);
 }
 
+// H6's maps: q and do in 64-row boxes (the q stages), k, v, dk and dv in
+// 64-row boxes (each consumer warpgroup's rows)
 template <int C>
 int launch_dkv(const HmArgs* a, void* stream) {
-  return jt::launch(
-      a->kvm ? flash_hm_dkv_kernel<C, true, false> : flash_hm_dkv_kernel<C, false, false>,
-      grid_of(*a, BR, a->Nk), jt::kThreads, dkv_smem<C, false>(), stream, *a);
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv;
+  int err = hm_map<C>(&tq, a->q, a->q_s, a->Nq, *a, DKV_STEP);
+  if (!err) err = hm_map<C>(&tk, a->k, a->k_s, a->Nk, *a, 64);
+  if (!err) err = hm_map<C>(&tv, a->v, a->v_s, a->Nk, *a, 64);
+  if (!err) err = hm_map<C>(&tdo, a->dO, a->do_s, a->Nq, *a, DKV_STEP);
+  if (!err) err = hm_map<C>(&tdk, a->dk, a->dk_s, a->Nk, *a, 64);
+  if (!err) err = hm_map<C>(&tdv, a->dv, a->dv_s, a->Nk, *a, 64);
+  if (err) return err;
+  return jt::launch(a->kvm ? flash_hm_dkv_kernel<C, true> : flash_hm_dkv_kernel<C, false>,
+                    grid_of(*a, DKV_BR, a->Nk), FWD_THREADS, FwdGeo<C>::DKV_SMEM, stream, tq, tk,
+                    tv, tdo, tdk, tdv, (const uint8_t*)a->kvm, (const float*)a->lse,
+                    (const float*)a->delta, a->Nq, a->Nk, a->H, a->qscale);
 }
 
 template <int C>
 int launch_dqkv(const HmArgs* a, void* stream) {
   const int err = jt::launch(
-      a->kvm ? flash_hm_dkv_kernel<C, true, true> : flash_hm_dkv_kernel<C, false, true>,
-      grid_of(*a, BR, a->Nk), jt::kThreads, dkv_smem<C, true>(), stream, *a);
+      a->kvm ? flash_hm_dqkv_kernel<C, true> : flash_hm_dqkv_kernel<C, false>,
+      grid_of(*a, BR, a->Nk), jt::kThreads, dqkv_smem<C>(), stream, *a);
   if (err) return err;
   const size_t pairs = (size_t)a->B * a->H * a->Nq * (C / 2);
   const size_t blocks = (pairs + jt::kThreads - 1) / jt::kThreads;

@@ -6,6 +6,8 @@ eager attention against JAX's xla_attention. Inputs come from numpy with
 a seed; JAX runs first in each test, torch after.
 """
 
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -47,6 +49,26 @@ def test_flash_self_attention_matches_jax(n, dtype):
     assert got.dtype == tdt and got.shape == (b, n, d)
     atol = 3e-5 if dtype == "float32" else BF16_ATOL  # fp32: PARITY.md:13
     np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=0)
+
+
+def test_flash_self_attention_f32_c80_matches_jax():
+    """fp32 at head dim 80 (ViT-H, 16 heads), the shape of H1-fp32's c=80
+    instance: the token-major route reaches H1's plain version."""
+    b, n, h, c = 1, 149, 16, 80
+    d = h * c
+    x, w, bias = _inputs(b, n, d, h, seed=80)
+    want = jax_flash_self_attention(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias), h,
+                                    interpret=True)
+    want = np.asarray(want)
+
+    assert fa.self_attention_route(h, c, n) == "tm"
+    with mock.patch.object(fa, "flash_self_attention_ref",
+                           wraps=fa.flash_self_attention_ref) as ref:
+        got = fa.flash_self_attention(torch.from_numpy(x), torch.from_numpy(w.T.copy()),
+                                      torch.from_numpy(bias), h)
+    assert ref.call_count == 1
+    assert got.dtype == torch.float32 and got.shape == (b, n, d)
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=0)  # PARITY.md:13
 
 
 def test_flash_ref_lse_is_base2_logsumexp():
