@@ -31,7 +31,10 @@ Phases (any failure raises and exits non-zero):
      views and on the planes of a packed qkv; H6 likewise at c = 32 and
      64, masked with two all-pad key tiles into the planes of a packed
      dqkv; H1-fp32 at N = 40, 129 and 333 at c = 64 and 80; H3 and H8 at
-     M = 8, 200 and 2305;
+     M = 8, 200 and 2305; H7 at N = 40 and 129 at c = 64 and 32, at 1 and
+     376 queries over 640 keys, and masked into the planes of a packed
+     dqkv; H3-fp32 and H8-fp32 at M = 8, 200, 333 and 2305 with ViT-L's and
+     ViT-H's fc1;
   5. serve 4 requests through jepa_tpu_torch.api: a seeded ViT-L/16
      (224 px, 16 frames, tubelet 2, uniform_power) and a 400-class
      attentive probe, written as .pth.tar files and loaded back; each
@@ -62,7 +65,8 @@ Phases (any failure raises and exits non-zero):
      masked kernels per update checked;
   9. fp32 kernels (the frozen evals with use_bfloat16: false): H1-fp32 at
      (B=2, N=1568, c=64) and (B=1, N=1568, c=80), H3-fp32 at ViT-L's and
-     ViT-H's fc1, against their plain versions in fp32 (TF32 off), timed
+     ViT-H's fc1, against their plain versions in fp32 (TF32 off), each
+     called twice for bit-equal outputs, timed
      beside SDPA / cuBLASLt in fp32 and their FFMA bounds; K2's and K3's
      geometry (B=1, N=4608, c=80) is timed in phases 4 and 4b;
  10. the video eval (jepa_tpu_torch.evals.video_classification_frozen.main)
@@ -81,7 +85,8 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      token-major head split): H4 (forward) at vit_tiny's serving and target
      shapes, the padded context rungs with a key mask and a 1-query
      cross-attention; H7 (merged backward) at the fixed contexts and the
-     masked rungs; H5 + H6 (the split backward) at (24, 3, 1568, 64), once
+     masked rungs (timed through its C entry, queued behind a spin kernel,
+     beside its Python wrapper); H5 + H6 (the split backward) at (24, 3, 1568, 64), once
      alone and once through flash_attention_packed under autograd (the
      launches the JSON line reports); masked keys' dk and dv exactly 0;
  13. H1 and H2 at head dim 128 (vit_tiny's 384-wide predictor, 3 heads),
@@ -122,6 +127,7 @@ import contextlib
 import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -172,6 +178,9 @@ F32_TOL = 1e-4     # H1-fp32 |o|, |lse| abs; H3-fp32 |d| <= 1e-4 * max(|ref|, 1)
 # the val step's 24). The first shape of each is the one the JSON line reports.
 F32_H1_SHAPES = ((2, 1568, 16, 64), (1, 1568, 16, 80), (8, 1568, 16, 64), (24, 1568, 16, 64))
 F32_H3_SHAPES = ((8 * 1568, 1024, 4096), (4 * 1568, 1280, 5120), (24 * 1568, 1024, 4096))
+# (M, K, F, outputs) of the A/B mode's fp32 fc1 rows: H3-fp32 at every
+# F32_H3_SHAPES row, H8-fp32 at the force update's long context
+F32_H3_SHAPES_AB = tuple(s + (1,) for s in F32_H3_SHAPES) + ((9024, 1024, 4096, 2),)
 F32_FEAT_COS_MIN = 0.99999  # fp32 eval features, kernels vs plain: only the order
                             # of fp32 sums differs
 PROB_TOL = 1e-3
@@ -295,7 +304,7 @@ def phase_kernels(torch, n_train):
 
 def phase_f32_kernels(torch):
     """H1-fp32 and H3-fp32 (the frozen evals with use_bfloat16: false)
-    against their plain versions on the card, in fp32 on both sides (H1-fp32
+    against their plain versions on the card, in fp32 on both sides (each
     called twice for bit-equal outputs), with times, bounds (FFMA peak,
     exp2, bytes) and the fp32 library calls."""
     from jepa_tpu_torch.ops import flash_attention as fa
@@ -326,18 +335,7 @@ def phase_f32_kernels(torch):
         x = torch.randn((m, k), generator=gen, device="cuda")
         w = torch.randn((f, k), generator=gen, device="cuda") / 32
         bias = torch.randn((f,), generator=gen, device="cuda") * 0.1
-        y = fm.linear_gelu_cuda(x, w, bias)
-        y_ref = fm.linear_gelu_ref(x, w, bias)
-        torch.cuda.synchronize()
-        if not torch.isfinite(y).all():
-            raise RuntimeError(f"H3-fp32 M={m}: non-finite output")
-        d = (y - y_ref).abs()
-        err = d.max().item()
-        excess = (d - F32_TOL * y_ref.abs().clamp(min=1)).max().item()
-        log(f"H3-fp32 M={m} K={k} F={f}: max|d| {err:.3e}, worst margin {excess:.3e} "
-            f"(tol |d| <= {F32_TOL}*max(|ref|,1))")
-        if excess > 0:
-            raise RuntimeError(f"H3-fp32 M={m} disagrees with its plain version")
+        err = _check_f32_fc1(torch, f"H3-fp32 M={m} K={k} F={f}", x, w, bias)
         rep["h3"]["max_abs_err"] = max(rep["h3"]["max_abs_err"], err)
         flops = 2.0 * m * k * f
         r = dict(ms=time_ms(torch, lambda: fm.linear_gelu_cuda(x, w, bias)),
@@ -352,7 +350,7 @@ def phase_f32_kernels(torch):
             f"{flops / r['ms'] / 1e9:.1f} TFLOP/s")
         if "ms" not in rep["h3"]:
             rep["h3"].update(r)
-        del x, w, bias, y, y_ref, d
+        del x, w, bias
     return rep
 
 
@@ -526,6 +524,80 @@ def _check_h8(torch, label, x, w, bias) -> float:
     return err
 
 
+def _check_f32_fc1(torch, label, x, w, bias, z=False) -> float:
+    """H3-fp32 (or, with ``z``, H8-fp32's o and z) on fp32 x, w, b against
+    its plain version on the card: finite, |d| <= F32_TOL * max(|ref|, 1);
+    then a second call on the same inputs, which must be bit-equal.
+    Returns max|d|."""
+    from jepa_tpu_torch.ops import fused_mlp as fm
+
+    if z:
+        got, want = fm.linear_gelu_z_cuda(x, w, bias), fm.linear_gelu_z_ref(x, w, bias)
+    else:
+        got, want = (fm.linear_gelu_cuda(x, w, bias),), (fm.linear_gelu_ref(x, w, bias),)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, a, b in zip(("o", "z"), got, want):
+        d = (a - b).abs()
+        err = d.max().item()
+        excess = (d - F32_TOL * b.abs().clamp(min=1)).max().item()
+        log(f"{label}{f' {name}' if z else ''}: max|d| {err:.3e}, worst margin {excess:.3e} "
+            f"(tol |d| <= {F32_TOL}*max(|ref|,1))")
+        if not (_finite(a) and excess <= 0):
+            raise RuntimeError(f"{label} {name} disagrees with its plain version")
+        worst = max(worst, err)
+    del want
+    _same_bits(label, got, fm.linear_gelu_z_cuda(x, w, bias) if z
+               else (fm.linear_gelu_cuda(x, w, bias),))
+    return worst
+
+
+def _check_h7(torch, label, q, k, v, do, scale, mask=None, out=None):
+    """H7 (the head-major merged backward) on q, k, v and do, its lse and
+    delta from H4, against its plain version on the card: each gradient
+    within H2_REL * max|ref| and, with a key mask, the masked keys' dk and
+    dv exactly 0 (``_check_grads``); written into ``out`` (dq, dk, dv) when
+    given; then a second call on the same inputs, which must be bit-equal.
+    Returns (lse, delta, max|d|)."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale, mask)
+    delta = fa.hm_delta(do, o)
+    got = fa.flash_bwd_dqkv_hm_cuda(q, k, v, do, lse, delta, scale, mask, out=out)
+    want = fa.flash_bwd_dqkv_hm_ref(q, k, v, do, lse, delta, scale, mask)
+    torch.cuda.synchronize()
+    got = tuple(t.clone() for t in got)
+    _same_bits(label, got, fa.flash_bwd_dqkv_hm_cuda(q, k, v, do, lse, delta, scale, mask,
+                                                      out=out))
+    return lse, delta, _check_grads(label, got, want, ("dq", "dk", "dv"), mask)
+
+
+def _hm_args(fa, q, k, v, scale, mask=None, **ops):
+    """The HmArgs of one head-major C entry call (``ops``: o, do, lse, delta,
+    dq, dk, dv, ws), for timing the entry without its Python wrapper."""
+    b, h, nq, _ = q.shape
+    hm = fa._HmArgs(B=b, H=h, Nq=nq, Nk=k.shape[2], qscale=scale * fa._LOG2E, scale=scale)
+    m8 = None if mask is None else mask.byte().contiguous()
+    for name, t in dict(q=q, k=k, v=v, kvm=m8, **ops).items():
+        if t is not None:
+            setattr(hm, name, t.data_ptr())
+            if t.dim() == 4:
+                setattr(hm, f"{name}_s", (ctypes.c_int * 3)(*t.stride()[:3]))
+    hm._keep = m8  # the mask's uint8 copy lives as long as the struct
+    return hm
+
+
+def hm_entry(torch, kind, c, hm):
+    """A zero-argument call of the head-major C entry ``kind`` (fwd, dq, dkv,
+    dqkv) at head dim c on ``hm`` (``_hm_args``), on the current stream."""
+    from jepa_tpu_torch.ops import _build
+
+    entry = f"jt_flash_hm_{kind}_c{c}"
+    fn = getattr(_build.load_library(), entry)
+    return lambda: _build.check(fn(ctypes.addressof(hm), torch.cuda.current_stream().cuda_stream),
+                                entry)
+
+
 def phase_edges(torch):
     """The Hopper kernels at the edges of their tiles (H1: 128 query rows
     and 128 keys a tile; H2: 128 rows a block, 64-key stages in dq, 64- or
@@ -544,7 +616,14 @@ def phase_edges(torch):
     planes of a packed dqkv (masked keys' dk and dv exactly 0); H1-fp32
     (128 query rows a block, 32-key tiles) at N = 40, 129 and 333 at c = 64
     and 80; H3 and H8 at M = 8, 200 and 2305; H8 at an identity probe that
-    feeds its epilogue every bf16 z."""
+    feeds its epilogue every bf16 z; H7 (H6's blocks, each consumer
+    warpgroup's 64 kv rows a dQ k-block) at N = 40 and 129 at c = 64 and 32
+    on permuted views, at 1 and 376 queries over 640 keys, and masked with
+    keys [128, 384) all pads on the planes of a packed qkv, writing the
+    planes of a packed dqkv in place (masked keys' dk and dv exactly 0);
+    H3-fp32 and H8-fp32 (128 x 128 output tiles, 16-deep k panels) at M =
+    8, 200, 333 and 2305 with ViT-L's (K=1024, F=4096) and ViT-H's (K=1280,
+    F=5120) fc1."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     rng = np.random.default_rng(SEED + 7)
     for b, n, h, c, c_real in ((2, 40, 16, 32, 24), (2, 40, 16, 64, 64), (1, 40, 16, 80, 80),
@@ -613,6 +692,30 @@ def phase_edges(torch):
     x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
     eye = torch.eye(128, device="cuda", dtype=torch.bfloat16)
     _check_h8(torch, "H8 identity probe, every bf16 z", x, eye, torch.zeros(128, device="cuda"))
+    # H7: 128 kv rows a block, 64-row q stages, 64-row dQ k-blocks
+    for b, h, nq, nk, c in ((2, 3, 40, 40, 64), (2, 3, 129, 129, 64), (2, 3, 40, 40, 32),
+                            (2, 3, 129, 129, 32), (2, 3, 1, 640, 64), (2, 3, 376, 640, 64)):
+        q, k, v, do = _hm_inputs(torch, gen, b, h, nq, nk, c)
+        how = "permuted views of [B, N, 3, H, c]" if nq == nk else "[B, H, N, c] tensors"
+        _check_h7(torch, f"H7 edge B={b} H={h} Nq={nq} Nk={nk} c={c}, {how}", q, k, v, do,
+                  c**-0.5)
+    for c in (64, 32):
+        qkv = torch.randn((3, 4, 3, 640, c), generator=gen, device="cuda").to(torch.bfloat16)
+        do = torch.randn((4, 3, 640, c), generator=gen, device="cuda").to(torch.bfloat16)
+        mask = padded_key_mask(torch, rng, 4, 640, 0)
+        mask[:, 128:384] = False
+        dqkv = torch.zeros_like(qkv)
+        _check_h7(torch, f"masked H7 edge B=4 H=3 N=640 c={c}, planes of a packed [3, B, H, N, "
+                  "c] in and out, keys [128, 384) all pads", *qkv.unbind(0), do, c**-0.5, mask,
+                  out=dqkv.unbind(0))
+    # H3-fp32 and H8-fp32: 128 x 128 output tiles, 16-deep k panels
+    for k, f in ((1024, 4096), (1280, 5120)):
+        w = torch.randn((f, k), generator=gen, device="cuda") / 32
+        bias = torch.randn((f,), generator=gen, device="cuda") * 0.1
+        for m in (8, 200, 333, 2305):
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            _check_f32_fc1(torch, f"H3-fp32 edge M={m} K={k} F={f}", x, w, bias)
+            _check_f32_fc1(torch, f"H8-fp32 edge M={m} K={k} F={f}", x, w, bias, z=True)
 
 
 def _linear_gelu_grads(torch, fm, x, w, bias, dy):
@@ -681,19 +784,8 @@ def phase_k11(torch, ms):
     xf = torch.randn((m, k), generator=gen, device="cuda")
     wf = torch.randn((f, k), generator=gen, device="cuda") / 32
     dyf = torch.randn((m, f), generator=gen, device="cuda")
-    o, z = fm.linear_gelu_z_cuda(xf, wf, bias)
-    o_ref, z_ref = fm.linear_gelu_z_ref(xf, wf, bias)
-    torch.cuda.synchronize()
-    for name, a, b in (("o", o, o_ref), ("z", z, z_ref)):
-        d = (a - b).abs()
-        excess = (d - F32_TOL * b.abs().clamp(min=1)).max().item()
-        err = d.max().item()
-        log(f"H8-fp32 {name} M={m} K={k} F={f}: max|d| {err:.3e}, worst margin {excess:.3e} "
-            f"(tol |d| <= {F32_TOL}*max(|ref|,1))")
-        if not (_finite(a) and excess <= 0):
-            raise RuntimeError(f"H8-fp32 {name} disagrees with its plain version")
-        rep["z_f32"]["max_abs_err"] = max(rep["z_f32"]["max_abs_err"], err)
-    _same_bits(f"H8-fp32 M={m}", (o, z), fm.linear_gelu_z_cuda(xf, wf, bias))
+    rep["z_f32"]["max_abs_err"] = _check_f32_fc1(torch, f"H8-fp32 M={m} K={k} F={f}", xf, wf,
+                                                 bias, z=True)
     flops = 2.0 * m * k * f
     rep["z_f32"].update(
         ms=time_ms(torch, lambda: fm.linear_gelu_z_cuda(xf, wf, bias)),
@@ -704,7 +796,6 @@ def phase_k11(torch, ms):
     log(f"H8-fp32 M={m} time: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
         f"(_addmm_activation fp32, no z) {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
         f"({r['bound'][2]}); {flops / r['ms'] / 1e9:.1f} TFLOP/s")
-    del o, z, o_ref, z_ref
     _reset_counts(fa, fm)
     got = _linear_gelu_grads(torch, fm, xf, wf, bias, dyf)
     torch.cuda.synchronize()
@@ -1087,21 +1178,22 @@ def phase_hm_kernels(torch, setup, caps):
             raise RuntimeError(f"H7 {label}: N={n} does not take the merged backward")
         q, k, v, do = _hm_inputs(torch, gen, TRAIN_BATCH, h, n, n, c)
         mask = padded_key_mask(torch, rng, TRAIN_BATCH, n, 0) if masked else None
-        o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale, mask)
-        delta = fa.hm_delta(do, o)
-        got = fa.flash_bwd_dqkv_hm_cuda(q, k, v, do, lse, delta, scale, mask)
-        want = fa.flash_bwd_dqkv_hm_ref(q, k, v, do, lse, delta, scale, mask)
-        torch.cuda.synchronize()
-        _same_bits(f"H7 {label}", got, fa.flash_bwd_dqkv_hm_cuda(q, k, v, do, lse, delta,
-                                                                 scale, mask))
+        lse, delta, err = _check_h7(torch, f"H7 {label} B={TRAIN_BATCH} N={n}", q, k, v, do,
+                                    scale, mask)
         r = rep["dqkv_masked" if masked else "dqkv"]
-        r["max_abs_err"] = max(r["max_abs_err"], _check_grads(
-            f"H7 {label} B={TRAIN_BATCH} N={n}", got, want, ("dq", "dk", "dv"), mask))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
         if "ms" not in r:
             b = TRAIN_BATCH
             in_b, out_b, vec_b = io_bytes(b, n, n, 3)
             pairs = int(mask.sum().item()) * n if masked else b * n * n
-            r.update(ms=time_ms(torch, lambda: fa.flash_bwd_dqkv_hm_cuda(
+            outs = dict(dq=fa._alloc_like(q), dk=fa._alloc_like(k), dv=fa._alloc_like(v),
+                        ws=torch.empty((-(-n // 64), *q.shape), device="cuda"))
+            hm = _hm_args(fa, q, k, v, scale, mask, do=do, lse=lse, delta=delta, **outs)
+            # the C entry's time (queued behind a spin kernel: the kernels
+            # alone), beside the Python wrapper's, whose host time can exceed it
+            call = hm_entry(torch, "dqkv", c, hm)
+            r.update(ms=queued_ms(torch, call), kernels_ms=kernel_split_ms(torch, call),
+                     wrapper_ms=time_ms(torch, lambda: fa.flash_bwd_dqkv_hm_cuda(
                          q, k, v, do, lse, delta, scale, mask)),
                      plain_ms=time_ms(torch, lambda: fa.flash_bwd_dqkv_hm_ref(
                          q, k, v, do, lse, delta, scale, mask)),
@@ -1109,10 +1201,13 @@ def phase_hm_kernels(torch, setup, caps):
                      bound=attn_bound_ms(b, n, h, c, 5, in_b + b * n * c * h * 2 + 2 * vec_b
                                          + (b * n if masked else 0), out_b, pairs),
                      shape=(b, h, n, n, c))
-            log(f"H7 {label} time: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                f"library (SDPA backward) {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} "
-                f"ms ({r['bound'][2]})")
-        del q, k, v, do, o, lse, delta, got, want
+            log(f"H7 {label} time: C entry {r['ms']:.4f} ms (queued; by kernel, profiled: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in r["kernels_ms"].items())
+                + f"), wrapper {r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                f"(SDPA backward) {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+                f"({r['bound'][2]})")
+            del outs, hm, call
+        del q, k, v, do, lse, delta
 
     # H5 + H6: the split backward at (24, 3, 1568, 64)
     n, b = n_full, TRAIN_BATCH
@@ -1694,6 +1789,27 @@ def profile_device(torch, fn, label):
     for name, ms, n in sorted(ops, key=lambda r: -r[1])[:10]:
         log(f"  {ms:9.3f} ms  x{n:<5d} {name}")
     return {"device_ms": total, "groups": groups}
+
+
+def kernel_split_ms(torch, fn, n=10):
+    """{kernel name: device ms per call of fn} over n calls under
+    torch.profiler (the kernels one entry launches, each timed alone)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+
+    def name(key):  # the kernel's name and template arguments
+        m = re.search(r"([A-Za-z_]\w*(?:<[^>]*>)?)\(", key)
+        return m[1] if m else key
+
+    return {name(e.key): e.self_device_time_total / 1e3 / n
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 def _csv_times(path):
@@ -2350,6 +2466,17 @@ AB_H6_ROWS = (
     ("H6 B=24 N=1568 H=6 c=32", 24, 6, 1568, 1568, 32, False),
     ("H6 B=24 H=3 Nq=376 Nk=1568 c=64 (cross lengths)", 24, 3, 376, 1568, 64, False),
 )
+# (label, entry kind, B, H, N, c, masked) of the A/B mode's H7 (merged, "dqkv")
+# rows, vit_tiny's fixed context and padded rungs, and its H5 (split dq)
+# row; self-attention on permuted views of the projection
+AB_HM_BWD_ROWS = (
+    ("H7 B=24 N=376 H=3 c=64 (vit_tiny fixed context)", "dqkv", 24, 3, 376, 64, False),
+    ("H7 masked B=24 N=640 H=3 c=64 (vit_tiny top context rung)", "dqkv", 24, 3, 640, 64, True),
+    ("H7 masked B=24 N=128 H=3 c=64 (vit_tiny bottom context rung)", "dqkv", 24, 3, 128, 64,
+     True),
+    ("H7 B=24 N=376 H=6 c=32", "dqkv", 24, 6, 376, 32, False),
+    ("H5 B=24 N=1568 H=3 c=64 (vit_tiny split backward)", "dq", 24, 3, 1568, 64, False),
+)
 # (label, B, N, H, c, c_real, mid) of the A/B mode's H2 rows, as AB_H1_ROWS
 AB_H2_ROWS = (
     ("H2 c=24->32 B=24 N=1109 H=16 (ViT-L predictor)", 24, 1109, 16, 32, 24, None),
@@ -2399,10 +2526,11 @@ def _host_us(torch, fn, n=48) -> float:
 
 
 def phase_kernel_ab(torch, others):
-    """The bf16 H1, H3, H8, H4 and H2, and H6 and H1-fp32, of this checkout
-    against each other checkout's (``python3 chip_smoke.py --kernel-ab --other DIR...``, not
-    part of the smoke run), at the shapes of PERF.md's kernel tables, both
-    called through the C entry points (shared names and signatures). Per
+    """The bf16 H1, H3, H8, H4 and H2, H6, H7 and H5, and H1-fp32, H3-fp32
+    and H8-fp32, of this checkout against each other checkout's (``python3
+    chip_smoke.py --kernel-ab --other DIR...``, not part of the smoke run),
+    at the shapes of PERF.md's kernel tables, both called through the C
+    entry points (shared names and signatures). Per
     row: device times in turns (other, this, this, other), each with
     ``queued_ms``; the bound (``attn_bound_ms`` / ``fc1_bound_ms``) and its
     share; the library call; max|this - other|; the host time of one call
@@ -2410,8 +2538,10 @@ def phase_kernel_ab(torch, others):
     every row (a bias in the denominators shows there; rounding alone
     averages out). H2's rows time the dk/dv and dq kernels each (both
     write one dqkv; each row compares its own columns), then their sum
-    against SDPA's whole backward and the 5-product bound. Prints a line
-    per row and a JSON line of every row."""
+    against SDPA's whole backward and the 5-product bound. H7's and H5's
+    bounds count the bytes of their inputs and gradients, not H7's dq
+    slabs; the fp32 fc1 rows' library is cuBLASLt's fp32 GEMM with its GELU
+    epilogue. Prints a line per row and a JSON line of every row."""
     import torch.nn.functional as F
 
     from jepa_tpu_torch.ops import _build
@@ -2497,20 +2627,14 @@ def phase_kernel_ab(torch, others):
     for label, b, h, nq, nk, c, masked in AB_HM_ROWS:
         q, k, v, do = _hm_inputs(torch, gen, b, h, nq, nk, c)
         mask = padded_key_mask(torch, rng, b, nk, 0) if masked else None
-        m8 = None if mask is None else mask.to(torch.uint8).contiguous()
         o, lse = fa._alloc_like(q), torch.empty((b, h, nq), dtype=torch.float32, device="cuda")
         scale = c**-0.5
-        hm = fa._HmArgs(B=b, H=h, Nq=nq, Nk=nk, qscale=scale * fa._LOG2E, scale=scale)
-        for name, t in dict(q=q, k=k, v=v, o=o, lse=lse, kvm=m8).items():
-            if t is not None:
-                setattr(hm, name, t.data_ptr())
-                if t.dim() == 4:
-                    setattr(hm, f"{name}_s", (ctypes.c_int * 3)(*t.stride()[:3]))
+        hm = _hm_args(fa, q, k, v, scale, mask, o=o, lse=lse)
         args = lambda hm=hm: (ctypes.addressof(hm), stream())  # noqa: E731
         pairs = b * nq * nk if mask is None else int(mask.sum().item()) * nq
         row = dict(row=label, library_ms=_sdpa_hm_ms(torch, q, k, v, do, scale, mask)[0],
                    bound=attn_bound_ms(b, nq, h, c, 2, b * h * c * 2 * (nq + 2 * nk)
-                                       + (0 if m8 is None else b * nk),
+                                       + (0 if mask is None else b * nk),
                                        o.numel() * 2 + lse.numel() * 4, pairs))
         ab(row, f"jt_flash_hm_fwd_c{c}", args, (o, lse))
         del q, k, v, do, o, lse
@@ -2557,26 +2681,60 @@ def phase_kernel_ab(torch, others):
     for label, b, h, nq, nk, c, masked in AB_H6_ROWS:
         q, k, v, do = _hm_inputs(torch, gen, b, h, nq, nk, c)
         mask = padded_key_mask(torch, rng, b, nk, 0) if masked else None
-        m8 = None if mask is None else mask.to(torch.uint8).contiguous()
         scale = c**-0.5
         o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale, mask)
         delta = fa.hm_delta(do, o)
         dk, dv = fa._alloc_like(k), fa._alloc_like(v)
-        hm = fa._HmArgs(B=b, H=h, Nq=nq, Nk=nk, qscale=scale * fa._LOG2E, scale=scale)
-        for name, t in dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta, dk=dk, dv=dv,
-                            kvm=m8).items():
-            if t is not None:
-                setattr(hm, name, t.data_ptr())
-                if t.dim() == 4:
-                    setattr(hm, f"{name}_s", (ctypes.c_int * 3)(*t.stride()[:3]))
+        hm = _hm_args(fa, q, k, v, scale, mask, do=do, lse=lse, delta=delta, dk=dk, dv=dv)
         args = lambda hm=hm: (ctypes.addressof(hm), stream())  # noqa: E731
         pairs = b * nq * nk if mask is None else int(mask.sum().item()) * nq
         row = dict(row=label, library_ms=_sdpa_hm_ms(torch, q, k, v, do, scale, mask)[1],
                    bound=attn_bound_ms(b, nq, h, c, 4, b * h * c * 2 * (2 * nq + 2 * nk)
-                                       + 2 * lse.numel() * 4 + (0 if m8 is None else b * nk),
+                                       + 2 * lse.numel() * 4 + (0 if mask is None else b * nk),
                                        b * h * c * 2 * 2 * nk, pairs))
         ab(row, f"jt_flash_hm_dkv_c{c}", args, (dk, dv))
         del q, k, v, do, o, lse, delta, dk, dv
+    # H7 (merged) and H5 (split dq): the bound counts the bytes the
+    # function needs (q, k, v, do, lse, delta in; its gradients out), not
+    # H7's dq slabs
+    for label, kind, b, h, n, c, masked in AB_HM_BWD_ROWS:
+        q, k, v, do = _hm_inputs(torch, gen, b, h, n, n, c)
+        mask = padded_key_mask(torch, rng, b, n, 0) if masked else None
+        scale = c**-0.5
+        o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale, mask)
+        delta = fa.hm_delta(do, o)
+        grads = dict(dq=fa._alloc_like(q))
+        work = {}
+        if kind == "dqkv":  # and the dq slabs
+            grads.update(dk=fa._alloc_like(k), dv=fa._alloc_like(v))
+            work = dict(ws=torch.empty((-(-n // 64), *q.shape), device="cuda"))
+        hm = _hm_args(fa, q, k, v, scale, mask, do=do, lse=lse, delta=delta, **grads, **work)
+        args = lambda hm=hm: (ctypes.addressof(hm), stream())  # noqa: E731
+        pairs = b * n * n if mask is None else int(mask.sum().item()) * n
+        row = dict(row=label, library_ms=_sdpa_hm_ms(torch, q, k, v, do, scale, mask)[1],
+                   bound=attn_bound_ms(b, n, h, c, 5 if kind == "dqkv" else 3,
+                                       b * h * c * 2 * 4 * n + 2 * lse.numel() * 4
+                                       + (0 if mask is None else b * n),
+                                       b * h * c * 2 * n * len(grads), pairs))
+        ab(row, f"jt_flash_hm_{kind}_c{c}", args, tuple(grads.values()))
+        del q, k, v, do, o, lse, delta, grads, work, hm
+    # H3-fp32 at the fp32 evals' fc1 shapes, then H8-fp32 (o and z) at the
+    # force update's long context
+    for m, k, f, outputs in F32_H3_SHAPES_AB:
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        w = torch.randn((f, k), generator=gen, device="cuda") / 32
+        bias = torch.randn((f,), generator=gen, device="cuda") * 0.1
+        outs = [torch.empty((m, f), device="cuda") for _ in range(outputs)]
+        entry = "jt_linear_gelu_z_f32" if outputs == 2 else "jt_linear_gelu_f32"
+        args = lambda: (x.data_ptr(), w.data_ptr(), bias.data_ptr(),  # noqa: E731
+                        *(t.data_ptr() for t in outs), m, k, f, stream())
+        row = dict(row=f"{'H8' if outputs == 2 else 'H3'}-fp32 M={m} K={k} F={f}",
+                   bound=f32_bound_ms(2.0 * m * k * f, 0, 4 * (m * k + f * k + f
+                                                               + outputs * m * f)),
+                   library_ms=time_ms(torch, lambda: torch._addmm_activation(
+                       bias, x, w.t(), use_gelu=True)))
+        ab(row, entry, args, outs)
+        del x, w, bias, outs
     for b, n, h, c in F32_H1_SHAPES:
         qkv = torch.randn((b, n, 3 * h * c), generator=gen, device="cuda")
         o = torch.empty((b, n, h * c), device="cuda")

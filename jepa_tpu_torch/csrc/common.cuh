@@ -1,14 +1,14 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// mma.sync (H5, H7): the bf16 tensor-core product mma.sync m16n8k16 with
+// mma.sync (H5): the bf16 tensor-core product mma.sync m16n8k16 with
 // fp32 accumulators, bf16 packing, 32-bit shared-memory fragment reads,
-// the tile loads and warp-level products of the head-major backward
-// kernels (4 warps a block, 16 rows a warp).
+// the tile loads and warp-level products of the head-major dq kernel (4
+// warps a block, 16 rows a warp).
 //
 // cp.async (H1-fp32): cp_async16 with zero fill, cp_async_commit,
 // cp_async_wait_all.
 //
-// Hopper (H1, H2, H3, H4, H6, H8; section "TMA, mbarrier and wgmma" below):
+// Hopper (H1, H2, H3, H4, H6, H7, H8; section "TMA, mbarrier and wgmma" below):
 //   * mbarriers: mbar_init, mbar_expect_tx (arrive + expected bytes),
 //     mbar_arrive, mbar_wait (try_wait.parity spin), fence_barrier_init;
 //   * TMA: tma_load_2d / 3d / 4d into shared memory, completing on an
@@ -20,7 +20,8 @@
 //     a TMA store reads;
 //   * wgmma: the shared-memory matrix descriptor (make_desc, with its
 //     swizzle mode), wgmma_fence / wgmma_commit / wgmma_wait<N>, the
-//     products wgmma_ss (A and B from shared memory, n32/n64/n128) and
+//     products wgmma_ss (A and B from shared memory, either K-major or
+//     MN-major through the transpose bits; n32/n64/n128) and
 //     wgmma_rs (A from registers, n8/n32/n64/n80/n128), bf16 in, fp32 out,
 //     and fence_regs / keep_regs, which hold accumulators and register
 //     operands in place across an asynchronous product;
@@ -153,27 +154,6 @@ __device__ __forceinline__ void mm_abt(float (&acc)[NB / 8][4],
 #pragma unroll
     for (int ks = 0; ks < C / 16; ++ks)
       mma_16816(acc[nt], a[ks], ld32(row + ks * 16), ld32(row + ks * 16 + 8));
-  }
-}
-
-// the same with A's 16 rows (from `row`) read from a row-major
-// [.][C+kPad] tile in shared memory, one 16-column step at a time
-template <int C, int NB>
-__device__ __forceinline__ void mm_abt_s(float (&acc)[NB / 8][4], const bf16* A,
-                                         int row, const bf16* T, int g, int t) {
-  constexpr int LD = C + kPad;
-#pragma unroll
-  for (int nt = 0; nt < NB / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < C / 16; ++ks) {
-    const int c0 = ks * 16 + 2 * t;
-    const uint32_t a[4] = {ld32(&A[row * LD + c0]), ld32(&A[(row + 8) * LD + c0]),
-                           ld32(&A[row * LD + c0 + 8]), ld32(&A[(row + 8) * LD + c0 + 8])};
-#pragma unroll
-    for (int nt = 0; nt < NB / 8; ++nt) {
-      const bf16* r = &T[(nt * 8 + g) * LD + c0];
-      mma_16816(acc[nt], a, ld32(r), ld32(r + 8));
-    }
   }
 }
 

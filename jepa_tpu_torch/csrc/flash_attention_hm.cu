@@ -3,8 +3,8 @@
 // Replaces the head-major TPU kernels of jepa_tpu/ops/flash_attention.py:
 //   H4 flash_hm_fwd_kernel                 <- _fwd_kernel   (K6, :122)
 //   H5 flash_hm_dq_kernel                  <- _dq_kernel    (K7, :225)
-//   H6 flash_hm_dkv_kernel                 <- _dkv_kernel   (K8, :254)
-//   H7 flash_hm_dqkv_kernel and
+//   H6 flash_hm_bwd_kernel                 <- _dkv_kernel   (K8, :254)
+//   H7 flash_hm_bwd_kernel (kDQ) and
 //      flash_hm_dq_finish_kernel           <- _dqkv_kernel  (K9, :318)
 // They serve flash_attention_bhnd / flash_attention_packed /
 // flash_attention (ops/flash_attention.py), which the port reaches from
@@ -89,24 +89,40 @@
 // the mma.sync kernel's order, with the same exp2f and roundings: the same
 // bits (chip_smoke.py --kernel-ab).
 //
-// H5 and H7, the simple first kernels: a block of 4 warps owns 64 rows (q
-// rows in H5, kv rows in H7), each warp 16 of them with fp32 accumulators
-// in registers, and loops over the other side in 64-row tiles staged in
-// shared memory; mma.sync m16n8k16 bf16 with fp32 accumulation; score and
-// gradient tiles stay in registers, their C-fragments re-packed as the
-// next product's A-fragments.
+// H7, the merged backward (K9), is H6's kernel (flash_hm_bwd_kernel, kDQ)
+// plus dQ. Each consumer warpgroup's 64 kv rows are one k-block: after
+// the stage's ds it writes its bf16 dS^T fragment (64 kv rows x the
+// stage's 64 q) into one of its two shared tiles in the 128-byte swizzle,
+// as stored (q contiguous), and dQ_part (64 q x C, fp32) = dS K runs by
+// wgmma m64nCk16 from shared memory beside dV and dK, dS^T and K read
+// MN-major through A's and B's transpose bits. Several k-blocks write
+// every dq row, and Hopper's blocks run in no order (K9 sums them in VMEM
+// scratch because the TPU grid runs in order; fp32 atomics made vit_tiny's
+// trajectory differ between processes), so each k-block stores its partial
+// in its own slab of a workspace [ceil(Nk/64), B, H, Nq, C], and a second
+// kernel sums the slabs in k-block order, scales and casts into dq:
+// dq = bf16(scale * (((P0 + P1) + P2) + ...)), each P_j one k16 chain over
+// its 64 kv rows, as the mma.sync kernel it replaced summed them (the same
+// bits). The slabs cost about half of H7's time at vit_tiny's shapes (their
+// stores and the second pass). Two ways around them gave the same bits but
+// measured slower on an H100: an in-kernel fix-up (the k-block whose
+// arrival completes a (batch, head, q stage) count sums that stage's
+// slabs while they are in L2; its gpu-scope acquire-release atomic stalled
+// a consumer warpgroup every stage), and a thread block cluster of each
+// (batch, head)'s blocks summing every stage's partials from each other's
+// shared memory, synchronised per stage by remote mbarrier arrivals or by
+// the cluster barrier (the producer warpgroup two stages behind): every
+// block of a cluster then waits for the slowest each stage, and a block
+// holds a whole SM (its registers), so fewer blocks ran at once.
+// Masked kv rows and rows past Nk score -1e30, so their ds is 0 and, their
+// K rows zero-filled by TMA, both operands of the edge rows are zero, as K9
+// zeroes them (:355-364).
 //
-// H7, the merged backward: per k-block dK and dV (S^T = K Qs^T, dP^T =
-// V dO^T, dV += P^T dO, dK += dS^T Qs) plus dQ's partial over the block's
-// 64 keys, dS (written to shared memory, transposed) times K. Several
-// k-blocks write every dq row, and Hopper's blocks run in no order (K9
-// sums them in VMEM scratch because the TPU grid runs in order), so each
-// k-block stores its fp32 partial in its own slab of a workspace
-// [ceil(Nk/64), B, H, Nq, C], and a second kernel sums the slabs in
-// k-block order, scales and casts into dq: deterministic, at the cost of
-// ceil(Nk/64) times dq's size in fp32 scratch. K rows past Nk are zero in
-// the tile and their ds is 0, so both operands of the edge rows are zero,
-// as K9 zeroes them (:355-364).
+// H5, the simple first kernel: a block of 4 warps owns 64 q rows, each warp
+// 16 of them with fp32 accumulators in registers, and loops over the kv
+// rows in 64-row tiles staged in shared memory; mma.sync m16n8k16 bf16
+// with fp32 accumulation; score and gradient tiles stay in registers,
+// their C-fragments re-packed as the next product's A-fragments.
 #include "common.cuh"
 
 // the launch arguments, field for field ops/flash_attention.py::_HmArgs
@@ -128,9 +144,8 @@ namespace {
 using jt::bf16;
 using jt::kPad;
 
-constexpr int BR = 64;  // rows a block owns, 16 per warp
-constexpr int NB = 64;  // rows of the other side per inner step
-static_assert(NB == 4 * 16, "H7's dQ step gives each warp 16 of the tile's q rows");
+constexpr int BR = 64;  // H5: q rows a block owns, 16 per warp
+constexpr int NB = 64;  // H5: kv rows per inner step
 constexpr float INV_LOG2E = 0.6931471805599453f;
 
 // the [N, C] rows of head h of batch b of a strided operand
@@ -143,10 +158,6 @@ __device__ __forceinline__ bf16* rows(void* p, const int* s, int b, int h) {
 
 template <int C>
 constexpr int dq_smem() { return 2 * BR * (C + kPad) * 2 + NB; }
-template <int C>
-constexpr int dqkv_smem() {
-  return (2 * NB + 2 * BR) * (C + kPad) * 2 + NB * (BR + kPad) * 2 + 2 * NB * 4;
-}
 
 // H4 geometry: the TMA box is the whole head row (C columns, one swizzle
 // row of RB bytes), 128 rows a box
@@ -161,6 +172,11 @@ constexpr int FWD_STAGES = 3;
 constexpr int DKV_BR = 128;
 constexpr int DKV_STEP = 64;
 constexpr int DKV_STAGES = 3;
+// H7's dS^T tiles: 64 kv rows of the stage's 64 q columns, bf16, one
+// 128-byte swizzle row each
+constexpr int DS_RB = DKV_STEP * 2;
+constexpr int DS_TILE = 64 * DS_RB;
+static_assert(DS_RB == 128, "H7's dS^T tile rows are one 128-byte swizzle row");
 
 template <int C>
 struct FwdGeo {
@@ -172,6 +188,8 @@ struct FwdGeo {
   // H6: K and V tiles, the Q/dO ring with its lse and delta rows, barriers
   static constexpr int DKV_SMEM = 2 * DKV_BR * RB + DKV_STAGES * 2 * DKV_STEP * (RB + 4) +
                                   8 * (1 + 3 * DKV_STAGES) + 1024;
+  // H7: H6's and each consumer warpgroup's two dS^T tiles
+  static constexpr int DQKV_SMEM = DKV_SMEM + 4 * DS_TILE;
   // wgmma operands: a K-major tile (its rows, the head dim contracted from
   // column 16*kk), an MN-major tile of `rows` rows (rows contracted from
   // row 16*kk, the head dim across)
@@ -487,14 +505,18 @@ __global__ void __launch_bounds__(jt::kThreads) flash_hm_dq_kernel(const HmArgs 
   jt::store_rows<C>(rows(a.dq, a.dq_s, b, h), a.dq_s[2], r0, Nq, dq, a.scale, t);
 }
 
-// H6: dk, dv of 128 kv rows of one (batch, head); streams every q stage
-template <int C, bool MASKED>
+// H6 (kDQ = false): dk, dv of 128 kv rows of one (batch, head), streaming
+// every q stage. H7 (kDQ = true): the same, and each consumer warpgroup's
+// dQ partial over its 64 kv rows (k-block blockIdx.x * 2 + wg), stored in
+// that k-block's slab of the fp32 workspace ws [ceil(Nk/64), B, H, Nq, C].
+template <int C, bool MASKED, bool kDQ>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
-flash_hm_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+flash_hm_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                     const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
                     const uint8_t* __restrict__ kvm, const float* __restrict__ lse,
-                    const float* __restrict__ delta, int Nq, int Nk, int H, float qscale) {
+                    const float* __restrict__ delta, float* __restrict__ ws, int Nq, int Nk, int H,
+                    int B, float qscale) {
   using G = FwdGeo<C>;
   constexpr int STEP = DKV_STEP, STAGES = DKV_STAGES;
   constexpr int TK = DKV_BR * G::RB, TQ = STEP * G::RB;
@@ -502,7 +524,9 @@ flash_hm_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   unsigned char* sK = smem;
   unsigned char* sV = sK + TK;
   unsigned char* sQD = sV + TK;  // stage s: Qs at 2s tiles, dO at 2s + 1
-  float* sLD = reinterpret_cast<float*>(sQD + 2 * STAGES * TQ);  // stage s: lse, delta rows
+  // H7: each consumer warpgroup's two dS^T tiles [64 kv][64 q] (128-byte rows)
+  unsigned char* sDS = sQD + 2 * STAGES * TQ;
+  float* sLD = reinterpret_cast<float*>(sDS + (kDQ ? 4 * DS_TILE : 0));  // stage s: lse, delta
   uint64_t* kvbar = reinterpret_cast<uint64_t*>(sLD + 2 * STAGES * STEP);
   uint64_t* loaded = kvbar + 1;
   uint64_t* full = loaded + STAGES;
@@ -566,14 +590,21 @@ flash_hm_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
     unsigned char* myk = sK + wg * 64 * G::RB;
     unsigned char* myv = sV + wg * 64 * G::RB;
-    // this thread's kv rows: masked (or past Nk) ones get s = -1e30
-    [[maybe_unused]] bool valid0 = true, valid1 = true;
+    const int kr = k0 + wg * 64 + warp * 16 + g;  // this thread's kv rows kr, kr + 8
+    // masked kv rows get s = -1e30, so p = ds = 0 on them; H7 also so
+    // treats rows past Nk (zero K rows, whose dS enters dQ), as K9 does
+    [[maybe_unused]] bool valid0 = !kDQ || kr < Nk, valid1 = !kDQ || kr + 8 < Nk;
     if constexpr (MASKED) {
-      const int kr = k0 + wg * 64 + warp * 16 + g;
       const uint8_t* mrow = kvm + (size_t)b * Nk;
       valid0 = kr < Nk && mrow[kr];
       valid1 = kr + 8 < Nk && mrow[kr + 8];
     }
+    // H7: this warpgroup's k-block, and its slab of ws; a warpgroup whose
+    // rows all lie past Nk has no slab (the second pass sums
+    // ceil(Nk/64) of them)
+    const int kb = blockIdx.x * 2 + wg;
+    const bool dq_part = kDQ && kb * 64 < Nk;
+    float* slab = dq_part ? ws + (((size_t)kb * B + b) * H + h) * Nq * C : nullptr;
     jt::mbar_wait(kvbar, 0);
 
     float dk[C / 2], dv[C / 2];
@@ -610,7 +641,7 @@ flash_hm_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
           const int col = 8 * j + 2 * t + e;
           const bool ok = q0 + col < Nq;
           const float L = sl[col], D = sl[STEP + col];
-          if constexpr (MASKED) {
+          if constexpr (MASKED || kDQ) {
             if (!valid0) st[4 * j + e] = -1e30f;
             if (!valid1) st[4 * j + 2 + e] = -1e30f;
           }
@@ -624,7 +655,28 @@ flash_hm_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
         dsa[j / 2][(j & 1) * 2] = jt::pack2(__float2bfloat16(ds[0]), __float2bfloat16(ds[1]));
         dsa[j / 2][(j & 1) * 2 + 1] = jt::pack2(__float2bfloat16(ds[2]), __float2bfloat16(ds[3]));
       }
-      // dV += P^T dO and dK += dS^T Qs, dO and Qs MN-major (q rows down)
+      // H7: dS^T as stored rows (kv) of q columns into this stage's tile, in
+      // the 128-byte swizzle; the tile two stages back was read by a product
+      // every warp of the warpgroup has waited for
+      [[maybe_unused]] unsigned char* sds = sDS + (2 * wg + (it & 1)) * DS_TILE;
+      if constexpr (kDQ) {
+        if (dq_part) {
+#pragma unroll
+          for (int j = 0; j < STEP / 8; ++j)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int off = (warp * 16 + g + 8 * half) * DS_RB + (8 * j + 2 * t) * 2;
+              *reinterpret_cast<uint32_t*>(sds + (off ^ (((off >> 7) & 7) << 4))) =
+                  dsa[j / 2][(j & 1) * 2 + half];
+            }
+          jt::fence_proxy_async();
+          jt::bar_sync(1 + wg, FWD_WG);  // the whole tile is written before wgmma reads it
+        }
+      }
+      // dV += P^T dO and dK += dS^T Qs, dO and Qs MN-major (q rows down);
+      // H7: dQ_part = dS K over this warpgroup's 64 kv rows, dS^T and K
+      // MN-major (A's and B's transpose bits)
+      [[maybe_unused]] float dqp[C / 2];
       jt::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < STEP / 16; ++kk)
@@ -632,6 +684,15 @@ flash_hm_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
 #pragma unroll
       for (int kk = 0; kk < STEP / 16; ++kk)
         jt::wgmma_rs<1>(dk, dsa[kk], G::mndesc(sq, kk, STEP), 1);
+      if constexpr (kDQ) {
+        if (dq_part) {
+#pragma unroll
+          for (int kk = 0; kk < 64 / 16; ++kk)
+            jt::wgmma_ss<1, 1>(dqp, jt::make_desc(sds + kk * 16 * DS_RB, 64 * DS_RB, 8 * DS_RB,
+                                                  jt::kSwizzle128),
+                               G::mndesc(myk, kk, 64), kk > 0);
+        }
+      }
       jt::wgmma_commit();
       jt::wgmma_wait<0>();
       jt::fence_regs(dv);
@@ -639,6 +700,19 @@ flash_hm_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       jt::keep_regs(pa);
       jt::keep_regs(dsa);
       if (lane == 0) jt::mbar_arrive(&empty[s]);  // this warp is done with the stage
+      if constexpr (kDQ) {
+        if (dq_part) {  // the partial's q rows below Nq into the slab
+          jt::fence_regs(dqp);
+          const int r0 = q0 + warp * 16 + g;
+#pragma unroll
+          for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+            for (int half = 0; half < 2; ++half)
+              if (r0 + 8 * half < Nq)
+                *reinterpret_cast<float2*>(slab + (size_t)(r0 + 8 * half) * C + 8 * j + 2 * t) =
+                    make_float2(dqp[4 * j + 2 * half], dqp[4 * j + 2 * half + 1]);
+        }
+      }
     }
 
     // dk / log2e and dv as bf16 into this warpgroup's rows of the K and V
@@ -668,138 +742,32 @@ flash_hm_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   }
 }
 
-// H7: dk, dv of 64 kv rows of one (batch, head), looping over the q
-// tiles, and this block's partial dQ = dS K, stored in its k-block's slab
-// of the fp32 workspace a.ws.
-template <int C, bool MASKED>
-__global__ void __launch_bounds__(jt::kThreads) flash_hm_dqkv_kernel(const HmArgs a) {
-  constexpr int LD = C + kPad, LDS = BR + kPad;
-  bf16* sQ = jt::smem_bf16();
-  bf16* sdO = sQ + NB * LD;
-  bf16* sK = sdO + NB * LD;
-  bf16* sV = sK + BR * LD;
-  bf16* sdS = sV + BR * LD;  // dS [NB q rows][BR kv rows]
-  float* sL = reinterpret_cast<float*>(sdS + NB * LDS);
-  float* sD = sL + NB;
-
-  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BR;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int Nq = a.Nq, Nk = a.Nk;
-  const bf16* qb = rows(a.q, a.q_s, b, h);
-  const bf16* dob = rows(a.dO, a.do_s, b, h);
-  const float* lrow = static_cast<const float*>(a.lse) + ((size_t)b * a.H + h) * Nq;
-  const float* drow = static_cast<const float*>(a.delta) + ((size_t)b * a.H + h) * Nq;
-  const int kr = warp * 16 + g;
-
-  // K and V of this block's kv rows, read from shared memory at every step
-  // (K is also the B operand of dQ); rows past Nk are zero
-  jt::load_tile<C, BR>(sK, rows(a.k, a.k_s, b, h), a.k_s[2], k0, Nk, 1.f);
-  jt::load_tile<C, BR>(sV, rows(a.v, a.v_s, b, h), a.v_s[2], k0, Nk, 1.f);
-  // this thread's kv rows k0 + kr and k0 + kr + 8: masked or past Nk ones
-  // get s = -1e30, so p = ds = 0 on them
-  bool valid0 = k0 + kr < Nk, valid1 = k0 + kr + 8 < Nk;
-  if constexpr (MASKED) {
-    const uint8_t* mrow = static_cast<const uint8_t*>(a.kvm) + (size_t)b * Nk;
-    valid0 = valid0 && mrow[k0 + kr];
-    valid1 = valid1 && mrow[k0 + kr + 8];
-  }
-
-  float dk[C / 8][4], dv[C / 8][4];
-#pragma unroll
-  for (int i = 0; i < C / 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  for (int q0 = 0; q0 < Nq; q0 += NB) {
-    __syncthreads();  // every warp is done with the previous tiles
-    jt::load_tile<C, NB>(sQ, qb, a.q_s[2], q0, Nq, a.qscale);
-    jt::load_tile<C, NB>(sdO, dob, a.do_s[2], q0, Nq, 1.f);
-    for (int i = tid; i < NB; i += jt::kThreads) {
-      const bool ok = q0 + i < Nq;
-      sL[i] = ok ? lrow[q0 + i] : 0.f;
-      sD[i] = ok ? drow[q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    float st[NB / 8][4], dpt[NB / 8][4];
-    jt::mm_abt_s<C, NB>(st, sK, kr, sQ, g, t);    // S^T  = K Qs^T (base-2 logits)
-    jt::mm_abt_s<C, NB>(dpt, sV, kr, sdO, g, t);  // dP^T = V dO^T
-
-    uint32_t pa[NB / 16][4], dsa[NB / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < NB / 8; ++nt) {
-      float p[4];
-      bf16 ds[4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = nt * 8 + 2 * t + j;
-        const bool ok = q0 + col < Nq;
-        const float L = sL[col], D = sD[col];
-        if (!valid0) st[nt][j] = -1e30f;
-        if (!valid1) st[nt][2 + j] = -1e30f;
-        p[j] = ok ? exp2f(st[nt][j] - L) : 0.f;          // kv row g
-        p[2 + j] = ok ? exp2f(st[nt][2 + j] - L) : 0.f;  // kv row g + 8
-        ds[j] = __float2bfloat16(p[j] * (dpt[nt][j] - D));
-        ds[2 + j] = __float2bfloat16(p[2 + j] * (dpt[nt][2 + j] - D));
-        sdS[col * LDS + kr] = ds[j];  // dS, transposed: row = q, column = kv
-        sdS[col * LDS + kr + 8] = ds[2 + j];
-      }
-      const int kk = nt / 2, hi = (nt & 1) * 2;
-      pa[kk][hi] = jt::pack2(__float2bfloat16(p[0]), __float2bfloat16(p[1]));
-      pa[kk][hi + 1] = jt::pack2(__float2bfloat16(p[2]), __float2bfloat16(p[3]));
-      dsa[kk][hi] = jt::pack2(ds[0], ds[1]);
-      dsa[kk][hi + 1] = jt::pack2(ds[2], ds[3]);
-    }
-    jt::mm_ab<C, NB>(dv, pa, sdO, g, t);  // dV += P^T dO
-    jt::mm_ab<C, NB>(dk, dsa, sQ, g, t);  // dK += dS^T Qs
-
-    // dQ[q rows] += dS K over this block's kv rows
-    __syncthreads();  // every warp's dS is in sdS
-    uint32_t sa[BR / 16][4];
-    jt::load_a<BR>(sa, sdS, warp * 16 + g, t);  // this warp's 16 q rows
-    float dqp[C / 8][4];
-#pragma unroll
-    for (int i = 0; i < C / 8; ++i) dqp[i][0] = dqp[i][1] = dqp[i][2] = dqp[i][3] = 0.f;
-    jt::mm_ab<C, BR>(dqp, sa, sK, g, t);
-    const int r0 = q0 + warp * 16 + g;
-    float* ws = a.ws + (((size_t)blockIdx.x * a.B + b) * a.H + h) * Nq * C;
-#pragma unroll
-    for (int ot = 0; ot < C / 8; ++ot) {
-      const int col = ot * 8 + 2 * t;
-      if (r0 < Nq)
-        *reinterpret_cast<float2*>(ws + (size_t)r0 * C + col) =
-            make_float2(dqp[ot][0], dqp[ot][1]);
-      if (r0 + 8 < Nq)
-        *reinterpret_cast<float2*>(ws + (size_t)(r0 + 8) * C + col) =
-            make_float2(dqp[ot][2], dqp[ot][3]);
-    }
-  }
-
-  jt::store_rows<C>(rows(a.dk, a.dk_s, b, h), a.dk_s[2], k0 + kr, Nk, dk, INV_LOG2E, t);
-  jt::store_rows<C>(rows(a.dv, a.dv_s, b, h), a.dv_s[2], k0 + kr, Nk, dv, 1.f, t);
-}
-
 // H7's second pass: dq = bf16(scale * the k-block slabs summed in order),
-// one thread per pair of columns
+// one thread per 4 columns of a row; the slabs are read once (streaming
+// loads), four k-blocks' loads in flight at a time
 template <int C>
-__global__ void __launch_bounds__(jt::kThreads) flash_hm_dq_finish_kernel(const HmArgs a) {
-  const size_t pairs = (size_t)a.B * a.H * a.Nq * (C / 2), slab = 2 * pairs;
-  const int nkb = (a.Nk + BR - 1) / BR;
-  for (size_t i = blockIdx.x * (size_t)jt::kThreads + threadIdx.x; i < pairs;
-       i += (size_t)gridDim.x * jt::kThreads) {
-    const int c2 = (int)(i % (C / 2));
-    const size_t row = i / (C / 2);  // (b * H + h) * Nq + n
-    const int n = (int)(row % a.Nq), bh = (int)(row / a.Nq);
-    float2 v = make_float2(0.f, 0.f);
-    for (int kb = 0; kb < nkb; ++kb) {
-      const float2 p = *reinterpret_cast<const float2*>(a.ws + kb * slab + row * C + 2 * c2);
-      v.x += p.x;
-      v.y += p.y;
-    }
-    bf16* out = rows(a.dq, a.dq_s, bh / a.H, bh % a.H) + (size_t)n * a.dq_s[2] + 2 * c2;
-    *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(v.x * a.scale, v.y * a.scale);
+__global__ void __launch_bounds__(256) flash_hm_dq_finish_kernel(const HmArgs a) {
+  const size_t quads = (size_t)a.B * a.H * a.Nq * (C / 4);
+  const size_t i = blockIdx.x * (size_t)256 + threadIdx.x;
+  if (i >= quads) return;
+  const int nkb = (a.Nk + 63) / 64;  // H7's k-blocks: one consumer warpgroup's 64 kv rows
+  const float4* p = reinterpret_cast<const float4*>(a.ws) + i;  // [nkb][B][H][Nq][C]
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int kb = 0; kb < nkb; ++kb) {
+    const float4 q = __ldcs(p + kb * quads);
+    v.x += q.x;
+    v.y += q.y;
+    v.z += q.z;
+    v.w += q.w;
   }
+  const size_t row = i / (C / 4);  // (b * H + h) * Nq + n
+  const int n = (int)(row % a.Nq), bh = (int)(row / a.Nq);
+  bf16* out = rows(a.dq, a.dq_s, bh / a.H, bh % a.H) + (size_t)n * a.dq_s[2] + (i % (C / 4)) * 4;
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x * a.scale, v.y * a.scale);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z * a.scale, v.w * a.scale);
+  *reinterpret_cast<uint2*>(out) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
 }
 
 dim3 grid_of(const HmArgs& a, int rows_per_block, int n) {
@@ -837,10 +805,11 @@ int launch_dq(const HmArgs* a, void* stream) {
                     grid_of(*a, BR, a->Nq), jt::kThreads, dq_smem<C>(), stream, *a);
 }
 
-// H6's maps: q and do in 64-row boxes (the q stages), k, v, dk and dv in
-// 64-row boxes (each consumer warpgroup's rows)
-template <int C>
-int launch_dkv(const HmArgs* a, void* stream) {
+// H6's and H7's maps: q and do in 64-row boxes (the q stages), k, v, dk
+// and dv in 64-row boxes (each consumer warpgroup's rows); H7 then sums
+// the k-blocks' dq slabs in order
+template <int C, bool kDQ>
+int launch_bwd(const HmArgs* a, void* stream) {
   CUtensorMap tq, tk, tv, tdo, tdk, tdv;
   int err = hm_map<C>(&tq, a->q, a->q_s, a->Nq, *a, DKV_STEP);
   if (!err) err = hm_map<C>(&tk, a->k, a->k_s, a->Nk, *a, 64);
@@ -848,23 +817,16 @@ int launch_dkv(const HmArgs* a, void* stream) {
   if (!err) err = hm_map<C>(&tdo, a->dO, a->do_s, a->Nq, *a, DKV_STEP);
   if (!err) err = hm_map<C>(&tdk, a->dk, a->dk_s, a->Nk, *a, 64);
   if (!err) err = hm_map<C>(&tdv, a->dv, a->dv_s, a->Nk, *a, 64);
-  if (err) return err;
-  return jt::launch(a->kvm ? flash_hm_dkv_kernel<C, true> : flash_hm_dkv_kernel<C, false>,
-                    grid_of(*a, DKV_BR, a->Nk), FWD_THREADS, FwdGeo<C>::DKV_SMEM, stream, tq, tk,
-                    tv, tdo, tdk, tdv, (const uint8_t*)a->kvm, (const float*)a->lse,
-                    (const float*)a->delta, a->Nq, a->Nk, a->H, a->qscale);
-}
-
-template <int C>
-int launch_dqkv(const HmArgs* a, void* stream) {
-  const int err = jt::launch(
-      a->kvm ? flash_hm_dqkv_kernel<C, true> : flash_hm_dqkv_kernel<C, false>,
-      grid_of(*a, BR, a->Nk), jt::kThreads, dqkv_smem<C>(), stream, *a);
-  if (err) return err;
-  const size_t pairs = (size_t)a->B * a->H * a->Nq * (C / 2);
-  const size_t blocks = (pairs + jt::kThreads - 1) / jt::kThreads;
-  return jt::launch(flash_hm_dq_finish_kernel<C>, dim3(blocks < 2112 ? blocks : 2112),
-                    jt::kThreads, 0, stream, *a);  // at most 16 blocks an SM, then a grid-stride loop
+  if (!err)
+    err = jt::launch(a->kvm ? flash_hm_bwd_kernel<C, true, kDQ> : flash_hm_bwd_kernel<C, false, kDQ>,
+                     grid_of(*a, DKV_BR, a->Nk), FWD_THREADS,
+                     kDQ ? FwdGeo<C>::DQKV_SMEM : FwdGeo<C>::DKV_SMEM, stream, tq, tk, tv, tdo,
+                     tdk, tdv, (const uint8_t*)a->kvm, (const float*)a->lse,
+                     (const float*)a->delta, a->ws, a->Nq, a->Nk, a->H, a->B, a->qscale);
+  if (err || !kDQ) return err;
+  const size_t quads = (size_t)a->B * a->H * a->Nq * (C / 4);
+  return jt::launch(flash_hm_dq_finish_kernel<C>, dim3((unsigned)((quads + 255) / 256)), 256, 0,
+                    stream, *a);
 }
 
 }  // namespace
@@ -877,10 +839,10 @@ int launch_dqkv(const HmArgs* a, void* stream) {
     return launch_dq<C>(a, stream);                                            \
   }                                                                            \
   extern "C" int jt_flash_hm_dkv_c##C(const HmArgs* a, void* stream) {         \
-    return launch_dkv<C>(a, stream);                                           \
+    return launch_bwd<C, false>(a, stream);                                    \
   }                                                                            \
   extern "C" int jt_flash_hm_dqkv_c##C(const HmArgs* a, void* stream) {        \
-    return launch_dqkv<C>(a, stream);                                          \
+    return launch_bwd<C, true>(a, stream);                                     \
   }
 
 JT_HM_ENTRIES(32)

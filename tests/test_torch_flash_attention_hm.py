@@ -93,6 +93,8 @@ def test_fully_masked_row_is_the_uniform_average():
 _PACKED = [(2, 2, 149, 64, "float32", False, "merged"),
            (2, 2, 149, 32, "float32", True, "merged"),
            (2, 2, 149, 64, "bfloat16", True, "merged"),
+           (2, 2, 149, 32, "bfloat16", False, "merged"),
+           (1, 1, 376, 64, "bfloat16", False, "merged"),  # vit_tiny's fixed context
            (1, 1, 1568, 32, "float32", False, "split"),
            (1, 1, 1568, 64, "bfloat16", True, "split")]
 

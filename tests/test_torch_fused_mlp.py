@@ -38,6 +38,18 @@ def test_linear_gelu_fp32_matches_jax():
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
+def test_linear_gelu_fp32_ragged_m_matches_jax():
+    """fp32 at a ragged M (333 rows: the kernels' last 128-row tile is
+    partial) inside the kernels' tiling, against K10 in interpret mode."""
+    x, w, b = _inputs(333, 256, 512, seed=3)
+    assert fm.fused_tiling(333, 256, 512)
+    want = np.asarray(jax_linear_gelu(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                                      interpret=True))
+    got = _port(x, w, b, torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (333, 512)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
 def test_linear_gelu_bf16_matches_jax():
     """bf16: z is rounded to bf16 before the GELU in both, so a rare flip of
     that rounding (fp32 sums in another order) moves the output by up to

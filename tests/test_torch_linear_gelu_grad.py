@@ -85,18 +85,21 @@ def _assert_flips(got, want):
     assert (d > 0).mean() < 0.01, (d > 0).mean()
 
 
-@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-def test_linear_gelu_z_ref_matches_k11(dtype):
-    """(o, z) of H8's plain version against K11 (_fwd_kernel_z) itself."""
+@pytest.mark.parametrize("dtype,m", [pytest.param("fp32", 64, id="fp32"),
+                                     pytest.param("bf16", 64, id="bf16"),
+                                     pytest.param("fp32", 333, id="fp32-ragged-m")])
+def test_linear_gelu_z_ref_matches_k11(dtype, m):
+    """(o, z) of H8's plain version against K11 (_fwd_kernel_z) itself; M
+    333 leaves the kernels' last 128-row tile partial."""
     jdt, tdt = _DT[dtype]
-    x, w, b, _ = _inputs(64, 128, 512, seed=20)
+    x, w, b, _ = _inputs(m, 128, 512, seed=20)
     o_j, z_j = _call(_fwd_kernel_z, jnp.asarray(x, jdt), jnp.asarray(w, jdt),
                      jnp.asarray(b), True, True)
     o_j, z_j = _f32(o_j), _f32(z_j)
 
     o, z = fm.linear_gelu_z_ref(torch.from_numpy(x).to(tdt),
                                 torch.from_numpy(w.T.copy()).to(tdt), torch.from_numpy(b))
-    assert o.dtype == z.dtype == tdt and o.shape == z.shape == (64, 512)
+    assert o.dtype == z.dtype == tdt and o.shape == z.shape == (m, 512)
     for got, want in ((o.float().numpy(), o_j), (z.float().numpy(), z_j)):
         if dtype == "fp32":
             np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
