@@ -6,8 +6,8 @@
                                             # only the spread of phase 6's B=2
                                             # check (phase_b2_spread)
     python3 chip_smoke.py --kernel-ab --other DIR...
-                                            # only bf16 H1, H2, H3, H4, H8,
-                                            # H6 and H1-fp32 against another
+                                            # only H1-H8, H1-fp32, H3-fp32 and
+                                            # H8-fp32 against another
                                             # checkout's (phase_kernel_ab)
 
 Phases (any failure raises and exits non-zero):
@@ -30,7 +30,8 @@ Phases (any failure raises and exits non-zero):
      H4 at N = 40 and 129, 1 and 376 queries over 1568 keys, on permuted
      views and on the planes of a packed qkv; H6 likewise at c = 32 and
      64, masked with two all-pad key tiles into the planes of a packed
-     dqkv; H1-fp32 at N = 40, 129 and 333 at c = 64 and 80; H3 and H8 at
+     dqkv; H5 likewise (also 376 queries over 1568 keys at c = 32, and
+     the 1-query probe masked); H1-fp32 at N = 40, 129 and 333 at c = 64 and 80; H3 and H8 at
      M = 8, 200 and 2305; H7 at N = 40 and 129 at c = 64 and 32, at 1 and
      376 queries over 640 keys, and masked into the planes of a packed
      dqkv; H3-fp32 and H8-fp32 at M = 8, 200, 333 and 2305 with ViT-L's and
@@ -87,8 +88,10 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      cross-attention; H7 (merged backward) at the fixed contexts and the
      masked rungs (timed through its C entry, queued behind a spin kernel,
      beside its Python wrapper); H5 + H6 (the split backward) at (24, 3, 1568, 64), once
-     alone and once through flash_attention_packed under autograd (the
-     launches the JSON line reports); masked keys' dk and dv exactly 0;
+     alone and through flash_attention_packed under autograd without and
+     with a key mask (the launches the JSON line reports), and H5 in each
+     instance (c = 64 and c = 32 at 6 heads, masked and not); masked keys'
+     dk and dv exactly 0;
  13. H1 and H2 at head dim 128 (vit_tiny's 384-wide predictor, 3 heads),
      masked and not, at the predictor's shapes;
  14. vit_tiny serving: a seeded vit_tiny .pth.tar and probe through
@@ -458,26 +461,6 @@ def _check_h4(torch, label, q, k, v, scale, mask=None):
     return o, lse, err_o
 
 
-def _check_h6(torch, label, q, k, v, do, scale, mask=None, out=None):
-    """H6 (the head-major split dk/dv) on q, k, v and do, its lse and delta
-    from H4, against its plain version on the card: each gradient within
-    H2_REL * max|ref| and, with a key mask, the masked keys' dk and dv
-    exactly 0 (``_check_grads``); written into ``out`` (dk, dv) when given;
-    then a second call on the same inputs, which must be bit-equal. Returns
-    max|d|."""
-    from jepa_tpu_torch.ops import flash_attention as fa
-
-    o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale, mask)
-    delta = fa.hm_delta(do, o)
-    got = fa.flash_bwd_dkv_hm_cuda(q, k, v, do, lse, delta, scale, mask, out=out)
-    want = fa.flash_bwd_dkv_hm_ref(q, k, v, do, lse, delta, scale, mask)
-    torch.cuda.synchronize()
-    got = tuple(t.clone() for t in got)
-    _same_bits(label, got, fa.flash_bwd_dkv_hm_cuda(q, k, v, do, lse, delta, scale, mask,
-                                                     out=out))
-    return _check_grads(label, got, want, ("dk", "dv"), mask)
-
-
 def _check_h1_f32(torch, label, qkv, h, scale):
     """H1-fp32 on fp32 qkv against its plain version on the card (finite,
     |do| and |dlse| <= F32_TOL), then a second call on the same inputs,
@@ -552,24 +535,29 @@ def _check_f32_fc1(torch, label, x, w, bias, z=False) -> float:
     return worst
 
 
-def _check_h7(torch, label, q, k, v, do, scale, mask=None, out=None):
-    """H7 (the head-major merged backward) on q, k, v and do, its lse and
+HM_BWD_GRADS = {"dq": ("dq",), "dkv": ("dk", "dv"), "dqkv": ("dq", "dk", "dv")}
+
+
+def _check_hm_bwd(torch, kind, label, q, k, v, do, scale, mask=None, out=None):
+    """A head-major backward, H5 (``kind`` "dq", the split dq), H6 ("dkv",
+    the split dk/dv) or H7 ("dqkv", merged), on q, k, v and do, its lse and
     delta from H4, against its plain version on the card: each gradient
     within H2_REL * max|ref| and, with a key mask, the masked keys' dk and
-    dv exactly 0 (``_check_grads``); written into ``out`` (dq, dk, dv) when
-    given; then a second call on the same inputs, which must be bit-equal.
-    Returns (lse, delta, max|d|)."""
+    dv exactly 0 (``_check_grads``); written into ``out`` when given; then
+    a second call on the same inputs, which must be bit-equal. Returns
+    (lse, delta, max|d|)."""
     from jepa_tpu_torch.ops import flash_attention as fa
 
+    cuda = getattr(fa, f"flash_bwd_{kind}_hm_cuda")
+    grads = lambda t: t if isinstance(t, tuple) else (t,)  # noqa: E731
     o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale, mask)
     delta = fa.hm_delta(do, o)
-    got = fa.flash_bwd_dqkv_hm_cuda(q, k, v, do, lse, delta, scale, mask, out=out)
-    want = fa.flash_bwd_dqkv_hm_ref(q, k, v, do, lse, delta, scale, mask)
+    got = grads(cuda(q, k, v, do, lse, delta, scale, mask, out=out))
+    want = grads(getattr(fa, f"flash_bwd_{kind}_hm_ref")(q, k, v, do, lse, delta, scale, mask))
     torch.cuda.synchronize()
     got = tuple(t.clone() for t in got)
-    _same_bits(label, got, fa.flash_bwd_dqkv_hm_cuda(q, k, v, do, lse, delta, scale, mask,
-                                                      out=out))
-    return lse, delta, _check_grads(label, got, want, ("dq", "dk", "dv"), mask)
+    _same_bits(label, got, grads(cuda(q, k, v, do, lse, delta, scale, mask, out=out)))
+    return lse, delta, _check_grads(label, got, want, HM_BWD_GRADS[kind], mask)
 
 
 def _hm_args(fa, q, k, v, scale, mask=None, **ops):
@@ -613,12 +601,15 @@ def phase_edges(torch):
     a block, 64-row q stages) at N = 40 and 129 at c = 64 and 32 on
     permuted views, at 1 and 376 queries over 1568 keys, and masked with
     keys [128, 384) all pads on the planes of a packed qkv, writing the
-    planes of a packed dqkv (masked keys' dk and dv exactly 0); H1-fp32
-    (128 query rows a block, 32-key tiles) at N = 40, 129 and 333 at c = 64
-    and 80; H3 and H8 at M = 8, 200 and 2305; H8 at an identity probe that
-    feeds its epilogue every bf16 z; H7 (H6's blocks, each consumer
-    warpgroup's 64 kv rows a dQ k-block) at N = 40 and 129 at c = 64 and 32
-    on permuted views, at 1 and 376 queries over 640 keys, and masked with
+    planes of a packed dqkv (masked keys' dk and dv exactly 0); H5 (128 q
+    rows a block, 64-key stages) likewise, also at 376 queries over 1568
+    keys at c = 32 and with the 1-query probe masked, writing the dq plane
+    of a packed dqkv; H1-fp32 (128 query rows a block, 32-key tiles) at N
+    = 40, 129 and 333 at c = 64 and 80; H3 and H8 at M = 8, 200 and 2305;
+    H8 at an identity probe that feeds its epilogue every bf16 z; H7 (H6's
+    blocks, each consumer warpgroup's 64 kv rows a dQ k-block) at N = 40
+    and 129 at c = 64 and 32 on permuted views, at 1 and 376 queries over
+    640 keys, and masked with
     keys [128, 384) all pads on the planes of a packed qkv, writing the
     planes of a packed dqkv in place (masked keys' dk and dv exactly 0);
     H3-fp32 and H8-fp32 (128 x 128 output tiles, 16-deep k panels) at M =
@@ -655,23 +646,29 @@ def phase_edges(torch):
     mask[:, 128:384] = False
     _check_h4(torch, "masked H4 edge B=4 H=3 N=640 c=64, planes of a packed [3, B, H, N, c], "
               "keys [128, 384) all pads", q, k, v, 64**-0.5, mask)
-    # H6: 128 kv rows a block, 64-row q stages (Nq != Nk: the stages run
-    # over Nq, the grid over Nk)
-    for b, h, nq, nk, c in ((2, 3, 40, 40, 64), (2, 3, 129, 129, 64), (2, 3, 40, 40, 32),
-                            (2, 3, 129, 129, 32), (2, 3, 1, 1568, 64), (2, 3, 376, 1568, 64)):
-        q, k, v, do = _hm_inputs(torch, gen, b, h, nq, nk, c)
-        how = "permuted views of [B, N, 3, H, c]" if nq == nk else "[B, H, N, c] tensors"
-        _check_h6(torch, f"H6 edge B={b} H={h} Nq={nq} Nk={nk} c={c}, {how}", q, k, v, do,
-                  c**-0.5)
-    for c in (64, 32):
-        qkv = torch.randn((3, 4, 3, 640, c), generator=gen, device="cuda").to(torch.bfloat16)
-        do = torch.randn((4, 3, 640, c), generator=gen, device="cuda").to(torch.bfloat16)
-        mask = padded_key_mask(torch, rng, 4, 640, 0)
-        mask[:, 128:384] = False
-        dqkv = torch.zeros_like(qkv)
-        _check_h6(torch, f"masked H6 edge B=4 H=3 N=640 c={c}, planes of a packed [3, B, H, N, "
-                  "c] in and out, keys [128, 384) all pads", *qkv.unbind(0), do, c**-0.5, mask,
-                  out=(dqkv[1], dqkv[2]))
+    # H6 (128 kv rows a block, 64-row q stages: the grid runs over Nk, the
+    # stages over Nq) and H5 (128 q rows a block, 64-key stages: the grid
+    # runs over Nq, the stages over Nk); H5 also masked at the 1-query probe
+    for kind, name, more in (("dkv", "H6", ()), ("dq", "H5", ((2, 3, 376, 1568, 32),))):
+        for b, h, nq, nk, c in ((2, 3, 40, 40, 64), (2, 3, 129, 129, 64), (2, 3, 40, 40, 32),
+                                (2, 3, 129, 129, 32), (2, 3, 1, 1568, 64),
+                                (2, 3, 376, 1568, 64)) + more:
+            q, k, v, do = _hm_inputs(torch, gen, b, h, nq, nk, c)
+            mask = padded_key_mask(torch, rng, b, nk, 0) if kind == "dq" and nq == 1 else None
+            how = "permuted views of [B, N, 3, H, c]" if nq == nk else "[B, H, N, c] tensors"
+            _check_hm_bwd(torch, kind, f"{name} edge B={b} H={h} Nq={nq} Nk={nk} c={c}"
+                          f"{'' if mask is None else ' masked'}, {how}", q, k, v, do, c**-0.5,
+                          mask)
+        for c in (64, 32):
+            qkv = torch.randn((3, 4, 3, 640, c), generator=gen, device="cuda").to(torch.bfloat16)
+            do = torch.randn((4, 3, 640, c), generator=gen, device="cuda").to(torch.bfloat16)
+            mask = padded_key_mask(torch, rng, 4, 640, 0)
+            mask[:, 128:384] = False
+            dqkv = torch.zeros_like(qkv)
+            _check_hm_bwd(torch, kind, f"masked {name} edge B=4 H=3 N=640 c={c}, planes of a "
+                          "packed [3, B, H, N, c] in and out, keys [128, 384) all pads",
+                          *qkv.unbind(0), do, c**-0.5, mask,
+                          out=(dqkv[1], dqkv[2]) if kind == "dkv" else dqkv[0])
     # H1-fp32: 128 query rows a block, 32-key tiles
     for b, n, h, c in ((2, 40, 16, 64), (2, 129, 16, 64), (2, 333, 16, 64), (1, 40, 16, 80),
                        (1, 129, 16, 80), (1, 333, 16, 80)):
@@ -697,17 +694,17 @@ def phase_edges(torch):
                             (2, 3, 129, 129, 32), (2, 3, 1, 640, 64), (2, 3, 376, 640, 64)):
         q, k, v, do = _hm_inputs(torch, gen, b, h, nq, nk, c)
         how = "permuted views of [B, N, 3, H, c]" if nq == nk else "[B, H, N, c] tensors"
-        _check_h7(torch, f"H7 edge B={b} H={h} Nq={nq} Nk={nk} c={c}, {how}", q, k, v, do,
-                  c**-0.5)
+        _check_hm_bwd(torch, "dqkv", f"H7 edge B={b} H={h} Nq={nq} Nk={nk} c={c}, {how}", q, k, v,
+                      do, c**-0.5)
     for c in (64, 32):
         qkv = torch.randn((3, 4, 3, 640, c), generator=gen, device="cuda").to(torch.bfloat16)
         do = torch.randn((4, 3, 640, c), generator=gen, device="cuda").to(torch.bfloat16)
         mask = padded_key_mask(torch, rng, 4, 640, 0)
         mask[:, 128:384] = False
         dqkv = torch.zeros_like(qkv)
-        _check_h7(torch, f"masked H7 edge B=4 H=3 N=640 c={c}, planes of a packed [3, B, H, N, "
-                  "c] in and out, keys [128, 384) all pads", *qkv.unbind(0), do, c**-0.5, mask,
-                  out=dqkv.unbind(0))
+        _check_hm_bwd(torch, "dqkv", f"masked H7 edge B=4 H=3 N=640 c={c}, planes of a packed "
+                      "[3, B, H, N, c] in and out, keys [128, 384) all pads", *qkv.unbind(0), do,
+                      c**-0.5, mask, out=dqkv.unbind(0))
     # H3-fp32 and H8-fp32: 128 x 128 output tiles, 16-deep k panels
     for k, f in ((1024, 4096), (1280, 5120)):
         w = torch.randn((f, k), generator=gen, device="cuda") / 32
@@ -1129,8 +1126,9 @@ def phase_hm_kernels(torch, setup, caps):
     """H4-H7 (the head-major kernels) against their plain versions on the
     card at vit_tiny's shapes: ``setup`` the vit_tiny train setup (its fixed
     contexts), ``caps`` the padded mode's context rungs. Returns a report per
-    kernel (H4, H4 masked, H5, H6, H7, H7 masked) and the launches of the
-    split backward driven through flash_attention_packed under autograd."""
+    kernel (H4, H4 masked, H5, H5 masked, H6, H7, H7 masked) and the
+    launches of the split backward driven through flash_attention_packed
+    under autograd, without and with a key mask."""
     from jepa_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -1178,8 +1176,8 @@ def phase_hm_kernels(torch, setup, caps):
             raise RuntimeError(f"H7 {label}: N={n} does not take the merged backward")
         q, k, v, do = _hm_inputs(torch, gen, TRAIN_BATCH, h, n, n, c)
         mask = padded_key_mask(torch, rng, TRAIN_BATCH, n, 0) if masked else None
-        lse, delta, err = _check_h7(torch, f"H7 {label} B={TRAIN_BATCH} N={n}", q, k, v, do,
-                                    scale, mask)
+        lse, delta, err = _check_hm_bwd(torch, "dqkv", f"H7 {label} B={TRAIN_BATCH} N={n}", q, k,
+                                        v, do, scale, mask)
         r = rep["dqkv_masked" if masked else "dqkv"]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if "ms" not in r:
@@ -1209,59 +1207,90 @@ def phase_hm_kernels(torch, setup, caps):
             del outs, hm, call
         del q, k, v, do, lse, delta
 
-    # H5 + H6: the split backward at (24, 3, 1568, 64)
+    # H5 + H6: the split backward at (24, 3, 1568, 64); H5 also at c=32 (6
+    # heads) and each with a key mask
     n, b = n_full, TRAIN_BATCH
-    if fa.merged_bwd(n, n, c):
-        raise RuntimeError(f"N={n} takes the merged backward, not H5 + H6")
+    for cc in (c, 32):
+        if fa.merged_bwd(n, n, cc):
+            raise RuntimeError(f"N={n} c={cc} takes the merged backward, not H5 + H6")
     q, k, v, do = _hm_inputs(torch, gen, b, h, n, n, c)
-    o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale)
-    delta = fa.hm_delta(do, o)
-    dq = fa.flash_bwd_dq_hm_cuda(q, k, v, do, lse, delta, scale)
-    dk, dv = fa.flash_bwd_dkv_hm_cuda(q, k, v, do, lse, delta, scale)
-    dq_ref = fa.flash_bwd_dq_hm_ref(q, k, v, do, lse, delta, scale)
-    dk_ref, dv_ref = fa.flash_bwd_dkv_hm_ref(q, k, v, do, lse, delta, scale)
-    torch.cuda.synchronize()
-    _same_bits(f"H5 B={b} N={n}", (dq,), (fa.flash_bwd_dq_hm_cuda(q, k, v, do, lse, delta, scale),))
-    _same_bits(f"H6 B={b} N={n}", (dk, dv), fa.flash_bwd_dkv_hm_cuda(q, k, v, do, lse, delta, scale))
-    rep["dq"]["max_abs_err"] = _check_grads(f"H5 B={b} N={n}", (dq,), (dq_ref,), ("dq",))
-    rep["dkv"]["max_abs_err"] = _check_grads(f"H6 B={b} N={n}", (dk, dv), (dk_ref, dv_ref),
-                                             ("dk", "dv"))
+    rep["dkv"]["max_abs_err"] = _check_hm_bwd(torch, "dkv", f"H6 B={b} N={n}", q, k, v, do,
+                                              scale)[2]
     in_b, out_b, vec_b = io_bytes(b, n, n, 1)
     lib = _sdpa_hm_ms(torch, q, k, v, do, scale)[1]
-    for kind, fn, ref, products, outs in (
-            ("dq", fa.flash_bwd_dq_hm_cuda, fa.flash_bwd_dq_hm_ref, 3, 1),
-            ("dkv", fa.flash_bwd_dkv_hm_cuda, fa.flash_bwd_dkv_hm_ref, 4, 2)):
-        rep[kind].update(
-            ms=time_ms(torch, lambda: fn(q, k, v, do, lse, delta, scale)),
-            plain_ms=time_ms(torch, lambda: ref(q, k, v, do, lse, delta, scale)),
-            library_ms=lib, shape=(b, h, n, n, c),
-            bound=attn_bound_ms(b, n, h, c, products, in_b + out_b + 2 * vec_b, outs * out_b))
-        r = rep[kind]
-        log(f"H{5 if kind == 'dq' else 6} B={b} N={n} time: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library (SDPA backward) {lib:.4f} ms, bound "
-            f"{r['bound'][0]:.4f} ms ({r['bound'][2]})")
-    del o, lse, delta, dq, dk, dv, dq_ref, dk_ref, dv_ref
+    rep["dq_masked"] = {"max_abs_err": 0.0}
+    masks = {}  # the c=64 instances' key masks, for the packed runs below
+    for hh, cc, masked in ((h, c, False), (h, c, True), (6, 32, False), (6, 32, True)):
+        qi, ki, vi, doi = (q, k, v, do) if (hh, cc) == (h, c) else _hm_inputs(
+            torch, gen, b, hh, n, n, cc)
+        mask = padded_key_mask(torch, rng, b, n, 0) if masked else None
+        label = f"H5 B={b} N={n} H={hh} c={cc}{' masked' if masked else ''}"
+        r = rep["dq_masked" if masked else "dq"]
+        r["max_abs_err"] = max(r["max_abs_err"], _check_hm_bwd(
+            torch, "dq", label, qi, ki, vi, doi, cc**-0.5, mask)[2])
+        if cc == c:  # the reported instances: c=64, masked and not
+            o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale, mask)
+            delta = fa.hm_delta(do, o)
+            pairs = int(mask.sum().item()) * n if masked else b * n * n
+            r.update(
+                ms=time_ms(torch, lambda: fa.flash_bwd_dq_hm_cuda(q, k, v, do, lse, delta, scale,
+                                                                  mask)),
+                plain_ms=time_ms(torch, lambda: fa.flash_bwd_dq_hm_ref(q, k, v, do, lse, delta,
+                                                                       scale, mask)),
+                library_ms=_sdpa_hm_ms(torch, q, k, v, do, scale, mask)[1] if masked else lib,
+                shape=(b, h, n, n, c),
+                bound=attn_bound_ms(b, n, h, c, 3, in_b + out_b + 2 * vec_b
+                                    + (b * n if masked else 0), out_b, pairs))
+            log(f"{label} time: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                f"(SDPA backward) {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+                f"({r['bound'][2]})")
+            del o, lse, delta
+            masks[masked] = mask
+        del qi, ki, vi, doi
+    o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale)
+    delta = fa.hm_delta(do, o)
+    rep["dkv"].update(
+        ms=time_ms(torch, lambda: fa.flash_bwd_dkv_hm_cuda(q, k, v, do, lse, delta, scale)),
+        plain_ms=time_ms(torch, lambda: fa.flash_bwd_dkv_hm_ref(q, k, v, do, lse, delta, scale)),
+        library_ms=lib, shape=(b, h, n, n, c),
+        bound=attn_bound_ms(b, n, h, c, 4, in_b + out_b + 2 * vec_b, 2 * out_b))
+    r = rep["dkv"]
+    log(f"H6 B={b} N={n} time: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+        f"(SDPA backward) {lib:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][2]})")
+    del o, lse, delta
 
-    # the split backward driven through the public op under autograd, its
-    # launches counted; the same op through the plain versions holds its grads
-    grads = []
-    for plain in (False, True):
-        # the token-major projection [B, N, 3, H, c] and its [3, B, H, N, c] view
-        tok = torch.stack((q, k, v)).permute(1, 3, 0, 2, 4).contiguous().requires_grad_(True)
-        with plain_versions() if plain else contextlib.nullcontext():
-            fa.reset_launch_counts()
-            o = fa.flash_attention_packed(tok.permute(2, 0, 3, 1, 4), scale=scale)
-            o.backward(do)
-            torch.cuda.synchronize()
-            if not plain:
-                rep["split_launches"] = {k: fa.hm_launches[k] for k in fa.HM_KINDS}
-        grads.append(tok.grad.permute(2, 0, 3, 1, 4))
-    if rep["split_launches"] != {"fwd": 1, "dq": 1, "dkv": 1, "dqkv": 0}:
-        raise RuntimeError(f"flash_attention_packed's split backward launched "
-                           f"{rep['split_launches']}")
-    _check_grads(f"flash_attention_packed B={b} N={n} under autograd, kernels vs plain",
-                 grads[0].unbind(0), grads[1].unbind(0), ("dq", "dk", "dv"))
-    log(f"H5 + H6 through flash_attention_packed: launches {rep['split_launches']}")
+    # the split backward driven through the public op under autograd, with
+    # and without the c=64 key mask, its launches counted (every counter set
+    # to 0 just before); the same op through the plain versions holds its grads
+    want = {"fwd": 1, "dq": 1, "dkv": 1, "dqkv": 0}
+    for masked in (False, True):
+        mask = masks[masked]
+        grads = []
+        for plain in (False, True):
+            # the token-major projection [B, N, 3, H, c] and its [3, B, H, N, c] view
+            tok = torch.stack((q, k, v)).permute(1, 3, 0, 2, 4).contiguous().requires_grad_(True)
+            with plain_versions() if plain else contextlib.nullcontext():
+                fa.reset_launch_counts()
+                o = fa.flash_attention_packed(tok.permute(2, 0, 3, 1, 4), kv_mask=mask,
+                                              scale=scale)
+                o.backward(do)
+                torch.cuda.synchronize()
+                if not plain:
+                    launches = {k: fa.hm_launches[k] for k in fa.HM_KINDS}
+                    masked_launches = {k: fa.hm_masked_launches[k] for k in fa.HM_KINDS}
+            grads.append(tok.grad.permute(2, 0, 3, 1, 4))
+        key = "split_masked_launches" if masked else "split_launches"
+        rep[key] = masked_launches if masked else launches
+        want_masked = want if masked else dict.fromkeys(want, 0)
+        if launches != want or masked_launches != want_masked:
+            raise RuntimeError(f"flash_attention_packed's split backward"
+                               f"{' with a key mask' if masked else ''} launched {launches}, "
+                               f"masked {masked_launches}")
+        _check_grads(f"flash_attention_packed B={b} N={n}{' masked' if masked else ''} under "
+                     f"autograd, kernels vs plain", grads[0].unbind(0), grads[1].unbind(0),
+                     ("dq", "dk", "dv"), mask)
+        log(f"H5 + H6 through flash_attention_packed{' with a key mask' if masked else ''}: "
+            f"launches {launches}, masked {masked_launches}")
     return rep
 
 
@@ -2466,16 +2495,22 @@ AB_H6_ROWS = (
     ("H6 B=24 N=1568 H=6 c=32", 24, 6, 1568, 1568, 32, False),
     ("H6 B=24 H=3 Nq=376 Nk=1568 c=64 (cross lengths)", 24, 3, 376, 1568, 64, False),
 )
-# (label, entry kind, B, H, N, c, masked) of the A/B mode's H7 (merged, "dqkv")
-# rows, vit_tiny's fixed context and padded rungs, and its H5 (split dq)
-# row; self-attention on permuted views of the projection
+# (label, entry kind, B, H, Nq, Nk, c, masked) of the A/B mode's H7 (merged,
+# "dqkv") rows, vit_tiny's fixed context and padded rungs, and its H5 (split
+# dq) rows, every instance (c = 64 and 32, masked or not) and cross lengths;
+# self-attention on permuted views of the projection
 AB_HM_BWD_ROWS = (
-    ("H7 B=24 N=376 H=3 c=64 (vit_tiny fixed context)", "dqkv", 24, 3, 376, 64, False),
-    ("H7 masked B=24 N=640 H=3 c=64 (vit_tiny top context rung)", "dqkv", 24, 3, 640, 64, True),
-    ("H7 masked B=24 N=128 H=3 c=64 (vit_tiny bottom context rung)", "dqkv", 24, 3, 128, 64,
+    ("H7 B=24 N=376 H=3 c=64 (vit_tiny fixed context)", "dqkv", 24, 3, 376, 376, 64, False),
+    ("H7 masked B=24 N=640 H=3 c=64 (vit_tiny top context rung)", "dqkv", 24, 3, 640, 640, 64,
      True),
-    ("H7 B=24 N=376 H=6 c=32", "dqkv", 24, 6, 376, 32, False),
-    ("H5 B=24 N=1568 H=3 c=64 (vit_tiny split backward)", "dq", 24, 3, 1568, 64, False),
+    ("H7 masked B=24 N=128 H=3 c=64 (vit_tiny bottom context rung)", "dqkv", 24, 3, 128, 128, 64,
+     True),
+    ("H7 B=24 N=376 H=6 c=32", "dqkv", 24, 6, 376, 376, 32, False),
+    ("H5 B=24 N=1568 H=3 c=64 (vit_tiny split backward)", "dq", 24, 3, 1568, 1568, 64, False),
+    ("H5 masked B=24 N=1568 H=3 c=64", "dq", 24, 3, 1568, 1568, 64, True),
+    ("H5 B=24 N=1568 H=6 c=32", "dq", 24, 6, 1568, 1568, 32, False),
+    ("H5 masked B=24 N=1568 H=6 c=32", "dq", 24, 6, 1568, 1568, 32, True),
+    ("H5 B=24 H=3 Nq=376 Nk=1568 c=64 (cross lengths)", "dq", 24, 3, 376, 1568, 64, False),
 )
 # (label, B, N, H, c, c_real, mid) of the A/B mode's H2 rows, as AB_H1_ROWS
 AB_H2_ROWS = (
@@ -2697,9 +2732,9 @@ def phase_kernel_ab(torch, others):
     # H7 (merged) and H5 (split dq): the bound counts the bytes the
     # function needs (q, k, v, do, lse, delta in; its gradients out), not
     # H7's dq slabs
-    for label, kind, b, h, n, c, masked in AB_HM_BWD_ROWS:
-        q, k, v, do = _hm_inputs(torch, gen, b, h, n, n, c)
-        mask = padded_key_mask(torch, rng, b, n, 0) if masked else None
+    for label, kind, b, h, nq, nk, c, masked in AB_HM_BWD_ROWS:
+        q, k, v, do = _hm_inputs(torch, gen, b, h, nq, nk, c)
+        mask = padded_key_mask(torch, rng, b, nk, 0) if masked else None
         scale = c**-0.5
         o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale, mask)
         delta = fa.hm_delta(do, o)
@@ -2707,15 +2742,15 @@ def phase_kernel_ab(torch, others):
         work = {}
         if kind == "dqkv":  # and the dq slabs
             grads.update(dk=fa._alloc_like(k), dv=fa._alloc_like(v))
-            work = dict(ws=torch.empty((-(-n // 64), *q.shape), device="cuda"))
+            work = dict(ws=torch.empty((-(-nk // 64), *q.shape), device="cuda"))
         hm = _hm_args(fa, q, k, v, scale, mask, do=do, lse=lse, delta=delta, **grads, **work)
         args = lambda hm=hm: (ctypes.addressof(hm), stream())  # noqa: E731
-        pairs = b * n * n if mask is None else int(mask.sum().item()) * n
+        pairs = b * nq * nk if mask is None else int(mask.sum().item()) * nq
         row = dict(row=label, library_ms=_sdpa_hm_ms(torch, q, k, v, do, scale, mask)[1],
-                   bound=attn_bound_ms(b, n, h, c, 5 if kind == "dqkv" else 3,
-                                       b * h * c * 2 * 4 * n + 2 * lse.numel() * 4
-                                       + (0 if mask is None else b * n),
-                                       b * h * c * 2 * n * len(grads), pairs))
+                   bound=attn_bound_ms(b, nq, h, c, 5 if kind == "dqkv" else 3,
+                                       b * h * c * 2 * 2 * (nq + nk) + 2 * lse.numel() * 4
+                                       + (0 if mask is None else b * nk),
+                                       sum(t.numel() for t in grads.values()) * 2, pairs))
         ab(row, f"jt_flash_hm_{kind}_c{c}", args, tuple(grads.values()))
         del q, k, v, do, o, lse, delta, grads, work, hm
     # H3-fp32 at the fp32 evals' fc1 shapes, then H8-fp32 (o and z) at the
@@ -2870,6 +2905,8 @@ def main() -> int:
                      tp["hm_fwd_masked"], hm["fwd_masked"]),
         kernel_entry("flash_attention_hm_bwd_dq", hm_src, f"{fa_py}:225",
                      hm["split_launches"]["dq"], hm["dq"]),
+        kernel_entry("flash_attention_hm_bwd_dq_masked", hm_src, f"{fa_py}:225",
+                     hm["split_masked_launches"]["dq"], hm["dq_masked"]),
         kernel_entry("flash_attention_hm_bwd_dkv", hm_src, f"{fa_py}:254",
                      hm["split_launches"]["dkv"], hm["dkv"]),
         kernel_entry("flash_attention_hm_bwd_merged", hm_src, f"{fa_py}:318",

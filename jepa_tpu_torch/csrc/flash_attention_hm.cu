@@ -6,10 +6,14 @@
 //   H6 flash_hm_bwd_kernel                 <- _dkv_kernel   (K8, :254)
 //   H7 flash_hm_bwd_kernel (kDQ) and
 //      flash_hm_dq_finish_kernel           <- _dqkv_kernel  (K9, :318)
-// They serve flash_attention_bhnd / flash_attention_packed /
-// flash_attention (ops/flash_attention.py), which the port reaches from
-// dot_product_attention(impl='flash') and from flash_self_attention where
-// no token-major head split exists (vit_tiny's 3 heads of 64).
+// All four are one Hopper design: a producer warpgroup issues TMA loads
+// from 4-D maps of each operand into an mbarrier ring, two consumer
+// warpgroups run every product by wgmma, and the outputs leave by TMA
+// stores (H7's dq by its second pass). They serve flash_attention_bhnd /
+// flash_attention_packed / flash_attention (ops/flash_attention.py), which
+// the port reaches from dot_product_attention(impl='flash') and from
+// flash_self_attention where no token-major head split exists (vit_tiny's
+// 3 heads of 64).
 //
 // Operands: q [B, H, Nq, C], k, v [B, H, Nk, C] and the other [B, H, N, C]
 // tensors are read and written by (batch, head, row) strides with a
@@ -66,6 +70,38 @@
 // every product is a chain of k16 tensor-core steps in the same order. So
 // its outputs are the same bits (chip_smoke.py --kernel-ab).
 //
+// H5's design (Hopper): H2's dq kernel (csrc/flash_attention_bwd.cu)
+// read and written through H4's 4-D maps. A block owns 128 q rows of one
+// (batch, head) with three warpgroups; the grid runs over Nq, the stages
+// over Nk. The producer warpgroup (setmaxnreg down to 40) loads the
+// block's lse and delta rows (0 past Nq), one row a thread, and arrives on
+// the 128-arrival Q barrier; one thread issues the Q and dO tiles once
+// (128-row boxes), then 64-key K and V stages into a 3-stage ring, each
+// stage guarded by a full and an empty mbarrier. With the key mask, the
+// producer's first warp reads each stage's 64 mask bytes and writes them
+// as two ballot words before that thread's arrival on the stage. Each
+// consumer warpgroup (232 registers) owns 64 q rows: it scales its Q rows
+// by scale*log2e in fp32 in place (fence.proxy.async before wgmma reads
+// them), then per stage takes S = Qs K^T and dP = dO V^T by wgmma
+// m64n64k16 (both K-major as stored, one commit group each), sets a
+// masked key's score to -1e30, forms p = exp2f(s - lse) while dP runs and
+// ds = p * (dp - delta) in registers (0 for keys past Nk), and adds dQ +=
+// dS K by wgmma m64nCk16 with dS from registers and K MN-major through the
+// descriptor's transpose bit. That product is retired at the next stage,
+// after its S and dP are issued behind it, so the tensor cores run the
+// three back to back (1.20x the loop that waited for it, on an H100;
+// taking the key guard off the stages below Nk measured slower). The
+// epilogue writes bf16 scale*dq into the warpgroup's rows of the Q tile in
+// the same swizzle and stores them through a 4-D map of dq (rows past Nq
+// dropped), so the dq plane of a packed dqkv is written in place. Shared
+// memory at C=64: 16 KB Q, 16 KB dO and 3 x 16 KB of K/V stages. Numerics
+// against the mma.sync kernel it replaced: a k16 wgmma step sums as an
+// m16n8k16 does, so each dq element is one fp32 chain over the keys
+// ascending from 0 in k16 steps, S and dP each one chain over the head
+// dim; Qs and ds round to bf16 where that kernel rounded them, with the
+// same exp2f, and dq is scaled after the whole sum: the same bits
+// (chip_smoke.py --kernel-ab).
+//
 // H6's design (Hopper): H2's dk/dv kernel (csrc/flash_attention_bwd.cu)
 // read and written through H4's 4-D maps. A block owns 128 kv rows of one
 // (batch, head) with three warpgroups. The producer warpgroup (setmaxnreg
@@ -118,11 +154,6 @@
 // K rows zero-filled by TMA, both operands of the edge rows are zero, as K9
 // zeroes them (:355-364).
 //
-// H5, the simple first kernel: a block of 4 warps owns 64 q rows, each warp
-// 16 of them with fp32 accumulators in registers, and loops over the kv
-// rows in 64-row tiles staged in shared memory; mma.sync m16n8k16 bf16
-// with fp32 accumulation; score and gradient tiles stay in registers,
-// their C-fragments re-packed as the next product's A-fragments.
 #include "common.cuh"
 
 // the launch arguments, field for field ops/flash_attention.py::_HmArgs
@@ -142,22 +173,13 @@ struct HmArgs {
 namespace {
 
 using jt::bf16;
-using jt::kPad;
 
-constexpr int BR = 64;  // H5: q rows a block owns, 16 per warp
-constexpr int NB = 64;  // H5: kv rows per inner step
 constexpr float INV_LOG2E = 0.6931471805599453f;
 
 // the [N, C] rows of head h of batch b of a strided operand
-__device__ __forceinline__ const bf16* rows(const void* p, const int* s, int b, int h) {
-  return static_cast<const bf16*>(p) + (size_t)b * s[0] + (size_t)h * s[1];
-}
 __device__ __forceinline__ bf16* rows(void* p, const int* s, int b, int h) {
   return static_cast<bf16*>(p) + (size_t)b * s[0] + (size_t)h * s[1];
 }
-
-template <int C>
-constexpr int dq_smem() { return 2 * BR * (C + kPad) * 2 + NB; }
 
 // H4 geometry: the TMA box is the whole head row (C columns, one swizzle
 // row of RB bytes), 128 rows a box
@@ -166,6 +188,9 @@ constexpr int FWD_BKV = 128;  // keys per ring stage: two halves of the running 
 constexpr int FWD_WG = 128;   // threads of a warpgroup
 constexpr int FWD_THREADS = 3 * FWD_WG;
 constexpr int FWD_STAGES = 3;
+
+// H5 geometry: H4's 128 q rows a block and 3-stage ring, 64 keys a stage
+constexpr int DQ_BKV = 64;
 
 // H6 geometry: 128 kv rows a block (two consumer warpgroups x 64), q
 // stages of 64 rows, boxes as H4's (one swizzle row: the head row)
@@ -185,6 +210,10 @@ struct FwdGeo {
   static constexpr int SWZ_MASK = RB / 16 - 1;  // row bits XORed into the 16-byte chunk
   static constexpr int TILE = 128 * RB;
   static constexpr int SMEM = TILE * (1 + 2 * FWD_STAGES) + 8 * (1 + 2 * FWD_STAGES) + 1024;
+  // H5: the Q and dO tiles, the K/V ring, the block's lse and delta rows,
+  // each stage's two mask words, barriers
+  static constexpr int DQ_SMEM = 2 * TILE + FWD_STAGES * 2 * DQ_BKV * RB + 2 * FWD_BQ * 4 +
+                                 8 * FWD_STAGES + 8 * (1 + 2 * FWD_STAGES) + 1024;
   // H6: K and V tiles, the Q/dO ring with its lse and delta rows, barriers
   static constexpr int DKV_SMEM = 2 * DKV_BR * RB + DKV_STAGES * 2 * DKV_STEP * (RB + 4) +
                                   8 * (1 + 3 * DKV_STAGES) + 1024;
@@ -434,75 +463,196 @@ flash_hm_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   }
 }
 
-// H5: dq of 64 q rows of one (batch, head); loops over the kv tiles
+// H5: dq of 128 q rows of one (batch, head); streams every 64-key stage
 template <int C, bool MASKED>
-__global__ void __launch_bounds__(jt::kThreads) flash_hm_dq_kernel(const HmArgs a) {
-  constexpr int LD = C + kPad;
-  bf16* sK = jt::smem_bf16();  // they stage Q and dO first
-  bf16* sV = sK + BR * LD;
-  uint8_t* sM = reinterpret_cast<uint8_t*>(sV + BR * LD);  // the kv tile's mask (MASKED)
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+flash_hm_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tdq, const uint8_t* __restrict__ kvm,
+                   const float* __restrict__ lse, const float* __restrict__ delta, int Nq, int Nk,
+                   int H, float qscale, float scale) {
+  using G = FwdGeo<C>;
+  constexpr int TK = DQ_BKV * G::RB;
+  unsigned char* smem = jt::smem_1024();
+  unsigned char* sQ = smem;
+  unsigned char* sdO = sQ + G::TILE;
+  unsigned char* sKV = sdO + G::TILE;  // stage s: K at 2s tiles, V at 2s + 1
+  float* sLD = reinterpret_cast<float*>(sKV + 2 * FWD_STAGES * TK);  // lse, then delta rows
+  uint32_t* sMW = reinterpret_cast<uint32_t*>(sLD + 2 * FWD_BQ);    // stage s: mask words 2s, 2s+1
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sMW + 2 * FWD_STAGES);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + FWD_STAGES;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * FWD_BQ;
+  const int wg = threadIdx.x / FWD_WG, tid = threadIdx.x % FWD_WG;
+  const int nkv = (Nk + DQ_BKV - 1) / DQ_BKV;
 
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BR;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int Nq = a.Nq, Nk = a.Nk;
-  const bf16* kb = rows(a.k, a.k_s, b, h);
-  const bf16* vb = rows(a.v, a.v_s, b, h);
-
-  // Qs and dO fragments of this warp's 16 q rows
-  jt::load_tile<C, BR>(sK, rows(a.q, a.q_s, b, h), a.q_s[2], q0, Nq, a.qscale);
-  jt::load_tile<C, BR>(sV, rows(a.dO, a.do_s, b, h), a.do_s[2], q0, Nq, 1.f);
-  __syncthreads();
-  const int qr = warp * 16 + g;
-  uint32_t qa[C / 16][4], da[C / 16][4];
-  jt::load_a<C>(qa, sK, qr, t);
-  jt::load_a<C>(da, sV, qr, t);
-  const int r0 = q0 + qr, r1 = r0 + 8;
-  const float* lrow = static_cast<const float*>(a.lse) + ((size_t)b * a.H + h) * Nq;
-  const float* drow = static_cast<const float*>(a.delta) + ((size_t)b * a.H + h) * Nq;
-  const float L0 = r0 < Nq ? lrow[r0] : 0.f, L1 = r1 < Nq ? lrow[r1] : 0.f;
-  const float D0 = r0 < Nq ? drow[r0] : 0.f, D1 = r1 < Nq ? drow[r1] : 0.f;
-
-  float dq[C / 8][4];
-#pragma unroll
-  for (int i = 0; i < C / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
-
-  for (int k0 = 0; k0 < Nk; k0 += NB) {
-    __syncthreads();
-    jt::load_tile<C, NB>(sK, kb, a.k_s[2], k0, Nk, 1.f);
-    jt::load_tile<C, NB>(sV, vb, a.v_s[2], k0, Nk, 1.f);
-    if constexpr (MASKED) {
-      const uint8_t* kvm = static_cast<const uint8_t*>(a.kvm);
-      if (tid < NB) sM[tid] = k0 + tid < Nk ? kvm[(size_t)b * Nk + k0 + tid] : 0;
+  if (threadIdx.x == 0) {
+    jt::mbar_init(qbar, FWD_WG);  // every producer thread: its lse and delta row; the TMA bytes
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      jt::mbar_init(&full[s], 1);   // the producer's arrive (after the mask words) + the TMA bytes
+      jt::mbar_init(&empty[s], 8);  // one arrive per consumer warp
     }
-    __syncthreads();
-
-    float s[NB / 8][4], dp[NB / 8][4];
-    jt::mm_abt<C, NB>(s, qa, sK, g, t);   // S  = Qs K^T
-    jt::mm_abt<C, NB>(dp, da, sV, g, t);  // dP = dO V^T
-
-    uint32_t dsa[NB / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < NB / 8; ++nt) {
-      float ds[4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = nt * 8 + 2 * t + j;
-        const bool ok = k0 + col < Nk;
-        if constexpr (MASKED) {
-          if (!sM[col]) s[nt][j] = s[nt][2 + j] = -1e30f;
-        }
-        ds[j] = ok ? exp2f(s[nt][j] - L0) * (dp[nt][j] - D0) : 0.f;
-        ds[2 + j] = ok ? exp2f(s[nt][2 + j] - L1) * (dp[nt][2 + j] - D1) : 0.f;
-      }
-      const int kk = nt / 2, hi = (nt & 1) * 2;
-      dsa[kk][hi] = jt::pack2(__float2bfloat16(ds[0]), __float2bfloat16(ds[1]));
-      dsa[kk][hi + 1] = jt::pack2(__float2bfloat16(ds[2]), __float2bfloat16(ds[3]));
-    }
-    jt::mm_ab<C, NB>(dq, dsa, sK, g, t);  // dQ += dS K
+    jt::fence_barrier_init();
   }
+  __syncthreads();
 
-  jt::store_rows<C>(rows(a.dq, a.dq_s, b, h), a.dq_s[2], r0, Nq, dq, a.scale, t);
+  if (wg == 2) {  // producer warpgroup
+    jt::reg_dealloc<40>();
+    // the block's lse and delta rows (0 past Nq), one row a thread
+    const size_t bh = (size_t)b * H + h;
+    const bool ok = q0 + tid < Nq;
+    sLD[tid] = ok ? lse[bh * Nq + q0 + tid] : 0.f;
+    sLD[FWD_BQ + tid] = ok ? delta[bh * Nq + q0 + tid] : 0.f;
+    if (tid == 0) {
+      jt::mbar_expect_tx(qbar, 2 * G::TILE);
+      jt::tma_load_4d(sQ, &tq, qbar, 0, q0, h, b);
+      jt::tma_load_4d(sdO, &tdo, qbar, 0, q0, h, b);
+    } else {
+      jt::mbar_arrive(qbar);
+    }
+    // the K/V ring (thread 0) and, masked, each stage's key mask as two
+    // ballot words (warp 0): lane l reads keys 2l and 2l+1, so key
+    // 8j + 2t + e sits in word e at bit 4j + t
+    if (MASKED ? tid < 32 : tid == 0) {
+      const uint8_t* mrow = MASKED ? kvm + (size_t)b * Nk : nullptr;
+      for (int it = 0; it < nkv; ++it) {
+        const int s = it % FWD_STAGES, k0 = it * DQ_BKV;
+        if (it >= FWD_STAGES) jt::mbar_wait(&empty[s], ((it / FWD_STAGES) + 1) & 1);
+        if constexpr (MASKED) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + 2 * tid + e;
+            const uint32_t w = __ballot_sync(0xffffffffu, key < Nk && mrow[key]);
+            if (tid == 0) sMW[2 * s + e] = w;
+          }
+        }
+        if (tid == 0) {  // the words are written before this arrival
+          unsigned char* sk = sKV + 2 * s * TK;
+          jt::mbar_expect_tx(&full[s], 2 * TK);
+          jt::tma_load_4d(sk, &tk, &full[s], 0, k0, h, b);
+          jt::tma_load_4d(sk + TK, &tv, &full[s], 0, k0, h, b);
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns q rows q0 + [64 wg, 64 wg + 64)
+    jt::reg_alloc<232>();
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    unsigned char* myq = sQ + wg * 64 * G::RB;
+    const unsigned char* mydo = sdO + wg * 64 * G::RB;
+
+    // Qs: q * (scale*log2e) in fp32, rounded to bf16, in place
+    jt::mbar_wait(qbar, 0);
+    for (int v = tid; v < 64 * G::RB / 16; v += FWD_WG) {
+      uint4* p = reinterpret_cast<uint4*>(myq + v * 16);
+      uint4 val = *p;
+      bf16* e = reinterpret_cast<bf16*>(&val);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * qscale);
+      *p = val;
+    }
+    jt::fence_proxy_async();
+    jt::bar_sync(1 + wg, FWD_WG);
+    const int r0 = wg * 64 + warp * 16 + g;  // this thread's rows r0, r0 + 8 of the block
+    const float L0 = sLD[r0], L1 = sLD[r0 + 8];
+    const float D0 = sLD[FWD_BQ + r0], D1 = sLD[FWD_BQ + r0 + 8];
+
+    float dq[C / 2];
+#pragma unroll
+    for (int i = 0; i < C / 2; ++i) dq[i] = 0.f;
+    // the previous stage's dS, the A operand of its dQ product, which runs
+    // while this stage's S and dP are issued behind it
+    uint32_t dsa[DQ_BKV / 16][4] = {};
+
+    for (int it = 0; it < nkv; ++it) {
+      const int s = it % FWD_STAGES, k0 = it * DQ_BKV;
+      const unsigned char* sk = sKV + 2 * s * TK;
+      const unsigned char* sv = sk + TK;
+      jt::mbar_wait(&full[s], (it / FWD_STAGES) & 1);
+      uint32_t mw[2] = {~0u, ~0u};
+      if constexpr (MASKED) {
+        mw[0] = sMW[2 * s];
+        mw[1] = sMW[2 * s + 1];
+      }
+
+      // S = Qs K^T (base-2 logits) and dP = dO V^T, 64 x 64 per warpgroup,
+      // in two groups: the exp2 of S runs while dP is computed
+      float sc[DQ_BKV / 2], dp[DQ_BKV / 2];
+      jt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+        jt::wgmma_ss<0, 0>(sc, G::kdesc(myq, kk), G::kdesc(sk, kk), kk > 0);
+      jt::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+        jt::wgmma_ss<0, 0>(dp, G::kdesc(mydo, kk), G::kdesc(sv, kk), kk > 0);
+      jt::wgmma_commit();
+      jt::wgmma_wait<1>();  // the previous stage's dQ product and S are done
+      jt::fence_regs(dq);
+      jt::fence_regs(sc);
+      jt::keep_regs(dsa);
+      if (it > 0 && lane == 0) jt::mbar_arrive(&empty[(it - 1) % FWD_STAGES]);
+
+      // p = exp2f(s - lse) in place; a masked key scores -1e30
+#pragma unroll
+      for (int j = 0; j < DQ_BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if constexpr (MASKED) {
+            if (!((mw[e] >> (4 * j + t)) & 1u)) sc[4 * j + e] = sc[4 * j + 2 + e] = -1e30f;
+          }
+          sc[4 * j + e] = exp2f(sc[4 * j + e] - L0);
+          sc[4 * j + 2 + e] = exp2f(sc[4 * j + 2 + e] - L1);
+        }
+      jt::wgmma_wait<0>();
+      jt::fence_regs(dp);
+
+      // ds = p * (dp - delta), 0 for a key past Nk
+#pragma unroll
+      for (int j = 0; j < DQ_BKV / 8; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = k0 + 8 * j + 2 * t + e < Nk;
+          ds[e] = ok ? sc[4 * j + e] * (dp[4 * j + e] - D0) : 0.f;
+          ds[2 + e] = ok ? sc[4 * j + 2 + e] * (dp[4 * j + 2 + e] - D1) : 0.f;
+        }
+        dsa[j / 2][(j & 1) * 2] = jt::pack2(__float2bfloat16(ds[0]), __float2bfloat16(ds[1]));
+        dsa[j / 2][(j & 1) * 2 + 1] = jt::pack2(__float2bfloat16(ds[2]), __float2bfloat16(ds[3]));
+      }
+      // dQ += dS K, K MN-major (keys down, the head's columns across); the
+      // next stage's wait retires it
+      jt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DQ_BKV / 16; ++kk)
+        jt::wgmma_rs<1>(dq, dsa[kk], G::mndesc(sk, kk, DQ_BKV), 1);
+      jt::wgmma_commit();
+    }
+    jt::wgmma_wait<0>();
+    jt::fence_regs(dq);
+    jt::keep_regs(dsa);
+
+    // dq * scale as bf16 into this warpgroup's rows of the Q tile, in the
+    // TMA map's swizzle (the 16-byte chunk index XOR the row's low bits)
+    const int w0 = warp * 16 + g;
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int off = (w0 + 8 * half) * G::RB + col * 2;
+        const int phys = off ^ (((off >> 7) & G::SWZ_MASK) << 4);
+        const int i = 4 * j + 2 * half;
+        *reinterpret_cast<__nv_bfloat162*>(myq + phys) =
+            __floats2bfloat162_rn(dq[i] * scale, dq[i + 1] * scale);
+      }
+    }
+    jt::fence_proxy_async();
+    jt::bar_sync(1 + wg, FWD_WG);
+    if (tid == 0 && q0 + wg * 64 < Nq) {
+      jt::tma_store_4d(&tdq, myq, 0, q0 + wg * 64, h, b);
+      jt::tma_store_commit_and_wait();
+    }
+  }
 }
 
 // H6 (kDQ = false): dk, dv of 128 kv rows of one (batch, head), streaming
@@ -799,10 +949,22 @@ int launch_fwd(const HmArgs* a, void* stream) {
                     to, (const uint8_t*)a->kvm, (float*)a->lse, a->Nq, a->Nk, a->H, a->qscale);
 }
 
+// H5's maps: q and do in 128-row boxes (the block's rows), k and v in
+// 64-row boxes (the ring's stages), dq in 64-row boxes (each consumer
+// warpgroup's rows)
 template <int C>
 int launch_dq(const HmArgs* a, void* stream) {
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  int err = hm_map<C>(&tq, a->q, a->q_s, a->Nq, *a, FWD_BQ);
+  if (!err) err = hm_map<C>(&tk, a->k, a->k_s, a->Nk, *a, DQ_BKV);
+  if (!err) err = hm_map<C>(&tv, a->v, a->v_s, a->Nk, *a, DQ_BKV);
+  if (!err) err = hm_map<C>(&tdo, a->dO, a->do_s, a->Nq, *a, FWD_BQ);
+  if (!err) err = hm_map<C>(&tdq, a->dq, a->dq_s, a->Nq, *a, 64);
+  if (err) return err;
   return jt::launch(a->kvm ? flash_hm_dq_kernel<C, true> : flash_hm_dq_kernel<C, false>,
-                    grid_of(*a, BR, a->Nq), jt::kThreads, dq_smem<C>(), stream, *a);
+                    grid_of(*a, FWD_BQ, a->Nq), FWD_THREADS, FwdGeo<C>::DQ_SMEM, stream, tq, tk,
+                    tv, tdo, tdq, (const uint8_t*)a->kvm, (const float*)a->lse,
+                    (const float*)a->delta, a->Nq, a->Nk, a->H, a->qscale, a->scale);
 }
 
 // H6's and H7's maps: q and do in 64-row boxes (the q stages), k, v, dk

@@ -96,7 +96,8 @@ _PACKED = [(2, 2, 149, 64, "float32", False, "merged"),
            (2, 2, 149, 32, "bfloat16", False, "merged"),
            (1, 1, 376, 64, "bfloat16", False, "merged"),  # vit_tiny's fixed context
            (1, 1, 1568, 32, "float32", False, "split"),
-           (1, 1, 1568, 64, "bfloat16", True, "split")]
+           (1, 1, 1568, 64, "bfloat16", True, "split"),
+           (1, 1, 1568, 32, "bfloat16", True, "split")]
 
 
 @pytest.mark.parametrize("b,h,n,c,dtype,masked,kind", _PACKED,

@@ -81,6 +81,19 @@ def test_packed_qkv_operands(monkeypatch):
     _check_all(seen, {"fwd", "bwd_dqkv"})
 
 
+def test_packed_qkv_split_operands(monkeypatch):
+    """flash_attention_packed at vit_tiny's full clip takes the split
+    backward: H5 writes dq into the q plane of the packed dqkv, H6 dk and
+    dv into the others, each as it is."""
+    gen = torch.Generator().manual_seed(3)
+    qkv = torch.randn((3, 1, 1, 1568, 64), generator=gen).to(torch.bfloat16).requires_grad_(True)
+    seen = _spy_operands(monkeypatch)
+    fa.flash_attention_packed(qkv).float().sum().backward()
+    _check_all(seen, {"fwd", "bwd_dq", "bwd_dkv"})
+    dq_out = next(ops["out0"] for kind, ops in seen if kind == "bwd_dq")
+    assert dq_out.data_ptr() == qkv.grad.data_ptr()  # the q plane, written in place
+
+
 def test_probe_cross_attention_operands(monkeypatch):
     """dot_product_attention(impl='flash') as the attentive probe calls it:
     one query token over the feature sequence, k and v the planes of one
