@@ -9,6 +9,10 @@
                                             # only H1-H8, H1-fp32, H3-fp32 and
                                             # H8-fp32 against another
                                             # checkout's (phase_kernel_ab)
+    python3 chip_smoke.py --remat-peak vith16.yaml [--padded]
+                                            # only a pretrain config with
+                                            # remat False: its ms and peak
+                                            # memory (phase_remat_peak)
 
 Phases (any failure raises and exits non-zero):
   1. device: require CUDA, print the card's name and power limit, turn
@@ -112,8 +116,38 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      profile, the B=2 check; H8 24 per context forward, H3 24 for the
      target) and the A/B against the default update in turns, with each
      variant's peak memory.
+ 17. the tube mask mode (data.mask_type random_tube, one mask of ratio
+     0.9, the reference's default) at vitl16.yaml: 3 updates at B=24
+     (context 152 tokens, predictor 1568), one B=2 update against the
+     plain versions from the seeded state, then the app fixed 1 epoch and
+     padded 1 epoch (one tier of static caps, 256 and 1536: the masked
+     H1/H2);
+ 18. activation checkpointing at vitl16.yaml, B=24: from one seeded
+     state, one update with remat False, True and 'attn' (encoder and
+     predictor) each, whose loss, metrics, parameters and AdamW moments
+     must be bit-equal, then three more of each in turns (ms, peak
+     memory) and one profiled; the launches per update those of False
+     ('attn') or one more H1 per trainable attention block (True);
+ 19. ViT-H: H1 c=80 at the vith16 target (B=24, N=1568) and the
+     vith16_384 target (B=10, N=4608), both H2 kernels at c=80 at the
+     vith16 context and H3 at ViT-H's fc1, against their plain versions
+     and timed; every other token-major call shape of both configs'
+     updates (the vith16_384 contexts, c=80, and predictors, c=24->32, at
+     B=10: H1 and both H2 kernels) and the vith16_384 fp32 eval's train
+     step (H1-fp32 c=80 at B=8, N=4608; H3-fp32 at M=8*4608) against their
+     plain versions (one sample at a time where a batch's fp32 scores pass
+     PLAIN_BATCH_BYTES); then vith16.yaml (B=24) and vith16_384.yaml (B=10) with the app's
+     default remat ('attn'): TRAIN_STEPS updates each through
+     build_train_step (one profiled more) and the app (vith16: fixed 1 epoch of 2 updates, a
+     resume to 2 epochs, padded 1 epoch; vith16_384: fixed 1 epoch), each
+     ~10 GB checkpoint written in the temporary folder and removed;
+ 20. the K400 16x8x3 evals of ViT-H (vith16_k400_16x8x3.yaml,
+     vith16_384_k400_16x8x3.yaml) in bf16 (batch 4: 2 train steps, 1 val
+     step) and fp32 (batch 1: 2 and 1) on a seeded ViT-H .pth.tar, the
+     features of each first train and val batch's first VITH_VIEWS_CHECKED
+     (segments, views) through the kernels against the plain versions.
 Phases 12-13 run after phase 7, phases 14-15 after phase 8, phase 16's
-kernel checks after phase 9. Launch counts are checked as whole dicts of
+kernel checks after phase 9, phases 17-20 after phase 15. Launch counts are checked as whole dicts of
 every counter (``_counts``): a kernel that should not run must count 0.
 H1 (each head dim, masked or not), H1-fp32, H2 likewise, H3, H4, H5, H6,
 H7, H8 and H8-fp32 are each called a second time on the same inputs wherever
@@ -126,6 +160,7 @@ is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import json
@@ -192,6 +227,17 @@ EVAL_BF16_ENTRIES = (8, 6)  # (train, val) synthetic videos of the bf16 video ev
 EVAL_F32_ENTRIES = (2, 1)   # the fp32 video eval at batch 1: 2 train, 1 val step
 IMAGE_TRAIN_STEPS = 2
 APP_IPE = 5        # app updates per epoch (the config's ipe is 300)
+TUBE_MASKS = [{"ratio": 0.9}]  # data.mask_type random_tube at the reference's default ratio
+VITH_EVALS = ("vith16_k400_16x8x3.yaml", "vith16_384_k400_16x8x3.yaml")
+VITH_EVAL_ENTRIES = (8, 4)  # the ViT-H bf16 evals at batch 4: 2 train steps, 1 val step
+VITH_VIEWS_CHECKED = (2, 1)  # (segments, views) of each ViT-H eval sample whose features
+                             # are held against the plain versions
+# (c, N) of the H1 launches that stand in for K2: where the JAX package's
+# _pick_tm_fwd takes the kv-tiled forward on a driven path, vith16_384's
+# encoder (tests/test_torch_dispatch.py::test_jax_tm_kernel_picks); counted
+# at the launch by fa.launches_by_tokens
+K2_C, K2_N = 80, 4608
+K2_KEY = f"h1_c{K2_C}_n{K2_N}"
 HM_O_TOL, HM_LSE_TOL = H1_O_TOL, H1_LSE_TOL  # H4 vs its plain version: the same p rounding
                                              # against a running vs the global max as H1
 
@@ -316,7 +362,7 @@ def phase_f32_kernels(torch):
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise RuntimeError("TF32 is on: the fp32 plain versions would not be fp32")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    rep = {"h1": {"max_abs_err": 0.0}, "h3": {"max_abs_err": 0.0}}
+    rep = {"h1": {"max_abs_err": 0.0}, "h3": {"max_abs_err": 0.0}, "by_shape": {}}
     for b, n, h, c in F32_H1_SHAPES:
         qkv = torch.randn((b, n, 3 * h * c), generator=gen, device="cuda")
         scale = c**-0.5
@@ -333,6 +379,7 @@ def phase_f32_kernels(torch):
             f"{r['bound'][0]:.4f} ms ({r['bound'][2]}); {flops / r['ms'] / 1e9:.1f} TFLOP/s")
         if "ms" not in rep["h1"]:
             rep["h1"].update(r)
+        rep["by_shape"][(b, n, h, c)] = dict(r, max_abs_err=err)
         del qkv
     for m, k, f in F32_H3_SHAPES:
         x = torch.randn((m, k), generator=gen, device="cuda")
@@ -353,6 +400,7 @@ def phase_f32_kernels(torch):
             f"{flops / r['ms'] / 1e9:.1f} TFLOP/s")
         if "ms" not in rep["h3"]:
             rep["h3"].update(r)
+        rep["by_shape"][(m, k, f)] = dict(r, max_abs_err=err)
         del x, w, bias
     return rep
 
@@ -383,15 +431,32 @@ def _same_bits(label, first, second) -> None:
         raise RuntimeError(f"{label} is not deterministic: a second call differs")
 
 
-def _check_h1(torch, label, qkv, h, scale, mask=None):
+def _by_sample(torch, by_sample, fn, *args):
+    """fn(*args), or with ``by_sample`` fn on each sample of the batched
+    tensor arguments (None and numbers passed as they are) and the results
+    concatenated: the same function at a sample's share of the plain
+    attention's fp32 scores."""
+    if not by_sample:
+        return fn(*args)
+    b = args[0].shape[0]
+    part = lambda a, i: a[i:i + 1] if torch.is_tensor(a) else a
+    outs = [fn(*(part(a, i) for a in args)) for i in range(b)]
+    if torch.is_tensor(outs[0]):
+        return torch.cat(outs)
+    return tuple(torch.cat(t) for t in zip(*outs))
+
+
+def _check_h1(torch, label, qkv, h, scale, mask=None, by_sample=False):
     """H1 on qkv (with a key mask or none) against its plain version on the
-    card (finite, |do| <= H1_O_TOL, |dlse| <= H1_LSE_TOL), then called a
-    second time on the same inputs, which must give bit-equal o and lse.
-    Returns (o, lse, max|do|)."""
+    card (finite, |do| <= H1_O_TOL, |dlse| <= H1_LSE_TOL; ``by_sample``: the
+    plain version one sample at a time), then called a second time on the
+    same inputs, which must give bit-equal o and lse. Returns (o, lse,
+    max|do|)."""
     from jepa_tpu_torch.ops import flash_attention as fa
 
     o, lse = fa.flash_self_attention_cuda(qkv, h, scale, mask)
-    o_ref, lse_ref = fa.flash_self_attention_ref(qkv, h, scale, mask)
+    o_ref, lse_ref = _by_sample(torch, by_sample, fa.flash_self_attention_ref, qkv, h, scale,
+                                mask)
     torch.cuda.synchronize()
     if not (_finite(o) and _finite(lse)):
         raise RuntimeError(f"{label}: non-finite output")
@@ -405,17 +470,19 @@ def _check_h1(torch, label, qkv, h, scale, mask=None):
     return o, lse, err_o
 
 
-def _check_h2(torch, label, qkv, do, o, lse, h, scale, c_real, mask=None):
+def _check_h2(torch, label, qkv, do, o, lse, h, scale, c_real, mask=None, by_sample=False):
     """Both H2 kernels on qkv (with a key mask or none) against their plain
-    versions on the card: finite, each gradient within H2_REL * max|ref|,
-    the pad lanes past c_real exactly 0 and, with a mask, the masked keys'
-    dk and dv exactly 0; then a second call on the same inputs, which must
-    be bit-equal. Returns (delta, {gradient: max|d|})."""
+    versions on the card (``by_sample``: one sample at a time): finite, each
+    gradient within H2_REL * max|ref|, the pad lanes past c_real exactly 0
+    and, with a mask, the masked keys' dk and dv exactly 0; then a second
+    call on the same inputs, which must be bit-equal. Returns (delta,
+    {gradient: max|d|})."""
     from jepa_tpu_torch.ops import flash_attention as fa
 
     delta = fa.attention_delta(do, o, h)
     dqkv = fa.flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale, mask)
-    ref = fa.flash_self_attention_bwd_ref(qkv, do, lse, delta, h, scale, mask)
+    ref = _by_sample(torch, by_sample, fa.flash_self_attention_bwd_ref, qkv, do, lse, delta, h,
+                     scale, mask)
     torch.cuda.synchronize()
     if not _finite(dqkv):
         raise RuntimeError(f"{label}: non-finite output")
@@ -461,14 +528,15 @@ def _check_h4(torch, label, q, k, v, scale, mask=None):
     return o, lse, err_o
 
 
-def _check_h1_f32(torch, label, qkv, h, scale):
+def _check_h1_f32(torch, label, qkv, h, scale, by_sample=False):
     """H1-fp32 on fp32 qkv against its plain version on the card (finite,
-    |do| and |dlse| <= F32_TOL), then a second call on the same inputs,
-    which must be bit-equal. Returns max(|do|, |dlse|)."""
+    |do| and |dlse| <= F32_TOL; ``by_sample``: the plain version one sample
+    at a time), then a second call on the same inputs, which must be
+    bit-equal. Returns max(|do|, |dlse|)."""
     from jepa_tpu_torch.ops import flash_attention as fa
 
     o, lse = fa.flash_self_attention_cuda(qkv, h, scale)
-    o_ref, lse_ref = fa.flash_self_attention_ref(qkv, h, scale)
+    o_ref, lse_ref = _by_sample(torch, by_sample, fa.flash_self_attention_ref, qkv, h, scale)
     torch.cuda.synchronize()
     if not (_finite(o) and _finite(lse)):
         raise RuntimeError(f"{label}: non-finite output")
@@ -1019,7 +1087,7 @@ def phase_masked_kernels(torch, shapes):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rng = np.random.default_rng(SEED + 2)
-    rep = {k: {"max_abs_err": 0.0} for k in ("h1_c64", "h1_c32", "dkv", "dq")}
+    rep = {k: {"max_abs_err": 0.0} for k in ("h1_c64", "h1_c32", "h1_c80", "dkv", "dq")}
     for label, b, n, h, c, c_real, mid_run in shapes:
         qkv, do = _attn_inputs(torch, gen, b, n, h, c, c_real)
         mask = padded_key_mask(torch, rng, b, n, mid_run)
@@ -1478,35 +1546,49 @@ def phase_serve(torch, workdir: str, model_name: str = "vit_large"):
             "feat_cos": cos, "prof": prof}
 
 
-def train_setup(repo: str, model_name: str = None, fused_mlp=False):
-    """Configs of configs/pretrain/vitl16.yaml (model, data geometry, mask,
-    loss and optimization sections): ViT-L/16 (or ``model_name``) + the
-    12 x 384 predictor at full width and depth, fixed masks with K
-    calibrated at the config's per-card batch, the config's schedules (ipe
-    300, warmup 40); ``fused_mlp`` the encoder's (``'force'``: the context
-    encoder's fc1 fused and differentiated, H8)."""
+def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl16.yaml",
+                tube=None, remat=False):
+    """Configs of configs/pretrain/<config> (model, data geometry, mask,
+    loss and optimization sections; default vitl16.yaml): its encoder (or
+    ``model_name``) + the 12 x 384 predictor at full width and depth,
+    fixed masks with K calibrated at the config's per-card batch, the
+    config's schedules (ipe 300, warmup 40); ``fused_mlp`` the encoder's
+    (``'force'``: the context encoder's fc1 fused and differentiated, H8);
+    ``tube``: a ``mask`` list of random-tube configs in place of the
+    config's (``data.mask_type: random_tube``, the step's 'tube' mode);
+    ``remat``: the encoder's and the predictor's activation checkpointing
+    (the app's default is ``'attn'``)."""
     import yaml
 
     from jepa_tpu_torch.masks.multiblock3d import MaskGrid, MaskSpec, calibrate_keep_counts
+    from jepa_tpu_torch.masks.random_tube import TubeSpec
+    from jepa_tpu_torch.masks.random_tube import keep_counts as tube_keep_counts
     from jepa_tpu_torch.models.factory import predictor_cfg_for, vit_cfg
     from jepa_tpu_torch.train.step import TrainCfg, build_train_step
     from jepa_tpu_torch.utils.schedulers import build_schedules
 
-    with open(os.path.join(repo, "configs", "pretrain", "vitl16.yaml")) as f:
+    with open(os.path.join(repo, "configs", "pretrain", config)) as f:
         cfg = yaml.safe_load(f)
     m, d, lo, o = cfg["model"], cfg["data"], cfg["loss"], cfg["optimization"]
     m["model_name"] = model_name or m["model_name"]
     enc_cfg = vit_cfg(m["model_name"], img_size=d["crop_size"], patch_size=d["patch_size"],
                       num_frames=d["num_frames"], tubelet_size=d["tubelet_size"],
-                      uniform_power=m["uniform_power"], fused_mlp=fused_mlp)
+                      uniform_power=m["uniform_power"], fused_mlp=fused_mlp, remat=remat)
+    if tube is not None:
+        cfg["mask"] = tube
     pred_cfg = predictor_cfg_for(enc_cfg, predictor_embed_dim=m["pred_embed_dim"],
                                  depth=m["pred_depth"], use_mask_tokens=m["use_mask_tokens"],
                                  num_mask_tokens=len(cfg["mask"]),
                                  zero_init_mask_tokens=m["zero_init_mask_tokens"])
-    specs = [MaskSpec.from_cfg(x) for x in cfg["mask"]]
     grid = MaskGrid.from_data_cfg(d["crop_size"], d["patch_size"], d["num_frames"],
                                   d["tubelet_size"])
-    keep = [calibrate_keep_counts(s, grid, d["batch_size"]) for s in specs]
+    if tube is not None:
+        specs = [TubeSpec.from_cfg(x) for x in tube]
+        keep = [tube_keep_counts(s, grid) for s in specs]
+        cfg["meta"]["mask_mode"] = "tube"
+    else:
+        specs = [MaskSpec.from_cfg(x) for x in cfg["mask"]]
+        keep = [calibrate_keep_counts(s, grid, d["batch_size"]) for s in specs]
     ipe, warmup = int(o["ipe"]), float(o["warmup"])
     scheds = build_schedules(ipe=ipe, num_epochs=int(o["epochs"]), warmup_epochs=warmup,
                              start_lr=o["start_lr"], ref_lr=o["lr"], final_lr=o["final_lr"],
@@ -1519,20 +1601,38 @@ def train_setup(repo: str, model_name: str = None, fused_mlp=False):
     step_fn = build_train_step(enc_cfg, pred_cfg, tc, *scheds, specs, grid, keep)
     return dict(enc_cfg=enc_cfg, pred_cfg=pred_cfg, keep=keep, step_fn=step_fn,
                 specs=specs, grid=grid, yaml_batch=d["batch_size"], model_name=m["model_name"],
-                clip_shape=(d["num_frames"], d["crop_size"], d["crop_size"], 3))
+                clip_shape=(d["num_frames"], d["crop_size"], d["crop_size"], 3),
+                config=config, tube=tube, remat=remat)
+
+
+def attention_calls(enc_cfg, pred_cfg=None, pairs=()):
+    """(N, heads, head dim, depth, grad, cfg) of each attention stack of one
+    request of a grad-free encoder (``enc_cfg`` alone) or of one update
+    (with ``pred_cfg`` and ``pairs``, the (context, target) token counts of
+    each mask config): the target forward, then per mask the context
+    encoder and the predictor, forward and backward."""
+    c = enc_cfg.embed_dim // enc_cfg.num_heads
+    calls = [(enc_cfg.num_patches, enc_cfg.num_heads, c, enc_cfg.depth, False, enc_cfg)]
+    for ke, kp in pairs:
+        calls.append((ke, enc_cfg.num_heads, c, enc_cfg.depth, True, enc_cfg))
+        calls.append((ke + kp, pred_cfg.num_heads,
+                      pred_cfg.predictor_embed_dim // pred_cfg.num_heads, pred_cfg.depth, True,
+                      pred_cfg))
+    return calls
 
 
 def expected_launches(enc_cfg, pred_cfg=None, pairs=(), masked=False) -> dict:
-    """The launches the routes imply, zero counters left out: per request of
-    a grad-free encoder (``enc_cfg`` alone), or per update (with
-    ``pred_cfg`` and ``pairs``, the (context, target) token counts of each
-    mask config): the target forward, then per mask the context encoder
-    and the predictor, forward and backward, with the key mask in the
-    padded mode (``masked``). A sequence under 128 tokens runs eager (the
-    flash rule); otherwise ``self_attention_route`` picks H1/H2 ('tm', at
-    the padded head dim) or H4 with H7 or H5 + H6 ('hm', ``merged_bwd``).
+    """The launches the routes imply, zero counters left out, per request or
+    per update of ``attention_calls``, with the key mask on the trainable
+    calls in the padded mode (``masked``). A sequence under 128 tokens runs
+    eager (the flash rule); otherwise ``self_attention_route`` picks H1/H2
+    ('tm', at the padded head dim; unmasked at (K2_C, K2_N) also counted
+    under K2_KEY) or H4 with H7 or H5 + H6 ('hm', ``merged_bwd``).
     H3 runs in the grad-free encoder where its tiling takes the fc1, H8 in
-    the context encoder under ``fused_mlp='force'`` (LinearGelu's forward)."""
+    the context encoder under ``fused_mlp='force'`` (LinearGelu's forward).
+    A trainable net with remat True / 'full' recomputes every block in the
+    backward, so each of its attention forwards launches twice (H8 too);
+    'attn' keeps the forward's (o, lse) and launches no more than False."""
     from jepa_tpu_torch.ops import flash_attention as fa
     from jepa_tpu_torch.ops.fused_mlp import fused_tiling
 
@@ -1541,15 +1641,20 @@ def expected_launches(enc_cfg, pred_cfg=None, pairs=(), masked=False) -> dict:
     def add(key, n):
         want[key] = want.get(key, 0) + n
 
-    def attn(n, heads, c, depth, grad, mask):
+    full = lambda cfg: cfg.remat not in (False, None, "attn")  # recomputes the forward
+
+    def attn(n, heads, c, depth, grad, mask, recompute=False):
         route = fa.self_attention_route(heads, c, n)
         if n < 128 or route == "eager":
             return
         sfx = "_masked" if mask else ""
+        fwd = depth * (2 if grad and recompute else 1)
         if route == "tm":
             cp = fa.padded_head_dim(c)
-            add("h1", depth)
-            add(f"h1_c{cp}{sfx}", depth)
+            add("h1", fwd)
+            add(f"h1_c{cp}{sfx}", fwd)
+            if not mask and (cp, n) == (K2_C, K2_N):
+                add(K2_KEY, fwd)
             for k in ("dkv", "dq") if grad else ():
                 add(k, depth)
                 add(f"{k}_c{cp}", depth)
@@ -1558,20 +1663,16 @@ def expected_launches(enc_cfg, pred_cfg=None, pairs=(), masked=False) -> dict:
             return
         kinds = ["fwd"] + (["dqkv"] if fa.merged_bwd(n, n, c) else ["dq", "dkv"]) * grad
         for k in kinds:
-            add(f"hm_{k}", depth)
+            add(f"hm_{k}", fwd if k == "fwd" else depth)
             if mask:
-                add(f"hm_{k}_masked", depth)
+                add(f"hm_{k}_masked", fwd if k == "fwd" else depth)
 
-    c = enc_cfg.embed_dim // enc_cfg.num_heads
-    attn(enc_cfg.num_patches, enc_cfg.num_heads, c, enc_cfg.depth, False, False)
-    for ke, kp in pairs:
-        attn(ke, enc_cfg.num_heads, c, enc_cfg.depth, True, masked)
-        attn(ke + kp, pred_cfg.num_heads, pred_cfg.predictor_embed_dim // pred_cfg.num_heads,
-             pred_cfg.depth, True, masked)
+    for n, heads, c, depth, grad, cfg in attention_calls(enc_cfg, pred_cfg, pairs):
+        attn(n, heads, c, depth, grad, masked and grad, full(cfg))
     if fused_tiling(8, enc_cfg.embed_dim, enc_cfg.mlp_hidden):
         add("h3", enc_cfg.depth)
         if pairs and enc_cfg.fused_mlp == "force":
-            add("h8", enc_cfg.depth * len(pairs))
+            add("h8", enc_cfg.depth * len(pairs) * (2 if full(enc_cfg) else 1))
     return want
 
 
@@ -1581,7 +1682,8 @@ def _counts(fa, fm) -> dict:
          "dkv_masked": fa.dkv_masked_launches, "dq_masked": fa.dq_masked_launches,
          "h3": fm.launches, "h3_f32": fm.f32_launches,
          "h8": fm.z_launches, "h8_f32": fm.z_f32_launches,
-         "h1_f32": fa.f32_launches_by_head_dim[64], "h1_f32_c80": fa.f32_launches_by_head_dim[80]}
+         "h1_f32": fa.f32_launches_by_head_dim[64], "h1_f32_c80": fa.f32_launches_by_head_dim[80],
+         K2_KEY: fa.launches_by_tokens[K2_C, K2_N]}
     for hd in fa.KERNEL_HEAD_DIMS:
         c.update({f"h1_c{hd}": fa.launches_by_head_dim[hd],
                   f"h1_c{hd}_masked": fa.masked_launches_by_head_dim[hd],
@@ -1604,36 +1706,42 @@ def _reset_counts(fa, fm) -> None:
     fm.reset_launch_counts()
 
 
-def phase_train(torch, setup, determinism=False):
-    """TRAIN_STEPS pretraining updates of vitl16.yaml (``train_setup``) at
-    TRAIN_BATCH clips per card, held against the plain versions by one
-    update at B=2 through both, from the seeded state and from the state
-    the timed updates leave (``check_b2``); with ``determinism``, first two
-    B=2 updates through the kernels from copies of the trained state, which
-    must agree to the bit."""
+def phase_train(torch, setup, determinism=False, steps=TRAIN_STEPS, b2=(False, True)):
+    """``steps`` pretraining updates of the config of ``train_setup`` at its
+    batch (vitl16.yaml: TRAIN_BATCH clips per card), with the launches of
+    every update checked whole, one more update profiled, and held against
+    the plain versions by one update at B=2 through both, from the seeded
+    state and from the state the timed updates leave (``check_b2``; ``b2``
+    holds the ``trained`` flags of those it takes); with ``determinism``, first
+    two B=2 updates through the kernels from copies of the trained state,
+    which must agree to the bit."""
     from jepa_tpu_torch.ops import flash_attention as fa
     from jepa_tpu_torch.ops import fused_mlp as fm
     from jepa_tpu_torch.train.step import init_train_state
 
+    batch = setup["yaml_batch"]
     want = expected_launches(setup["enc_cfg"], setup["pred_cfg"], setup["keep"])
-    log(f"train: vitl16.yaml, {setup['model_name']} (fused_mlp "
-        f"{setup['enc_cfg'].fused_mlp!r}) + predictor {setup['pred_cfg'].depth}x"
-        f"{setup['pred_cfg'].predictor_embed_dim}, batch {TRAIN_BATCH} (config "
-        f"{setup['yaml_batch']}), keep counts {setup['keep']}, expected launches/step {want}")
+    log(f"train: {setup['config']}{' (tube masks)' if setup['tube'] else ''}, "
+        f"{setup['model_name']} (fused_mlp {setup['enc_cfg'].fused_mlp!r}, remat "
+        f"{setup['remat']!r}) + predictor {setup['pred_cfg'].depth}x"
+        f"{setup['pred_cfg'].predictor_embed_dim}, batch {batch}, keep counts "
+        f"{setup['keep']}, expected launches/step {want}")
+    torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
     state = init_train_state(setup["enc_cfg"], setup["pred_cfg"], gen)  # device="cuda"
-    clips = torch.randn((TRAIN_BATCH, *setup["clip_shape"]), generator=gen, device="cuda")
+    clips = torch.randn((batch, *setup["clip_shape"]), generator=gen, device="cuda")
     torch.cuda.synchronize()
     log(f"train: seeded state and clips in {time.perf_counter() - t0:.1f} s")
 
     step_fn = setup["step_fn"]
     small = {"clips": clips[:2].contiguous()}
-    check_b2(torch, step_fn, state, small, trained=False)
+    if False in b2:
+        check_b2(torch, step_fn, state, small, trained=False)
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(fa, fm)
     times, per_step = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         before = _counts(fa, fm)
         t0 = time.perf_counter()
         state, metrics = step_fn(state, {"clips": clips})
@@ -1651,15 +1759,18 @@ def phase_train(torch, setup, determinism=False):
         raise RuntimeError(f"launches per step {per_step} != expected {want}")
     med = statistics.median(times[1:])
     log(f"train: ms/step {[round(t, 1) for t in times]}; median after warm-up "
-        f"{med:.1f} ms ({TRAIN_BATCH / med * 1e3:.2f} clips/s); peak allocated "
+        f"{med:.1f} ms ({batch / med * 1e3:.2f} clips/s); peak allocated "
         f"{peak_gib:.2f} GiB; launches {launches}")
     prof = profile_step(torch, step_fn, state, clips)
     del clips
     if determinism:
         check_update_determinism(torch, step_fn, state, small)
-    check_b2(torch, step_fn, state, small, trained=True)
+    if True in b2:
+        check_b2(torch, step_fn, state, small, trained=True)
+    del state, small
+    torch.cuda.empty_cache()
     return {"launches": launches, "median_ms": med, "peak_gib": peak_gib, "prof": prof,
-            "keep": setup["keep"]}
+            "keep": setup["keep"], "per_step": want, "steps": steps}
 
 
 def check_b2(torch, step_fn, state, batch, trained):
@@ -1859,12 +1970,13 @@ def _csv_times(path):
     return step, wall, host, len(rows) - rows.count(rows[0])
 
 
-def phase_app(torch, repo, setup, workdir):
-    """The pretrain app on vitl16.yaml (with ``setup``'s model) on
-    synthetic data, APP_IPE updates per epoch: fixed mode 2 epochs, a resume
-    to 3, then padded mode 1 epoch, each with the launch counts set to 0
-    just before and read just after; api.load_encoder reads the fixed run's
-    checkpoint."""
+def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=2, resume=True, padded=True):
+    """The pretrain app on ``setup``'s config (``train_setup``: its model,
+    its tube masks if any) on synthetic data, ``ipe`` updates per epoch:
+    fixed mode ``epochs`` epochs, a resume to one more, then padded mode 1
+    epoch, each with the launch counts set to 0 just before and read just
+    after; api.load_encoder reads the fixed run's checkpoint. The app runs
+    its default activation checkpointing (meta.remat absent: 'attn')."""
     import shutil
 
     import yaml
@@ -1872,20 +1984,26 @@ def phase_app(torch, repo, setup, workdir):
     from jepa_tpu_torch import api
     from jepa_tpu_torch.apps.vjepa.train import main as train_main
     from jepa_tpu_torch.masks.multiblock3d import calibrate_pad_ladders
+    from jepa_tpu_torch.masks.padding import static_cap
     from jepa_tpu_torch.ops import flash_attention as fa
     from jepa_tpu_torch.ops import fused_mlp as fm
 
-    with open(os.path.join(repo, "configs", "pretrain", "vitl16.yaml")) as f:
+    with open(os.path.join(repo, "configs", "pretrain", setup["config"])) as f:
         cfg = yaml.safe_load(f)
     cfg["data"]["dataset_type"] = "synthetic"
     cfg["model"]["model_name"] = setup["model_name"]
-    cfg["optimization"]["ipe"] = APP_IPE
-    cfg["optimization"]["epochs"] = 2
+    if setup["tube"]:
+        cfg["data"]["mask_type"] = "random_tube"
+        cfg["mask"] = setup["tube"]
+    cfg["optimization"]["ipe"] = ipe
+    cfg["optimization"]["epochs"] = epochs
     cfg["logging"]["folder"] = os.path.join(workdir, "fixed")
+    d = cfg["data"]
+    label = f"{setup['config']}{' (tube masks)' if setup['tube'] else ''} with {setup['model_name']}"
     torch.cuda.empty_cache()  # a fresh allocator, as the app has in its own process
     retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
-    log(f"app: vitl16.yaml with {setup['model_name']}, synthetic data, ipe {APP_IPE}, batch {cfg['data']['batch_size']}, "
-        f"{cfg['data']['num_workers']} loader workers; free disk "
+    log(f"app: {label}, synthetic data, ipe {ipe}, batch {d['batch_size']}, "
+        f"{d['num_workers']} loader workers; free disk "
         f"{shutil.disk_usage(workdir).free / 2**30:.1f} GiB")
     out = {}
     want_fixed = expected_launches(setup["enc_cfg"], setup["pred_cfg"], setup["keep"])
@@ -1897,7 +2015,7 @@ def phase_app(torch, repo, setup, workdir):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     got = _counts(fa, fm)
-    steps = 2 * APP_IPE
+    steps = epochs * ipe
     if state.step != steps:
         raise RuntimeError(f"app fixed: step {state.step} != {steps}")
     per_update = _launch_diff({}, got, steps)
@@ -1907,13 +2025,17 @@ def phase_app(torch, repo, setup, workdir):
     csv = os.path.join(cfg["logging"]["folder"], f"{tag}_r0.csv")
     ckpt = os.path.join(cfg["logging"]["folder"], f"{tag}-latest.pth.tar")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    remat = (state.encoder.cfg.remat, state.predictor.cfg.remat)
     log(f"app fixed: {steps} updates in {secs:.1f} s (build of state, loader, checkpoints "
-        f"included); checkpoint {os.path.getsize(ckpt) / 2**30:.2f} GiB; launches {got}")
+        f"included); remat (encoder, predictor) {remat}; checkpoint "
+        f"{os.path.getsize(ckpt) / 2**30:.2f} GiB; launches per update {per_update}")
+    if remat != ("attn", "attn"):
+        raise RuntimeError(f"app: remat {remat}, not the JAX app's default ('attn', 'attn')")
 
     # the app's checkpoint through the serving API: the EMA target's features
-    geo = VITL16_GEO
-    clips = np.random.default_rng(SEED).integers(0, 256, size=(2, 16, 224, 224, 3),
-                                                 dtype=np.uint8)
+    geo = dict(VITL16_GEO, img_size=d["crop_size"])
+    clips = np.random.default_rng(SEED).integers(
+        0, 256, size=(2, 16, d["crop_size"], d["crop_size"], 3), dtype=np.uint8)
     feats = api.load_encoder(ckpt, setup["model_name"], **geo).encode(clips)
     want = api.Encoder(model=state.target, cfg=setup["enc_cfg"]).encode(clips)
     err = (feats - want).abs().max().item()
@@ -1922,36 +2044,44 @@ def phase_app(torch, repo, setup, workdir):
     if not (torch.isfinite(feats).all() and err <= 1e-3):
         raise RuntimeError("api.load_encoder does not read the app's checkpoint")
     del state, feats, want
+    torch.cuda.empty_cache()
 
-    # resume to 3 epochs
-    cfg["optimization"]["epochs"] = 3
     fixed_launches = got
-    _reset_counts(fa, fm)
-    state = train_main(cfg)
-    got = _counts(fa, fm)
-    if (state.step != 3 * APP_IPE
-            or _launch_diff({}, got, APP_IPE) != want_fixed):
-        raise RuntimeError(f"app resume: step {state.step}, launches {got}")
-    fixed_launches = {k: v + got[k] for k, v in fixed_launches.items()}
+    if resume:  # to one more epoch
+        cfg["optimization"]["epochs"] = epochs + 1
+        _reset_counts(fa, fm)
+        state = train_main(cfg)
+        got = _counts(fa, fm)
+        if (state.step != (epochs + 1) * ipe
+                or _launch_diff({}, got, ipe) != want_fixed):
+            raise RuntimeError(f"app resume: step {state.step}, launches {got}")
+        fixed_launches = {k: v + got[k] for k, v in fixed_launches.items()}
+        steps = state.step
+        del state
     step_ms, wall_ms, host, n_rows = _csv_times(csv)
-    if n_rows != 3 * APP_IPE:
-        raise RuntimeError(f"app: {n_rows} CSV rows != {3 * APP_IPE}")
+    if n_rows != steps:
+        raise RuntimeError(f"app: {n_rows} CSV rows != {steps}")
     out["fixed"] = dict(step_ms=step_ms, wall_ms=wall_ms, host=host, peak_gib=peak,
-                        launches=fixed_launches)
+                        launches=fixed_launches, updates=steps)
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
-    log(f"app fixed + resume: step {state.step}, {n_rows} CSV rows; median step "
-        f"{step_ms:.0f} ms, wall {wall_ms:.0f} ms, host (loader + augment) share of the "
+    log(f"app fixed{' + resume' if resume else ''}: step {steps}, {n_rows} CSV rows; median "
+        f"step {step_ms:.0f} ms, wall {wall_ms:.0f} ms, host (loader + augment) share of the "
         f"wall {100 * host:.1f} %, peak allocated {peak:.2f} GiB, allocator retries {retries}")
-    del state
     shutil.rmtree(cfg["logging"]["folder"])
     torch.cuda.empty_cache()
+    if not padded:
+        return out
 
     # padded mode, one epoch
     cfg["meta"]["mask_mode"] = "padded"
     cfg["optimization"]["epochs"] = 1
     cfg["logging"]["folder"] = os.path.join(workdir, "padded")
-    specs_caps = calibrate_pad_ladders(
-        setup["specs"], setup["grid"], cfg["data"]["batch_size"])
+    grid = setup["grid"]
+    if setup["tube"]:  # one tier of static caps (the app's rule for exact-K masks)
+        specs_caps = [[(static_cap(grid.n, ke / grid.n), static_cap(grid.n, kp / grid.n))]
+                      for ke, kp in setup["keep"]]
+    else:
+        specs_caps = calibrate_pad_ladders(setup["specs"], grid, d["batch_size"])
     want_padded = expected_launches(setup["enc_cfg"], setup["pred_cfg"],
                                     [rungs[0] for rungs in specs_caps], masked=True)
     torch.cuda.reset_peak_memory_stats()
@@ -1960,29 +2090,31 @@ def phase_app(torch, repo, setup, workdir):
     torch.cuda.synchronize()
     got = _counts(fa, fm)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    if state.step != APP_IPE or _launch_diff({}, got, APP_IPE) != want_padded:
+    if state.step != ipe or _launch_diff({}, got, ipe) != want_padded:
         raise RuntimeError(f"app padded: step {state.step}, launches {got} != "
-                           f"{APP_IPE} x {want_padded}")
+                           f"{ipe} x {want_padded}")
     step_ms, wall_ms, host, n_rows = _csv_times(
         os.path.join(cfg["logging"]["folder"], f"{tag}_r0.csv"))
     out["padded"] = dict(step_ms=step_ms, wall_ms=wall_ms, host=host, peak_gib=peak,
-                         launches=got, ladders=specs_caps)
-    log(f"app padded: step {state.step}, cap ladders {specs_caps}; launches per update "
-        f"{_launch_diff({}, got, APP_IPE)}; median step {step_ms:.0f} ms, wall "
+                         launches=got, ladders=specs_caps, updates=ipe)
+    log(f"app padded: step {state.step}, caps {specs_caps}; launches per update "
+        f"{_launch_diff({}, got, ipe)}; median step {step_ms:.0f} ms, wall "
         f"{wall_ms:.0f} ms, host share {100 * host:.1f} %, peak allocated {peak:.2f} GiB")
     del state
+    shutil.rmtree(cfg["logging"]["folder"])
     torch.cuda.empty_cache()
     return out
 
 
-def eval_config(repo, workdir, name, enc_path, n_train, n_val, **opt):
-    """configs/evals/vitl16_k400_16x8x3.yaml with the seeded encoder, the
-    synthetic decode and CSV manifests of n_train / n_val synthetic videos
-    (seeded labels in [0, 400)) in workdir/name; ``opt`` overrides keys of
-    its optimization section."""
+def eval_config(repo, workdir, name, enc_path, n_train, n_val,
+                config="vitl16_k400_16x8x3.yaml", **opt):
+    """configs/evals/<config> with the seeded encoder, the synthetic decode
+    and CSV manifests of n_train / n_val synthetic videos (seeded labels in
+    [0, 400)) in workdir/name; ``opt`` overrides keys of its optimization
+    section."""
     import yaml
 
-    with open(os.path.join(repo, "configs", "evals", "vitl16_k400_16x8x3.yaml")) as f:
+    with open(os.path.join(repo, "configs", "evals", config)) as f:
         cfg = yaml.safe_load(f)
     folder = os.path.join(workdir, name)
     os.makedirs(folder)
@@ -2088,25 +2220,31 @@ def _check_steps(rec, want, label):
     return out
 
 
-def eval_features_vs_plain(torch, vcf, inputs, cos_min, label):
+def eval_features_vs_plain(torch, vcf, inputs, cos_min, label, checked=None):
     """The frozen features of an eval run's first train and first val batch
-    (its steps' launch shapes) through the kernels, against the plain
-    versions on the same clips. The plain side takes one sample at a time:
-    the encoder sees each clip alone, so that is the same function at a
-    fraction of the plain attention's memory. Returns the min cosine per
-    kind."""
+    through the kernels (``vcf.encode_views`` on the batch, its steps'
+    launch shapes), against the plain versions on the same clips, one
+    sample at a time: the encoder sees each clip alone, so that is the
+    same function at a fraction of the plain attention's memory.
+    ``checked``: (segments, views), the batch's first that many of each
+    (ViT-H: a whole sample's plain attention does not fit). Returns the
+    min cosine per kind."""
     out = {}
     with torch.no_grad():
         for kind, (probe, clips, kw) in inputs.items():
-            clips = clips.cuda()
             across, pos, ci = (kw["attend_across_segments"], kw.get("pos_table"),
                                kw.get("clip_indices"))
+            if checked:
+                clips = clips[:, :checked[0], :checked[1]]
+                ci = None if ci is None else ci[:, :checked[0]]
+            clips = clips.cuda()
             feats = vcf.encode_views(probe, clips, across, pos, ci)
             with plain_versions():
                 per_sample = [vcf.encode_views(probe, clips[i:i + 1], across, pos,
                                                None if ci is None else ci[i:i + 1])
                               for i in range(clips.shape[0])]
             refs = [torch.cat(views) for views in zip(*per_sample)]
+            del per_sample
             finite = all(torch.isfinite(f).all().item() for f in feats)
             cos = min(torch.nn.functional.cosine_similarity(f.float(), r.float(), dim=-1)
                       .min().item() for f, r in zip(feats, refs))
@@ -2117,7 +2255,7 @@ def eval_features_vs_plain(torch, vcf, inputs, cos_min, label):
             if not finite or cos < cos_min:
                 raise RuntimeError(f"eval {label} {kind} features disagree with the plain versions")
             out[kind] = cos
-            del feats, per_sample, refs
+            del feats, refs
     return out
 
 
@@ -2125,33 +2263,47 @@ def _fmt_host(share):
     return "not measured (no back-to-back steps)" if share is None else f"{100 * share:.1f} %"
 
 
-def phase_eval_video(torch, repo, workdir, enc_path, bf16: bool):
+def phase_eval_video(torch, repo, workdir, enc_path, bf16: bool,
+                     config="vitl16_k400_16x8x3.yaml", entries=None, resume=None,
+                     views_checked=None):
     """The video eval (jepa_tpu_torch.evals.video_classification_frozen.main)
-    on vitl16_k400_16x8x3.yaml at full ViT-L width and depth. bf16: the
-    config's batch 4, EVAL_BF16_ENTRIES synthetic videos, 1 epoch then a
-    resume to 2. fp32 (use_bfloat16: false): batch 1, EVAL_F32_ENTRIES, 1
-    epoch. Checks the launches and H3 rows of every step, the resume step,
-    the CSV, the probe checkpoint and finite results, then the features of
-    the first train and val batch against the plain versions."""
+    on configs/evals/<config> (default vitl16_k400_16x8x3.yaml) at its
+    model's full width and depth. bf16: the config's batch 4, ``entries``
+    (default EVAL_BF16_ENTRIES) synthetic videos, 1 epoch then (``resume``,
+    default on) a resume to 2. fp32 (use_bfloat16: false): batch 1,
+    EVAL_F32_ENTRIES, 1 epoch. Checks the launches and H3 rows of every
+    step, the resume step, the CSV, the probe checkpoint and finite
+    results, then the features of the first train and val batch against
+    the plain versions (``views_checked``: of their first (segments, views),
+    ``eval_features_vs_plain``)."""
     from jepa_tpu_torch.evals import video_classification_frozen as vcf
+    from jepa_tpu_torch.models.factory import vit_cfg
     from jepa_tpu_torch.ops import flash_attention as fa
     from jepa_tpu_torch.ops import fused_mlp as fm
 
     batch = 4 if bf16 else 1
-    n_train, n_val = EVAL_BF16_ENTRIES if bf16 else EVAL_F32_ENTRIES
-    name = "k400_bf16" if bf16 else "k400_fp32"
-    cfg = eval_config(repo, workdir, name, enc_path, n_train, n_val, batch_size=batch,
-                      num_epochs=1, use_bfloat16=bf16)
-    d = cfg["data"]
+    n_train, n_val = entries or (EVAL_BF16_ENTRIES if bf16 else EVAL_F32_ENTRIES)
+    resume = bf16 if resume is None else resume
+    name = f"{config.split('_k400')[0]}_k400_{'bf16' if bf16 else 'fp32'}"
+    cfg = eval_config(repo, workdir, name, enc_path, n_train, n_val, config=config,
+                      batch_size=batch, num_epochs=1, use_bfloat16=bf16)
+    d, p = cfg["data"], cfg["pretrain"]
+    res = cfg["optimization"].get("resolution", d.get("resolution", 224))
+    enc = vit_cfg(p["model_name"], img_size=res, patch_size=p["patch_size"],
+                  num_frames=p["frames_per_clip"], tubelet_size=p["tubelet_size"])
+    depth, c = enc.depth, enc.embed_dim // enc.num_heads
     s, v = d["num_segments"], d["num_views_per_segment"]
-    n_tok = (d["frames_per_clip"] // 2) * (224 // 16) ** 2
-    keys = ("h1_c64", "h3") if bf16 else ("h1_f32", "h3_f32")
-    per_step = {k: DEPTH for k in keys}
+    n_tok = enc.num_patches
+    keys = (f"h1_c{c}", "h3") if bf16 else ("h1_f32" if c == 64 else f"h1_f32_c{c}", "h3_f32")
+    per_step = {k: depth for k in keys}
     if bf16:
-        per_step["h1"] = DEPTH  # the bf16 total counter moves with its c=64 instance
+        per_step["h1"] = depth  # the bf16 total counter moves with its instance's
+        if (c, n_tok) == (K2_C, K2_N):
+            per_step[K2_KEY] = depth
     want = {"train_step": (per_step, batch * s * n_tok),
             "val_step": (per_step, batch * s * v * n_tok)}
-    log(f"eval {name}: vitl16_k400_16x8x3.yaml, batch {batch}, {s} segments x {v} views, "
+    log(f"eval {name}: {config} ({p['model_name']}, {res} px), batch {batch}, "
+        f"{s} segments x {v} views, "
         f"{n_train} train / {n_val} val synthetic videos; expected per step {per_step}, "
         f"H3 rows train {want['train_step'][1]} / val {want['val_step'][1]}")
     torch.cuda.empty_cache()
@@ -2160,7 +2312,7 @@ def phase_eval_video(torch, repo, workdir, enc_path, bf16: bool):
     t0 = time.perf_counter()
     with spy_steps(torch, vcf, fa, fm) as rec:
         accs = vcf.main(cfg)  # device="cuda"
-        if bf16:  # resume to 2 epochs from the probe checkpoint
+        if resume:  # to 2 epochs from the probe checkpoint
             cfg["optimization"]["num_epochs"] = 2
             cfg["resume_checkpoint"] = True
             rec["inputs"].clear()  # so the first run's probe and encoder can go
@@ -2169,8 +2321,9 @@ def phase_eval_video(torch, repo, workdir, enc_path, bf16: bool):
     launches = _counts(fa, fm)
     peak = torch.cuda.max_memory_allocated() / 2**30
     cos = eval_features_vs_plain(torch, vcf, rec.pop("inputs"),
-                                 FEAT_COS_MIN if bf16 else F32_FEAT_COS_MIN, name)
-    epochs = 2 if bf16 else 1
+                                 FEAT_COS_MIN if bf16 else F32_FEAT_COS_MIN, name,
+                                 views_checked)
+    epochs = 2 if resume else 1
     ipe, n_val_steps = n_train // batch, -(-n_val // batch)
     if len(rec["train_step"]) != epochs * ipe or len(rec["val_step"]) != epochs * n_val_steps:
         raise RuntimeError(f"eval {name}: {len(rec['train_step'])} train and "
@@ -2189,19 +2342,20 @@ def phase_eval_video(torch, repo, workdir, enc_path, bf16: bool):
             or len([r for r in rows if r[0].isdigit()]) != epochs):
         raise RuntimeError(f"eval {name}: checkpoint step {saved['opt']['step']} epoch "
                            f"{saved['epoch']}, CSV {rows}")
-    if bf16 and rec["train_step"][ipe]["step_before"] != ipe:
+    if resume and rec["train_step"][ipe]["step_before"] != ipe:
         raise RuntimeError(f"eval {name}: the resumed run started at probe step "
                            f"{rec['train_step'][ipe]['step_before']}, not {ipe}")
     (tr_ms, tr_host, tr_aug), (va_ms, va_host, _) = times["train_step"], times["val_step"]
     log(f"eval {name}: {epochs} epoch(s) in {secs:.1f} s (loaders and checkpoints "
-        f"included){'; resumed at probe step ' + str(ipe) if bf16 else ''}; train losses "
+        f"included){'; resumed at probe step ' + str(ipe) if resume else ''}; train losses "
         f"{[round(x, 4) for x in losses]}, val accs {accs}; median train step {tr_ms:.1f} ms "
         f"(host share of the wall {_fmt_host(tr_host)}, augmentation on the card "
         f"{_fmt_host(tr_aug)}), median val step {va_ms:.1f} ms "
         f"(host share {_fmt_host(va_host)}); peak allocated {peak:.2f} GiB; launches "
         f"{ {k: x for k, x in launches.items() if x} }")
     return dict(launches=launches, train_ms=tr_ms, val_ms=va_ms, train_host=tr_host,
-                train_aug=tr_aug, val_host=va_host, peak_gib=peak, feat_cos=cos)
+                train_aug=tr_aug, val_host=va_host, peak_gib=peak, feat_cos=cos,
+                steps=len(rec["train_step"]) + len(rec["val_step"]))
 
 
 def phase_image_probe(torch, repo, enc_path):
@@ -2281,6 +2435,258 @@ def phase_image_probe(torch, repo, enc_path):
         raise RuntimeError("image probe features disagree with the plain versions")
     return dict(launches=launches, train_ms=times["train_step"][0],
                 val_ms=times["val_step"][0])
+
+
+PLAIN_BATCH_BYTES = 4 * 2**30  # a batch's fp32 scores past this: plain versions by sample
+
+
+def phase_vith_kernels(torch, setups):
+    """The instances ViT-H's paths launch, at their shapes, against their
+    plain versions on the card (each called a second time, bit-equal;
+    the plain versions one sample at a time where a batch's fp32 scores
+    pass PLAIN_BATCH_BYTES), timed beside a library call and their bound:
+    H1 c=80 at the vith16 target (B=24, N=1568) and the vith16_384 target
+    (B=10, N=4608), both H2 kernels at c=80 at the vith16 context (B=24),
+    H3 at ViT-H's fc1 (M=24*1568, K=1280, F=5120). Then, checked only:
+    every other token-major call of one update of each of ``setups``
+    (vith16, vith16_384: H1 and, under a gradient, both H2 kernels at the
+    contexts (c=80) and the predictors (c=24->32)), and the fp32 eval of
+    vith16_384 at its train step's 8 clips (H1-fp32 c=80 at N=4608, H3-fp32
+    at M=8*4608); ``held`` gives each instance's max|d| there."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rep = {}
+    h, c = 16, 80
+    scale = c**-0.5
+    by_sample = lambda b, heads, n: b * heads * n * n * 4 > PLAIN_BATCH_BYTES
+    for key, b, n in (("h1_c80", TRAIN_BATCH, 1568), ("h1_c80_n4608", 10, 4608)):
+        qkv = torch.randn((b, n, 3 * h * c), generator=gen, device="cuda").to(torch.bfloat16)
+        label = f"H1 ViT-H B={b} N={n} H={h} c={c}"
+        split = by_sample(b, h, n)
+        o, lse, err = _check_h1(torch, label, qkv, h, scale, by_sample=split)
+        plain = lambda: _by_sample(torch, split, fa.flash_self_attention_ref, qkv, h, scale)
+        r = rep[key] = dict(
+            max_abs_err=err, shape=(b, n, h, c),
+            ms=time_ms(torch, lambda: fa.flash_self_attention_cuda(qkv, h, scale)),
+            plain_ms=time_ms(torch, plain, iters=3, warmup=1),
+            library_ms=_sdpa_fwd_ms(torch, qkv, h, scale),
+            bound=attn_bound_ms(b, n, h, c, 2, qkv.numel() * 2,
+                                b * n * h * c * 2 + b * h * n * 4))
+        log(f"{label} time: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"(SDPA forward) {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][2]})")
+        del qkv, o, lse
+
+    ctx = setups[0]["keep"][0][0]  # vith16's first context
+    b, n = TRAIN_BATCH, ctx
+    qkv, do = _attn_inputs(torch, gen, b, n, h, c)
+    o, lse, _ = _check_h1(torch, f"H1 ViT-H context B={b} N={n}", qkv, h, scale)
+    delta, errs = _check_h2(torch, f"H2 ViT-H context B={b} N={n} H={h}", qkv, do, o, lse, h,
+                            scale, c)
+    qkv_b, o_b, vec_b = qkv.numel() * 2, o.numel() * 2, b * h * n * 4
+    lib = _sdpa_bwd_ms(torch, qkv, do, h, scale)
+    out = torch.empty_like(qkv)
+    for key, fn, ref, products, outs, names in (
+            ("dkv_c80", fa.flash_bwd_dkv_cuda, fa.flash_bwd_dkv_ref, 4, 2, ("dk", "dv")),
+            ("dq_c80", fa.flash_bwd_dq_cuda, fa.flash_bwd_dq_ref, 3, 1, ("dq",))):
+        r = rep[key] = dict(
+            max_abs_err=max(errs[k] for k in names), shape=(b, n, h, c), library_ms=lib,
+            ms=time_ms(torch, lambda: fn(qkv, do, lse, delta, out, h, scale)),
+            plain_ms=time_ms(torch, lambda: ref(qkv, do, lse, delta, h, scale)),
+            bound=attn_bound_ms(b, n, h, c, products, qkv_b + o_b + 2 * vec_b, outs * o_b))
+        log(f"{key} ViT-H context B={b} N={n} H={h} c={c} time: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library (SDPA's whole backward) {lib:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][2]})")
+    del qkv, do, o, lse, delta, out
+
+    m, k, f = TRAIN_BATCH * 1568, 1280, 5120
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((f, k), generator=gen, device="cuda") / 32).to(torch.bfloat16)
+    bias = torch.randn((f,), generator=gen, device="cuda") * 0.1
+    err = _check_h3(torch, f"H3 ViT-H fc1 M={m} K={k} F={f}", x, w, bias)
+    bias_lp = bias.to(x.dtype)
+    r = rep["h3_k1280"] = dict(
+        max_abs_err=err, shape=(m, k, f),
+        ms=time_ms(torch, lambda: fm.linear_gelu_cuda(x, w, bias)),
+        plain_ms=time_ms(torch, lambda: fm.linear_gelu_ref(x, w, bias)),
+        library_ms=time_ms(torch, lambda: torch._addmm_activation(bias_lp, x, w.t(),
+                                                                  use_gelu=True)),
+        bound=fc1_bound_ms(m, k, f, outputs=1))
+    log(f"H3 ViT-H fc1 M={m} K={k} F={f} time: kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, library (_addmm_activation) {r['library_ms']:.4f} ms, bound "
+        f"{r['bound'][0]:.4f} ms ({r['bound'][2]})")
+    del x, w, bias, bias_lp
+
+    held = collections.defaultdict(float)
+    done = {(TRAIN_BATCH, 1568, h, c), (10, 4608, h, c), (TRAIN_BATCH, ctx, h, c)}
+    for setup in setups:
+        b = setup["yaml_batch"]
+        for n, heads, c_real, _, grad, _ in attention_calls(setup["enc_cfg"], setup["pred_cfg"],
+                                                            setup["keep"]):
+            cp = fa.padded_head_dim(c_real)
+            if (n < 128 or fa.self_attention_route(heads, c_real, n) != "tm"
+                    or (b, n, heads, cp) in done):
+                continue
+            done.add((b, n, heads, cp))
+            split = by_sample(b, heads, n)
+            label = (f"{setup['config']} B={b} N={n} H={heads}"
+                     + (" (plain versions by sample)" if split else ""))
+            qkv, do = _attn_inputs(torch, gen, b, n, heads, cp, c_real)
+            sc = c_real**-0.5
+            o, lse, err = _check_h1(torch, f"H1 {label} c={c_real}->{cp}", qkv, heads, sc,
+                                    by_sample=split)
+            held[f"h1_c{cp}"] = max(held[f"h1_c{cp}"], err)
+            if grad:
+                _, errs = _check_h2(torch, f"H2 {label}", qkv, do, o, lse, heads, sc, c_real,
+                                    by_sample=split)
+                held[f"dq_c{cp}"] = max(held[f"dq_c{cp}"], errs["dq"])
+                held[f"dkv_c{cp}"] = max(held[f"dkv_c{cp}"], errs["dk"], errs["dv"])
+            del qkv, do, o, lse
+            torch.cuda.empty_cache()
+    # the vith16_384 fp32 eval's train step: 8 clips of N=4608
+    b, n = 8, setups[-1]["enc_cfg"].num_patches
+    qkv = torch.randn((b, n, 3 * h * c), generator=gen, device="cuda")
+    held["h1_f32_c80"] = _check_h1_f32(torch, f"H1-fp32 vith16_384 eval B={b} N={n} H={h} c={c}",
+                                       qkv, h, scale, by_sample=True)
+    del qkv
+    m = b * n
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((f, k), generator=gen, device="cuda") / 32
+    bias = torch.randn((f,), generator=gen, device="cuda") * 0.1
+    held["h3_f32_k1280"] = _check_f32_fc1(torch, f"H3-fp32 vith16_384 eval M={m} K={k} F={f}",
+                                          x, w, bias)
+    del x, w, bias
+    rep["held"] = held
+    log(f"ViT-H's other call shapes against the plain versions, max|d| by instance: "
+        f"{dict(held)}")
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phase_remat(torch, repo):
+    """Activation checkpointing at vitl16.yaml (ViT-L, B=TRAIN_BATCH): from
+    one seeded state, updates with remat False, True and 'attn' (encoder and
+    predictor), each from a copy of the state: one of each first, whose
+    loss, metrics, parameters and AdamW moments must be bit-equal across
+    the three (the recomputation repeats deterministic kernels), then three
+    more of each in turns (F T A A T F F T A), timed by the host clock to a
+    synchronise with their peak of allocated memory (the seeded state's
+    copy held beside: its GiB are logged), then one profiled each (device
+    time). Every update's launches are checked whole: 'attn' those of
+    False, True one more H1 per trainable attention block."""
+    import copy
+
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+    from jepa_tpu_torch.train.step import init_train_state
+
+    setups = {r: train_setup(repo, remat=r) for r in (False, True, "attn")}
+    base = setups[False]
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state = init_train_state(base["enc_cfg"], base["pred_cfg"], gen)
+    batch = {"clips": torch.randn((TRAIN_BATCH, *base["clip_shape"]), generator=gen,
+                                  device="cuda")}
+    torch.cuda.synchronize()
+    state_gib = torch.cuda.memory_allocated() / 2**30 - batch["clips"].numel() * 4 / 2**30
+    want = {r: expected_launches(s["enc_cfg"], s["pred_cfg"], s["keep"])
+            for r, s in setups.items()}
+    times = {r: [] for r in setups}
+    seen = {r: [] for r in setups}  # each update's launches, as read
+    peaks = dict.fromkeys(setups, 0.0)
+
+    def update(remat):
+        twin = copy.deepcopy(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(fa, fm)
+        t0 = time.perf_counter()
+        twin, metrics = setups[remat]["step_fn"](twin, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = _launch_diff({}, _counts(fa, fm))
+        if got != want[remat]:
+            raise RuntimeError(f"remat {remat!r}: launches {got} != {want[remat]}")
+        seen[remat].append(got)
+        return twin, metrics, ms
+
+    ref, ref_metrics, _ = update(False)
+    for remat in (True, "attn"):
+        twin, metrics, _ = update(remat)
+        differ = [k for k, v in metrics.items()
+                  if torch.is_tensor(v) and not v.equal(ref_metrics[k])]
+        for m in ("encoder", "predictor", "target"):
+            differ += [f"{m}.{n}" for (n, p), q in zip(
+                getattr(twin, m).named_parameters(), getattr(ref, m).parameters())
+                       if not p.equal(q)]
+        differ += [f"moments of {n}" for n in twin.mu if not (
+            twin.mu[n].equal(ref.mu[n]) and twin.nu[n].equal(ref.nu[n]))]
+        log(f"remat {remat!r} (encoder and predictor), B={TRAIN_BATCH}: loss "
+            f"{metrics['loss'].item():.9g} (remat False {ref_metrics['loss'].item():.9g}); "
+            f"metrics, parameters and moments that differ from remat False: {len(differ)}")
+        if differ:
+            raise RuntimeError(f"remat {remat!r}: the update differs from remat False: "
+                               f"{differ[:8]}")
+        del twin
+    del ref
+    for remat in (False, True, "attn", "attn", True, False, False, True, "attn"):
+        twin, _, ms = update(remat)
+        times[remat].append(ms)
+        peaks[remat] = max(peaks[remat], torch.cuda.max_memory_allocated() / 2**30)
+        del twin
+    out = {}
+    for remat, setup in setups.items():
+        twin = copy.deepcopy(state)
+        prof = profile_device(torch, lambda: setup["step_fn"](twin, batch), f"remat {remat!r}")
+        del twin
+        out[remat] = dict(median_ms=statistics.median(times[remat]), times=times[remat],
+                          peak_gib=peaks[remat], per_update=want[remat], prof=prof,
+                          state_gib=state_gib, launches=_sum_launches(*seen[remat]))
+        log(f"remat {remat!r}, B={TRAIN_BATCH}, in turns: {[round(t, 1) for t in times[remat]]} "
+            f"ms, median {out[remat]['median_ms']:.1f} ms/update, device "
+            f"{prof['device_ms']:.1f} ms, peak allocated {peaks[remat]:.2f} GiB (the seeded "
+            f"state's copy beside: {state_gib:.2f} GiB); launches/update {want[remat]}, in "
+            f"{len(seen[remat])} checked updates {dict(out[remat]['launches'])}")
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_remat_peak(torch, repo, config, padded):
+    """``--remat-peak``: one ViT-H config with meta.remat false, outside the
+    smoke (an out-of-memory error ends the command and is the finding):
+    TRAIN_STEPS updates through build_train_step (fixed masks), or with
+    ``padded`` 1 epoch of 2 updates of the app in padded mode; prints ms per
+    update and the peak of allocated memory."""
+    import shutil
+
+    import yaml
+
+    from jepa_tpu_torch.apps.vjepa.train import main as train_main
+
+    if not padded:
+        setup = train_setup(repo, config=config)
+        r = phase_train(torch, setup, b2=())
+        log(f"remat-peak {config} fixed, remat False: median {r['median_ms']:.1f} ms/update, "
+            f"peak allocated {r['peak_gib']:.2f} GiB")
+        return
+    with open(os.path.join(repo, "configs", "pretrain", config)) as f:
+        cfg = yaml.safe_load(f)
+    workdir = tempfile.mkdtemp(dir=repo, prefix=".chip_smoke_")
+    cfg["data"]["dataset_type"] = "synthetic"
+    cfg["meta"].update(mask_mode="padded", remat=False)
+    cfg["optimization"].update(ipe=2, epochs=1)
+    cfg["logging"]["folder"] = workdir
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        train_main(cfg)
+        step_ms, wall_ms, _, _ = _csv_times(os.path.join(workdir, "jepa_r0.csv"))
+    finally:
+        shutil.rmtree(workdir)
+    log(f"remat-peak {config} padded app, remat False: step {step_ms:.0f} ms, wall "
+        f"{wall_ms:.0f} ms, peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
 def tiny_setup(repo):
@@ -2787,9 +3193,19 @@ def phase_kernel_ab(torch, others):
     return rows
 
 
+def _sum_launches(*runs) -> dict:
+    """Launch counters summed over runs (``_counts`` / ``_launch_diff``
+    dicts; a counter missing from one counts 0 there)."""
+    out = {}
+    for run in runs:
+        for k, v in run.items():
+            out[k] = out.get(k, 0) + v
+    return collections.defaultdict(int, out)
+
+
 def kernel_entry(name, source, replaces, launches, rep) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
+            "launches": int(launches), "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound"][0],
             "bound_by": rep["bound"][1], "bound_share": rep["bound"][0] / rep["ms"],
             "library_ms": rep.get("library_ms")}
@@ -2802,6 +3218,10 @@ def main() -> int:
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     phase_build()
+    if "--remat-peak" in sys.argv:
+        phase_remat_peak(torch, repo, sys.argv[sys.argv.index("--remat-peak") + 1],
+                         "--padded" in sys.argv)
+        return 0
     if "--kernel-ab" in sys.argv or "--b2-spread" in sys.argv:
         others = _others()
         if "--kernel-ab" in sys.argv:
@@ -2832,6 +3252,7 @@ def main() -> int:
         ("context, top rung", TRAIN_BATCH, 640, 16, 64, 64, 0),
         ("predictor, short-range", TRAIN_BATCH, 384 + 768, 16, 32, 24, 384),
         ("predictor, top rungs", TRAIN_BATCH, 256 + 1408, 16, 32, 24, 256),
+        ("ViT-H context rung", TRAIN_BATCH, 384, 16, 80, 80, 0),
     ])
     tiny, ladders = tiny_setup(repo)
     hm = phase_hm_kernels(torch, tiny, sorted({ce for rungs in ladders for ce, _ in rungs
@@ -2856,34 +3277,87 @@ def main() -> int:
         tiny_serve = phase_serve(torch, workdir, "vit_tiny")
         tiny_train = phase_train(torch, tiny, determinism=True)
         tiny_app = phase_app(torch, repo, tiny, workdir)
-    sl, tl, al = serve["launches"], train["launches"], app["padded"]["launches"]
+    # the tube mask mode at vitl16.yaml: updates (one B=2 update against the
+    # plain versions), the app fixed and padded; then remat at ViT-L
+    tube = train_setup(repo, tube=TUBE_MASKS)
+    tube_train = phase_train(torch, tube, steps=3, b2=(False,))
+    with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
+        tube_app = phase_app(torch, repo, tube, workdir, epochs=1, resume=False)
+    remat = phase_remat(torch, repo)
+    # ViT-H: its kernel instances, vith16.yaml and vith16_384.yaml with the
+    # app's default remat ('attn') through build_train_step and the app, and
+    # the K400 16x8x3 evals of both in bf16 and fp32
+    vith = train_setup(repo, config="vith16.yaml", remat="attn")
+    vith384 = train_setup(repo, config="vith16_384.yaml", remat="attn")
+    vk = phase_vith_kernels(torch, (vith, vith384))
+    for key, row in (("h1_c32", bwd["h1_c32"]), ("dkv_c32", bwd["dkv"]), ("dq_c32", bwd["dq"]),
+                     ("h1_c80", vk["h1_c80"]), ("dkv_c80", vk["dkv_c80"]),
+                     ("dq_c80", vk["dq_c80"]),
+                     ("h1_f32_c80", f32["by_shape"][F32_H1_SHAPES[1]]),
+                     ("h3_f32_k1280", f32["by_shape"][F32_H3_SHAPES[1]])):
+        row["max_abs_err"] = max(row["max_abs_err"], vk["held"][key])
+    vith_train = phase_train(torch, vith, b2=())
+    vith384_train = phase_train(torch, vith384, b2=())
+    evh = {}
+    with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
+        vith_app = phase_app(torch, repo, vith, workdir, ipe=2, epochs=1)
+        vith384_app = phase_app(torch, repo, vith384, workdir, ipe=2, epochs=1, resume=False,
+                                padded=False)
+        enc_h = write_seeded_encoder(torch, workdir, "vit_huge")
+        for config in VITH_EVALS:
+            for bf16 in (True, False):
+                evh[config, bf16] = phase_eval_video(
+                    torch, repo, workdir, enc_h, bf16, config=config,
+                    entries=VITH_EVAL_ENTRIES if bf16 else EVAL_F32_ENTRIES, resume=False,
+                    views_checked=VITH_VIEWS_CHECKED)
+        os.remove(enc_h)
+    sl, al = serve["launches"], app["padded"]["launches"]
     el, fl, il = ev16["launches"], ev32["launches"], img["launches"]
+    # ViT-L's updates: the timed default ones, the tube mode's (updates, fixed
+    # app) and the remat phase's (its checked updates)
+    tl = _sum_launches(train["launches"], tube_train["launches"],
+                       tube_app["fixed"]["launches"], *(r["launches"] for r in remat.values()))
+    al = _sum_launches(al, tube_app["padded"]["launches"])
+    # ViT-H: its updates, apps and evals; K2's launches are H1's at (K2_C,
+    # K2_N), the vith16_384 target's and eval encoder's, K1's the rest of H1
+    # c=80, both as counted at the launch
+    vith_runs = [vith_train["launches"], vith384_train["launches"],
+                 vith_app["fixed"]["launches"], vith384_app["fixed"]["launches"]]
+    vl = _sum_launches(*vith_runs, *(e["launches"] for e in evh.values()))
+    vp = vith_app["padded"]["launches"]  # every attention call key-masked but the target's
+    k2 = vl[K2_KEY] + vp[K2_KEY]
     fa_src, bwd_src = "jepa_tpu_torch/csrc/flash_attention.cu", "jepa_tpu_torch/csrc/flash_attention_bwd.cu"
     fa_py = "jepa_tpu/ops/flash_attention.py"
     kernels = [
         kernel_entry("flash_self_attention_fwd", fa_src, f"{fa_py}:955",
-                     sl["h1"] + tl["h1_c64"] + el["h1_c64"] + il["h1_c64"], kern["h1"]),
+                     sl["h1"] + tl["h1_c64"] + el["h1_c64"] + il["h1_c64"]
+                     + tube_app["padded"]["launches"]["h1_c64"], kern["h1"]),
+        # ViT-L's updates and ViT-H's predictors (c=32)
         kernel_entry("flash_self_attention_fwd_c32", fa_src, f"{fa_py}:955",
-                     tl["h1_c32"], bwd["h1_c32"]),
-        kernel_entry("flash_bwd_dkv", bwd_src, f"{fa_py}:1452", tl["dkv"], bwd["dkv"]),
-        kernel_entry("flash_bwd_dq", bwd_src, f"{fa_py}:1400", tl["dq"], bwd["dq"]),
+                     tl["h1_c32"] + vl["h1_c32"], bwd["h1_c32"]),
+        kernel_entry("flash_bwd_dkv", bwd_src, f"{fa_py}:1452", tl["dkv"] + vl["dkv_c32"],
+                     bwd["dkv"]),
+        kernel_entry("flash_bwd_dq", bwd_src, f"{fa_py}:1400", tl["dq"] + vl["dq_c32"],
+                     bwd["dq"]),
         kernel_entry("linear_gelu_fwd", "jepa_tpu_torch/csrc/fused_mlp.cu",
-                     "jepa_tpu/ops/fused_mlp.py:92", sl["h3"] + tl["h3"] + el["h3"] + il["h3"],
+                     "jepa_tpu/ops/fused_mlp.py:92",
+                     sl["h3"] + tl["h3"] + el["h3"] + il["h3"] + tube_app["padded"]["launches"]["h3"],
                      kern["h3"]),
         # the fp32 instances: the fp32 video eval's launches
         kernel_entry("flash_self_attention_fwd_f32", fa_src, f"{fa_py}:955", fl["h1_f32"],
                      f32["h1"]),
         kernel_entry("linear_gelu_fwd_f32", "jepa_tpu_torch/csrc/fused_mlp.cu",
                      "jepa_tpu/ops/fused_mlp.py:92", fl["h3_f32"], f32["h3"]),
-        # the key-masked instances: the padded-mode app's launches
+        # the key-masked instances: the padded-mode apps' launches (ViT-L;
+        # ViT-H's predictors at c=32)
         kernel_entry("flash_self_attention_fwd_masked", fa_src, f"{fa_py}:955",
                      al["h1_c64_masked"], masked["h1_c64"]),
         kernel_entry("flash_self_attention_fwd_masked_c32", fa_src, f"{fa_py}:955",
-                     al["h1_c32_masked"], masked["h1_c32"]),
-        kernel_entry("flash_bwd_dkv_masked", bwd_src, f"{fa_py}:1452", al["dkv_masked"],
-                     masked["dkv"]),
-        kernel_entry("flash_bwd_dq_masked", bwd_src, f"{fa_py}:1400", al["dq_masked"],
-                     masked["dq"]),
+                     al["h1_c32_masked"] + vp["h1_c32_masked"], masked["h1_c32"]),
+        kernel_entry("flash_bwd_dkv_masked", bwd_src, f"{fa_py}:1452",
+                     al["dkv_masked"] + vp["dkv_c32"], masked["dkv"]),
+        kernel_entry("flash_bwd_dq_masked", bwd_src, f"{fa_py}:1400",
+                     al["dq_masked"] + vp["dq_c32"], masked["dq"]),
         # K11: the force update's context encoder; fp32: linear_gelu under autograd
         kernel_entry("linear_gelu_fwd_z", "jepa_tpu_torch/csrc/fused_mlp.cu",
                      "jepa_tpu/ops/fused_mlp.py:112", train_force["launches"]["h8"], k11["z"]),
@@ -2926,6 +3400,49 @@ def main() -> int:
         kernel_entry("flash_bwd_dq_masked_c128", bwd_src, f"{fa_py}:1400",
                      tp["dq_masked"], c128["dq_masked"]),
     ]
+    fc1_src = "jepa_tpu_torch/csrc/fused_mlp.cu"
+    kernels += [
+        kernel_entry("flash_self_attention_fwd_c80", fa_src, f"{fa_py}:955",
+                     vl["h1_c80"] + vp["h1_c80"] - k2, vk["h1_c80"]),
+        kernel_entry("flash_self_attention_fwd_c80_n4608", fa_src, f"{fa_py}:1081", k2,
+                     vk["h1_c80_n4608"]),
+        kernel_entry("flash_self_attention_fwd_masked_c80", fa_src, f"{fa_py}:955",
+                     vp["h1_c80_masked"], dict(masked["h1_c80"])),
+        kernel_entry("flash_bwd_dkv_c80", bwd_src, f"{fa_py}:1452", vl["dkv_c80"], vk["dkv_c80"]),
+        kernel_entry("flash_bwd_dq_c80", bwd_src, f"{fa_py}:1400", vl["dq_c80"], vk["dq_c80"]),
+        kernel_entry("flash_bwd_dkv_masked_c80", bwd_src, f"{fa_py}:1452", vp["dkv_c80"],
+                     dict(masked["dkv_c80"], max_abs_err=masked["dkv"]["max_abs_err"])),
+        kernel_entry("flash_bwd_dq_masked_c80", bwd_src, f"{fa_py}:1400", vp["dq_c80"],
+                     dict(masked["dq_c80"], max_abs_err=masked["dq"]["max_abs_err"])),
+        kernel_entry("linear_gelu_fwd_k1280", fc1_src, "jepa_tpu/ops/fused_mlp.py:92",
+                     vl["h3"] + vp["h3"], vk["h3_k1280"]),
+        kernel_entry("flash_self_attention_fwd_f32_c80", fa_src, f"{fa_py}:955",
+                     vl["h1_f32_c80"], f32["by_shape"][F32_H1_SHAPES[1]]),
+        kernel_entry("linear_gelu_fwd_f32_k1280", fc1_src, "jepa_tpu/ops/fused_mlp.py:92",
+                     sum(e["launches"]["h3_f32"] for e in evh.values()),
+                     f32["by_shape"][F32_H3_SHAPES[1]]),
+    ]
+    for name, r in (("tube (vitl16.yaml, ratio 0.9)", tube_train),
+                    ("vith16.yaml, remat 'attn'", vith_train),
+                    ("vith16_384.yaml, remat 'attn'", vith384_train)):
+        g = r["prof"]["groups"]
+        log(f"card: {card}; {name} update: median {r['median_ms']:.1f} ms/update, peak "
+            f"{r['peak_gib']:.2f} GiB, device {r['prof']['device_ms']:.1f} ms (" + ", ".join(
+                f"{k} {v:.1f}" for k, v in g.items()) + f"); launches/update {r['per_step']}")
+    for name, a in (("tube", tube_app), ("vith16", vith_app), ("vith16_384", vith384_app)):
+        for mode, m in a.items():
+            log(f"card: {card}; {name} app {mode}: median step {m['step_ms']:.0f} ms, wall "
+                f"{m['wall_ms']:.0f} ms, host share {100 * m['host']:.1f} %, peak "
+                f"{m['peak_gib']:.2f} GiB")
+    for r, m in remat.items():
+        log(f"card: {card}; ViT-L update remat {r!r} (B={TRAIN_BATCH}, in turns): median "
+            f"{m['median_ms']:.1f} ms, device {m['prof']['device_ms']:.1f} ms, peak "
+            f"{m['peak_gib']:.2f} GiB, bit-equal to remat False")
+    for (config, bf16), e in evh.items():
+        log(f"card: {card}; {config} eval {'bf16, batch 4' if bf16 else 'fp32, batch 1'}: "
+            f"median train step {e['train_ms']:.1f} ms, val step {e['val_ms']:.1f} ms, peak "
+            f"{e['peak_gib']:.2f} GiB; features vs plain min cosine "
+            f"{min(e['feat_cos'].values()):.7f}")
     log(f"card: {card}; vit_tiny serve median {tiny_serve['median_ms']:.3f} ms/request (B=2), "
         f"peak {tiny_serve['peak_gib']:.3f} GiB; train median {tiny_train['median_ms']:.1f} "
         f"ms/step (B={TRAIN_BATCH}), peak {tiny_train['peak_gib']:.2f} GiB")

@@ -11,15 +11,25 @@ clips go to the device, are augmented there (``data.transforms``) with a
 generator seeded from (seed + 11, step), and feed one
 ``train.step.build_train_step`` update; in padded mode the host
 ``MaskCollator`` draws the reference-distribution masks, padded to the
-per-spec cap ladders. Every epoch writes ``<tag>-latest.pth.tar`` in the
-reference's layout and a restart resumes from it (the collator continues
-at ``start_epoch * ipe``). The CSV has the JAX app's columns.
+per-spec cap ladders. ``data.mask_type: random_tube`` takes tube masks
+(``mask`` entries ``{ratio: ...}``): the fixed mode becomes the step's
+``tube`` mode, and the padded mode pads ``TubeMaskCollator``'s masks to
+one tier of ``static_cap`` caps. Every epoch writes
+``<tag>-latest.pth.tar`` in the reference's layout and a restart resumes
+from it (the collator continues at ``start_epoch * ipe``). The CSV has
+the JAX app's columns.
+
+Activation checkpointing, as the JAX app reads it: ``meta.remat`` sets
+the encoder's (default ``'attn'``: the flash forward's (o, lse), the qkv
+projection and the fc1 pre-activation are kept, the rest of each block
+is recomputed in the backward; ``true``/``'full'``: every block is
+recomputed; ``false``: none), ``meta.pred_remat`` the predictor's
+(default ``'attn'`` when ``meta.remat`` is truthy, else off).
 
 Accepted and logged, with no effect here: ``meta.unroll_blocks`` (torch
-modules are per-layer) and ``meta.remat`` (activation checkpointing is a
-ROADMAP item; ViT-L at B=24 fits without it). Logged as not ported:
-``logging.profile_steps``, ``log_resources``, and
-``meta.export_torch_checkpoint`` (the checkpoint already is a .pth.tar).
+modules are per-layer). Logged as not ported: ``logging.profile_steps``,
+``log_resources``, and ``meta.export_torch_checkpoint`` (the checkpoint
+already is a .pth.tar).
 """
 
 from __future__ import annotations
@@ -44,7 +54,9 @@ from jepa_tpu_torch.masks.multiblock3d import (
     select_pad_rungs,
     select_pad_tier,
 )
-from jepa_tpu_torch.masks.padding import pad_masks
+from jepa_tpu_torch.masks.padding import pad_masks, static_cap
+from jepa_tpu_torch.masks.random_tube import TubeMaskCollator, TubeSpec
+from jepa_tpu_torch.masks.random_tube import keep_counts as tube_keep_counts
 from jepa_tpu_torch.models.factory import predictor_cfg_for, vit_cfg
 from jepa_tpu_torch.train.step import (
     TrainCfg,
@@ -71,6 +83,10 @@ def main(args: dict, resume_preempt: bool = False, device="cuda"):
     export_torch = bool(cfgs_meta.get("export_torch_checkpoint", False))
     compute_dtype = _DTYPES[str(cfgs_meta.get("dtype", "bfloat16")).lower()]
     mask_mode = cfgs_meta.get("mask_mode", "fixed")
+    # encoder remat default 'attn'; the predictor's follows meta.remat
+    # (jepa_tpu/apps/vjepa/train.py:147-165)
+    remat = cfgs_meta.get("remat", "attn")
+    pred_remat = cfgs_meta.get("pred_remat", "attn" if cfgs_meta.get("remat", True) else False)
 
     cfgs_mask = args.get("mask", [])
 
@@ -143,11 +159,9 @@ def main(args: dict, resume_preempt: bool = False, device="cuda"):
     logger.info("initialized rank/world: %d/%d on %s", rank, world_size, dev)
     os.makedirs(folder, exist_ok=True)
     dump_config(args, os.path.join(folder, "params-pretrain.yaml"))
-    for key, value in (("meta.unroll_blocks", cfgs_meta.get("unroll_blocks")),
-                       ("meta.remat", cfgs_meta.get("remat"))):
-        if value is not None:
-            logger.info("%s=%s accepted: torch modules are per-layer and B=24 fits "
-                        "without activation checkpointing", key, value)
+    if cfgs_meta.get("unroll_blocks") is not None:
+        logger.info("meta.unroll_blocks=%s accepted: torch modules are per-layer",
+                    cfgs_meta["unroll_blocks"])
     for key, on in (("logging.profile_steps", bool(profile_steps)),
                     ("log_resources", log_resources),
                     ("meta.export_torch_checkpoint", export_torch)):
@@ -157,11 +171,14 @@ def main(args: dict, resume_preempt: bool = False, device="cuda"):
     # ---- model ----------------------------------------------------------
     enc_cfg = vit_cfg(model_name, img_size=crop_size, patch_size=patch_size,
                       num_frames=num_frames, tubelet_size=tubelet_size,
-                      uniform_power=uniform_power, compute_dtype=compute_dtype)
+                      uniform_power=uniform_power, compute_dtype=compute_dtype,
+                      remat=remat)
     pred_cfg = predictor_cfg_for(enc_cfg, predictor_embed_dim=pred_embed_dim,
                                  depth=pred_depth, use_mask_tokens=use_mask_tokens,
                                  num_mask_tokens=len(cfgs_mask),
-                                 zero_init_mask_tokens=zero_init_mask_tokens)
+                                 zero_init_mask_tokens=zero_init_mask_tokens,
+                                 remat=pred_remat)
+    logger.info("activation checkpointing: encoder %r, predictor %r", remat, pred_remat)
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = init_train_state(enc_cfg, pred_cfg, gen, device=dev)
     logger.info("encoder parameters: %d", sum(p.numel() for p in state.encoder.parameters()))
@@ -170,21 +187,32 @@ def main(args: dict, resume_preempt: bool = False, device="cuda"):
     # ---- masks ----------------------------------------------------------
     grid = MaskGrid.from_data_cfg(crop_size, patch_size, num_frames, tubelet_size)
     mask_type = cfgs_data.get("mask_type", "multiblock3d")
-    if mask_type != "multiblock3d":
-        raise NotImplementedError(f"mask_type {mask_type!r}: the tube masks are not "
-                                  "ported to jepa_tpu_torch yet (ROADMAP Queue 1)")
-    specs = [MaskSpec.from_cfg(m) for m in cfgs_mask]
-    # fixed-mode K at the reference's per-rank collator batch (its batch-min
-    # truncation acts on the per-GPU batch)
-    kc = [calibrate_keep_counts(s, grid, batch_size) for s in specs]
     host_collator = pad_tiers = pad_ladders = None
     n_chunks = world_size  # one collate chunk per device
-    if mask_mode == "padded":
-        host_collator = MaskCollator(specs, grid, seed=seed)
-        if cfgs_meta.get("pad_tier_scope", "spec") == "spec":
-            pad_ladders = calibrate_pad_ladders(specs, grid, batch_size, n_chunks=n_chunks)
-        else:
-            pad_tiers = calibrate_pad_tiers(specs, grid, batch_size, n_chunks=n_chunks)
+    if mask_type == "multiblock3d":
+        specs = [MaskSpec.from_cfg(m) for m in cfgs_mask]
+        # fixed-mode K at the reference's per-rank collator batch (its
+        # batch-min truncation acts on the per-GPU batch)
+        kc = [calibrate_keep_counts(s, grid, batch_size) for s in specs]
+        if mask_mode == "padded":
+            host_collator = MaskCollator(specs, grid, seed=seed)
+            if cfgs_meta.get("pad_tier_scope", "spec") == "spec":
+                pad_ladders = calibrate_pad_ladders(specs, grid, batch_size, n_chunks=n_chunks)
+            else:
+                pad_tiers = calibrate_pad_tiers(specs, grid, batch_size, n_chunks=n_chunks)
+    elif mask_type == "random_tube":
+        specs = [TubeSpec.from_cfg(m) for m in cfgs_mask]
+        kc = [tube_keep_counts(s, grid) for s in specs]
+        if mask_mode == "fixed":
+            mask_mode = "tube"
+        if mask_mode == "padded":
+            host_collator = TubeMaskCollator(specs, grid, seed=seed)
+            # exact-K masks: one tier, the caps rounded up to 128
+            pad_tiers = [[(static_cap(grid.n, ke / grid.n), static_cap(grid.n, kp / grid.n))
+                          for ke, kp in kc]]
+    else:
+        raise ValueError(f"unknown data.mask_type {mask_type!r}: 'multiblock3d' or "
+                         "'random_tube'")
     logger.info("mask grid %s keep counts %s mode %s", (grid.t, grid.h, grid.w), kc, mask_mode)
     if mask_mode == "padded":
         logger.info("padded-mode cap %s: %s",

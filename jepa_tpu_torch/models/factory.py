@@ -37,6 +37,7 @@ def vit_cfg(
     compute_dtype: torch.dtype = torch.bfloat16,
     attn_impl: str = "auto",
     fused_mlp: object = False,
+    remat: object = False,
 ) -> ViTCfg:
     if model_name not in _SPECS:
         raise ValueError(f"unknown model {model_name!r}; options: {sorted(_SPECS)}")
@@ -54,6 +55,7 @@ def vit_cfg(
         compute_dtype=compute_dtype,
         attn_impl=attn_impl,
         fused_mlp=fused_mlp,
+        remat=remat,
     )
 
 
@@ -65,9 +67,11 @@ def predictor_cfg_for(
     use_mask_tokens: bool = True,
     num_mask_tokens: int = 2,
     zero_init_mask_tokens: bool = True,
+    remat: object = None,
 ) -> PredictorCfg:
     """Predictor sized from the encoder (reference app/vjepa/utils.py:108-125;
-    jepa_tpu/models/factory.py::predictor_cfg_for)."""
+    jepa_tpu/models/factory.py::predictor_cfg_for); ``remat`` None takes
+    the encoder's."""
     return PredictorCfg(
         img_size=enc.img_size,
         patch_size=enc.patch_size,
@@ -83,4 +87,5 @@ def predictor_cfg_for(
         zero_init_mask_tokens=zero_init_mask_tokens,
         compute_dtype=enc.compute_dtype,
         attn_impl=enc.attn_impl,
+        remat=enc.remat if remat is None else remat,
     )

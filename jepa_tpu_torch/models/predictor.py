@@ -54,6 +54,7 @@ class PredictorCfg:
     zero_init_mask_tokens: bool = True
     compute_dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "auto"
+    remat: object = False  # False | True/'full' | 'attn' (``transformer.run_blocks``)
 
     @property
     def is_video(self) -> bool:
@@ -181,7 +182,8 @@ def predictor_forward(
             kv_mask_tgt.bool() if kv_mask_tgt is not None else ones(masks_tgt.shape[1]),
         ], dim=1)
 
-    out, _ = run_blocks(seq, model.predictor_blocks, cfg.block_cfg(), kv_mask=kv_mask)
+    out, _ = run_blocks(seq, model.predictor_blocks, cfg.block_cfg(), kv_mask=kv_mask,
+                        remat=cfg.remat)
     out = layer_norm(out, model.predictor_norm, cfg.ln_eps)
     out = linear(out[:, n_ctxt:], model.predictor_proj, cd)
     return out.float()

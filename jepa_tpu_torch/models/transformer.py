@@ -14,23 +14,28 @@ forward math lives in functions that mirror the JAX package's rounding:
     linear, then the exp2-erfc GELU for bf16 or exact erf for fp32.
   * Residual adds happen in the compute dtype.
 
-Blocks are an ``nn.ModuleList`` run by a Python loop.
+Blocks are an ``nn.ModuleList`` run by a Python loop, each optionally
+under activation checkpointing (``run_blocks``'s ``remat``, the JAX
+package's meanings).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from jepa_tpu_torch.models.initializers import (
     init_layernorm_,
     init_linear_,
     residual_rescale,
 )
+from jepa_tpu_torch.ops import remat as remat_lib
 from jepa_tpu_torch.ops.attention import dot_product_attention, resolve_flash
 
 
@@ -77,8 +82,14 @@ class MatmulF32(torch.autograd.Function):
     summation order."""
 
     @staticmethod
+    def saved(x, w):
+        """What the forward saves for the backward, in order (what a kept
+        output's replay under remat='attn' hands checkpoint, ``linear_f32``)."""
+        return x, w
+
+    @staticmethod
     def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
+        ctx.save_for_backward(*MatmulF32.saved(x, w))
         y = _mm_f32(x.reshape(-1, x.shape[-1]), w.t())
         return y.reshape(*x.shape[:-1], w.shape[0])
 
@@ -98,9 +109,25 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ w.T (w [F, K], one dtype) with an fp32 result summed in
     fp32, on either device; differentiable through ``MatmulF32`` when a
     gradient is wanted (a grad-free call skips the Function's overhead)."""
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+    if _differentiated(x, w):
         return MatmulF32.apply(x, w)
     return _mm_f32(x.reshape(-1, x.shape[-1]), w.t()).reshape(*x.shape[:-1], w.shape[0])
+
+
+def _differentiated(x: torch.Tensor, w: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+
+
+def linear_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype,
+               keep: bool = False) -> torch.Tensor:
+    """x @ w.T + b (w [F, K], x's dtype), summed and biased in fp32, cast
+    to ``dtype``. ``keep``: the output is kept under remat='attn'
+    (``ops.remat.keep``); the recomputation reads it back and hands
+    checkpoint what ``MatmulF32`` saved."""
+    out = lambda: (matmul_f32(x, w) + b.float()).to(dtype)
+    if not keep:
+        return out()
+    return remat_lib.keep(out, packs=MatmulF32.saved(x, w) if _differentiated(x, w) else ())
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, eps: float) -> torch.Tensor:
@@ -113,9 +140,11 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, eps: float) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def linear(x: torch.Tensor, lin: nn.Linear, compute_dtype: torch.dtype) -> torch.Tensor:
-    y = matmul_f32(x.to(compute_dtype), lin.weight.to(compute_dtype))
-    return (y + lin.bias.float()).to(compute_dtype)
+def linear(x: torch.Tensor, lin: nn.Linear, compute_dtype: torch.dtype,
+           keep: bool = False) -> torch.Tensor:
+    """``linear_f32`` of an ``nn.Linear`` in the compute dtype."""
+    return linear_f32(x.to(compute_dtype), lin.weight.to(compute_dtype), lin.bias,
+                      compute_dtype, keep)
 
 
 def mlp(x: torch.Tensor, m: "Mlp", cfg: BlockCfg) -> torch.Tensor:
@@ -125,7 +154,7 @@ def mlp(x: torch.Tensor, m: "Mlp", cfg: BlockCfg) -> torch.Tensor:
     if cfg.fused_mlp and (cfg.fused_mlp == "force" or resolve_fused_mlp(x)):
         h = linear_gelu(x.to(cd), m.fc1.weight.to(cd), m.fc1.bias)
     else:
-        h = linear(x, m.fc1, cd)
+        h = linear(x, m.fc1, cd, keep=True)  # the JAX package's "fc1_out"
         if cd == torch.bfloat16:
             h = GeluFast.apply(h)
         else:
@@ -203,13 +232,28 @@ def block_forward(x: torch.Tensor, blk: Block, cfg: BlockCfg,
 
 
 def run_blocks(x: torch.Tensor, blocks: nn.ModuleList, cfg: BlockCfg,
-               kv_mask: Optional[torch.Tensor] = None, collect_layers: bool = False):
+               kv_mask: Optional[torch.Tensor] = None, collect_layers: bool = False,
+               remat: object = False):
     """Run the blocks in order. Returns (final, per-layer outputs or None);
-    per-layer outputs are stacked [depth, B, N, D] when collect_layers."""
+    per-layer outputs are stacked [depth, B, N, D] when collect_layers.
+
+    remat (jepa_tpu/models/transformer.py:236-289), under a gradient:
+    False: no checkpointing; True / 'full': each block is recomputed in the
+    backward (the flash forward included); 'attn': each block is
+    recomputed except what the JAX package's selective policy saves: the
+    flash forward's (o, lse), the token-major route's qkv projection and
+    the fc1 pre-activation (``ops.remat``). So LN1 (for the qkv weight's
+    gradient), the out-projection, the residual, LN2, the GELU and fc2 are
+    recomputed. A grad-free forward ignores it."""
     x = x.to(cfg.compute_dtype)
     layers = [] if collect_layers else None
+    ckpt = None
+    if remat and torch.is_grad_enabled():
+        ckpt = (remat_lib.checkpoint_keeping if remat == "attn" else
+                lambda fn, c: checkpoint(fn, c, use_reentrant=False, preserve_rng_state=False))
     for blk in blocks:
-        x = block_forward(x, blk, cfg, kv_mask=kv_mask)
+        fn = functools.partial(block_forward, blk=blk, cfg=cfg, kv_mask=kv_mask)
+        x = fn(x) if ckpt is None else ckpt(fn, x)
         if collect_layers:
             layers.append(x)
     return x, (torch.stack(layers) if collect_layers else None)

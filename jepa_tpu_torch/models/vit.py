@@ -55,6 +55,9 @@ class ViTCfg:
     compute_dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "auto"
     fused_mlp: object = False  # grad-free forwards only; see BlockCfg
+    # activation checkpointing of the blocks: False | True/'full' | 'attn'
+    # (``transformer.run_blocks``)
+    remat: object = False
 
     @property
     def is_video(self) -> bool:
@@ -215,7 +218,7 @@ def vit_forward(
         tokens = gather_tokens(tokens, masks)
     collect = out_layers is not None
     final, layers = run_blocks(tokens, model.blocks, cfg.block_cfg(),
-                               kv_mask=kv_mask, collect_layers=collect)
+                               kv_mask=kv_mask, collect_layers=collect, remat=cfg.remat)
     if collect:
         return [layer_norm(layers[i], model.norm, cfg.ln_eps).float() for i in out_layers]
     return layer_norm(final, model.norm, cfg.ln_eps).float()

@@ -70,15 +70,24 @@ bf16 only as the PV operand, o / max(l, 1e-30), lse = m + log2(max(l,
 ``flash_self_attention`` routes as the JAX package does
 (``self_attention_route``): the token-major H1/H2 where a head split
 exists, else the head-major kernels up to N = 2048, else the eager path.
+
+Under remat='attn' (``models.transformer.run_blocks``) every Function here
+keeps its forward's (o, lse) across the block's recomputation, and the
+token-major route keeps its qkv projection (``ops.remat.keep``), as the
+JAX package's selective policy saves the ``optimize_remat`` residuals and
+``qkv_out``: the backward launches no second forward kernel.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from jepa_tpu_torch.ops import remat
 
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
@@ -90,6 +99,7 @@ HM_HEAD_DIMS = (32, 64)   # H4-H7, bf16
 launches = 0      # H1 (bf16), every head dim, masked or not
 launches_by_head_dim = {c: 0 for c in KERNEL_HEAD_DIMS}  # H1 unmasked, per instance
 masked_launches_by_head_dim = {c: 0 for c in KERNEL_HEAD_DIMS}  # H1 with a key mask
+launches_by_tokens = collections.Counter()  # H1 unmasked, by (head dim, N)
 f32_launches_by_head_dim = {c: 0 for c in F32_HEAD_DIMS}  # H1-fp32
 dkv_launches = 0  # H2, dk/dv kernel, masked or not
 dq_launches = 0   # H2, dq kernel, masked or not
@@ -110,6 +120,7 @@ def reset_launch_counts() -> None:
                    dq_launches_by_head_dim, hm_launches, hm_masked_launches):
         for c in counts:
             counts[c] = 0
+    launches_by_tokens.clear()
 
 
 def _masked_scores(s: torch.Tensor, kv_mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -120,11 +131,13 @@ def _masked_scores(s: torch.Tensor, kv_mask: Optional[torch.Tensor]) -> torch.Te
                        torch.tensor(_NEG_INF, dtype=torch.float32))
 
 
-def _project_qkv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x [B, N, D] @ w.T ([3HC, D], nn.Linear layout) + b, fp32 sum, cast to x.dtype."""
-    from jepa_tpu_torch.models.transformer import matmul_f32
+def _project_qkv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 keep: bool = False) -> torch.Tensor:
+    """x [B, N, D] @ w.T ([3HC, D], nn.Linear layout) + b, fp32 sum, cast to
+    x.dtype; ``keep``: kept under remat='attn' (``linear_f32``)."""
+    from jepa_tpu_torch.models.transformer import linear_f32
 
-    return (matmul_f32(x, w) + b.float()).to(x.dtype)
+    return linear_f32(x, w, b, x.dtype, keep)
 
 
 def flash_self_attention_ref(
@@ -265,6 +278,8 @@ def flash_self_attention_cuda(
         lse.data_ptr(), b, n, num_heads, qscale, stream), entry)
     launches += 1
     (launches_by_head_dim if mask is None else masked_launches_by_head_dim)[c] += 1
+    if mask is None:
+        launches_by_tokens[c, n] += 1
     return o, lse
 
 
@@ -393,10 +408,8 @@ class FlashSelfAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv, num_heads, scale, kv_mask=None):
-        if qkv.is_cuda:
-            o, lse = flash_self_attention_cuda(qkv, num_heads, scale, kv_mask)
-        else:
-            o, lse = flash_self_attention_ref(qkv, num_heads, scale, kv_mask)
+        fwd = flash_self_attention_cuda if qkv.is_cuda else flash_self_attention_ref
+        o, lse = remat.keep(lambda: fwd(qkv, num_heads, scale, kv_mask))
         ctx.save_for_backward(qkv, o, lse, kv_mask)
         ctx.num_heads, ctx.scale = num_heads, scale
         return o
@@ -527,7 +540,7 @@ def flash_self_attention(
         w = F.pad(w_qkv.reshape(3, num_heads, c, d), (0, 0, 0, cp - c))
         w = w.reshape(3 * num_heads * cp, d)
         bias = F.pad(b_qkv.reshape(3, num_heads, c), (0, cp - c)).reshape(-1)
-    qkv = _project_qkv(x, w.to(x.dtype), bias)
+    qkv = _project_qkv(x, w.to(x.dtype), bias, keep=True)  # the JAX package's "qkv_out"
     if torch.is_grad_enabled() and qkv.requires_grad:
         o = FlashSelfAttentionFn.apply(qkv.contiguous(), num_heads, scale, kv_mask)
     elif qkv.is_cuda:
@@ -769,7 +782,7 @@ class FlashAttentionHmFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, scale, block_k):
-        o, lse = _hm_forward(q, k, v, scale, kv_mask)
+        o, lse = remat.keep(lambda: _hm_forward(q, k, v, scale, kv_mask))
         ctx.save_for_backward(q, k, v, o, lse, kv_mask)
         ctx.scale, ctx.block_k = scale, block_k
         return o
@@ -790,7 +803,7 @@ class FlashAttentionPackedFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv, kv_mask, scale, block_k):
-        o, lse = _hm_forward(*qkv.unbind(0), scale, kv_mask)
+        o, lse = remat.keep(lambda: _hm_forward(*qkv.unbind(0), scale, kv_mask))
         ctx.save_for_backward(qkv, o, lse, kv_mask)
         ctx.scale, ctx.block_k = scale, block_k
         return o

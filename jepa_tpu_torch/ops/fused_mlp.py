@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from jepa_tpu_torch.ops import remat
+
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
 _LN2 = 0.6931471805599453
@@ -211,14 +213,17 @@ class LinearGelu(torch.autograd.Function):
     (z, x, w); the backward is ``_linear_gelu_bwd`` in plain torch: the
     exact-erf dgelu of z in fp32, g rounded to x's dtype, dx = g @ w and
     dw = g.T @ x with fp32 sums rounded to x's and w's dtypes, db the fp32
-    column sum of g. x [M, K], w [F, K], b [F]."""
+    column sum of g. x [M, K], w [F, K], b [F]. Under remat='attn' the
+    forward's (o, z) are kept across the block's recomputation
+    (``ops.remat.keep``), so H8 launches once per update."""
 
     @staticmethod
     def forward(ctx, x, w, b):
         if x.is_cuda:
-            o, z = linear_gelu_z_cuda(x.contiguous(), w.contiguous(), b)
+            fwd = lambda: linear_gelu_z_cuda(x.contiguous(), w.contiguous(), b)
         else:
-            o, z = linear_gelu_z_ref(x, w, b)
+            fwd = lambda: linear_gelu_z_ref(x, w, b)
+        o, z = remat.keep(fwd)  # the JAX package's "fc1_out" (z), and o beside it
         ctx.save_for_backward(z, x, w)
         return o
 

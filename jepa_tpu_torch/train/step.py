@@ -11,18 +11,23 @@ forward without gradients (fused fc1 + GELU, H3, on the card) with the
 feature LayerNorm and the gather at the target indices; for each mask
 config the context encoder on the kept tokens (run with ``enc_cfg``, as
 the JAX package runs it: ``fused_mlp='force'`` sends its fc1 through H8
-and its plain backward) and the predictor over
-[context || mask tokens]; the L1 loss (plus the variance regularizer when
-its coefficient is not 0); the backward (H1's saved outputs feed H2 on the
+and its plain backward; its ``remat`` checkpoints the blocks) and the
+predictor over [context || mask tokens] (run with ``pred_cfg``); the L1
+loss (plus the variance regularizer when its coefficient is not 0); the
+backward (H1's saved outputs feed H2 on the
 card); per-module gradient clipping gated by ``clip_after_step``; AdamW
 with the decay mask; the EMA of the target. lr and wd are read at
 ``step + 1``, the momentum at ``step``.
 
-Mask modes: ``fixed`` samples exact-K masks from (seed, step) on the
-clips' device; ``padded`` takes the host collator's padded masks and
-validity weights from the batch (jepa_tpu/train/step.py:214-236): the key
-mask of the context encoder and the predictor is w > 0.5, and the loss
-and the variance regularizer are weighted. The tube mode is not ported.
+Mask modes: ``fixed`` samples exact-K multiblock masks from (seed, step)
+on the clips' device; ``tube`` samples random-tube masks the same way
+(``masks.random_tube.sample_tube_masks``, one generator per step, the
+mask configs drawn in order; exact-K, so no key mask), as
+jepa_tpu/train/step.py:189-197; ``padded`` takes the host collator's
+padded masks and validity weights from the batch
+(jepa_tpu/train/step.py:214-236): the key mask of the context encoder and
+the predictor is w > 0.5, and the loss and the variance regularizer are
+weighted.
 
 The state holds fp32 master parameters in modules, the target as a copy
 of the encoder, and the AdamW moments; the step updates it IN PLACE and
@@ -38,6 +43,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from jepa_tpu_torch.masks.multiblock3d import MaskGrid, MaskSpec, sample_masks_for_specs
+from jepa_tpu_torch.masks.random_tube import sample_tube_masks
 from jepa_tpu_torch.models.predictor import Predictor, PredictorCfg, init_predictor, predictor_forward
 from jepa_tpu_torch.models.vit import ViTCfg, VisionTransformer, init_vit, vit_forward
 from jepa_tpu_torch.ops.masking import gather_tokens, repeat_interleave_batch
@@ -63,7 +69,7 @@ class TrainCfg:
     betas: Tuple[float, float] = (0.9, 0.999)
     eps: float = 1e-8
     num_clips: int = 1
-    mask_mode: str = "fixed"
+    mask_mode: str = "fixed"  # 'fixed' | 'padded' | 'tube'
     seed: int = 234
 
 
@@ -141,19 +147,22 @@ def build_train_step(
     batch: {"clips": [B*num_clips, T, H, W, C] float, normalized}; in
     padded mode also "masks_enc" / "masks_pred" ([B, cap] int per mask
     config) and "enc_weights" / "pred_weights" ([B, cap] float validity).
-    ``mask_sampler(step, batch_size, device) -> (masks_enc, masks_pred)``
-    replaces the default fixed-mode sampler (a test seam: parity tests
-    hand in the JAX package's masks); the default draws from a generator
-    seeded with (seed, step), so the masks of a step do not depend on
-    earlier steps.
+    ``mask_specs`` are ``MaskSpec`` (fixed, padded) or ``TubeSpec``
+    (tube). ``mask_sampler(step, batch_size, device) -> (masks_enc,
+    masks_pred)`` replaces the default sampler of the fixed and tube modes
+    (a test seam: parity tests hand in the JAX package's masks); the
+    default draws from a generator seeded with (seed, step), so the masks
+    of a step do not depend on earlier steps.
     """
-    if train_cfg.mask_mode not in ("fixed", "padded"):
-        raise NotImplementedError(f"mask_mode {train_cfg.mask_mode!r}: only "
-                                  "'fixed' and 'padded' are ported (tube: ROADMAP "
-                                  "Queue 1)")
+    if train_cfg.mask_mode not in ("fixed", "padded", "tube"):
+        raise ValueError(f"unknown mask_mode {train_cfg.mask_mode!r}: "
+                         "'fixed', 'padded' or 'tube'")
 
     def default_sampler(step, batch_size, device):
         gen = step_generator(train_cfg.seed, step, device)
+        if train_cfg.mask_mode == "tube":
+            masks = [sample_tube_masks(gen, batch_size, spec, grid) for spec in mask_specs]
+            return [m[0] for m in masks], [m[1] for m in masks]
         return sample_masks_for_specs(gen, batch_size, mask_specs, grid, keep_counts)
 
     sampler = mask_sampler or default_sampler
@@ -210,7 +219,8 @@ def build_train_step(
         for i, (me, mp) in enumerate(zip(masks_enc, masks_pred)):
             z = vit_forward(state.encoder, clips, cfg=enc_cfg, masks=me, kv_mask=kv_enc[i])
             preds.append(predictor_forward(state.predictor, z, me, mp, mask_index=i,
-                                           kv_mask_ctxt=kv_enc[i], kv_mask_tgt=kv_pred[i]))
+                                           cfg=pred_cfg, kv_mask_ctxt=kv_enc[i],
+                                           kv_mask_tgt=kv_pred[i]))
         l_jepa = jepa_loss(preds, targets, train_cfg.loss_exp, pred_w)
         if train_cfg.reg_coeff != 0.0:
             l_reg = variance_reg(preds, pred_w)

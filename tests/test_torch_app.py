@@ -96,6 +96,29 @@ def test_app_cli_and_unported_options(smoke_cfg, tmp_path):
     smoke_cfg["logging"]["folder"] = str(tmp_path / "randaugment")  # no checkpoint to resume
     assert train_main(smoke_cfg, device="cpu").step == 1
     smoke_cfg["data_aug"]["auto_augment"] = False
+    # the tube masks run (tests/test_torch_tube.py: the update vs the JAX
+    # package; test_app_tube_modes: both mask modes); an unknown type raises
     smoke_cfg["data"]["mask_type"] = "random_tube"
-    with pytest.raises(NotImplementedError, match="tube"):
+    smoke_cfg["mask"] = [{"ratio": 0.5}]
+    smoke_cfg["logging"]["folder"] = str(tmp_path / "tube")
+    assert train_main(smoke_cfg, device="cpu").step == 1
+    smoke_cfg["data"]["mask_type"] = "blocks"
+    with pytest.raises(ValueError, match="mask_type"):
         train_main(smoke_cfg, device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["fixed", "padded"])
+def test_app_tube_modes(smoke_cfg, tmp_path, mode):
+    """data.mask_type random_tube: the fixed mode runs the step's 'tube'
+    sampler (K_enc 4 of 8 tokens), the padded mode TubeMaskCollator's masks
+    padded to one tier of static caps (here the whole grid, 8), with the
+    key mask at w > 0.5. The app's default remat ('attn') is on."""
+    smoke_cfg["data"]["mask_type"] = "random_tube"
+    smoke_cfg["mask"] = [{"ratio": 0.5}, {"ratio": 0.75}]
+    smoke_cfg["meta"]["mask_mode"] = mode
+    smoke_cfg["optimization"]["epochs"] = 1
+    state = train_main(smoke_cfg, device="cpu")
+    assert state.step == 3
+    rows = (tmp_path / "smoke_r0.csv").read_text().strip().splitlines()
+    assert rows[0] == HEADER and len(rows) == 1 + 3
+    assert all(np.isfinite(float(r.split(",")[2])) for r in rows[1:])

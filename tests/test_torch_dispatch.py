@@ -112,9 +112,10 @@ def _eval_calls(cfg, bf16):
     return calls
 
 
-def _pretrain_calls(cfg, model_name=None, force=False):
+def _pretrain_calls(cfg, model_name=None, force=False, keep=None):
     """``force``: the encoder built with ``fused_mlp='force'`` (the context
-    fc1 fused and differentiated)."""
+    fc1 fused and differentiated); ``keep``: the (context, target) token
+    counts of each mask config, else the multiblock calibration's."""
     m, d = cfg["model"], cfg["data"]
     m["model_name"] = model_name or m["model_name"]
     dt = _DTYPES[str(cfg["meta"].get("dtype", "bfloat16"))]
@@ -125,8 +126,9 @@ def _pretrain_calls(cfg, model_name=None, force=False):
                              num_mask_tokens=len(cfg["mask"]))
     grid = MaskGrid.from_data_cfg(d["crop_size"], d["patch_size"], d["num_frames"],
                                   d["tubelet_size"])
-    keep = [calibrate_keep_counts(MaskSpec.from_cfg(x), grid, d["batch_size"])
-            for x in cfg["mask"]]
+    if keep is None:
+        keep = [calibrate_keep_counts(MaskSpec.from_cfg(x), grid, d["batch_size"])
+                for x in cfg["mask"]]
     n, b = enc.num_patches, d["batch_size"] * d.get("num_clips", 1)
     c, pc = enc.embed_dim // enc.num_heads, pred.predictor_embed_dim // pred.num_heads
     calls = [Attn("target self-attn", n, n, enc.num_heads, c, dt),
@@ -239,6 +241,40 @@ def test_vit_tiny_pretrain_dispatch():
             "jt_flash_fwd_c128 + jt_flash_bwd_dkv_c128 + jt_flash_bwd_dq_c128")
 
 
+@pytest.mark.parametrize("mode", ["fixed", "padded"])
+def test_tube_pretrain_dispatch(mode):
+    """vitl16.yaml with ``data.mask_type: random_tube`` and one mask of
+    ratio 0.9: the fixed (tube) mode keeps 152 tokens exactly and predicts
+    1416; the padded mode pads them to one tier of static caps, 256 and
+    1536 (152 and 1416 valid), so the key mask reaches the masked H1/H2.
+    Both resolve the context (c=64) and the predictor (c=24 padded to 32)
+    to H1 + H2."""
+    from jepa_tpu_torch.masks.padding import static_cap
+    from jepa_tpu_torch.masks.random_tube import TubeSpec, keep_counts
+
+    cfg = yaml.safe_load((_CONFIGS / "pretrain" / "vitl16.yaml").read_text())
+    cfg["mask"] = [{"ratio": 0.9}]
+    d = cfg["data"]
+    grid = MaskGrid.from_data_cfg(d["crop_size"], d["patch_size"], d["num_frames"],
+                                  d["tubelet_size"])
+    ke, kp = keep_counts(TubeSpec.from_cfg(cfg["mask"][0]), grid)
+    assert (ke, kp) == (152, 1416)
+    if mode == "padded":
+        ke, kp = static_cap(grid.n, ke / grid.n), static_cap(grid.n, kp / grid.n)
+        assert (ke, kp) == (256, 1536)
+    table = [(call, _resolve(call)) for call in _pretrain_calls(cfg, keep=[(ke, kp)])]
+    for call, how in table:
+        print(f"  {call.where:32s} -> {how}")
+    got = {call.where: (call, how) for call, how in table}
+    ctx, how = got["mask 0 context self-attn"]
+    assert (ctx.nq, ctx.c) == (ke, 64)
+    assert how == "jt_flash_fwd_c64 + jt_flash_bwd_dkv_c64 + jt_flash_bwd_dq_c64"
+    pred, how = got["mask 0 predictor self-attn"]
+    assert (pred.nq, pred.c) == (ke + kp, 24)
+    assert how == "jt_flash_fwd_c32 + jt_flash_bwd_dkv_c32 + jt_flash_bwd_dq_c32"
+    assert got["target fc1"][1] == "jt_linear_gelu_bf16"
+
+
 @pytest.mark.parametrize("model_name", ["vit_large", "vit_tiny"])
 def test_force_fused_mlp_pretrain_dispatch(model_name):
     """vitl16.yaml with the encoder's ``fused_mlp='force'``: ViT-L's context
@@ -306,3 +342,34 @@ def test_tma_layout_check(heads, c, elem, ok):
     else:
         with pytest.raises(ValueError):
             check_tma_layout(heads, c, elem)
+
+
+@pytest.mark.parametrize("name", ["vitl16.yaml", "vith16.yaml", "vith16_384.yaml"])
+def test_jax_tm_kernel_picks(name):
+    """Which TPU kernel the JAX package's pickers (``_pick_tm_fwd``,
+    ``_pick_tm_bwd``) take at each token-major attention call of a shipped
+    pretrain YAML, the calls H1 and H2 run in the port; PERF.md's kernel
+    table attributes the port's launches by it. The grad-free target takes
+    the one-shot forward K1, but at vith16_384's N=4608, c=80 the kv-tiled
+    K2; every trainable call takes K1 and the merged backward K3, so the
+    dual-tiled K4 + K5 run on no shipped training call."""
+    from jepa_tpu.ops.flash_attention import _pick_tm_bwd, _pick_tm_fwd
+
+    cfg = yaml.safe_load((_CONFIGS / "pretrain" / name).read_text())
+    picks = {}
+    for call in _pretrain_calls(cfg):
+        if not isinstance(call, Attn) or not _resolve(call).startswith("jt_flash_fwd"):
+            continue
+        cp = padded_head_dim(call.c)
+        fwd = _pick_tm_fwd(call.heads, cp, call.nq)[1 if call.grad else 0][0]
+        kinds = {"one": "K1", "tiled": "K2"}[fwd]
+        if call.grad:
+            kinds += " + " + {"merged": "K3", "tiled": "K4 + K5"}[_pick_tm_bwd(call.heads, cp,
+                                                                          call.nq)[0]]
+        picks[call.where] = kinds
+        print(f"  {name} {call.where:28s} N={call.nq:5d} c={call.c}->{cp} -> {kinds}")
+    assert picks["target self-attn"] == ("K2" if name == "vith16_384.yaml" else "K1")
+    trainable = [v for k, v in picks.items() if k != "target self-attn"]
+    # at 224 px mask 1's context (96 tokens) runs eager
+    assert len(trainable) == (4 if name == "vith16_384.yaml" else 3)
+    assert all(v == "K1 + K3" for v in trainable)

@@ -325,8 +325,21 @@ def test_num_clips_tiles_the_masks():
 
 
 def test_non_fixed_mask_mode_raises():
-    """Fixed and padded are ported; the tube mode raises."""
-    enc = ViTCfg(**GEO, embed_dim=32, depth=1, num_heads=2)
-    with pytest.raises(NotImplementedError, match="tube"):
-        build_train_step(enc, predictor_cfg_for(enc), TrainCfg(mask_mode="tube"),
+    """Fixed, padded and tube are ported (the tube update against the JAX
+    package: tests/test_torch_tube.py); an unknown mode raises."""
+    from jepa_tpu_torch.masks.random_tube import TubeSpec, keep_counts
+
+    enc = ViTCfg(**GEO, embed_dim=32, depth=1, num_heads=2, compute_dtype=torch.float32)
+    pred = predictor_cfg_for(enc, predictor_embed_dim=16, depth=1)
+    grid = masks.MaskGrid(t=2, h=4, w=4)
+    specs = [TubeSpec(0.75)]
+    step_fn = build_train_step(enc, pred, TrainCfg(**dict(TRAIN, mask_mode="tube")),
+                               *schedulers.build_schedules(**SCHED), specs, grid,
+                               [keep_counts(s, grid) for s in specs])
+    state = init_train_state(enc, pred, torch.Generator().manual_seed(3), device="cpu")
+    clips = torch.from_numpy(np.random.default_rng(0).normal(size=(B, 4, 32, 32, 3)).astype(np.float32))
+    state, metrics = step_fn(state, {"clips": clips})
+    assert state.step == 1 and np.isfinite(metrics["loss"].item())
+    with pytest.raises(ValueError, match="mask_mode"):
+        build_train_step(enc, pred, TrainCfg(mask_mode="blocks"),
                          *schedulers.build_schedules(**SCHED), [], None, [])
