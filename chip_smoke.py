@@ -9,6 +9,11 @@
                                             # only H1-H8, H1-fp32, H3-fp32 and
                                             # H8-fp32 against another
                                             # checkout's (phase_kernel_ab)
+    python3 chip_smoke.py --update-ab --other DIR
+                                            # only the 1-rank vit_tiny and
+                                            # ViT-L updates of this checkout
+                                            # and DIR's in turns
+                                            # (phase_update_ab)
     python3 chip_smoke.py --remat-peak vith16.yaml [--padded]
                                             # only a pretrain config with
                                             # remat False: its ms and peak
@@ -146,6 +151,20 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      step) and fp32 (batch 1: 2 and 1) on a seeded ViT-H .pth.tar, the
      features of each first train and val batch's first VITH_VIEWS_CHECKED
      (segments, views) through the kernels against the plain versions.
+ 21. data parallelism (``phase_dist``), after phase 8: a vitl16.yaml
+     update at B=24 in a 1-rank NCCL group (its collectives run) against
+     the same update with no group, bit for bit; 2 gloo ranks sharing the
+     card (spawned, the kernels built once by this process), 12 clips
+     each, against the 1-rank update of their 24 clips, within limits
+     DIST_LIMIT_FACTOR times the plain versions' spread on the same
+     inputs (measured first and printed), then fsdp=2 against fsdp=1 after
+     2 updates, bit-equal; the 2-rank app on vitl16.yaml (24 clips a rank,
+     fixed, a resume, padded) through apps/main_distributed.py's
+     in-cluster mode (a SLURM environment of two one-GPU nodes): one
+     checkpoint writer, equal CSV losses, each rank's launches those of
+     the 1-rank app; the 2-rank K400 16x8x3 bf16 eval, whose val pass
+     over 10 videos counts each once and matches a 1-rank val pass of the
+     same probe.
 Phases 12-13 run after phase 7, phases 14-15 after phase 8, phase 16's
 kernel checks after phase 9, phases 17-20 after phase 15. Launch counts are checked as whole dicts of
 every counter (``_counts``): a kernel that should not run must count 0.
@@ -1547,7 +1566,7 @@ def phase_serve(torch, workdir: str, model_name: str = "vit_large"):
 
 
 def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl16.yaml",
-                tube=None, remat=False):
+                tube=None, remat=False, layout=None):
     """Configs of configs/pretrain/<config> (model, data geometry, mask,
     loss and optimization sections; default vitl16.yaml): its encoder (or
     ``model_name``) + the 12 x 384 predictor at full width and depth,
@@ -1557,7 +1576,8 @@ def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl
     ``tube``: a ``mask`` list of random-tube configs in place of the
     config's (``data.mask_type: random_tube``, the step's 'tube' mode);
     ``remat``: the encoder's and the predictor's activation checkpointing
-    (the app's default is ``'attn'``)."""
+    (the app's default is ``'attn'``); ``layout``: the step's data-parallel
+    layout (``parallel.mesh.make_layout``)."""
     import yaml
 
     from jepa_tpu_torch.masks.multiblock3d import MaskGrid, MaskSpec, calibrate_keep_counts
@@ -1598,8 +1618,9 @@ def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl
                   clip_grad=o["clip_grad"], clip_after_step=int((warmup + 1) * ipe),
                   num_clips=d["num_clips"], mask_mode=cfg["meta"]["mask_mode"],
                   seed=cfg["meta"]["seed"])
-    step_fn = build_train_step(enc_cfg, pred_cfg, tc, *scheds, specs, grid, keep)
-    return dict(enc_cfg=enc_cfg, pred_cfg=pred_cfg, keep=keep, step_fn=step_fn,
+    step_fn = build_train_step(enc_cfg, pred_cfg, tc, *scheds, specs, grid, keep, layout=layout)
+    return dict(enc_cfg=enc_cfg, pred_cfg=pred_cfg, keep=keep, step_fn=step_fn, tc=tc,
+                scheds=scheds,
                 specs=specs, grid=grid, yaml_batch=d["batch_size"], model_name=m["model_name"],
                 clip_shape=(d["num_frames"], d["crop_size"], d["crop_size"], 3),
                 config=config, tube=tube, remat=remat)
@@ -2689,6 +2710,478 @@ def phase_remat_peak(torch, repo, config, padded):
         f"{wall_ms:.0f} ms, peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+# ---- phase_dist: data parallelism ------------------------------------------------
+
+DIST_BATCH = TRAIN_BATCH // 2  # (b): 2 ranks x 12 clips against 1 rank x 24
+# (b): the kernels' 2 x 12 vs 1 x 24 spread may be this many times the plain
+# versions' on the same inputs (each limit is printed before it is held)
+DIST_LIMIT_FACTOR = 10.0
+DIST_REL_FLOOR = 1e-6  # a limit never below this relative difference (nor cosine above 1 - it)
+DIST_APP_IPE = 2  # (c): updates per epoch of the 2-rank app
+DIST_EVAL_ENTRIES = (16, 10)  # (d): train / val videos; 10 is no multiple of 2 ranks x 4
+DIST_MODULES = ("encoder", "predictor", "target")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_device(torch):
+    """A spawned rank's card settings: cuda:0 (two ranks share the card),
+    TF32 off as in the parent."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _deltas(torch, state, state0) -> dict:
+    """Each module's parameter change, flat fp32."""
+    return {m: torch.cat([(p.detach() - p0).flatten() for p, p0 in
+                          zip(getattr(state, m).parameters(), getattr(state0, m).parameters())])
+            for m in DIST_MODULES}
+
+
+def _spread(torch, a, b) -> dict:
+    """How far update b (metrics, deltas) lies from update a: the relative
+    difference of the loss and both grad norms, and per module the cosine
+    and |db - da| / |da| of the parameter changes."""
+    out = {k: abs(b[0][k] - a[0][k]) / abs(a[0][k])
+           for k in ("loss", "enc_grad_norm", "pred_grad_norm")}
+    for m in DIST_MODULES:
+        da, db = a[1][m], b[1][m]
+        out[f"{m}_cos"] = torch.nn.functional.cosine_similarity(da, db, dim=0).item()
+        out[f"{m}_rel"] = ((db - da).norm() / da.norm()).item()
+    return out
+
+
+def _dist_limits(plain: dict) -> dict:
+    """The limits of the kernels' spread, from the plain versions'."""
+    return {k: (1.0 - max(DIST_LIMIT_FACTOR * (1.0 - v), DIST_REL_FLOOR)) if k.endswith("_cos")
+            else max(DIST_LIMIT_FACTOR * v, DIST_REL_FLOOR) for k, v in plain.items()}
+
+
+def _dist_update_rank(rank, world, repo):
+    """Phase (b) in one of 2 ranks on the one card (gloo): rank 0 first
+    takes the 1-rank update of all TRAIN_BATCH clips (no layout: no
+    collectives) through the plain versions and the kernels; then both
+    ranks take the 2-rank update of DIST_BATCH clips each (the global
+    masks sliced) the same two ways, counting the kernel run's launches;
+    then fsdp=2 against fsdp=1, two updates each. Every update starts from
+    the same seeded state, built in each rank from SEED."""
+    import copy
+
+    import torch
+
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+    from jepa_tpu_torch.parallel import dist as pdist
+    from jepa_tpu_torch.parallel.mesh import make_layout
+    from jepa_tpu_torch.train.step import build_train_step, init_train_state, shard_state_
+    from jepa_tpu_torch.utils.checkpoint import gather_moments
+
+    _rank_device(torch)
+    one = train_setup(repo, remat="attn")
+    two = train_setup(repo, remat="attn", layout=make_layout(1))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state0 = init_train_state(one["enc_cfg"], one["pred_cfg"], gen)
+    clips = [torch.randn((TRAIN_BATCH, *one["clip_shape"]), generator=gen, device="cuda")
+             for _ in range(2)]
+    mine = [c[rank * DIST_BATCH:(rank + 1) * DIST_BATCH] for c in clips]
+    keys = ("loss", "enc_grad_norm", "pred_grad_norm")
+
+    def update(step_fn, batch, plain):
+        state = copy.deepcopy(state0)
+        with plain_versions() if plain else contextlib.nullcontext():
+            state, m = step_fn(state, {"clips": batch})
+        torch.cuda.synchronize()
+        return {k: m[k].item() for k in keys}, _deltas(torch, state, state0), state
+
+    out = {}
+    ref = {}
+    if rank == 0:
+        for plain in (True, False):
+            t0 = time.perf_counter()
+            ref[plain] = update(one["step_fn"], clips[0], plain)[:2]
+            out[f"one_ms_{'plain' if plain else 'kernels'}"] = (time.perf_counter() - t0) * 1e3
+    pdist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    for plain in (True, False):
+        _reset_counts(fa, fm)
+        t0 = time.perf_counter()
+        metrics, deltas, state = update(two["step_fn"], mine[0], plain)
+        out[f"two_ms_{'plain' if plain else 'kernels'}"] = (time.perf_counter() - t0) * 1e3
+        if not plain:
+            out["launches"] = _counts(fa, fm)
+            checksum = float(sum(p.detach().double().sum() for p in state.named_params().values()))
+            pdist.check_same_across_ranks(checksum, "cuda", "parameters after the update")
+        if rank == 0:
+            out["plain" if plain else "kernels"] = _spread(torch, ref.pop(plain),
+                                                           (metrics, deltas))
+        out[f"metrics_{'plain' if plain else 'kernels'}"] = metrics
+        del deltas, state
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # ZeRO-1: fsdp 2 against fsdp 1, two updates from the seeded state
+    layout2 = make_layout(2)
+    zero1 = build_train_step(two["enc_cfg"], two["pred_cfg"], two["tc"], *two["scheds"],
+                             two["specs"], two["grid"], two["keep"], layout=layout2)
+    runs = {}
+    for fsdp, step_fn in ((1, two["step_fn"]), (2, zero1)):
+        state = shard_state_(copy.deepcopy(state0), layout2 if fsdp == 2 else make_layout(1))
+        for batch in mine:
+            state, _ = step_fn(state, {"clips": batch})
+        mu, nu = gather_moments(state, layout2 if fsdp == 2 else make_layout(1))
+        runs[fsdp] = dict(state=state, mu=mu, nu=nu,
+                          local=sum(t.numel() for t in state.mu.values()))
+    differ = [f"{m}.{n}" for m in DIST_MODULES
+              for (n, p), q in zip(getattr(runs[1]["state"], m).named_parameters(),
+                                   getattr(runs[2]["state"], m).parameters())
+              if not torch.equal(p, q)]
+    differ += [f"{k} of {n}" for k in ("mu", "nu") for n, t in runs[1][k].items()
+               if not torch.equal(t, runs[2][k][n])]
+    out["fsdp_differ"] = differ
+    out["fsdp_moment_elems"] = (runs[1]["local"], runs[2]["local"])
+    return out
+
+
+def _dist_app_rank(rank, world, argv):
+    """Phase (c) in one rank: the pretrain app through the launcher's
+    in-cluster mode (the process group from the SLURM environment the
+    parent set), with its launches counted and its checkpoint writes
+    recorded."""
+    import torch
+
+    from jepa_tpu_torch.apps import main_distributed
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+    from jepa_tpu_torch.utils import checkpoint as ckpt_lib
+
+    _rank_device(torch)
+    writes, save = [], ckpt_lib._save_atomic
+    ckpt_lib._save_atomic = lambda obj, path: (writes.append(path), save(obj, path))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(fa, fm)
+    t0 = time.perf_counter()
+    state = main_distributed.main(argv)
+    torch.cuda.synchronize()
+    return dict(step=state.step, writes=writes, launches=_counts(fa, fm),
+                secs=time.perf_counter() - t0,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _dist_eval_rank(rank, world, argv):
+    """Phase (d) in one rank: the video eval through the eval launcher's
+    in-cluster mode. Records the val pass's global (correct, total), and
+    on rank 0 a 1-rank val pass of the same probe at the same point (the
+    eval's own val loader rebuilt for rank 0 of 1, its val step, no
+    collective; its launches left out of the count)."""
+    import torch
+
+    from jepa_tpu_torch.evals import main_distributed
+    from jepa_tpu_torch.evals import video_classification_frozen as vcf
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+    from jepa_tpu_torch.utils import checkpoint as ckpt_lib
+
+    _rank_device(torch)
+    rec = {"counts": [], "one_rank": [], "extra": {}}
+    loaders, make_loader, val_counts = [], vcf.make_video_loader, vcf.val_counts
+
+    def recording_loader(**kw):
+        if not kw.get("training", True):
+            loaders.append(kw)
+        return make_loader(**kw)
+
+    def recording_counts(loader, n_items, batch_size, step, r, ws):
+        rec["counts"].append(val_counts(loader, n_items, batch_size, step, r, ws))
+        if rank == 0:
+            before = _counts(fa, fm)
+            _, one_loader, _ = make_loader(**dict(loaders[-1], rank=0, world_size=1))
+            rec["one_rank"].append(val_counts(one_loader, n_items, batch_size, step, 0, 1))
+            extra = _launch_diff(before, _counts(fa, fm))
+            rec["extra"] = {k: rec["extra"].get(k, 0) + v for k, v in extra.items()}
+        return rec["counts"][-1]
+
+    vcf.make_video_loader, vcf.val_counts = recording_loader, recording_counts
+    writes, save = [], ckpt_lib._save_atomic
+    ckpt_lib._save_atomic = lambda obj, path: (writes.append(path), save(obj, path))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(fa, fm)
+    t0 = time.perf_counter()
+    accs = main_distributed.main(argv)
+    torch.cuda.synchronize()
+    launches = {k: v - rec["extra"].get(k, 0) for k, v in _counts(fa, fm).items()}
+    return dict(accs=accs, writes=writes, launches=launches, counts=rec["counts"],
+                one_rank=rec["one_rank"], secs=time.perf_counter() - t0,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _slurm_env(world: int) -> list:
+    """Two one-GPU nodes that share this card: SLURM's variables per rank,
+    the master on 127.0.0.1."""
+    port = _free_port()
+    return [dict(SLURM_NTASKS=world, SLURM_PROCID=r, SLURM_LOCALID=0, MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=port) for r in range(world)]
+
+
+def _run_ranks(fn, args, init_group=True, env=None):
+    from jepa_tpu_torch.parallel import dist as pdist
+
+    out = pdist.run_local_ranks(fn, 2, args, init_group=init_group, env=env, timeout=600)
+    if any(r["jax_imported"] for r in out):
+        raise RuntimeError("a spawned rank imported jax")
+    return [r["result"] for r in out]
+
+
+UPDATE_AB_CHILD = r"""
+import json, statistics, sys, time
+sys.path.insert(0, ".")
+import chip_smoke as cs
+import torch
+cs.phase_device(torch)
+cs.phase_build()
+from jepa_tpu_torch.train.step import init_train_state
+out = {}
+for name, setup in (("vit_tiny", cs.tiny_setup(".")[0]), ("vit_large", cs.train_setup("."))):
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    state = init_train_state(setup["enc_cfg"], setup["pred_cfg"], gen)
+    clips = torch.randn((cs.TRAIN_BATCH, *setup["clip_shape"]), generator=gen, device="cuda")
+    times = []
+    for _ in range(9):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = setup["step_fn"](state, {"clips": clips})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out[name] = {"median_ms": statistics.median(times[1:]), "loss": m["loss"].item()}
+    del state, clips
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def phase_update_ab(repo, others):
+    """The 1-rank updates (vit_tiny and vitl16.yaml at TRAIN_BATCH, remat
+    False, 1 warm-up + 8 timed from a seeded state) of this checkout and
+    each ``--other`` checkout in turns (other, this, this, other), each
+    side in its own process with its own build; the losses must agree."""
+    sides = [("this", repo)] + [(os.path.basename(d), d) for d in others]
+    order = [sides[1], sides[0], sides[0], sides[1]] if len(sides) == 2 else sides
+    runs = []
+    for name, root in order:
+        p = subprocess.run([sys.executable, "-c", UPDATE_AB_CHILD], cwd=root,
+                           capture_output=True, text=True, timeout=600)
+        line = [x for x in p.stdout.splitlines() if x.startswith("RESULT ")]
+        if p.returncode or not line:
+            raise RuntimeError(f"update A/B, {name}: {p.stdout[-2000:]} {p.stderr[-2000:]}")
+        runs.append((name, json.loads(line[0][len("RESULT "):])))
+        log(f"update A/B {name}: {runs[-1][1]}")
+    for model in ("vit_tiny", "vit_large"):
+        log(f"update A/B {model}: median ms " + ", ".join(
+            f"{n} {[round(r[model]['median_ms'], 1) for m, r in runs if m == n]}"
+            for n in dict(order)))
+        if len({r[model]["loss"] for _, r in runs}) != 1:
+            raise RuntimeError(f"update A/B {model}: the losses differ")
+
+
+def phase_dist(torch, repo, setup, card):
+    """Data parallelism on the one card:
+    (a) a vitl16.yaml update at B=TRAIN_BATCH in a 1-rank NCCL group (its
+        collectives run) against the same update with no group, bit for
+        bit (loss, grad norms, every parameter and moment), and its
+        launches those of the bare update;
+    (b) 2 gloo ranks of DIST_BATCH clips against the 1-rank update of
+        their TRAIN_BATCH (``_dist_update_rank``): the limits come from the
+        plain versions' spread on the same inputs, measured first and
+        printed; then fsdp=2 against fsdp=1 after 2 updates, bit-equal;
+    (c) the 2-rank app on vitl16.yaml (per-rank batch 24, ipe
+        DIST_APP_IPE), fixed then a resume, and padded, through
+        apps/main_distributed.py's in-cluster mode: one checkpoint writer,
+        the resume, equal CSV loss columns, each rank's launches those of
+        the 1-rank app;
+    (d) the 2-rank K400 16x8x3 bf16 eval (batch 4 per rank, one epoch):
+        the val pass counts each of an uneven val set's clips once and
+        matches a 1-rank val pass of the same probe.
+    Spawned ranks fail the phase when they fail."""
+    import copy
+    import shutil
+
+    import yaml
+
+    from jepa_tpu_torch.masks.multiblock3d import calibrate_pad_ladders
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+    from jepa_tpu_torch.parallel import dist as pdist
+    from jepa_tpu_torch.parallel.mesh import make_layout
+    from jepa_tpu_torch.train.step import build_train_step, init_train_state
+
+    out = {}
+    want = expected_launches(setup["enc_cfg"], setup["pred_cfg"], setup["keep"])
+    # (a) 1 rank through NCCL against no group
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state0 = init_train_state(setup["enc_cfg"], setup["pred_cfg"], gen)
+    clips = torch.randn((TRAIN_BATCH, *setup["clip_shape"]), generator=gen, device="cuda")
+    t0 = time.perf_counter()
+    bare, mb = setup["step_fn"](copy.deepcopy(state0), {"clips": clips})
+    torch.cuda.synchronize()
+    bare_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as rdv:
+        pdist.initialize(backend="nccl", init_method=f"file://{rdv}/rendezvous", world_size=1,
+                         rank=0)
+        try:
+            step_fn = build_train_step(setup["enc_cfg"], setup["pred_cfg"], setup["tc"],
+                                       *setup["scheds"], setup["specs"], setup["grid"],
+                                       setup["keep"], layout=make_layout(1))
+            _reset_counts(fa, fm)
+            t0 = time.perf_counter()
+            grouped, mg = step_fn(copy.deepcopy(state0), {"clips": clips})
+            torch.cuda.synchronize()
+            grouped_ms = (time.perf_counter() - t0) * 1e3
+            got = _launch_diff({}, _counts(fa, fm))
+        finally:
+            torch.distributed.destroy_process_group()
+    differ = [k for k, v in mb.items() if torch.is_tensor(v) and not v.equal(mg[k])]
+    for m in DIST_MODULES:
+        differ += [f"{m}.{n}" for (n, p), q in zip(getattr(bare, m).named_parameters(),
+                                                  getattr(grouped, m).parameters())
+                   if not p.equal(q)]
+    differ += [f"moments of {n}" for n in bare.mu
+               if not (bare.mu[n].equal(grouped.mu[n]) and bare.nu[n].equal(grouped.nu[n]))]
+    log(f"dist (a): card {card}; vitl16.yaml update B={TRAIN_BATCH} in a 1-rank NCCL group vs "
+        f"no group: loss {mg['loss'].item():.9g} / {mb['loss'].item():.9g}, enc_grad_norm "
+        f"{mg['enc_grad_norm'].item():.9g} / {mb['enc_grad_norm'].item():.9g}; metrics, "
+        f"parameters and moments that differ: {len(differ)}; {grouped_ms:.0f} ms (no group "
+        f"{bare_ms:.0f} ms, the first update of each, copy of the state included); launches "
+        f"{got}")
+    if differ or got != want:
+        raise RuntimeError(f"dist (a): differ {differ[:8]}, launches {got} != {want}")
+    out["a"] = got
+    del state0, clips, bare, grouped, mb, mg
+    torch.cuda.empty_cache()
+
+    # (b) 2 ranks on the one card against 1 rank
+    t0 = time.perf_counter()
+    ranks = _run_ranks(_dist_update_rank, (repo,))
+    secs = time.perf_counter() - t0
+    r0 = ranks[0]
+    limits = _dist_limits(r0["plain"])
+    log(f"dist (b): card {card}; 2 gloo ranks x {DIST_BATCH} vs 1 rank x {TRAIN_BATCH}, seeded "
+        f"state, remat 'attn': plain versions' spread {r0['plain']}; limits (x"
+        f"{DIST_LIMIT_FACTOR:g}, floor {DIST_REL_FLOOR:g}) {limits}")
+    log(f"dist (b): kernels' spread {r0['kernels']}; 1-rank update "
+        f"{r0['one_ms_kernels']:.0f} ms (plain {r0['one_ms_plain']:.0f}), 2-rank update "
+        f"{r0['two_ms_kernels']:.0f} ms (plain {r0['two_ms_plain']:.0f}); peak per rank "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; launches per rank "
+        f"{[_launch_diff({}, r['launches']) for r in ranks]}; {secs:.0f} s")
+    bad = [k for k, v in r0["kernels"].items()
+           if (v < limits[k] if k.endswith("_cos") else v > limits[k])]
+    for r in ranks:
+        if _launch_diff({}, r["launches"]) != want:
+            raise RuntimeError(f"dist (b): launches {r['launches']} != {want}")
+    if bad:
+        raise RuntimeError(f"dist (b): the kernels' 2-rank update is past its limits on {bad}")
+    log(f"dist (b): fsdp=2 vs fsdp=1 after 2 updates: AdamW moment elements per rank "
+        f"{r0['fsdp_moment_elems']}; parameters and moments that differ "
+        f"{[len(r['fsdp_differ']) for r in ranks]}")
+    if any(r["fsdp_differ"] for r in ranks):
+        raise RuntimeError(f"dist (b): fsdp=2 differs from fsdp=1: {r0['fsdp_differ'][:8]}")
+    out["b"] = _sum_launches(*(r["launches"] for r in ranks))
+
+    with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
+        # (c) the 2-rank app through the launcher's in-cluster mode
+        with open(os.path.join(repo, "configs", "pretrain", "vitl16.yaml")) as f:
+            cfg = yaml.safe_load(f)
+        cfg["data"]["dataset_type"] = "synthetic"
+        cfg["data"]["num_workers"] = 4  # per rank: two ranks share the host's cores
+        cfg["optimization"].update(ipe=DIST_APP_IPE, epochs=1)
+        cfg_path = os.path.join(workdir, "dist_app.yaml")
+        argv = ["--fname", cfg_path, "--backend", "gloo"]
+        tag = cfg["logging"]["write_tag"]
+        ladders = calibrate_pad_ladders(setup["specs"], setup["grid"], cfg["data"]["batch_size"],
+                                        n_chunks=2)
+        runs = (("fixed", 1, want), ("resume", 2, want),
+                ("padded", 1, expected_launches(setup["enc_cfg"], setup["pred_cfg"],
+                                                [rungs[0] for rungs in ladders], masked=True)))
+        out["c"] = {}
+        for mode, epochs, want_mode in runs:
+            cfg["optimization"]["epochs"] = epochs
+            cfg["meta"]["mask_mode"] = "padded" if mode == "padded" else "fixed"
+            cfg["logging"]["folder"] = os.path.join(workdir, "padded" if mode == "padded"
+                                                    else "fixed")
+            with open(cfg_path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            torch.cuda.empty_cache()
+            ranks = _run_ranks(_dist_app_rank, (argv,), init_group=False, env=_slurm_env(2))
+            steps = epochs * DIST_APP_IPE
+            new = DIST_APP_IPE  # updates this run took (the resume: the second epoch's)
+            csvs = [os.path.join(cfg["logging"]["folder"], f"{tag}_r{r}.csv") for r in range(2)]
+            losses = [_csv_losses(c) for c in csvs]
+            times = [_csv_times(c)[:3] for c in csvs]
+            log(f"dist (c): card {card}; 2-rank app {mode} (vitl16.yaml, batch "
+                f"{cfg['data']['batch_size']} per rank): steps {[r['step'] for r in ranks]}, "
+                f"checkpoint writes per rank {[len(r['writes']) for r in ranks]}, "
+                f"{[round(r['secs'], 1) for r in ranks]} s, CSV median step / wall ms and host "
+                f"share per rank {[(round(a), round(b), round(c, 3)) for a, b, c in times]}, "
+                f"peak {[round(r['peak_gib'], 2) for r in ranks]} GiB; CSV losses {losses}")
+            for r in ranks:
+                if _launch_diff({}, r["launches"], new) != want_mode:
+                    raise RuntimeError(f"dist (c) {mode}: launches {r['launches']} != {new} x "
+                                       f"{want_mode}")
+            if ([r["step"] for r in ranks] != [steps, steps]
+                    or len(ranks[0]["writes"]) != 1 or ranks[1]["writes"]
+                    or losses[0] != losses[1] or len(losses[0]) != steps):
+                raise RuntimeError(f"dist (c) {mode}: steps {[r['step'] for r in ranks]}, "
+                                   f"writes {[r['writes'] for r in ranks]}, losses {losses}")
+            out["c"][mode] = _sum_launches(*(r["launches"] for r in ranks))
+            if mode != "fixed":
+                shutil.rmtree(cfg["logging"]["folder"])
+
+        # (d) the 2-rank K400 16x8x3 bf16 eval
+        enc_path = write_seeded_encoder(torch, workdir)
+        n_train, n_val = DIST_EVAL_ENTRIES
+        ecfg = eval_config(repo, workdir, "dist_k400", enc_path, n_train, n_val, batch_size=4,
+                           num_epochs=1, use_bfloat16=True)
+        for split, n in (("train", n_train), ("val", n_val)):  # labels 0 / 1: the probe's
+            with open(ecfg["data"][f"dataset_{split}"], "w") as f:  # val hits are not all 0
+                f.writelines(f"synthetic://dist-{split}{i} {i % 2}\n" for i in range(n))
+        ecfg["data"]["num_workers"] = 4
+        epath = os.path.join(workdir, "dist_eval.yaml")
+        with open(epath, "w") as f:
+            yaml.safe_dump(ecfg, f)
+        torch.cuda.empty_cache()
+        ranks = _run_ranks(_dist_eval_rank, (["--fname", epath, "--backend", "gloo"],),
+                           init_group=False, env=_slurm_env(2))
+        steps = n_train // (2 * 4) + -(-n_val // (2 * 4))
+        per_step = {"h1": DEPTH, "h1_c64": DEPTH, "h3": DEPTH}
+        r0 = ranks[0]
+        log(f"dist (d): card {card}; 2-rank K400 16x8x3 bf16 eval (batch 4 per rank, {n_train} "
+            f"train / {n_val} val videos): val (correct, total) 2 ranks {r0['counts']}, 1 rank "
+            f"{r0['one_rank']}; val accs {[r['accs'] for r in ranks]}; probe checkpoint writes "
+            f"{[len(r['writes']) for r in ranks]}; {[round(r['secs'], 1) for r in ranks]} s, "
+            f"peak {[round(r['peak_gib'], 2) for r in ranks]} GiB; launches per step "
+            f"{[_launch_diff({}, r['launches'], steps) for r in ranks]}")
+        if (r0["counts"] != r0["one_rank"] or r0["counts"][0][1] != n_val
+                or ranks[1]["counts"] != r0["counts"] or ranks[0]["accs"] != ranks[1]["accs"]
+                or len(r0["writes"]) != 1 or ranks[1]["writes"]):
+            raise RuntimeError(f"dist (d): counts {r0['counts']} vs 1 rank {r0['one_rank']}, "
+                               f"writes {[r['writes'] for r in ranks]}")
+        for r in ranks:
+            if _launch_diff({}, r["launches"], steps) != per_step:
+                raise RuntimeError(f"dist (d): launches {r['launches']} != {steps} x {per_step}")
+        out["d"] = _sum_launches(*(r["launches"] for r in ranks))
+    return out
+
+
+def _csv_losses(path) -> list:
+    rows = open(path).read().strip().splitlines()
+    return [r.split(",")[2] for r in rows if r[:1].isdigit()]
+
+
 def tiny_setup(repo):
     """vitl16.yaml with model_name vit_tiny (``train_setup``) and the padded
     mode's cap ladders of its mask configs at TRAIN_BATCH."""
@@ -3222,6 +3715,10 @@ def main() -> int:
         phase_remat_peak(torch, repo, sys.argv[sys.argv.index("--remat-peak") + 1],
                          "--padded" in sys.argv)
         return 0
+    if "--update-ab" in sys.argv:
+        phase_update_ab(repo, [sys.argv[i + 1] for i, a in enumerate(sys.argv)
+                               if a == "--other"])
+        return 0
     if "--kernel-ab" in sys.argv or "--b2-spread" in sys.argv:
         others = _others()
         if "--kernel-ab" in sys.argv:
@@ -3272,6 +3769,7 @@ def main() -> int:
     ab = phase_force_ab(torch, setup, force)
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
         app = phase_app(torch, repo, setup, workdir)
+    dist = phase_dist(torch, repo, setup, card)
     # vit_tiny: its serving, updates and app, through the head-major kernels
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
         tiny_serve = phase_serve(torch, workdir, "vit_tiny")
@@ -3316,8 +3814,10 @@ def main() -> int:
     # ViT-L's updates: the timed default ones, the tube mode's (updates, fixed
     # app) and the remat phase's (its checked updates)
     tl = _sum_launches(train["launches"], tube_train["launches"],
-                       tube_app["fixed"]["launches"], *(r["launches"] for r in remat.values()))
-    al = _sum_launches(al, tube_app["padded"]["launches"])
+                       tube_app["fixed"]["launches"], *(r["launches"] for r in remat.values()),
+                       dist["a"], dist["b"], dist["c"]["fixed"], dist["c"]["resume"])
+    al = _sum_launches(al, tube_app["padded"]["launches"], dist["c"]["padded"])
+    el = _sum_launches(el, dist["d"])
     # ViT-H: its updates, apps and evals; K2's launches are H1's at (K2_C,
     # K2_N), the vith16_384 target's and eval encoder's, K1's the rest of H1
     # c=80, both as counted at the launch

@@ -4,7 +4,9 @@
     python -m jepa_tpu_torch.apps.main --fname tests/fixtures/pretrain_smoke.yaml --devices cpu
 
 One process drives one device: the card by default (a missing GPU raises),
-the CPU when ``--devices cpu`` asks for it.
+the CPU when ``--devices cpu`` asks for it. Under ``torchrun
+--nproc_per_node N`` the app runs as N ranks (``parallel.dist``: torchrun's
+environment), each on ``cuda:<local rank>``.
 """
 
 from __future__ import annotations

@@ -4,14 +4,22 @@ jepa_tpu/apps/vjepa/train.py; reference app/vjepa/train.py:66-586).
     from jepa_tpu_torch.apps.vjepa.train import main
     state = main(load_config("configs/pretrain/vitl16.yaml"))   # device="cuda"
 
-It reads the reference's YAML schema key by key, as the JAX app does, and
-runs single-process (rank 0 of 1) on one device: the card unless the caller
-asks for the CPU; a missing GPU raises. Per step: the host loader's uint8
+It reads the reference's YAML schema key by key, as the JAX app does. One
+process drives one device: the card unless the caller asks for the CPU; a
+missing GPU raises. Run as N ranks (``parallel.dist.initialize``: torchrun's
+or SLURM's environment, or a group the caller initialised), each rank
+loads ``data.batch_size`` clips (per GPU, as in the reference: the global
+batch is N times it) on ``cuda:<local rank>`` and the update keeps the
+JAX package's global-batch semantics (``train.step``); ``meta.fsdp`` > 1
+shards the AdamW moments ZeRO-1-style over groups of that many ranks.
+All ranks start from one seed, and the app checks once that their
+parameters agree. Per step: the host loader's uint8
 clips go to the device, are augmented there (``data.transforms``) with a
-generator seeded from (seed + 11, step), and feed one
+generator seeded from (seed + 11, step * N + rank), and feed one
 ``train.step.build_train_step`` update; in padded mode the host
-``MaskCollator`` draws the reference-distribution masks, padded to the
-per-spec cap ladders. ``data.mask_type: random_tube`` takes tube masks
+``MaskCollator`` draws the reference-distribution masks of all N chunks
+on every rank (so the cap tier agrees), padded to the per-spec cap
+ladders, and each rank keeps its chunk. ``data.mask_type: random_tube`` takes tube masks
 (``mask`` entries ``{ratio: ...}``): the fixed mode becomes the step's
 ``tube`` mode, and the padded mode pads ``TubeMaskCollator``'s masks to
 one tier of ``static_cap`` caps. Every epoch writes
@@ -40,7 +48,6 @@ import time
 import numpy as np
 import torch
 
-from jepa_tpu_torch.api import _resolve_device
 from jepa_tpu_torch.configs import dump_config
 from jepa_tpu_torch.data.loader import make_video_loader
 from jepa_tpu_torch.data.transforms import AugmentCfg, pretrain_augment
@@ -58,10 +65,13 @@ from jepa_tpu_torch.masks.padding import pad_masks, static_cap
 from jepa_tpu_torch.masks.random_tube import TubeMaskCollator, TubeSpec
 from jepa_tpu_torch.masks.random_tube import keep_counts as tube_keep_counts
 from jepa_tpu_torch.models.factory import predictor_cfg_for, vit_cfg
+from jepa_tpu_torch.parallel import dist as pdist
+from jepa_tpu_torch.parallel.mesh import make_layout
 from jepa_tpu_torch.train.step import (
     TrainCfg,
     build_train_step,
     init_train_state,
+    shard_state_,
     step_generator,
 )
 from jepa_tpu_torch.utils import checkpoint as ckpt_lib
@@ -153,12 +163,17 @@ def main(args: dict, resume_preempt: bool = False, device="cuda"):
                          or cfgs_logging.get("log_resources", False))
 
     # ---- runtime --------------------------------------------------------
-    dev = _resolve_device(device)
-    world_size, rank = 1, 0
-    logger = get_logger(__name__, rank=rank)
+    world_size, rank, dev = pdist.init_rank(device)
+    logger = get_logger(__name__, rank=rank, force=world_size > 1)  # a rank > 0 logs errors only
     logger.info("initialized rank/world: %d/%d on %s", rank, world_size, dev)
     os.makedirs(folder, exist_ok=True)
-    dump_config(args, os.path.join(folder, "params-pretrain.yaml"))
+    if rank == 0:
+        dump_config(args, os.path.join(folder, "params-pretrain.yaml"))
+    # meta.fsdp > 1 shards the optimizer moments over groups of fsdp ranks
+    # (ZeRO-1-style) for models whose opt state won't fit replicated
+    layout = make_layout(int(cfgs_meta.get("fsdp", 1)))
+    logger.info("global batch %d = %d per rank x %d ranks; fsdp %d", batch_size * world_size,
+                batch_size, world_size, layout.fsdp)
     if cfgs_meta.get("unroll_blocks") is not None:
         logger.info("meta.unroll_blocks=%s accepted: torch modules are per-layer",
                     cfgs_meta["unroll_blocks"])
@@ -181,6 +196,10 @@ def main(args: dict, resume_preempt: bool = False, device="cuda"):
     logger.info("activation checkpointing: encoder %r, predictor %r", remat, pred_remat)
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = init_train_state(enc_cfg, pred_cfg, gen, device=dev)
+    if world_size > 1:  # one seed on every rank: check once that the states agree
+        checksum = float(sum(p.detach().double().sum() for p in state.named_params().values()))
+        pdist.check_same_across_ranks(checksum, dev, "parameter checksum")
+    shard_state_(state, layout)
     logger.info("encoder parameters: %d", sum(p.numel() for p in state.encoder.parameters()))
     logger.info("predictor parameters: %d", sum(p.numel() for p in state.predictor.parameters()))
 
@@ -251,6 +270,8 @@ def main(args: dict, resume_preempt: bool = False, device="cuda"):
             num_workers=num_workers, seed=seed, **geom)
     ipe = len(loader) if ipe is None else int(ipe)
     logger.info("iterations per epoch: %d (loader length %d)", ipe, len(loader))
+    if world_size > 1:  # a rank that ran fewer updates would hang the others
+        pdist.check_same_across_ranks(ipe, dev, "iterations per epoch")
 
     # ---- schedules + step -----------------------------------------------
     lr_sched, wd_sched, mom_sched = build_schedules(
@@ -263,12 +284,13 @@ def main(args: dict, resume_preempt: bool = False, device="cuda"):
         clip_after_step=int((warmup + 1) * ipe),  # reference: epoch > warmup
         betas=betas, eps=eps, num_clips=num_clips, mask_mode=mask_mode, seed=seed)
     step_fn = build_train_step(enc_cfg, pred_cfg, train_cfg, lr_sched, wd_sched,
-                               mom_sched, specs, grid, kc)
+                               mom_sched, specs, grid, kc, layout=layout)
 
     # ---- resume ----------------------------------------------------------
     start_epoch = 0
     if load_model or os.path.exists(ckpt_lib.checkpoint_path(folder, tag)):
-        state, start_epoch = ckpt_lib.load_checkpoint(folder, tag, state, read_path=r_file)
+        state, start_epoch = ckpt_lib.load_checkpoint(folder, tag, state, read_path=r_file,
+                                                      layout=layout)
         if host_collator is not None:
             host_collator.set_step(start_epoch * ipe)
 
@@ -293,8 +315,8 @@ def main(args: dict, resume_preempt: bool = False, device="cuda"):
     def device_batch(np_batch, step):
         clips = torch.from_numpy(np_batch["clips"]).to(dev)  # [nc*B, T, H, W, 3] uint8
         vhw = torch.from_numpy(np_batch["valid_hw"]).to(dev) if "valid_hw" in np_batch else None
-        clips = pretrain_augment(step_generator(seed + 11, step, dev), clips, aug_cfg,
-                                 valid_hw=vhw)
+        clips = pretrain_augment(step_generator(seed + 11, step * world_size + rank, dev),
+                                 clips, aug_cfg, valid_hw=vhw)
         batch = {"clips": clips.to(compute_dtype)}
         if mask_mode == "padded":
             me_list, mp_list = host_collator.collate_chunks(batch_size, n_chunks)
@@ -308,7 +330,7 @@ def main(args: dict, resume_preempt: bool = False, device="cuda"):
             for (mes, mps), (ce, cp) in zip(zip(me_list, mp_list), tier):
                 for masks, cap, (k_idx, k_w) in ((mes, ce, ("masks_enc", "enc_weights")),
                                                  (mps, cp, ("masks_pred", "pred_weights"))):
-                    pads = [pad_masks(m, cap) for m in masks]
+                    pads = [pad_masks(m, cap) for m in masks[rank:rank + 1]]  # this rank's chunk
                     batch[k_idx].append(torch.from_numpy(np.concatenate([p[0] for p in pads])).to(dev))
                     batch[k_w].append(torch.from_numpy(np.concatenate([p[1] for p in pads])).to(dev))
         return batch
@@ -386,5 +408,6 @@ def main(args: dict, resume_preempt: bool = False, device="cuda"):
         logger.info("avg. loss %.3f", meters["loss"].avg)
         if epoch % CHECKPOINT_FREQ == 0 or epoch == num_epochs - 1:
             ckpt_lib.save_checkpoint(folder, tag, state, epoch + 1, save_every_freq,
-                                     batch_size=batch_size, world_size=world_size, lr=lr)
+                                     batch_size=batch_size, world_size=world_size, lr=lr,
+                                     layout=layout)
     return state

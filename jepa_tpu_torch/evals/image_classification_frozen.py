@@ -10,12 +10,13 @@ the time axis (the reference's forward-pre-hook, eval.py:452-457, written
 out). ``train_step``: random-resized crop, horizontal flip, AutoAugment
 'original' (``data.auto_augment``: true / 'original' by default, a
 'rand-...' string for RandAugment, false for none), normalize and random
-erase on the device with a generator seeded from (4321, step), then the
+erase on the device with a generator seeded from (4321, step * N + rank) on
+each of N ranks, then the
 frozen encoder under ``no_grad`` and one probe update (the video eval's
 ``probe_update``). ``val_step``: host short-side resize (256/224 of the
 resolution) and centre crop, normalize on the device, (correct, total)
 with zero weight on the padding of the last partial batch. The CSV,
-checkpoints, resume and device rules are the video eval's.
+checkpoints, resume, device and data-parallel rules are the video eval's.
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ import os
 import numpy as np
 import torch
 
-from jepa_tpu_torch.api import _resolve_device
 from jepa_tpu_torch.data.image_dataset import make_image_loader
 from jepa_tpu_torch.data.transforms import AugmentCfg, normalize, pretrain_augment
 from jepa_tpu_torch.evals.video_classification_frozen import (
@@ -39,6 +39,8 @@ from jepa_tpu_torch.evals.video_classification_frozen import (
     val_accuracy,
 )
 from jepa_tpu_torch.models.factory import vit_cfg
+from jepa_tpu_torch.parallel import dist as pdist
+from jepa_tpu_torch.parallel.mesh import eval_batch_geometry
 from jepa_tpu_torch.models.vit import vit_forward
 from jepa_tpu_torch.train.step import step_generator
 from jepa_tpu_torch.utils.logging import AverageMeter, get_logger
@@ -129,9 +131,8 @@ def main(args_eval: dict, resume_preempt: bool = False, device="cuda"):
     resume_checkpoint = bool(args_eval.get("resume_checkpoint", False)) or resume_preempt
     eval_tag = args_eval.get("tag", None)
 
-    dev = _resolve_device(device)
-    world_size, rank = 1, 0
-    logger = get_logger(__name__, rank=rank)
+    world_size, rank, dev = pdist.init_rank(device)
+    logger = get_logger(__name__, rank=rank, force=world_size > 1)  # a rank > 0 logs errors only
     compute_dtype = torch.bfloat16 if use_bfloat16 else torch.float32
     folder = os.path.join(pretrain_folder, "image_classification_frozen/")
     if eval_tag is not None:
@@ -153,7 +154,8 @@ def main(args_eval: dict, resume_preempt: bool = False, device="cuda"):
         training=False, output_size=resolution, resize_short=int(resolution * 256 / 224),
         rank=rank, world_size=world_size, num_workers=num_workers)
     ipe = len(train_loader)
-    logger.info("train iterations per epoch: %d", ipe)
+    logger.info("train iterations per epoch: %d; batch %d per rank, %d global", ipe,
+                *eval_batch_geometry(batch_size, world_size))
 
     probe = make_probe(encoder, enc_cfg, num_classes,
                        *probe_schedules(ipe, num_epochs, warmup, start_lr, lr, final_lr, wd), dev)
@@ -163,8 +165,8 @@ def main(args_eval: dict, resume_preempt: bool = False, device="cuda"):
         train_sampler.set_epoch(epoch)
         meter = AverageMeter()
         for itr, np_batch in enumerate(train_loader):
-            images = augment_images(step_generator(AUG_SEED, epoch * ipe + itr, dev),
-                                    torch.from_numpy(np_batch["images"]).to(dev), aug_cfg,
+            gen = step_generator(AUG_SEED, (epoch * ipe + itr) * world_size + rank, dev)
+            images = augment_images(gen, torch.from_numpy(np_batch["images"]).to(dev), aug_cfg,
                                     compute_dtype)
             metrics = train_step(probe, images, torch.from_numpy(np_batch["labels"]).to(dev))
             meter.update(float(metrics["acc"]))

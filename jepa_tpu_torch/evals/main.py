@@ -5,7 +5,8 @@
 
 The YAML's ``eval_name`` picks video_classification_frozen or
 image_classification_frozen. One process drives one device: the card by
-default (a missing GPU raises), the CPU when ``--devices cpu`` asks for it.
+default (a missing GPU raises), the CPU when ``--devices cpu`` asks for it;
+under ``torchrun --nproc_per_node N`` it runs as N ranks.
 """
 
 from __future__ import annotations

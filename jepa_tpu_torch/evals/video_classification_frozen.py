@@ -9,14 +9,19 @@ A pretrained encoder (a ``.pth.tar``; an orbax directory raises, as
 ``api.load_encoder`` does) is frozen; an AttentiveClassifier trains with
 cross-entropy on the aggregated clip features; validation is
 multi-segment x multi-view with softmax-averaged top-1. It reads the
-reference's YAML schema key by key, as the JAX eval does, and runs
-single-process on one device: the card unless the caller asks for the
-CPU; a missing GPU raises. ``optimization.batch_size`` is per device.
+reference's YAML schema key by key, as the JAX eval does. One process
+drives one device: the card unless the caller asks for the CPU; a missing
+GPU raises. ``optimization.batch_size`` is per rank (per GPU, as in the
+reference). Run as N ranks (``parallel.dist.initialize``) it keeps the
+JAX eval's global-batch semantics: the probe's gradients are averaged
+over the ranks before the clip, the logged loss and accuracy are global,
+and the val pass sums (correct, total) over the ranks; rank 0 writes the
+probe checkpoint and every rank its ``_r{rank}.csv``.
 
 ``train_step``: the loader's uint8 clips are augmented on the device
 (RandAugment 'rand-m7-n4-mstd0.5-inc1' unless ``data.auto_augment`` is
 false, random-resized crop, random erase) with a generator seeded from
-(1234, step); the frozen encoder runs ONCE over all B*S clips under
+(1234, step * N + rank); the frozen encoder runs ONCE over all B*S clips under
 ``no_grad`` (on the card every block launches H1 and H3, or their fp32
 instances under ``use_bfloat16: false``); the probe takes the CE averaged
 over views, global-norm clipping at 1.0 and AdamW with the decay mask, lr
@@ -24,7 +29,7 @@ warmup-cosine and wd cosine to 1e-6 (the reference's init_opt default).
 ``val_step``: the sliding multi-view crops of every segment, one encoder
 call over B*S*V clips, softmax averaged over views, (correct, total) with
 zero weight on the padding of the last partial batch. ``main`` calls both,
-writes ``<tag>_r0.csv`` (epoch, train acc under "loss", val acc under
+writes ``<tag>_r{rank}.csv`` (epoch, train acc under "loss", val acc under
 "acc", as the JAX eval does) and a ``<tag>-latest.pth.tar`` probe
 checkpoint per epoch, and resumes from it.
 """
@@ -33,13 +38,13 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from jepa_tpu_torch.api import _require_torch_ckpt, _resolve_device
+from jepa_tpu_torch.api import _require_torch_ckpt
 from jepa_tpu_torch.data.loader import make_video_loader
 from jepa_tpu_torch.data.transforms import AugmentCfg, multiview_crops, pretrain_augment
 from jepa_tpu_torch.evals.aggregation import (
@@ -54,6 +59,8 @@ from jepa_tpu_torch.models.attentive import (
     init_attentive_classifier,
 )
 from jepa_tpu_torch.models.factory import vit_cfg
+from jepa_tpu_torch.parallel import dist as pdist
+from jepa_tpu_torch.parallel.mesh import eval_batch_geometry
 from jepa_tpu_torch.models.transformer import cast_matmul_weights_
 from jepa_tpu_torch.models.vit import ViTCfg, VisionTransformer
 from jepa_tpu_torch.train.optimizer import adamw_update_, clip_by_global_norm, decay_mask
@@ -113,7 +120,9 @@ def probe_update(probe: Probe, feats: List[torch.Tensor], labels: torch.Tensor) 
     """One probe update on frozen features (a list over views of [B, N, D]):
     CE averaged over the views, clipping at 1.0, AdamW at the schedules'
     values of this step. Returns loss, acc (%, of the view-averaged
-    softmax) and lr as 0-d tensors."""
+    softmax) and lr as 0-d tensors. In a data-parallel run the gradients,
+    loss and acc are averaged over the ranks (equal local batches: the
+    global batch's means)."""
     sched_step = probe.step + 1
     lr = float(probe.lr_sched(sched_step))
     wd = float(probe.wd_sched(sched_step))
@@ -124,6 +133,7 @@ def probe_update(probe: Probe, feats: List[torch.Tensor], labels: torch.Tensor) 
     # zero, as in the JAX package, and AdamW still decays it
     grads = list(torch.autograd.grad(loss, probe.params, materialize_grads=True))
     with torch.no_grad():
+        pdist.all_reduce_(grads, "mean")
         clip_by_global_norm(grads, 1.0, True)
         adamw_update_(probe.params, grads, [probe.mu[n] for n in probe.names],
                       [probe.nu[n] for n in probe.names], probe.decay, probe.names,
@@ -131,7 +141,9 @@ def probe_update(probe: Probe, feats: List[torch.Tensor], labels: torch.Tensor) 
         probe.step = sched_step
         probs = sum(torch.softmax(lg.detach(), -1) for lg in logits) / len(logits)
         acc = (probs.argmax(-1) == labels).float().mean() * 100.0
-    return {"loss": loss.detach(), "acc": acc, "lr": torch.tensor(lr)}
+        loss = loss.detach()
+        pdist.all_reduce_([loss, acc], "mean")
+    return {"loss": loss, "acc": acc, "lr": torch.tensor(lr)}
 
 
 @torch.no_grad()
@@ -185,15 +197,18 @@ def probe_schedules(ipe: int, num_epochs: int, warmup: float, start_lr: float, l
             CosineWD(ref_wd=wd, final_wd=1e-6, t_max=t_max))
 
 
-def val_accuracy(val_loader, n_items: int, batch_size: int, step, rank: int = 0,
-                 world_size: int = 1) -> float:
-    """Top-1 (%) over the validation set. ``step(np_batch, w, pad)`` pads a
-    partial last batch of b samples with pad = batch_size - b repeats, so
-    every val step has the configured shape, and returns (correct, total)
-    under the weights w [batch_size]: zero for the non-drop_last sampler's
-    repeats (positions >= n_items) and for the padding."""
+def val_counts(val_loader, n_items: int, batch_size: int, step, rank: int = 0,
+               world_size: int = 1) -> Tuple[float, float]:
+    """(correct, total) over the validation set. ``step(np_batch, w, pad)``
+    pads a partial last batch of b samples with pad = batch_size - b
+    repeats, so every val step has the configured shape, and returns
+    (correct, total) under the weights w [batch_size]: zero for the
+    non-drop_last sampler's repeats (positions >= n_items) and for the
+    padding. With more than one rank the sums run over every rank (each
+    rank's loader yields equal counts)."""
     correct = total = 0.0
     k_item = 0
+    dev = None
     for np_batch in val_loader:
         b = len(np_batch["labels"])
         pos = rank + (k_item + np.arange(b)) * world_size
@@ -203,6 +218,16 @@ def val_accuracy(val_loader, n_items: int, batch_size: int, step, rank: int = 0,
         c, t = step(np_batch, w, batch_size - b)
         correct += float(c)
         total += float(t)
+        dev = c.device
+    if world_size > 1 and dev is not None:
+        correct, total = pdist.all_reduce_scalars([correct, total], dev)
+    return correct, total
+
+
+def val_accuracy(val_loader, n_items: int, batch_size: int, step, rank: int = 0,
+                 world_size: int = 1) -> float:
+    """Top-1 (%) over the validation set (``val_counts``)."""
+    correct, total = val_counts(val_loader, n_items, batch_size, step, rank, world_size)
     return 100.0 * correct / max(1, total)
 
 
@@ -291,9 +316,8 @@ def main(args_eval: dict, resume_preempt: bool = False, device="cuda"):
     eval_tag = args_eval.get("tag", None)
 
     # ---- runtime ------------------------------------------------------------
-    dev = _resolve_device(device)
-    world_size, rank = 1, 0
-    logger = get_logger(__name__, rank=rank)
+    world_size, rank, dev = pdist.init_rank(device)
+    logger = get_logger(__name__, rank=rank, force=world_size > 1)  # a rank > 0 logs errors only
     compute_dtype = torch.bfloat16 if use_bfloat16 else torch.float32
     folder = os.path.join(pretrain_folder, "video_classification_frozen/")
     if eval_tag is not None:
@@ -333,7 +357,8 @@ def main(args_eval: dict, resume_preempt: bool = False, device="cuda"):
         data_paths=val_data_path, num_clips=eval_num_segments, training=False,
         drop_last=False, **loader_kw, **val_geom)
     ipe = len(train_loader)
-    logger.info("train iterations per epoch: %d", ipe)
+    logger.info("train iterations per epoch: %d; batch %d per rank, %d global", ipe,
+                *eval_batch_geometry(batch_size, world_size))
 
     # ---- probe ------------------------------------------------------------------
     probe = make_probe(encoder, enc_cfg, num_classes,
@@ -367,8 +392,8 @@ def main(args_eval: dict, resume_preempt: bool = False, device="cuda"):
         # [S*B, T, H, W, 3] uint8 clip-major -> augmented [B, S, 1, T, r, r, 3]
         clips = torch.from_numpy(sample_major(np_batch["clips"], train_segments)).to(dev)
         vhw = torch.from_numpy(sample_major(np_batch["valid_hw"], train_segments)).to(dev)
-        out = pretrain_augment(step_generator(AUG_SEED, gstep, dev), clips, aug_cfg,
-                               valid_hw=vhw)
+        out = pretrain_augment(step_generator(AUG_SEED, gstep * world_size + rank, dev),
+                               clips, aug_cfg, valid_hw=vhw)
         t, c = out.shape[1], out.shape[-1]
         return out.reshape(-1, train_segments, 1, t, resolution, resolution, c).to(compute_dtype)
 

@@ -31,14 +31,18 @@ def repeat_interleave_batch(x: torch.Tensor, b: int, repeat: int) -> torch.Tenso
     return out.reshape(n * repeat * b, *rest)
 
 
-def masked_mean(x: torch.Tensor, weight: Optional[torch.Tensor], dim=None) -> torch.Tensor:
+def masked_mean(x: torch.Tensor, weight: Optional[torch.Tensor], dim=None,
+                denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean of x under optional token-validity weights ([B, K] against
     x [B, K, D], or x's own shape); weight-0 positions are excluded from
-    the normalizer."""
+    the normalizer. ``denom`` (with ``dim`` None) replaces the normalizer,
+    the sum of the broadcast weights: a data-parallel rank passes the sum
+    over the global batch, so its share of the mean sums across ranks to the
+    global mean."""
     if weight is None:
         return x.mean() if dim is None else x.mean(dim=dim)
     w = weight[..., None] if weight.dim() == x.dim() - 1 else weight
     w = w.expand(x.shape).to(x.dtype)
     if dim is None:
-        return (x * w).sum() / w.sum().clamp(min=1e-6)
+        return (x * w).sum() / (w.sum() if denom is None else denom).clamp(min=1e-6)
     return (x * w).sum(dim=dim) / w.sum(dim=dim).clamp(min=1e-6)

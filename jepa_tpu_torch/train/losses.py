@@ -21,15 +21,19 @@ from jepa_tpu_torch.ops.masking import masked_mean
 
 def jepa_loss(preds: List[torch.Tensor], targets: List[torch.Tensor],
               loss_exp: float = 1.0,
-              weights: Optional[List[Optional[torch.Tensor]]] = None) -> torch.Tensor:
-    """preds/targets: per-mask-config lists of [B, K, D] fp32."""
+              weights: Optional[List[Optional[torch.Tensor]]] = None,
+              denoms: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """preds/targets: per-mask-config lists of [B, K, D] fp32. ``denoms``:
+    per mask config, the normalizer of the weighted mean (``masked_mean``'s
+    ``denom``; data-parallel ranks pass the global batch's)."""
     weights = weights or [None] * len(preds)
+    denoms = denoms or [None] * len(preds)
     total = 0.0
-    for z, h, w in zip(preds, targets, weights):
+    for z, h, w, den in zip(preds, targets, weights, denoms):
         err = (z.float() - h.float()).abs()
         if loss_exp != 1.0:
             err = err**loss_exp
-        total = total + masked_mean(err, w) / loss_exp
+        total = total + masked_mean(err, w, denom=den) / loss_exp
     return total / len(preds)
 
 

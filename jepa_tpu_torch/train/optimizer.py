@@ -77,16 +77,57 @@ def adamw_update_(
     b1: float = 0.9,
     b2: float = 0.999,
     eps: float = 1e-8,
+    zero1=None,
 ) -> Dict[str, torch.Tensor]:
     """One AdamW step in place; ``step`` is the 1-indexed update count.
     lr and wd are fp32 values. Returns the moment statistics
-    (``exp_avg_abs_mean``, ``exp_avg_sq_mean``) as 0-d tensors."""
+    (``exp_avg_abs_mean``, ``exp_avg_sq_mean``) as 0-d tensors.
+
+    ``zero1``: (``parallel.mesh.Layout``, shard axis or None per
+    parameter), the sharded form (ZeRO-1): ``mu`` / ``nu`` hold only this
+    rank's slice of each sharded parameter (``mesh.shard``); the step
+    updates that slice of the parameter and all-gathers the parameter over
+    the fsdp group, and the statistics sum the slices over it. AdamW is
+    elementwise, so the parameters come out with the bits of the
+    replicated step."""
+    params, grads, mu, nu = list(params), list(grads), list(mu), list(nu)
+    if zero1 is None:
+        _adamw_math_(params, grads, mu, nu, decay, lr=lr, wd=wd, step=step, b1=b1, b2=b2,
+                     eps=eps)
+        return _moment_stats(mu, nu, [p.numel() for p in params], names)
+
+    from jepa_tpu_torch.parallel import dist as pdist
+    from jepa_tpu_torch.parallel.mesh import shard
+
+    layout, axes = zero1
+    cut = lambda ts: [t if ax is None else shard(t, ax, layout).contiguous()
+                      for t, ax in zip(ts, axes)]
+    local = cut(params)
+    _adamw_math_(local, cut(grads), mu, nu, decay, lr=lr, wd=wd, step=step, b1=b1, b2=b2,
+                 eps=eps)
+    sharded = [i for i, ax in enumerate(axes) if ax is not None]
+    parts = pdist.all_gather([local[i] for i in sharded], group=layout.fsdp_group)
+    for j, i in enumerate(sharded):
+        params[i].copy_(torch.cat([part[j] for part in parts], dim=axes[i]))
+
+    def reduce_shards(sums):
+        if sharded:
+            flat = torch.stack([sums[i] for i in sharded])
+            pdist.all_reduce_([flat], group=layout.fsdp_group)
+            for j, i in enumerate(sharded):
+                sums[i] = flat[j]
+        return sums
+
+    return _moment_stats(mu, nu, [p.numel() for p in params], names, reduce_shards)
+
+
+def _adamw_math_(params, grads, mu, nu, decay, *, lr, wd, step, b1, b2, eps) -> None:
+    """The AdamW arithmetic on lists of fp32 tensors, in place."""
     f32 = lambda x: torch.tensor(x, dtype=torch.float32)
     stepf = f32(step)
     bc1 = float(1.0 - f32(b1) ** stepf)
     bc2 = float(1.0 - f32(b2) ** stepf)
     keep = float(1.0 - f32(lr) * f32(wd))
-    params, grads, mu, nu = list(params), list(grads), list(mu), list(nu)
     torch._foreach_mul_(mu, b1)
     torch._foreach_add_(mu, grads, alpha=1.0 - b1)
     torch._foreach_mul_(nu, b2)
@@ -101,15 +142,21 @@ def adamw_update_(
     torch._foreach_div_(upd, denom)
     torch._foreach_add_(params, upd, alpha=-float(lr))
 
-    # statistics over the stacked-layout leaves
-    abs_sums = torch._foreach_norm(mu, 1)
-    sq_sums = torch._foreach_norm(nu, 1)  # nu >= 0: its L1 norm is its sum
+
+def _moment_stats(mu, nu, sizes, names, reduce=None) -> Dict[str, torch.Tensor]:
+    """The moments' mean |mu| and mean nu over the stacked-layout leaves;
+    ``reduce`` (a list of per-parameter sums -> the same, summed over the
+    shards) completes the sums of sharded moments."""
+    abs_sums = list(torch._foreach_norm(mu, 1))
+    sq_sums = list(torch._foreach_norm(nu, 1))  # nu >= 0: its L1 norm is its sum
+    if reduce is not None:
+        abs_sums, sq_sums = reduce(abs_sums), reduce(sq_sums)
     kinds: Dict[str, List[int]] = {}
     for i, name in enumerate(names):
         kinds.setdefault(_leaf_kind(name), []).append(i)
     am, sv = [], []
     for idx in kinds.values():
-        size = sum(params[i].numel() for i in idx)
+        size = sum(sizes[i] for i in idx)
         am.append(torch.stack([abs_sums[i] for i in idx]).sum() / size)
         sv.append(torch.stack([sq_sums[i] for i in idx]).sum() / size)
     return {"exp_avg_abs_mean": torch.stack(am).mean(),

@@ -32,6 +32,24 @@ weighted.
 The state holds fp32 master parameters in modules, the target as a copy
 of the encoder, and the AdamW moments; the step updates it IN PLACE and
 returns it.
+
+Data parallelism (``layout``, a ``parallel.mesh.Layout`` made in an
+initialised process group, of any size): each rank holds B of the global
+batch's ``world * B`` samples and
+the step keeps the JAX package's global-batch semantics. The default
+sampler draws the global batch's masks from (seed, step) and keeps rows
+``[rank * B, (rank + 1) * B)``, so the masks do not depend on the world
+size; after the backward one bucketed all-reduce of every gradient (in
+``named_params`` order, fp32; a parameter without a gradient contributes
+zeros) gives each rank the global gradient before the qkv statistics,
+the grad norms and the clipping. The loss is the mean over the global
+batch: the gradients are averaged, except in the padded mode, where each
+mask config's weighted mean divides this rank's sum by the global weight
+sum (all-reduced), the variance regularizer's per-sample mean is scaled
+by 1 / world, and the gradients are summed. Logged metrics are global.
+With ``layout.fsdp`` > 1 the AdamW moments are this rank's ZeRO-1 slices
+(``shard_state_``). Without a layout, or with one made with no group,
+none of this runs.
 """
 
 from __future__ import annotations
@@ -47,6 +65,8 @@ from jepa_tpu_torch.masks.random_tube import sample_tube_masks
 from jepa_tpu_torch.models.predictor import Predictor, PredictorCfg, init_predictor, predictor_forward
 from jepa_tpu_torch.models.vit import ViTCfg, VisionTransformer, init_vit, vit_forward
 from jepa_tpu_torch.ops.masking import gather_tokens, repeat_interleave_batch
+from jepa_tpu_torch.parallel import dist as pdist
+from jepa_tpu_torch.parallel.mesh import Layout, rank_rows, shard, zero1_plan
 from jepa_tpu_torch.train.losses import jepa_loss, layer_norm_targets, variance_reg
 from jepa_tpu_torch.train.optimizer import (
     adamw_update_,
@@ -119,6 +139,18 @@ def state_from_modules(encoder: VisionTransformer, predictor: Predictor,
     return state
 
 
+def shard_state_(state: TrainState, layout: Layout) -> TrainState:
+    """Keep only this rank's ZeRO-1 slices of the AdamW moments
+    (``zero1_plan`` at ``layout.fsdp``), as contiguous tensors; a no-op
+    at fsdp 1."""
+    if layout.fsdp > 1:
+        plan = zero1_plan(state.named_params(), layout.fsdp, layout.min_size_to_shard)
+        for moments in (state.mu, state.nu):
+            for n, ax in plan.items():
+                moments[n] = shard(moments[n], ax, layout).contiguous()
+    return state
+
+
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """A generator on ``device`` seeded from (seed, step), so the draws of
     a step depend on no earlier step (resume replays nothing)."""
@@ -141,6 +173,7 @@ def build_train_step(
     grid: MaskGrid,
     keep_counts: Sequence[Tuple[int, int]],
     mask_sampler: Optional[MaskSampler] = None,
+    layout: Optional[Layout] = None,
 ):
     """Returns step_fn(state, batch) -> (state, metrics).
 
@@ -152,7 +185,9 @@ def build_train_step(
     masks_pred)`` replaces the default sampler of the fixed and tube modes
     (a test seam: parity tests hand in the JAX package's masks); the
     default draws from a generator seeded with (seed, step), so the masks
-    of a step do not depend on earlier steps.
+    of a step do not depend on earlier steps. Under a distributed
+    ``layout`` the sampler is asked for the global batch's masks and the
+    step keeps this rank's rows.
     """
     if train_cfg.mask_mode not in ("fixed", "padded", "tube"):
         raise ValueError(f"unknown mask_mode {train_cfg.mask_mode!r}: "
@@ -166,6 +201,10 @@ def build_train_step(
         return sample_masks_for_specs(gen, batch_size, mask_specs, grid, keep_counts)
 
     sampler = mask_sampler or default_sampler
+    layout = layout or Layout()
+    world, rank, dp = layout.world, layout.rank, layout.distributed
+    padded = train_cfg.mask_mode == "padded"
+    zero1 = []  # [(layout, shard axes)] once the first step has seen the params
     tgt_cfg = dataclasses.replace(enc_cfg, fused_mlp=True)  # grad-free: H3
     b1, b2 = train_cfg.betas
     masks_of_decay = {}
@@ -186,10 +225,16 @@ def build_train_step(
         total_b = clips.shape[0]
         sample_b = total_b // train_cfg.num_clips
         dev = clips.device
-        if train_cfg.mask_mode == "padded":
+        if padded:
             masks_enc, masks_pred = batch["masks_enc"], batch["masks_pred"]
             enc_w = [torch.as_tensor(w, device=dev) for w in batch["enc_weights"]]
             pred_w = [torch.as_tensor(w, device=dev) for w in batch["pred_weights"]]
+        elif dp:  # the global batch's masks, this rank's rows
+            masks_enc, masks_pred = sampler(step, sample_b * world, dev)
+            masks_enc = [rank_rows(m, rank, world) for m in masks_enc]
+            masks_pred = [rank_rows(m, rank, world) for m in masks_pred]
+            enc_w = [None] * len(masks_enc)
+            pred_w = [None] * len(masks_pred)
         else:
             masks_enc, masks_pred = sampler(step, sample_b, dev)
             enc_w = [None] * len(masks_enc)
@@ -221,21 +266,34 @@ def build_train_step(
             preds.append(predictor_forward(state.predictor, z, me, mp, mask_index=i,
                                            cfg=pred_cfg, kv_mask_ctxt=kv_enc[i],
                                            kv_mask_tgt=kv_pred[i]))
-        l_jepa = jepa_loss(preds, targets, train_cfg.loss_exp, pred_w)
+        denoms = None
+        if padded and dp:  # each config's weight sum over the global batch
+            denoms = torch.stack([w.float().sum() * t.shape[-1]
+                                  for w, t in zip(pred_w, targets)])
+            pdist.all_reduce_([denoms])
+            denoms = list(denoms.unbind())
+        l_jepa = jepa_loss(preds, targets, train_cfg.loss_exp, pred_w, denoms)
         if train_cfg.reg_coeff != 0.0:
             l_reg = variance_reg(preds, pred_w)
         else:  # metric only: no gradient path through the regularizer
             with torch.no_grad():
                 l_reg = variance_reg([p.detach() for p in preds], pred_w)
-        loss = l_jepa + train_cfg.reg_coeff * l_reg
+        if denoms is None:
+            loss = l_jepa + train_cfg.reg_coeff * l_reg
+        else:  # this rank's share of the global loss: the shares are summed
+            loss = l_jepa + train_cfg.reg_coeff * (l_reg / world)
         loss.backward()
         del preds, targets
 
-        stats = {**qkv_grad_stats(state.encoder.blocks, "enc"),
-                 **qkv_grad_stats(state.predictor.predictor_blocks, "pred")}
         names = list(params)
         grads = [params[n].grad if params[n].grad is not None
                  else torch.zeros_like(params[n]) for n in names]
+        if dp:
+            for n, g in zip(names, grads):
+                params[n].grad = g  # the qkv statistics read the reduced .grad
+            pdist.all_reduce_(grads, "sum" if padded else "mean")
+        stats = {**qkv_grad_stats(state.encoder.blocks, "enc"),
+                 **qkv_grad_stats(state.predictor.predictor_blocks, "pred")}
         enc_idx = [i for i, n in enumerate(names) if n.startswith("encoder.")]
         pred_idx = [i for i, n in enumerate(names) if n.startswith("predictor.")]
         g_enc = [grads[i] for i in enc_idx]
@@ -250,13 +308,20 @@ def build_train_step(
         if not masks_of_decay:
             masks_of_decay.update(decay_mask(state.encoder, "encoder."))
             masks_of_decay.update(decay_mask(state.predictor, "predictor."))
+            if layout.fsdp > 1:
+                plan = zero1_plan(params, layout.fsdp, layout.min_size_to_shard)
+                for n, ax in plan.items():
+                    if state.mu[n].shape != shard(params[n], ax, layout).shape:
+                        raise ValueError(f"fsdp={layout.fsdp}: the moments of {n} are not "
+                                         "this rank's ZeRO-1 slice (shard_state_)")
+                zero1.append((layout, [plan[n] for n in names]))
         with torch.no_grad():
             opt_stats = adamw_update_(
                 [params[n] for n in names], grads,
                 [state.mu[n] for n in names], [state.nu[n] for n in names],
                 [masks_of_decay[n] for n in names], names,
                 lr=float(lr), wd=float(wd), step=step + 1,
-                b1=b1, b2=b2, eps=train_cfg.eps)
+                b1=b1, b2=b2, eps=train_cfg.eps, zero1=zero1[0] if zero1 else None)
             ema_update_(list(state.target.parameters()),
                         list(state.encoder.parameters()), float(momentum))
         for p in params.values():
@@ -265,17 +330,24 @@ def build_train_step(
 
         flat = clips.reshape(total_b, -1).float()
         input_var = flat.var(dim=1, unbiased=True)
+        l_jepa, l_reg, loss = l_jepa.detach(), l_reg.detach(), loss.detach()
+        ivar, ivar_min = input_var.mean(), input_var.min()
+        if dp:  # the global batch's values on every rank
+            pdist.all_reduce_([l_jepa], "sum" if padded else "mean")
+            pdist.all_reduce_([l_reg, ivar], "mean")
+            pdist.all_reduce_([ivar_min], "min")
+            loss = l_jepa + train_cfg.reg_coeff * l_reg
         metrics = {
-            "loss": loss.detach(),
-            "loss_jepa": l_jepa.detach(),
-            "loss_reg": l_reg.detach(),
+            "loss": loss,
+            "loss_jepa": l_jepa,
+            "loss_reg": l_reg,
             "lr": lr,
             "wd": wd,
             "ema_momentum": momentum,
             "enc_grad_norm": enc_norm,
             "pred_grad_norm": pred_norm,
-            "input_var": input_var.mean(),
-            "input_var_min": input_var.min(),
+            "input_var": ivar,
+            "input_var_min": ivar_min,
             **opt_stats,
             **stats,
         }
