@@ -69,8 +69,8 @@ Phases (any failure raises and exits non-zero):
      tail; the masked keys' dk and dv must be exactly 0;
   8. the pretrain app (jepa_tpu_torch.apps.vjepa.train.main) on
      configs/pretrain/vitl16.yaml with synthetic data and APP_IPE updates
-     per epoch, in a temporary folder: fixed mode for 2 epochs, a resume
-     to 3 (step count, CSV rows, and api.load_encoder reading the app's
+     per epoch, in a temporary folder: fixed mode for 1 epoch, a resume
+     to 2 (step count, CSV rows, and api.load_encoder reading the app's
      checkpoint), then padded mode for 1 epoch with the launches of the
      masked kernels per update checked;
   9. fp32 kernels (the frozen evals with use_bfloat16: false): H1-fp32 at
@@ -108,7 +108,7 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      features against the plain versions;
  15. vit_tiny pretraining: vitl16.yaml with model_name vit_tiny through
      build_train_step (TRAIN_STEPS updates at B=24, profile, the B=2 update
-     against the plain versions) and through the app (fixed 2 epochs, a
+     against the plain versions) and through the app (fixed 1 epoch, a
      resume, padded 1 epoch), with the launches per update of the routes:
      H4 for the target and the contexts, H7 for the contexts' backward, H1
      and H2 c=128 for the predictor, no H3 (K=192 takes the eager fc1).
@@ -130,7 +130,7 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
  18. activation checkpointing at vitl16.yaml, B=24: from one seeded
      state, one update with remat False, True and 'attn' (encoder and
      predictor) each, whose loss, metrics, parameters and AdamW moments
-     must be bit-equal, then three more of each in turns (ms, peak
+     must be bit-equal, then two more of each in turns (ms, peak
      memory) and one profiled; the launches per update those of False
      ('attn') or one more H1 per trainable attention block (True);
  19. ViT-H: H1 c=80 at the vith16 target (B=24, N=1568) and the
@@ -165,6 +165,28 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      the 1-rank app; the 2-rank K400 16x8x3 bf16 eval, whose val pass
      over 10 videos counts each once and matches a 1-rank val pass of the
      same probe.
+ 22. off-size serving (``phase_serve_off_size``), after phase 5: the seeded
+     ViT-L/16 (224 px, 16 frames) encodes clips of 16 x 256 px (N=2048)
+     and 8 x 224 px (N=784) through api.Encoder.encode, the pos-embed
+     table resized as jax.image.resize does; each request's launches
+     checked whole (H1 c=64 counted at its N), the features against the
+     plain versions;
+ 23. the image eval through evals.main (``phase_image_eval``), after phase
+     11: vitl16_in1k.yaml's geometry on 48 + 16 seeded 320x240 JPEGs in 4
+     classes written with PIL, 8 loader workers in the default process
+     pool (forked after CUDA is up), then in threads; each step's launches,
+     the probe checkpoint, the host share of each, the process pool's
+     features against the plain versions;
+ 24. the diffusion-mode predictor (``phase_diffusion``, use_mask_tokens
+     false), after phase 16: 3 vitl16.yaml updates at B=24, one profiled,
+     and the B=2 checks from the seeded and the trained state;
+ 25. the app with logging.profile_steps [1, 1] and log_resources
+     (``phase_app_instruments``), after phase 8: vitl16.yaml, synthetic,
+     2 updates; the Chrome trace of the second and the resource CSV
+     written, the device's busy share of the traced window.
+The native decoder has no phase: the card's machine has no FFmpeg
+libraries (PERF.md §6), so it is held against the JAX package's on the
+CPU only (tests/test_torch_native.py).
 Phases 12-13 run after phase 7, phases 14-15 after phase 8, phase 16's
 kernel checks after phase 9, phases 17-20 after phase 15. Launch counts are checked as whole dicts of
 every counter (``_counts``): a kernel that should not run must count 0.
@@ -245,7 +267,7 @@ EVAL_BF16_ENTRIES = (8, 6)  # (train, val) synthetic videos of the bf16 video ev
                             # batch 4: 2 train steps, 2 val steps (the last one padded)
 EVAL_F32_ENTRIES = (2, 1)   # the fp32 video eval at batch 1: 2 train, 1 val step
 IMAGE_TRAIN_STEPS = 2
-APP_IPE = 5        # app updates per epoch (the config's ipe is 300)
+APP_IPE = 3        # app updates per epoch (the config's ipe is 300)
 TUBE_MASKS = [{"ratio": 0.9}]  # data.mask_type random_tube at the reference's default ratio
 VITH_EVALS = ("vith16_k400_16x8x3.yaml", "vith16_384_k400_16x8x3.yaml")
 VITH_EVAL_ENTRIES = (8, 4)  # the ViT-H bf16 evals at batch 4: 2 train steps, 1 val step
@@ -1566,7 +1588,7 @@ def phase_serve(torch, workdir: str, model_name: str = "vit_large"):
 
 
 def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl16.yaml",
-                tube=None, remat=False, layout=None):
+                tube=None, remat=False, layout=None, use_mask_tokens=None):
     """Configs of configs/pretrain/<config> (model, data geometry, mask,
     loss and optimization sections; default vitl16.yaml): its encoder (or
     ``model_name``) + the 12 x 384 predictor at full width and depth,
@@ -1577,7 +1599,9 @@ def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl
     config's (``data.mask_type: random_tube``, the step's 'tube' mode);
     ``remat``: the encoder's and the predictor's activation checkpointing
     (the app's default is ``'attn'``); ``layout``: the step's data-parallel
-    layout (``parallel.mesh.make_layout``)."""
+    layout (``parallel.mesh.make_layout``); ``use_mask_tokens``: the
+    config's ``model.use_mask_tokens`` overridden (False: the diffusion-mode
+    predictor)."""
     import yaml
 
     from jepa_tpu_torch.masks.multiblock3d import MaskGrid, MaskSpec, calibrate_keep_counts
@@ -1591,6 +1615,8 @@ def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl
         cfg = yaml.safe_load(f)
     m, d, lo, o = cfg["model"], cfg["data"], cfg["loss"], cfg["optimization"]
     m["model_name"] = model_name or m["model_name"]
+    if use_mask_tokens is not None:
+        m["use_mask_tokens"] = use_mask_tokens
     enc_cfg = vit_cfg(m["model_name"], img_size=d["crop_size"], patch_size=d["patch_size"],
                       num_frames=d["num_frames"], tubelet_size=d["tubelet_size"],
                       uniform_power=m["uniform_power"], fused_mlp=fused_mlp, remat=remat)
@@ -1623,7 +1649,7 @@ def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl
                 scheds=scheds,
                 specs=specs, grid=grid, yaml_batch=d["batch_size"], model_name=m["model_name"],
                 clip_shape=(d["num_frames"], d["crop_size"], d["crop_size"], 3),
-                config=config, tube=tube, remat=remat)
+                config=config, tube=tube, remat=remat, use_mask_tokens=m["use_mask_tokens"])
 
 
 def attention_calls(enc_cfg, pred_cfg=None, pairs=()):
@@ -1742,7 +1768,8 @@ def phase_train(torch, setup, determinism=False, steps=TRAIN_STEPS, b2=(False, T
 
     batch = setup["yaml_batch"]
     want = expected_launches(setup["enc_cfg"], setup["pred_cfg"], setup["keep"])
-    log(f"train: {setup['config']}{' (tube masks)' if setup['tube'] else ''}, "
+    log(f"train: {setup['config']}{' (tube masks)' if setup['tube'] else ''}"
+        f"{'' if setup['use_mask_tokens'] else ' (diffusion-mode predictor)'}, "
         f"{setup['model_name']} (fused_mlp {setup['enc_cfg'].fused_mlp!r}, remat "
         f"{setup['remat']!r}) + predictor {setup['pred_cfg'].depth}x"
         f"{setup['pred_cfg'].predictor_embed_dim}, batch {batch}, keep counts "
@@ -1870,7 +1897,7 @@ def check_update_determinism(torch, step_fn, state, batch):
 def phase_force_ab(torch, setup, force):
     """The A/B of the trainable fc1 on one seeded state at TRAIN_BATCH: the
     default update (eager fc1 + GeluFast) and the ``fused_mlp='force'``
-    update (H8 + LinearGelu's backward) in turns, D F F D D F F D after one
+    update (H8 + LinearGelu's backward) in turns, D F F D after one
     warm-up of each; each update timed by the host clock to a synchronise,
     with its own peak of allocated memory."""
     from jepa_tpu_torch.train.step import init_train_state
@@ -1882,7 +1909,7 @@ def phase_force_ab(torch, setup, force):
     fns = {"default": setup["step_fn"], "force": force["step_fn"]}
     times = {k: [] for k in fns}
     peaks = dict.fromkeys(fns, 0.0)
-    for i, name in enumerate(("default", "force") + ("default", "force", "force", "default") * 2):
+    for i, name in enumerate(("default", "force", "default", "force", "force", "default")):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1917,8 +1944,9 @@ def profile_device(torch, fn, label):
         torch.cuda.synchronize()
     from torch.autograd import DeviceType
 
+    averages = prof.key_averages()  # aggregating the events is the slow part: once
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
+            for e in averages
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     total = sum(r[1] for r in rows)
     groups = {"H1 flash_fwd": 0.0, "H2 flash_bwd_dkv": 0.0, "H2 flash_bwd_dq": 0.0,
@@ -1943,7 +1971,7 @@ def profile_device(torch, fn, label):
         f"{k} {v:.2f} ms ({100 * v / max(total, 1e-9):.1f} %)" for k, v in groups.items()))
     for name, ms, n in sorted(rows, key=lambda r: -r[1])[:12]:
         log(f"  {ms:9.3f} ms  x{n:<5d} {name[:110]}")
-    ops = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count) for e in averages
            if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
            and e.self_device_time_total > 0]
     log(f"{label} profile, device time by the aten op that launched it:")
@@ -1991,7 +2019,7 @@ def _csv_times(path):
     return step, wall, host, len(rows) - rows.count(rows[0])
 
 
-def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=2, resume=True, padded=True):
+def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, padded=True):
     """The pretrain app on ``setup``'s config (``train_setup``: its model,
     its tube masks if any) on synthetic data, ``ipe`` updates per epoch:
     fixed mode ``epochs`` epochs, a resume to one more, then padded mode 1
@@ -2458,6 +2486,259 @@ def phase_image_probe(torch, repo, enc_path):
                 val_ms=times["val_step"][0])
 
 
+IMAGE_EVAL_IMAGES = (48, 16)  # (train, val) seeded 320x240 JPEGs in 4 classes: 3 train
+                              # steps and 1 val step at the config's batch 16
+IMAGE_EVAL_WORKERS = 8
+OFF_SIZE_CLIPS = ((16, 256), (8, 224))  # (frames, px) served by the 224 px, 16-frame
+                                        # ViT-L: N = 2048 and N = 784 tokens
+OFF_SIZE_REQUESTS = 4
+INSTR_IPE = 2      # updates of the app run with logging.profile_steps and log_resources
+PROFILE_STEPS = [1, 1]  # one traced update, after the first
+
+
+def phase_image_eval(torch, repo, workdir, enc_path):
+    """(b) The image eval through ``evals.main`` (the CLI a user runs) at
+    configs/evals/vitl16_in1k.yaml's geometry on IMAGE_EVAL_IMAGES seeded
+    320x240 JPEGs in 4 classes, written with PIL, with IMAGE_EVAL_WORKERS
+    loader workers: first the default process pool, which forks after
+    CUDA is up (the train and the val loader), then the same run with
+    ``use_processes=False`` (threads). Each run: every step's launches and
+    H3 rows checked, finite losses, the probe checkpoint and the host share
+    of the wall between back-to-back train steps; the process pool's run
+    also the features of its first train and val batch against the plain
+    versions."""
+    import yaml
+    from PIL import Image
+
+    from jepa_tpu_torch.data import image_dataset
+    from jepa_tpu_torch.evals import image_classification_frozen as icf
+    from jepa_tpu_torch.evals.main import main as eval_cli
+    from jepa_tpu_torch.models.factory import vit_cfg
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+
+    root = os.path.join(workdir, "images")
+    rng = np.random.default_rng(SEED)
+    y, x = np.mgrid[0:240, 0:320]
+    for split, n in zip(("train", "val"), IMAGE_EVAL_IMAGES):
+        for i in range(n):
+            d = os.path.join(root, "imgs", split, f"class{i % 4}")
+            os.makedirs(d, exist_ok=True)
+            f = rng.uniform(0.01, 0.1, 3)  # a smooth pattern plus noise: JPEG-like content
+            img = 127.5 * (1 + np.sin(f[:, None, None] * (x + y * (i % 4)) + rng.uniform(0, 6)))
+            img = img.transpose(1, 2, 0) + rng.normal(0, 8, (240, 320, 3))
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                os.path.join(d, f"{i}.jpg"), quality=90)
+    with open(os.path.join(repo, "configs", "evals", "vitl16_in1k.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    p, o = cfg["pretrain"], cfg["optimization"]
+    cfg["data"].update(root_path=root, image_folder="imgs", num_workers=IMAGE_EVAL_WORKERS)
+    o["num_epochs"] = 1
+    enc_cfg = vit_cfg(p["model_name"], img_size=cfg["data"]["resolution"],
+                      patch_size=p["patch_size"], num_frames=p["frames_per_clip"],
+                      tubelet_size=p["tubelet_size"])
+    b = o["batch_size"]
+    per_step = {"h1": enc_cfg.depth, "h1_c64": enc_cfg.depth, "h3": enc_cfg.depth}
+    want = {"train_step": (per_step, b * enc_cfg.num_patches),
+            "val_step": (per_step, b * enc_cfg.num_patches)}
+    real_loader = image_dataset.make_image_loader
+    out = {"launches": {}}
+    for procs in (True, False):
+        mode = "processes" if procs else "threads"
+        p.update(folder=os.path.join(workdir, f"image_eval_{mode}"), checkpoint=enc_path)
+        path = os.path.join(workdir, f"image_eval_{mode}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        pools = []
+
+        def recording_loader(**kw):
+            ds, loader, sampler = real_loader(**kw, **({} if procs else {"use_processes": False}))
+            pools.append(loader.use_processes)
+            return ds, loader, sampler
+
+        torch.cuda.empty_cache()
+        _reset_counts(fa, fm)
+        t0 = time.perf_counter()
+        with spy_steps(torch, icf, fa, fm) as rec, \
+                mock.patch.object(icf, "make_image_loader", recording_loader):
+            accs = eval_cli(["--fname", path])  # the card
+        secs = time.perf_counter() - t0
+        launches = _counts(fa, fm)
+        if pools != [procs, procs]:
+            raise RuntimeError(f"image eval ({mode}): loaders use_processes {pools}")
+        n_train = IMAGE_EVAL_IMAGES[0] // b
+        if len(rec["train_step"]) != n_train or len(rec["val_step"]) != 1:
+            raise RuntimeError(f"image eval ({mode}): {len(rec['train_step'])} train and "
+                               f"{len(rec['val_step'])} val steps")
+        times = _check_steps(rec, want, f"image eval ({mode})")
+        losses = [float(s["out"]["loss"]) for s in rec["train_step"]]
+        if not (all(np.isfinite(losses)) and len(accs) == 1 and 0.0 <= accs[0] <= 100.0):
+            raise RuntimeError(f"image eval ({mode}): losses {losses}, val accs {accs}")
+        folder = os.path.join(p["folder"], "image_classification_frozen", cfg["tag"])
+        saved = torch.load(os.path.join(folder, f"{p['write_tag']}-latest.pth.tar"),
+                           weights_only=True)
+        if saved["opt"]["step"] != n_train or saved["epoch"] != 1:
+            raise RuntimeError(f"image eval ({mode}): checkpoint step {saved['opt']['step']}")
+        cos = {}  # the threads run's batches are the process pool's (tests/test_torch_host.py)
+        with torch.no_grad():
+            for kind, (probe, imgs, _) in (rec.pop("inputs").items() if procs else ()):
+                feats = icf.encode_images(probe, imgs.cuda())
+                with plain_versions():
+                    ref = icf.encode_images(probe, imgs.cuda())
+                cos[kind] = torch.nn.functional.cosine_similarity(feats, ref, dim=-1).min().item()
+                if not (torch.isfinite(feats).all() and cos[kind] >= FEAT_COS_MIN):
+                    raise RuntimeError(f"image eval ({mode}) {kind} features disagree with "
+                                       f"the plain versions: min cosine {cos[kind]}")
+        (tr_ms, tr_host, tr_aug), (va_ms, _, _) = times["train_step"], times["val_step"]
+        log(f"image eval ({mode}, {IMAGE_EVAL_WORKERS} workers, nproc {os.cpu_count()}): "
+            f"{secs:.1f} s through evals.main; train losses {[round(v, 4) for v in losses]}, "
+            f"val acc {accs}; median train step {tr_ms:.1f} ms (host share of the wall "
+            f"{_fmt_host(tr_host)}, augmentation on the card {_fmt_host(tr_aug)}), val step "
+            f"{va_ms:.1f} ms" + (f"; features vs plain min cosine train "
+                                 f"{cos['train_step']:.7f} / val {cos['val_step']:.7f}"
+                                 if cos else ""))
+        out[mode] = dict(train_ms=tr_ms, val_ms=va_ms, host=tr_host, aug=tr_aug, secs=secs,
+                         feat_cos=cos)
+        out["launches"] = _sum_launches(out["launches"], launches)
+        del rec
+    return out
+
+
+def phase_serve_off_size(torch, enc_path):
+    """(d) The seeded ViT-L/16 (224 px, 16 frames) serving clips off its
+    grid through ``api.Encoder.encode`` (the pos-embed table resized as
+    ``jax.image.resize`` does): OFF_SIZE_REQUESTS requests of 2 clips at
+    each OFF_SIZE_CLIPS geometry, every request's launches checked whole
+    and H1 c=64's counted at its N, the features against the plain
+    versions."""
+    import dataclasses
+
+    from jepa_tpu_torch import api
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+
+    enc = api.load_encoder(enc_path, "vit_large", **VITL16_GEO)
+    rng = np.random.default_rng(SEED + 1)
+    out = {"launches": {}}
+    for frames, px in OFF_SIZE_CLIPS:
+        cfg = dataclasses.replace(enc.cfg, img_size=px, num_frames=frames)
+        n_tok = cfg.num_patches
+        want = expected_launches(cfg)
+        requests = [rng.integers(0, 256, size=(2, frames, px, px, 3), dtype=np.uint8)
+                    for _ in range(OFF_SIZE_REQUESTS)]
+        _reset_counts(fa, fm)
+        times, deltas = [], []
+        for clips in requests:
+            c0 = _counts(fa, fm)
+            t0 = time.perf_counter()
+            feats = enc.encode(clips)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            deltas.append(_launch_diff(c0, _counts(fa, fm)))
+        at_n = fa.launches_by_tokens[64, n_tok]
+        if any(d != want for d in deltas) or at_n != enc.cfg.depth * len(requests):
+            raise RuntimeError(f"serve off-size {frames}x{px}: launches {deltas} != {want}, "
+                               f"H1 c=64 at N={n_tok}: {at_n}")
+        with plain_versions():
+            ref = enc.encode(clips)
+        torch.cuda.synchronize()
+        cos = torch.nn.functional.cosine_similarity(feats, ref, dim=-1).min().item()
+        if (tuple(feats.shape) != (2, n_tok, enc.cfg.embed_dim)
+                or not torch.isfinite(feats).all() or cos < FEAT_COS_MIN):
+            raise RuntimeError(f"serve off-size {frames}x{px}: features {tuple(feats.shape)}, "
+                               f"min cosine vs plain {cos}")
+        med = statistics.median(times[1:])
+        log(f"serve off-size {frames} frames x {px} px (N={n_tok}, B=2): ms/request "
+            f"{[round(t, 3) for t in times]}, median after warm-up {med:.3f} ms; launches per "
+            f"request {deltas[0]}, H1 c=64 at N={n_tok} {at_n}; features vs plain min cosine "
+            f"{cos:.6f} (min {FEAT_COS_MIN})")
+        out[frames, px] = dict(median_ms=med, n=n_tok, feat_cos=cos)
+        out["launches"] = _sum_launches(out["launches"], _counts(fa, fm))
+    del enc
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_app_instruments(torch, repo, setup, workdir):
+    """The pretrain app on vitl16.yaml (synthetic data, fixed masks, 1 epoch
+    of INSTR_IPE updates) with ``logging.log_resources`` and
+    ``logging.profile_steps: PROFILE_STEPS``: launches per update checked
+    whole, the resource CSV and the Chrome trace written to the run's
+    folder; from the trace, the window's span and the device's busy and
+    idle share (kernels summed: one stream) with the loader running."""
+    import yaml
+
+    from jepa_tpu_torch.apps.vjepa.train import main as train_main
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+    from jepa_tpu_torch.utils.monitoring import CSV_HEADER
+
+    with open(os.path.join(repo, "configs", "pretrain", setup["config"])) as f:
+        cfg = yaml.safe_load(f)
+    folder = os.path.join(workdir, "instruments")
+    cfg["data"]["dataset_type"] = "synthetic"
+    cfg["optimization"].update(ipe=INSTR_IPE, epochs=1)
+    cfg["logging"].update(folder=folder, log_resources=True, profile_steps=PROFILE_STEPS)
+    want = expected_launches(setup["enc_cfg"], setup["pred_cfg"], setup["keep"])
+    torch.cuda.empty_cache()
+    _reset_counts(fa, fm)
+    t0 = time.perf_counter()
+    state = train_main(cfg)  # the card
+    secs = time.perf_counter() - t0
+    got = _counts(fa, fm)
+    if state.step != INSTR_IPE or _launch_diff({}, got, INSTR_IPE) != want:
+        raise RuntimeError(f"app instruments: step {state.step}, launches {got}")
+    del state
+    resources = os.path.join(folder, "resources_r0.csv")
+    trace = os.path.join(folder, "trace_r0.json")
+    if not (os.path.exists(resources) and open(resources).read().startswith(CSV_HEADER)):
+        raise RuntimeError(f"app instruments: no resource CSV at {resources}")
+    if not os.path.exists(trace):
+        raise RuntimeError(f"app instruments: no trace at {trace}")
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    busy = sum(e["dur"] for e in kernels)
+    step_ms, wall_ms, host, n_rows = _csv_times(
+        os.path.join(folder, f"{cfg['logging']['write_tag']}_r0.csv"))
+    log(f"app instruments: {INSTR_IPE} updates in {secs:.1f} s; trace {trace} "
+        f"({os.path.getsize(trace) / 2**20:.1f} MiB, {len(events)} events, {len(kernels)} "
+        f"kernels) over steps {PROFILE_STEPS}: span {span / 1e3:.1f} ms, device busy "
+        f"{busy / 1e3:.1f} ms, idle share {100 * (1 - busy / span):.1f} %; resource CSV "
+        f"{len(open(resources).read().splitlines())} lines; CSV median step {step_ms:.0f} ms, "
+        f"wall {wall_ms:.0f} ms, host share {100 * host:.1f} %")
+    import shutil
+
+    shutil.rmtree(folder)
+    torch.cuda.empty_cache()
+    return dict(launches=got, span_ms=span / 1e3, busy_ms=busy / 1e3, step_ms=step_ms,
+                wall_ms=wall_ms, host=host, secs=secs)
+
+
+def phase_diffusion(torch, repo):
+    """(c) vitl16.yaml with ``model.use_mask_tokens: false`` (the
+    diffusion-mode predictor: the targets noised by one forward-diffusion
+    step in place of the mask tokens) at B=TRAIN_BATCH: 3 updates with
+    their launches checked whole (the predictor's sequences are as long
+    as with mask tokens: H1 72, H2 48 + 48, H3 24 per update), one
+    profiled, and the B=2 update against the plain versions from the
+    seeded and the trained state (``check_b2``'s limits)."""
+    setup = train_setup(repo, use_mask_tokens=False)
+    out = phase_train(torch, setup, steps=3)
+    del setup
+    torch.cuda.empty_cache()
+    return out
+
+
+def timed(label, fn, *args, **kw):
+    """fn(*args, **kw), logging how long the phase took."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    log(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 PLAIN_BATCH_BYTES = 4 * 2**30  # a batch's fp32 scores past this: plain versions by sample
 
 
@@ -2591,8 +2872,8 @@ def phase_remat(torch, repo):
     one seeded state, updates with remat False, True and 'attn' (encoder and
     predictor), each from a copy of the state: one of each first, whose
     loss, metrics, parameters and AdamW moments must be bit-equal across
-    the three (the recomputation repeats deterministic kernels), then three
-    more of each in turns (F T A A T F F T A), timed by the host clock to a
+    the three (the recomputation repeats deterministic kernels), then two
+    more of each in turns (F T A A T F), timed by the host clock to a
     synchronise with their peak of allocated memory (the seeded state's
     copy held beside: its GiB are logged), then one profiled each (device
     time). Every update's launches are checked whole: 'attn' those of
@@ -2652,7 +2933,7 @@ def phase_remat(torch, repo):
                                f"{differ[:8]}")
         del twin
     del ref
-    for remat in (False, True, "attn", "attn", True, False, False, True, "attn"):
+    for remat in (False, True, "attn", "attn", True, False):
         twin, _, ms = update(remat)
         times[remat].append(ms)
         peaks[remat] = max(peaks[remat], torch.cuda.max_memory_allocated() / 2**30)
@@ -2718,7 +2999,7 @@ DIST_BATCH = TRAIN_BATCH // 2  # (b): 2 ranks x 12 clips against 1 rank x 24
 DIST_LIMIT_FACTOR = 10.0
 DIST_REL_FLOOR = 1e-6  # a limit never below this relative difference (nor cosine above 1 - it)
 DIST_APP_IPE = 2  # (c): updates per epoch of the 2-rank app
-DIST_EVAL_ENTRIES = (16, 10)  # (d): train / val videos; 10 is no multiple of 2 ranks x 4
+DIST_EVAL_ENTRIES = (8, 10)  # (d): train / val videos; 10 is no multiple of 2 ranks x 4
 DIST_MODULES = ("encoder", "predictor", "target")
 
 
@@ -3727,14 +4008,14 @@ def main() -> int:
             seeds = sys.argv[sys.argv.index("--seeds") + 1] if "--seeds" in sys.argv else "0,1,2"
             phase_b2_spread(torch, repo, others, tuple(int(x) for x in seeds.split(",")))
         return 0
-    phase_autograd(torch)
+    timed("autograd", phase_autograd, torch)
     setup = train_setup(repo)
-    kern = phase_kernels(torch, setup["enc_cfg"].num_patches)
-    phase_edges(torch)
-    f32 = phase_f32_kernels(torch)
+    kern = timed("kern", phase_kernels, torch, setup["enc_cfg"].num_patches)
+    timed("edges", phase_edges, torch)
+    f32 = timed("f32", phase_f32_kernels, torch)
     (ke0, kp0), (ke1, kp1) = setup["keep"]
-    k11 = phase_k11(torch, [TRAIN_BATCH * ke0, TRAIN_BATCH * ke1])
-    bwd = phase_bwd_kernels(torch, [
+    k11 = timed("k11", phase_k11, torch, [TRAIN_BATCH * ke0, TRAIN_BATCH * ke1])
+    bwd = timed("bwd", phase_bwd_kernels, torch, [
         ("predictor, mask 1", TRAIN_BATCH, ke0 + kp0, 16, 32, 24),
         ("predictor, mask 2", TRAIN_BATCH, ke1 + kp1, 16, 32, 24),
         ("encoder context", TRAIN_BATCH, ke0, 16, 64, 64),
@@ -3743,7 +4024,7 @@ def main() -> int:
         ("384px predictor geometry", 1, 4608, 16, 32, 24),
     ])
     kern["h1"]["max_abs_err"] = max(kern["h1"]["max_abs_err"], bwd["h1"]["max_abs_err"])
-    masked = phase_masked_kernels(torch, [
+    masked = timed("masked", phase_masked_kernels, torch, [
         ("context, short-range rung", TRAIN_BATCH, 384, 16, 64, 64, 0),
         ("context, long-range rung", TRAIN_BATCH, 128, 16, 64, 64, 0),
         ("context, top rung", TRAIN_BATCH, 640, 16, 64, 64, 0),
@@ -3752,55 +4033,62 @@ def main() -> int:
         ("ViT-H context rung", TRAIN_BATCH, 384, 16, 80, 80, 0),
     ])
     tiny, ladders = tiny_setup(repo)
-    hm = phase_hm_kernels(torch, tiny, sorted({ce for rungs in ladders for ce, _ in rungs
-                                               if ce >= 128}, reverse=True))
-    c128 = phase_c128_kernels(torch, tiny, sorted({r for rungs in ladders for r in rungs},
-                                                  reverse=True))
+    hm = timed("hm", phase_hm_kernels, torch, tiny,
+               sorted({ce for rungs in ladders for ce, _ in rungs if ce >= 128},
+                      reverse=True))
+    c128 = timed("c128", phase_c128_kernels, torch, tiny,
+                 sorted({r for rungs in ladders for r in rungs}, reverse=True))
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
-        serve = phase_serve(torch, workdir)
+        serve = timed("serve", phase_serve, torch, workdir)
         enc_path = serve["enc_path"]
-        ev16 = phase_eval_video(torch, repo, workdir, enc_path, bf16=True)
-        ev32 = phase_eval_video(torch, repo, workdir, enc_path, bf16=False)
-        img = phase_image_probe(torch, repo, enc_path)
-    train = phase_train(torch, setup)
+        off = timed("(d) off-size serving", phase_serve_off_size, torch, enc_path)
+        ev16 = timed("ev16", phase_eval_video, torch, repo, workdir, enc_path, bf16=True)
+        ev32 = timed("ev32", phase_eval_video, torch, repo, workdir, enc_path, bf16=False)
+        img = timed("img", phase_image_probe, torch, repo, enc_path)
+        img_eval = timed("(b) image eval through evals.main", phase_image_eval, torch, repo,
+                         workdir, enc_path)
+    train = timed("train", phase_train, torch, setup)
     # the context encoder's fc1 fused and differentiated: H8 + LinearGelu
     force = train_setup(repo, fused_mlp="force")
-    train_force = phase_train(torch, force)
-    ab = phase_force_ab(torch, setup, force)
+    train_force = timed("train_force", phase_train, torch, force)
+    ab = timed("ab", phase_force_ab, torch, setup, force)
+    diff = timed("(c) diffusion-mode update", phase_diffusion, torch, repo)
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
-        app = phase_app(torch, repo, setup, workdir)
-    dist = phase_dist(torch, repo, setup, card)
+        app = timed("app", phase_app, torch, repo, setup, workdir)
+        instr = timed("app with profile_steps and log_resources", phase_app_instruments,
+                      torch, repo, setup, workdir)
+    dist = timed("dist", phase_dist, torch, repo, setup, card)
     # vit_tiny: its serving, updates and app, through the head-major kernels
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
-        tiny_serve = phase_serve(torch, workdir, "vit_tiny")
-        tiny_train = phase_train(torch, tiny, determinism=True)
-        tiny_app = phase_app(torch, repo, tiny, workdir)
+        tiny_serve = timed("tiny_serve", phase_serve, torch, workdir, "vit_tiny")
+        tiny_train = timed("tiny_train", phase_train, torch, tiny, determinism=True)
+        tiny_app = timed("tiny_app", phase_app, torch, repo, tiny, workdir)
     # the tube mask mode at vitl16.yaml: updates (one B=2 update against the
     # plain versions), the app fixed and padded; then remat at ViT-L
     tube = train_setup(repo, tube=TUBE_MASKS)
-    tube_train = phase_train(torch, tube, steps=3, b2=(False,))
+    tube_train = timed("tube_train", phase_train, torch, tube, steps=3, b2=(False,))
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
-        tube_app = phase_app(torch, repo, tube, workdir, epochs=1, resume=False)
-    remat = phase_remat(torch, repo)
+        tube_app = timed("tube_app", phase_app, torch, repo, tube, workdir, epochs=1, resume=False)
+    remat = timed("remat", phase_remat, torch, repo)
     # ViT-H: its kernel instances, vith16.yaml and vith16_384.yaml with the
     # app's default remat ('attn') through build_train_step and the app, and
     # the K400 16x8x3 evals of both in bf16 and fp32
     vith = train_setup(repo, config="vith16.yaml", remat="attn")
     vith384 = train_setup(repo, config="vith16_384.yaml", remat="attn")
-    vk = phase_vith_kernels(torch, (vith, vith384))
+    vk = timed("vk", phase_vith_kernels, torch, (vith, vith384))
     for key, row in (("h1_c32", bwd["h1_c32"]), ("dkv_c32", bwd["dkv"]), ("dq_c32", bwd["dq"]),
                      ("h1_c80", vk["h1_c80"]), ("dkv_c80", vk["dkv_c80"]),
                      ("dq_c80", vk["dq_c80"]),
                      ("h1_f32_c80", f32["by_shape"][F32_H1_SHAPES[1]]),
                      ("h3_f32_k1280", f32["by_shape"][F32_H3_SHAPES[1]])):
         row["max_abs_err"] = max(row["max_abs_err"], vk["held"][key])
-    vith_train = phase_train(torch, vith, b2=())
-    vith384_train = phase_train(torch, vith384, b2=())
+    vith_train = timed("vith_train", phase_train, torch, vith, b2=())
+    vith384_train = timed("vith384_train", phase_train, torch, vith384, b2=())
     evh = {}
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
-        vith_app = phase_app(torch, repo, vith, workdir, ipe=2, epochs=1)
-        vith384_app = phase_app(torch, repo, vith384, workdir, ipe=2, epochs=1, resume=False,
-                                padded=False)
+        vith_app = timed("vith_app", phase_app, torch, repo, vith, workdir, ipe=2, epochs=1)
+        vith384_app = timed("vith384_app", phase_app, torch, repo, vith384, workdir, ipe=2,
+                            epochs=1, resume=False, padded=False)
         enc_h = write_seeded_encoder(torch, workdir, "vit_huge")
         for config in VITH_EVALS:
             for bf16 in (True, False):
@@ -3809,13 +4097,17 @@ def main() -> int:
                     entries=VITH_EVAL_ENTRIES if bf16 else EVAL_F32_ENTRIES, resume=False,
                     views_checked=VITH_VIEWS_CHECKED)
         os.remove(enc_h)
-    sl, al = serve["launches"], app["padded"]["launches"]
-    el, fl, il = ev16["launches"], ev32["launches"], img["launches"]
+    sl = _sum_launches(serve["launches"], off["launches"])
+    al = app["padded"]["launches"]
+    el, fl = ev16["launches"], ev32["launches"]
+    il = _sum_launches(img["launches"], img_eval["launches"])
     # ViT-L's updates: the timed default ones, the tube mode's (updates, fixed
-    # app) and the remat phase's (its checked updates)
+    # app), the remat phase's (its checked updates), the diffusion mode's and
+    # the instrumented app's
     tl = _sum_launches(train["launches"], tube_train["launches"],
                        tube_app["fixed"]["launches"], *(r["launches"] for r in remat.values()),
-                       dist["a"], dist["b"], dist["c"]["fixed"], dist["c"]["resume"])
+                       dist["a"], dist["b"], dist["c"]["fixed"], dist["c"]["resume"],
+                       diff["launches"], instr["launches"])
     al = _sum_launches(al, tube_app["padded"]["launches"], dist["c"]["padded"])
     el = _sum_launches(el, dist["d"])
     # ViT-H: its updates, apps and evals; K2's launches are H1's at (K2_C,
@@ -3829,9 +4121,10 @@ def main() -> int:
     fa_src, bwd_src = "jepa_tpu_torch/csrc/flash_attention.cu", "jepa_tpu_torch/csrc/flash_attention_bwd.cu"
     fa_py = "jepa_tpu/ops/flash_attention.py"
     kernels = [
+        # the padded apps' unmasked launches: their target forwards (H1, H3)
         kernel_entry("flash_self_attention_fwd", fa_src, f"{fa_py}:955",
-                     sl["h1"] + tl["h1_c64"] + el["h1_c64"] + il["h1_c64"]
-                     + tube_app["padded"]["launches"]["h1_c64"], kern["h1"]),
+                     sl["h1"] + tl["h1_c64"] + el["h1_c64"] + il["h1_c64"] + al["h1_c64"],
+                     kern["h1"]),
         # ViT-L's updates and ViT-H's predictors (c=32)
         kernel_entry("flash_self_attention_fwd_c32", fa_src, f"{fa_py}:955",
                      tl["h1_c32"] + vl["h1_c32"], bwd["h1_c32"]),
@@ -3841,8 +4134,7 @@ def main() -> int:
                      bwd["dq"]),
         kernel_entry("linear_gelu_fwd", "jepa_tpu_torch/csrc/fused_mlp.cu",
                      "jepa_tpu/ops/fused_mlp.py:92",
-                     sl["h3"] + tl["h3"] + el["h3"] + il["h3"] + tube_app["padded"]["launches"]["h3"],
-                     kern["h3"]),
+                     sl["h3"] + tl["h3"] + el["h3"] + il["h3"] + al["h3"], kern["h3"]),
         # the fp32 instances: the fp32 video eval's launches
         kernel_entry("flash_self_attention_fwd_f32", fa_src, f"{fa_py}:955", fl["h1_f32"],
                      f32["h1"]),
@@ -3987,6 +4279,24 @@ def main() -> int:
         log(f"card: {card}; app {mode} (B={TRAIN_BATCH}): median step {a['step_ms']:.0f} ms, "
             f"wall {a['wall_ms']:.0f} ms, host share {100 * a['host']:.1f} %, peak "
             f"{a['peak_gib']:.2f} GiB")
+    log(f"card: {card}; app with profile_steps {PROFILE_STEPS} and log_resources "
+        f"(B={TRAIN_BATCH}, synthetic): median step {instr['step_ms']:.0f} ms, wall "
+        f"{instr['wall_ms']:.0f} ms, host share {100 * instr['host']:.1f} % (app fixed in the "
+        f"same run: {app['fixed']['step_ms']:.0f} / {app['fixed']['wall_ms']:.0f} ms, "
+        f"{100 * app['fixed']['host']:.1f} %); traced window {instr['span_ms']:.1f} ms, "
+        f"device busy {instr['busy_ms']:.1f} ms")
+    log(f"card: {card}; diffusion-mode update (vitl16.yaml, use_mask_tokens false, "
+        f"B={TRAIN_BATCH}): {diff['median_ms']:.1f} ms (the default update "
+        f"{train['median_ms']:.1f} ms), peak {diff['peak_gib']:.2f} GiB, device "
+        f"{diff['prof']['device_ms']:.1f} ms; launches/update {diff['per_step']}")
+    for (frames, px), r in ((k, v) for k, v in off.items() if k != "launches"):
+        log(f"card: {card}; serve off-size {frames} frames x {px} px (N={r['n']}, B=2): "
+            f"median {r['median_ms']:.3f} ms/request (on-size {serve['median_ms']:.3f})")
+    for mode in ("processes", "threads"):
+        r = img_eval[mode]
+        log(f"card: {card}; image eval through evals.main with {IMAGE_EVAL_WORKERS} {mode} "
+            f"(nproc {os.cpu_count()}): median train step {r['train_ms']:.1f} ms, host share "
+            f"{_fmt_host(r['host'])}, val step {r['val_ms']:.1f} ms, {r['secs']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

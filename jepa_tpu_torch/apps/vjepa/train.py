@@ -34,10 +34,17 @@ is recomputed in the backward; ``true``/``'full'``: every block is
 recomputed; ``false``: none), ``meta.pred_remat`` the predictor's
 (default ``'attn'`` when ``meta.remat`` is truthy, else off).
 
+Run-time instruments, as the JAX app reads them: ``logging.log_resources``
+(or ``data.log_resource_utilization``) samples this process's CPU,
+memory and IO every 30 s into ``<folder>/resources_r{rank}.csv``
+(``utils.monitoring``); ``logging.profile_steps: [a, b]`` traces global
+steps a to b (the CPU and, on the card, CUDA activity) with
+``torch.profiler`` and writes ``<folder>/trace_r{rank}.json``, a Chrome
+trace, when step b ends or the loop does.
+
 Accepted and logged, with no effect here: ``meta.unroll_blocks`` (torch
-modules are per-layer). Logged as not ported: ``logging.profile_steps``,
-``log_resources``, and ``meta.export_torch_checkpoint`` (the checkpoint
-already is a .pth.tar).
+modules are per-layer). Logged as not ported: ``meta.export_torch_checkpoint``
+(the checkpoint already is a .pth.tar).
 """
 
 from __future__ import annotations
@@ -177,11 +184,8 @@ def main(args: dict, resume_preempt: bool = False, device="cuda"):
     if cfgs_meta.get("unroll_blocks") is not None:
         logger.info("meta.unroll_blocks=%s accepted: torch modules are per-layer",
                     cfgs_meta["unroll_blocks"])
-    for key, on in (("logging.profile_steps", bool(profile_steps)),
-                    ("log_resources", log_resources),
-                    ("meta.export_torch_checkpoint", export_torch)):
-        if on:
-            logger.info("%s is not ported to jepa_tpu_torch; ignored", key)
+    if export_torch:
+        logger.info("meta.export_torch_checkpoint is not ported to jepa_tpu_torch; ignored")
 
     # ---- model ----------------------------------------------------------
     enc_cfg = vit_cfg(model_name, img_size=crop_size, patch_size=patch_size,
@@ -312,6 +316,21 @@ def main(args: dict, resume_preempt: bool = False, device="cuda"):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    monitor = None
+    if log_resources:
+        from jepa_tpu_torch.utils.monitoring import ResourceMonitoringThread
+
+        monitor = ResourceMonitoringThread(interval_s=30.0, log_dir=folder, rank=rank)
+        monitor.start()
+    trace_path = os.path.join(folder, f"trace_r{rank}.json")
+    profiler = None
+
+    def stop_profiler():
+        sync()
+        profiler.stop()
+        profiler.export_chrome_trace(trace_path)
+        logger.info("wrote profiler trace to %s", trace_path)
+
     def device_batch(np_batch, step):
         clips = torch.from_numpy(np_batch["clips"]).to(dev)  # [nc*B, T, H, W, 3] uint8
         vhw = torch.from_numpy(np_batch["valid_hw"]).to(dev) if "valid_hw" in np_batch else None
@@ -336,78 +355,94 @@ def main(args: dict, resume_preempt: bool = False, device="cuda"):
         return batch
 
     # ---- loop ------------------------------------------------------------
-    loader_iter = iter(loader)
-    skip_batches = int(cfgs_meta.get("skip_batches", -1))
-    if skip_batches > 0:
-        logger.info("Skip %d batches", skip_batches)
-        sampler.set_epoch(start_epoch)
-        for itr in range(skip_batches):
-            if itr % 10 == 0:
-                logger.info("Skip %d/%d batches", itr, skip_batches)
-            try:
-                next(loader_iter)
-            except StopIteration:
-                loader_iter = iter(loader)
-                next(loader_iter)
-    for epoch in range(start_epoch, num_epochs):
-        logger.info("Epoch %d", epoch + 1)
-        sampler.set_epoch(epoch)
-        meters = {k: AverageMeter() for k in ("loss", "jepa", "reg", "step_ms", "wall_ms",
-                                              "ivar", "ivar_min")}
-        for itr in range(ipe):
-            t0 = time.time()
-            try:
-                np_batch = next(loader_iter)
-            except StopIteration:
-                logger.info("Exhausted data loaders. Refreshing...")
-                loader_iter = iter(loader)
-                np_batch = next(loader_iter)
+    try:
+        loader_iter = iter(loader)
+        skip_batches = int(cfgs_meta.get("skip_batches", -1))
+        if skip_batches > 0:
+            logger.info("Skip %d batches", skip_batches)
+            sampler.set_epoch(start_epoch)
+            for itr in range(skip_batches):
+                if itr % 10 == 0:
+                    logger.info("Skip %d/%d batches", itr, skip_batches)
+                try:
+                    next(loader_iter)
+                except StopIteration:
+                    loader_iter = iter(loader)
+                    next(loader_iter)
+        for epoch in range(start_epoch, num_epochs):
+            logger.info("Epoch %d", epoch + 1)
+            sampler.set_epoch(epoch)
+            meters = {k: AverageMeter() for k in ("loss", "jepa", "reg", "step_ms", "wall_ms",
+                                                  "ivar", "ivar_min")}
+            for itr in range(ipe):
+                t0 = time.time()
+                try:
+                    np_batch = next(loader_iter)
+                except StopIteration:
+                    logger.info("Exhausted data loaders. Refreshing...")
+                    loader_iter = iter(loader)
+                    np_batch = next(loader_iter)
 
-            global_step = epoch * ipe + itr
-            batch = device_batch(np_batch, global_step)
-            sync()
-            t1 = time.time()
-            state, metrics = step_fn(state, batch)
-            metrics = {k: float(v) for k, v in metrics.items()}
-            step_ms = (time.time() - t1) * 1000
-            wall_ms = (time.time() - t0) * 1000
+                global_step = epoch * ipe + itr
+                if profile_steps and global_step == int(profile_steps[0]):
+                    acts = [torch.profiler.ProfilerActivity.CPU]
+                    if dev.type == "cuda":
+                        acts.append(torch.profiler.ProfilerActivity.CUDA)
+                    profiler = torch.profiler.profile(activities=acts)
+                    profiler.start()
+                batch = device_batch(np_batch, global_step)
+                sync()
+                t1 = time.time()
+                state, metrics = step_fn(state, batch)
+                metrics = {k: float(v) for k, v in metrics.items()}
+                step_ms = (time.time() - t1) * 1000
+                wall_ms = (time.time() - t0) * 1000
+                if profiler is not None and global_step >= int(profile_steps[1]):
+                    stop_profiler()
+                    profiler = None
 
-            loss = metrics["loss"]
-            meters["loss"].update(loss)
-            meters["jepa"].update(metrics["loss_jepa"])
-            meters["reg"].update(metrics["loss_reg"])
-            meters["step_ms"].update(step_ms)
-            meters["wall_ms"].update(wall_ms)
-            meters["ivar"].update(metrics["input_var"])
-            meters["ivar_min"].update(metrics["input_var_min"])
-            csv_logger.log(epoch + 1, itr, loss, metrics["loss_jepa"], metrics["loss_reg"],
-                           metrics["enc_grad_norm"], metrics["pred_grad_norm"],
-                           step_ms, wall_ms)
-            if itr % LOG_FREQ == 0 or not np.isfinite(loss):
-                flops_s = step_flops / max(1e-9, meters["step_ms"].avg / 1000.0)
-                logger.info(
-                    "[%d, %5d] loss: %.3f | p%.3f r%.3f | input_var: %.3f %.3f "
-                    "[wd: %.2e] [lr: %.2e] [step: %.1f ms] [wall: %.1f ms] "
-                    "[tflops: %.1f] [m1: %.2e m2: %.2e] [g: %.2e %.2e]",
-                    epoch + 1, itr, meters["loss"].avg, meters["jepa"].avg,
-                    meters["reg"].avg, meters["ivar"].avg, meters["ivar_min"].avg,
-                    metrics["wd"], metrics["lr"], meters["step_ms"].avg,
-                    meters["wall_ms"].avg, flops_s / 1e12,
-                    metrics["exp_avg_abs_mean"], metrics["exp_avg_sq_mean"],
-                    metrics["enc_grad_norm"], metrics["pred_grad_norm"])
-                logger.info(
-                    "[%d, %5d] enc_qkv_grads: f/l[%.2e %.2e] mn/mx(%.2e, %.2e) | "
-                    "pred_qkv_grads: f/l[%.2e %.2e] mn/mx(%.2e, %.2e)",
-                    epoch + 1, itr, metrics["enc_qkv_first"], metrics["enc_qkv_last"],
-                    metrics["enc_qkv_min"], metrics["enc_qkv_max"],
-                    metrics["pred_qkv_first"], metrics["pred_qkv_last"],
-                    metrics["pred_qkv_min"], metrics["pred_qkv_max"])
-            if not np.isfinite(loss):
-                raise FloatingPointError(f"loss is {loss} at step {global_step}")
+                loss = metrics["loss"]
+                meters["loss"].update(loss)
+                meters["jepa"].update(metrics["loss_jepa"])
+                meters["reg"].update(metrics["loss_reg"])
+                meters["step_ms"].update(step_ms)
+                meters["wall_ms"].update(wall_ms)
+                meters["ivar"].update(metrics["input_var"])
+                meters["ivar_min"].update(metrics["input_var_min"])
+                csv_logger.log(epoch + 1, itr, loss, metrics["loss_jepa"], metrics["loss_reg"],
+                               metrics["enc_grad_norm"], metrics["pred_grad_norm"],
+                               step_ms, wall_ms)
+                if itr % LOG_FREQ == 0 or not np.isfinite(loss):
+                    flops_s = step_flops / max(1e-9, meters["step_ms"].avg / 1000.0)
+                    logger.info(
+                        "[%d, %5d] loss: %.3f | p%.3f r%.3f | input_var: %.3f %.3f "
+                        "[wd: %.2e] [lr: %.2e] [step: %.1f ms] [wall: %.1f ms] "
+                        "[tflops: %.1f] [m1: %.2e m2: %.2e] [g: %.2e %.2e]",
+                        epoch + 1, itr, meters["loss"].avg, meters["jepa"].avg,
+                        meters["reg"].avg, meters["ivar"].avg, meters["ivar_min"].avg,
+                        metrics["wd"], metrics["lr"], meters["step_ms"].avg,
+                        meters["wall_ms"].avg, flops_s / 1e12,
+                        metrics["exp_avg_abs_mean"], metrics["exp_avg_sq_mean"],
+                        metrics["enc_grad_norm"], metrics["pred_grad_norm"])
+                    logger.info(
+                        "[%d, %5d] enc_qkv_grads: f/l[%.2e %.2e] mn/mx(%.2e, %.2e) | "
+                        "pred_qkv_grads: f/l[%.2e %.2e] mn/mx(%.2e, %.2e)",
+                        epoch + 1, itr, metrics["enc_qkv_first"], metrics["enc_qkv_last"],
+                        metrics["enc_qkv_min"], metrics["enc_qkv_max"],
+                        metrics["pred_qkv_first"], metrics["pred_qkv_last"],
+                        metrics["pred_qkv_min"], metrics["pred_qkv_max"])
+                if not np.isfinite(loss):
+                    raise FloatingPointError(f"loss is {loss} at step {global_step}")
 
-        logger.info("avg. loss %.3f", meters["loss"].avg)
-        if epoch % CHECKPOINT_FREQ == 0 or epoch == num_epochs - 1:
-            ckpt_lib.save_checkpoint(folder, tag, state, epoch + 1, save_every_freq,
-                                     batch_size=batch_size, world_size=world_size, lr=lr,
-                                     layout=layout)
+            logger.info("avg. loss %.3f", meters["loss"].avg)
+            if epoch % CHECKPOINT_FREQ == 0 or epoch == num_epochs - 1:
+                ckpt_lib.save_checkpoint(folder, tag, state, epoch + 1, save_every_freq,
+                                         batch_size=batch_size, world_size=world_size, lr=lr,
+                                         layout=layout)
+    finally:
+        if profiler is not None:
+            stop_profiler()
+        if monitor is not None:
+            monitor.stop()
+            monitor.join()
     return state

@@ -6,8 +6,8 @@ Classes are the sorted subdirectories of ``root/image_folder/{train,val}``;
 images load through PIL (imported inside the loader, so this module imports
 where Pillow is absent) and come out as fixed-size uint8 arrays: a
 short-side resize and a centre crop on the host, everything else on the
-device (``data.transforms``). The loader is the port's threaded
-``DataLoader``; the JAX package's process-pool mode is not copied.
+device (``data.transforms``). With more than one worker the loader decodes
+in a process pool (PIL's decode holds the GIL), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -102,17 +102,22 @@ def make_image_loader(
     num_workers: int = 8,
     seed: int = 0,
     drop_last: Optional[bool] = None,
+    use_processes: Optional[bool] = None,
 ):
     """(dataset, loader, sampler) over an ImageFolder; drop_last defaults to
-    ``training``."""
+    ``training``, use_processes to ``num_workers > 1`` (PIL's JPEG decode
+    holds the GIL, so several workers need processes to scale)."""
     from jepa_tpu_torch.data.loader import DataLoader, ShardedSampler
 
     ds = ImageFolder(root=root_path, image_folder=image_folder, train=training,
                      output_size=output_size, resize_short=resize_short)
     if drop_last is None:
         drop_last = training
+    if use_processes is None:
+        use_processes = num_workers > 1
     sampler = ShardedSampler(num_samples=len(ds), rank=rank, world_size=world_size,
                              shuffle=training, seed=seed, drop_last=drop_last)
     loader = DataLoader(ds, sampler, batch_size=batch_size, num_workers=num_workers,
-                        collate=image_collate, drop_last=drop_last)
+                        collate=image_collate, drop_last=drop_last,
+                        use_processes=use_processes)
     return ds, loader, sampler

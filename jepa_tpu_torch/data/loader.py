@@ -5,9 +5,10 @@ Replaces the reference's torch DataLoader + DistributedSampler +
 DistributedWeightedSampler stack (reference: src/datasets/video_dataset.py:
 27-88, src/datasets/utils/weighted_sampler.py). One loader per *host*
 (not per chip — a host feeds all its local devices through the sharded
-batch), decode work fans out over a thread pool, and ready batches sit in
-a bounded prefetch queue. The JAX package's process-pool mode (for decoders
-that hold the GIL) is not copied: nothing in the port uses it yet.
+batch), decode work fans out over a thread pool (the native video decoder
+releases the GIL) or, with ``use_processes``, a fork-based process pool
+(for decoders that hold it, as PIL does), and ready batches sit in a
+bounded prefetch queue.
 
 Determinism: batch ORDER is deterministic (a single producer walks the
 sampler and pool.map preserves submission order), and item CONTENT is
@@ -82,12 +83,36 @@ class WeightedShardedSampler(ShardedSampler):
         return iter(order[self.rank :: self.world].tolist())
 
 
+_PROC_DS = None
+
+
+def _proc_init(ds):
+    """Process-pool worker initializer: pin the (forked) dataset. Dataset
+    randomness is (seed, epoch, index)-keyed (no shared mutable rng), so
+    workers need no per-worker reseeding to stay both decorrelated and
+    run-to-run reproducible."""
+    global _PROC_DS
+    _PROC_DS = ds
+
+
+def _proc_get(i):
+    return _PROC_DS[i]
+
+
 class DataLoader:
     """Prefetching loader over a map-style dataset.
 
     collate: list of dataset items -> batch (default stacks clips into
     [B*num_clips, T, H, W, C] uint8 in the reference's clip-major layout
     plus labels). Exhausted iterators restart on the next __iter__.
+
+    use_processes: decode items in a fork-based process pool instead of a
+    thread pool. Threads are right for the GIL-releasing native video
+    decoder; PIL's JPEG decode holds the GIL, so the image loader takes
+    processes (the reference uses torch DataLoader worker processes,
+    video_dataset.py:77-85). The workers fork from a process whose CUDA
+    context may be up: the dataset they run touches neither CUDA nor
+    torch, only numpy and the decoders.
     """
 
     def __init__(
@@ -99,6 +124,7 @@ class DataLoader:
         prefetch: int = 2,
         collate=None,
         drop_last: bool = True,
+        use_processes: bool = False,
     ):
         self.dataset = dataset
         self.sampler = sampler
@@ -107,6 +133,7 @@ class DataLoader:
         self.prefetch = prefetch
         self.collate = collate or default_collate
         self.drop_last = drop_last
+        self.use_processes = use_processes
 
     def __len__(self):
         n = len(self.sampler)
@@ -122,15 +149,31 @@ class DataLoader:
         if idx and not self.drop_last:
             yield idx
 
+    def _make_pool(self):
+        if self.use_processes:
+            import multiprocessing as mp
+            from concurrent.futures import ProcessPoolExecutor
+
+            return ProcessPoolExecutor(self.num_workers, mp_context=mp.get_context("fork"),
+                                       initializer=_proc_init, initargs=(self.dataset,))
+        return ThreadPoolExecutor(self.num_workers)
+
     def __iter__(self):
-        # sync the dataset's item-rng stream to the sampler epoch; with
+        # sync the dataset's item-rng stream to the sampler epoch BEFORE the
+        # pool forks (process workers copy the dataset at fork time); with
         # item-keyed rng this is the only mutable dataset state
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(getattr(self.sampler, "epoch", 0))
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
-        get_item = self.dataset.__getitem__
-        pool = ThreadPoolExecutor(self.num_workers)
+        get_item = _proc_get if self.use_processes else self.dataset.__getitem__
+        # Create the pool on the CALLING thread, before this loader's
+        # producer thread exists: a fork from inside a spawned thread can
+        # copy a lock another thread holds into the child. The executor
+        # forks lazily on first submit, so force every worker up now.
+        pool = self._make_pool()
+        if self.use_processes:
+            pool.submit(int, 0).result()
 
         def bounded_put(item) -> bool:
             """put that never wedges the producer: an abandoned consumer
@@ -169,6 +212,11 @@ class DataLoader:
                 yield item
         finally:
             stop.set()
+            # An abandoned epoch returns only once its pool is shut down: a
+            # process pool forked while another pool shuts down in a thread
+            # can copy that pool's held wakeup lock into its workers, which
+            # then hang at exit (concurrent.futures' atexit wakeups).
+            t.join()
 
 
 def default_collate(items):

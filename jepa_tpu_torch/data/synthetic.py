@@ -8,12 +8,14 @@ the random phase kills any fixed linear functional of the pixels, so a
 linear-ish readout of a random-init encoder has little to latch onto while
 orientation (a second-order statistic) is the dominant predictable
 structure a V-JEPA objective can learn (counterpart of
-jepa_tpu/data/synthetic.py, the same numpy generators). Writing them as
-mpeg4 files (``write_grating_dataset``) needs the native video encoder,
-which is not ported yet (ROADMAP Queue 1).
+jepa_tpu/data/synthetic.py, the same numpy generators).
+``write_grating_dataset`` writes them as mpeg4 files with CSV manifests
+through the native encoder (``native.videodec.write_video``).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -114,3 +116,51 @@ def gabor_field_video(
         fr = fr + rng.uniform(-noise, noise, size=fr.shape)
         out[t] = np.clip(fr, 0, 255).astype(np.uint8)
     return out
+
+
+def write_grating_dataset(
+    out_dir: str,
+    n_train_per_class: int,
+    n_val_per_class: int,
+    num_frames: int = 16,
+    size: int = 64,
+    seed: int = 0,
+    fps: float = 30.0,
+    amp_range: tuple = (25.0, 60.0),
+    noise: float = 8.0,
+    kind: str = "grating",
+    photometric: bool = True,
+    n_patches: int = 10,
+):
+    """Write synthetic videos as mpeg4 files + reference-format CSVs.
+
+    kind: "grating" (full-field, low intrinsic dimension) or "gabor"
+    (localized patch field, the representation-quality regime).
+
+    Returns (train_csv, val_csv) with '<path> <label>' rows (the manifest
+    ``VideoDataset`` reads). The train split doubles as the unlabeled
+    pretraining pool.
+    """
+    from jepa_tpu_torch.native.videodec import write_video
+
+    os.makedirs(out_dir, exist_ok=True)
+    rows = {"train": [], "val": []}
+    for split, n in (("train", n_train_per_class), ("val", n_val_per_class)):
+        for cls in range(2):
+            for i in range(n):
+                rng = np.random.default_rng([seed, cls, i, 0 if split == "train" else 1])
+                path = os.path.join(out_dir, f"{split}_c{cls}_v{i}.mp4")
+                if kind == "gabor":
+                    vid = gabor_field_video(rng, cls, num_frames, size, n_patches=n_patches,
+                                            noise=noise, photometric=photometric)
+                else:
+                    vid = grating_video(rng, cls, num_frames, size, amp_range=amp_range,
+                                        noise=noise)
+                write_video(path, vid, fps)
+                rows[split].append(f"{path} {cls}")
+    train_csv = os.path.join(out_dir, "train.csv")
+    val_csv = os.path.join(out_dir, "val.csv")
+    for name, csv in (("train", train_csv), ("val", val_csv)):
+        with open(csv, "w") as f:
+            f.write("\n".join(rows[name]) + "\n")
+    return train_csv, val_csv

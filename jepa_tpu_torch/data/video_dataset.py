@@ -13,12 +13,13 @@ Capability parity with reference src/datasets/video_dataset.py:
   * file-size filters and infinite retry with random resample on corrupt
     videos (reference :159-166, 194-199)
 
-Decoding is a pluggable backend: raw .npy/.npz clip files or synthetic
-video. The native FFmpeg decoder of the JAX package is not ported yet
-(ROADMAP Queue 1): ``decode_backend: native`` raises and ``auto`` takes the
-npy backend with a warning, as the JAX package does when its decoder is
-absent. Augmentation runs on the device (jepa_tpu_torch/data/transforms.py),
-so this module returns raw uint8 frames.
+Decoding is a pluggable backend: the native FFmpeg library
+(``jepa_tpu_torch.native``, ``decode_backend: native``) for video files,
+raw .npy/.npz clip files or synthetic video; ``auto`` takes the native
+decoder and falls back to npy, with a warning, only where that library
+cannot be built or loaded, as the JAX package does. Augmentation runs on
+the device (jepa_tpu_torch/data/transforms.py), so this module returns raw
+uint8 frames.
 """
 
 from __future__ import annotations
@@ -37,10 +38,6 @@ logger = logging.getLogger(__name__)
 # --------------------------------------------------------------------------
 # Decode backends
 # --------------------------------------------------------------------------
-
-_NATIVE_NOT_PORTED = ("the native FFmpeg video decoder is not ported to "
-                      "jepa_tpu_torch yet (ROADMAP Queue 1)")
-
 
 def scaled_size(h: int, w: int, short_side: int, canvas: Tuple[int, int]):
     """Short-side scale capped so the result fits the canvas."""
@@ -132,10 +129,11 @@ class NpyBackend:
 
 
 def get_backend(name: str, decode_size=None, short_side=None, canvas=None):
-    """decode_size (h, w): fixed decode canvas so raw frames batch uniformly.
-    short_side (+ optional canvas): aspect-preserving mode — per-video
-    short-side resize, letterboxed onto a static canvas with a valid-size
-    sidecar."""
+    """decode_size (h, w): fixed decode canvas so raw frames batch uniformly
+    (the native decoder resizes inside sws_scale). short_side (+ optional
+    canvas): aspect-preserving mode — per-video short-side resize,
+    letterboxed onto a static canvas with a valid-size sidecar (see
+    ``native.videodec.NativeBackend``)."""
     if name == "synthetic":
         if short_side is not None:
             return SyntheticBackend(short_side=short_side, canvas=canvas)
@@ -147,11 +145,17 @@ def get_backend(name: str, decode_size=None, short_side=None, canvas=None):
             raise ValueError("npy backend does not support aspect-preserving decode")
         return NpyBackend()
     if name == "native":
-        raise NotImplementedError(f"decode_backend 'native': {_NATIVE_NOT_PORTED}")
+        from jepa_tpu_torch.native.videodec import NativeBackend
+
+        return NativeBackend(out_size=decode_size, short_side=short_side, canvas=canvas)
     if name == "auto":
-        logger.warning("native video decoder unavailable (%s); using npy backend",
-                       _NATIVE_NOT_PORTED)
-        return NpyBackend()
+        try:
+            from jepa_tpu_torch.native.videodec import NativeBackend
+
+            return NativeBackend(out_size=decode_size, short_side=short_side, canvas=canvas)
+        except Exception as e:
+            logger.warning("native video decoder unavailable (%s); using npy backend", e)
+            return NpyBackend()
     raise ValueError(f"unknown decode backend {name!r}")
 
 

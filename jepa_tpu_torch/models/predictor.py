@@ -3,10 +3,12 @@ positions from context tokens (counterpart of jepa_tpu/models/predictor.py).
 
   * linear embed, encoder dim -> predictor dim;
   * per-mask-config learnable mask tokens, picked by
-    ``mask_index % num_mask_tokens``;
+    ``mask_index % num_mask_tokens``, or, with ``use_mask_tokens=False``
+    (diffusion mode, reference predictor.py:154-172), the embedded target
+    features noised by one forward-diffusion step (``_diffusion_noise``);
   * the frozen sincos pos-embed gathered at the context and target
     indices;
-  * ``depth`` pre-LN blocks over [context || mask tokens];
+  * ``depth`` pre-LN blocks over [context || mask tokens or noised targets];
   * final LayerNorm and projection back to the encoder dim, returned at
     the target positions, fp32.
 
@@ -14,14 +16,14 @@ One call handles one (mask_enc, mask_pred) pair; the multimask loop
 composes calls. The module carries the reference zoo's state_dict names
 (``predictor_embed``, ``mask_tokens.{k}`` of shape [1, 1, Dp],
 ``predictor_blocks.{i}``, ``predictor_norm``, ``predictor_proj``, the
-``predictor_pos_embed`` buffer), so a zoo predictor can load. Diffusion
-mode (``use_mask_tokens=False``) is not ported yet and raises.
+``predictor_pos_embed`` buffer), so a zoo predictor can load; in diffusion
+mode it has no ``mask_tokens``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -95,18 +97,46 @@ def predictor_sincos_table(cfg: PredictorCfg) -> torch.Tensor:
     return torch.from_numpy(pe.astype("float32"))[None]
 
 
+DIFFUSION_STEPS = 1000
+DIFFUSION_BETA = (0.5, 1.0)
+
+
+def diffusion_draws(generator: torch.Generator, shape, device,
+                    steps: int = DIFFUSION_STEPS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One diffusion step's random draws for features of ``shape`` [B, K,
+    Dp]: a step t per sample, uniform in [0, steps), and standard normal
+    noise n of ``shape``, fp32."""
+    t = torch.randint(0, steps, (shape[0],), generator=generator, device=device)
+    n = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    return t, n
+
+
+def _diffusion_noise(x: torch.Tensor, t: torch.Tensor, n: torch.Tensor,
+                    noise_beta=DIFFUSION_BETA, steps: int = DIFFUSION_STEPS) -> torch.Tensor:
+    """Forward-diffusion target noising (jepa_tpu/models/predictor.py::
+    _diffusion_noise; reference predictor.py:154-172), in fp32: LayerNorm
+    without affine (eps 1e-5), then sqrt(alpha_t) x + sqrt(1 - alpha_t) n,
+    alpha the cumulative product of 1 - beta_i, beta_i = b1 + i (b2 - b1) /
+    steps. Returns ``x``'s dtype."""
+    b1, b2 = noise_beta
+    betas = b1 + torch.arange(steps, dtype=torch.float32, device=x.device) * ((b2 - b1) / steps)
+    alpha = torch.cumprod(1.0 - betas, dim=0)[t][:, None, None]
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    xf = (xf - mean) * torch.rsqrt(var + 1e-5)
+    return (alpha.sqrt() * xf + (1.0 - alpha).sqrt() * n).to(x.dtype)
+
+
 class Predictor(nn.Module):
     def __init__(self, cfg: PredictorCfg, device=None):
         super().__init__()
-        if not cfg.use_mask_tokens:
-            raise NotImplementedError("diffusion-mode predictor (use_mask_tokens="
-                                      "False) is not ported yet")
         self.cfg = cfg
         dp = cfg.predictor_embed_dim
         self.predictor_embed = nn.Linear(cfg.embed_dim, dp, device=device)
         self.mask_tokens = nn.ParameterList(
             nn.Parameter(torch.zeros(1, 1, dp, device=device))
-            for _ in range(cfg.num_mask_tokens))
+            for _ in range(cfg.num_mask_tokens if cfg.use_mask_tokens else 0))
         self.register_buffer("predictor_pos_embed",
                              predictor_sincos_table(cfg).to(device))
         bc = cfg.block_cfg()
@@ -132,9 +162,10 @@ class Predictor(nn.Module):
         return self
 
     def forward(self, ctxt, masks_ctxt, masks_tgt, mask_index: int = 0,
-                kv_mask_ctxt=None, kv_mask_tgt=None):
+                kv_mask_ctxt=None, kv_mask_tgt=None, tgt=None, noise=None):
         return predictor_forward(self, ctxt, masks_ctxt, masks_tgt, mask_index=mask_index,
-                                 kv_mask_ctxt=kv_mask_ctxt, kv_mask_tgt=kv_mask_tgt)
+                                 kv_mask_ctxt=kv_mask_ctxt, kv_mask_tgt=kv_mask_tgt,
+                                 tgt=tgt, noise=noise)
 
 
 def init_predictor(cfg: PredictorCfg, generator: Optional[torch.Generator] = None,
@@ -152,6 +183,8 @@ def predictor_forward(
     cfg: Optional[PredictorCfg] = None,
     kv_mask_ctxt: Optional[torch.Tensor] = None,
     kv_mask_tgt: Optional[torch.Tensor] = None,
+    tgt: Optional[torch.Tensor] = None,
+    noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Predict target latents.
 
@@ -160,7 +193,9 @@ def predictor_forward(
     grid. kv_mask_ctxt / kv_mask_tgt ([B, K_c] / [B, K_t] bool, padded mask
     mode): the blocks' key mask is their concatenation, so the pads of the
     context sit in the middle of the sequence (jepa_tpu/models/predictor.py:180-191).
-    Returns [B, K_t, D_enc] fp32.
+    Diffusion mode (``use_mask_tokens=False``) needs ``tgt`` [B, K_t, D_enc],
+    the target features, and ``noise`` (t [B], n [B, K_t, Dp] fp32), the
+    draws of ``diffusion_draws``. Returns [B, K_t, D_enc] fp32.
     """
     cfg = cfg or model.cfg
     cd = cfg.compute_dtype
@@ -170,8 +205,13 @@ def predictor_forward(
     x = linear(ctxt, model.predictor_embed, cd)
     x = (x.float() + gather_tokens(pe, masks_ctxt)).to(cd)
     n_ctxt = x.shape[1]
-    mt = model.mask_tokens[mask_index % cfg.num_mask_tokens].float()  # [1, 1, Dp]
-    pred = (mt + gather_tokens(pe, masks_tgt)).to(cd)
+    if cfg.use_mask_tokens:
+        pred = model.mask_tokens[mask_index % cfg.num_mask_tokens].float()  # [1, 1, Dp]
+    else:
+        if tgt is None or noise is None:
+            raise ValueError("the diffusion-mode predictor needs tgt and noise")
+        pred = _diffusion_noise(linear(tgt, model.predictor_embed, cd), *noise).float()
+    pred = (pred + gather_tokens(pe, masks_tgt)).to(cd)
     seq = torch.cat([x, pred], dim=1)
 
     kv_mask = None

@@ -11,8 +11,9 @@ jepa_tpu/models/vit.py).
   * optional token-drop ``masks`` [B, K] before the blocks; pre-LN blocks;
     final LayerNorm; fp32 output.
 
-An input whose token grid differs from the config's raises: resizing the
-pos-embed table is not ported yet.
+An input whose token grid differs from the config's gets the table
+resized to its grid (trilinear for video, cubic for images, as
+``jax.image.resize`` computes them).
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from jepa_tpu_torch.models.initializers import init_layernorm_, trunc_normal
 from jepa_tpu_torch.models.pos_embed import (
     get_2d_sincos_pos_embed,
     get_3d_sincos_pos_embed,
+    resize_pos_embed_2d,
+    resize_pos_embed_3d,
 )
 from jepa_tpu_torch.models.transformer import (
     Block,
@@ -180,18 +183,19 @@ def patchify_image(x: torch.Tensor, cfg: ViTCfg) -> torch.Tensor:
     return x.reshape(b, gh * gw, c * p * p)
 
 
-def _check_grid(cfg: ViTCfg, shape) -> None:
+def _pos_embed_for_input(model: VisionTransformer, cfg: ViTCfg, shape) -> torch.Tensor:
+    """The pos-embed table [1, N, D], resized when the input's token grid
+    is off-size (jepa_tpu/models/vit.py::_pos_embed_for_input)."""
+    pe = model.pos_embed[0]
     if cfg.is_video:
         _, t, hpx, wpx, _ = shape
-        got = (t // cfg.tubelet_size, hpx // cfg.patch_size, wpx // cfg.patch_size)
-        want = (cfg.grid_depth, cfg.grid_size, cfg.grid_size)
+        dst = (t // cfg.tubelet_size, hpx // cfg.patch_size, wpx // cfg.patch_size)
+        pe = resize_pos_embed_3d(pe, (cfg.grid_depth, cfg.grid_size, cfg.grid_size), dst)
     else:
         _, hpx, wpx, _ = shape
-        got = (hpx // cfg.patch_size, wpx // cfg.patch_size)
-        want = (cfg.grid_size, cfg.grid_size)
-    if got != want:
-        raise ValueError(f"input token grid {got} != model grid {want}: "
-                         "pos-embed resizing is not ported")
+        dst = (hpx // cfg.patch_size, wpx // cfg.patch_size)
+        pe = resize_pos_embed_2d(pe, (cfg.grid_size, cfg.grid_size), dst)
+    return pe[None]
 
 
 def vit_forward(
@@ -208,12 +212,12 @@ def vit_forward(
     of per-layer normed outputs when out_layers is given."""
     cfg = cfg or model.cfg
     cd = cfg.compute_dtype
-    _check_grid(cfg, x.shape)
     tokens = patchify_video(x, cfg) if cfg.is_video else patchify_image(x, cfg)
     proj = model.patch_embed.proj
     w = proj.weight.reshape(cfg.embed_dim, -1).to(cd)
     tokens = (matmul_f32(tokens.to(cd), w) + proj.bias.float()).to(cd)
-    tokens = (tokens.float() + model.pos_embed.float()).to(cd)
+    pe = _pos_embed_for_input(model, cfg, x.shape)
+    tokens = (tokens.float() + pe.float()).to(cd)
     if masks is not None:
         tokens = gather_tokens(tokens, masks)
     collect = out_layers is not None

@@ -12,7 +12,10 @@ feature LayerNorm and the gather at the target indices; for each mask
 config the context encoder on the kept tokens (run with ``enc_cfg``, as
 the JAX package runs it: ``fused_mlp='force'`` sends its fc1 through H8
 and its plain backward; its ``remat`` checkpoints the blocks) and the
-predictor over [context || mask tokens] (run with ``pred_cfg``); the L1
+predictor over [context || mask tokens] (run with ``pred_cfg``; with
+``use_mask_tokens=False`` over [context || the targets noised by one
+diffusion step], its draws from a generator seeded with (seed + 2, step),
+the same for every mask config, as the JAX step folds one key); the L1
 loss (plus the variance regularizer when its coefficient is not 0); the
 backward (H1's saved outputs feed H2 on the
 card); per-module gradient clipping gated by ``clip_after_step``; AdamW
@@ -62,7 +65,13 @@ import torch
 
 from jepa_tpu_torch.masks.multiblock3d import MaskGrid, MaskSpec, sample_masks_for_specs
 from jepa_tpu_torch.masks.random_tube import sample_tube_masks
-from jepa_tpu_torch.models.predictor import Predictor, PredictorCfg, init_predictor, predictor_forward
+from jepa_tpu_torch.models.predictor import (
+    Predictor,
+    PredictorCfg,
+    diffusion_draws,
+    init_predictor,
+    predictor_forward,
+)
 from jepa_tpu_torch.models.vit import ViTCfg, VisionTransformer, init_vit, vit_forward
 from jepa_tpu_torch.ops.masking import gather_tokens, repeat_interleave_batch
 from jepa_tpu_torch.parallel import dist as pdist
@@ -160,6 +169,8 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 MaskSampler = Callable[[int, int, torch.device], Tuple[List[torch.Tensor], List[torch.Tensor]]]
+NoiseSampler = Callable[[int, int, Tuple[int, int, int], torch.device],
+                        Tuple[torch.Tensor, torch.Tensor]]
 
 
 def build_train_step(
@@ -174,6 +185,7 @@ def build_train_step(
     keep_counts: Sequence[Tuple[int, int]],
     mask_sampler: Optional[MaskSampler] = None,
     layout: Optional[Layout] = None,
+    noise_sampler: Optional[NoiseSampler] = None,
 ):
     """Returns step_fn(state, batch) -> (state, metrics).
 
@@ -185,9 +197,12 @@ def build_train_step(
     masks_pred)`` replaces the default sampler of the fixed and tube modes
     (a test seam: parity tests hand in the JAX package's masks); the
     default draws from a generator seeded with (seed, step), so the masks
-    of a step do not depend on earlier steps. Under a distributed
-    ``layout`` the sampler is asked for the global batch's masks and the
-    step keeps this rank's rows.
+    of a step do not depend on earlier steps. ``noise_sampler(step, i,
+    shape, device) -> (t, n)`` does the same for the diffusion-mode
+    predictor's draws of mask config i (``diffusion_draws``; the default
+    draws from a fresh generator seeded with (seed + 2, step) for each i).
+    Under a distributed ``layout`` the samplers are asked for the global
+    batch's draws and the step keeps this rank's rows.
     """
     if train_cfg.mask_mode not in ("fixed", "padded", "tube"):
         raise ValueError(f"unknown mask_mode {train_cfg.mask_mode!r}: "
@@ -200,7 +215,12 @@ def build_train_step(
             return [m[0] for m in masks], [m[1] for m in masks]
         return sample_masks_for_specs(gen, batch_size, mask_specs, grid, keep_counts)
 
+    def default_noise(step, i, shape, device):
+        return diffusion_draws(step_generator(train_cfg.seed + 2, step, device), shape, device)
+
     sampler = mask_sampler or default_sampler
+    noise_sampler = noise_sampler or default_noise
+    diffusion = not pred_cfg.use_mask_tokens
     layout = layout or Layout()
     world, rank, dp = layout.world, layout.rank, layout.distributed
     padded = train_cfg.mask_mode == "padded"
@@ -263,9 +283,17 @@ def build_train_step(
         preds = []
         for i, (me, mp) in enumerate(zip(masks_enc, masks_pred)):
             z = vit_forward(state.encoder, clips, cfg=enc_cfg, masks=me, kv_mask=kv_enc[i])
+            tgt = noise = None
+            if diffusion:  # the global batch's draws, this rank's rows
+                tgt = targets[i]
+                b, k = tgt.shape[:2]
+                shape = (b * world if dp else b, k, pred_cfg.predictor_embed_dim)
+                noise = noise_sampler(step, i, shape, dev)
+                if dp:
+                    noise = tuple(rank_rows(a, rank, world) for a in noise)
             preds.append(predictor_forward(state.predictor, z, me, mp, mask_index=i,
                                            cfg=pred_cfg, kv_mask_ctxt=kv_enc[i],
-                                           kv_mask_tgt=kv_pred[i]))
+                                           kv_mask_tgt=kv_pred[i], tgt=tgt, noise=noise))
         denoms = None
         if padded and dp:  # each config's weight sum over the global batch
             denoms = torch.stack([w.float().sum() * t.shape[-1]

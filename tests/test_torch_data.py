@@ -110,9 +110,16 @@ def test_loader_batches_match_jax(tmp_path):
     assert len(ds) == 3 and len(dl) == 1 and ds.class_to_idx == {"a": 0, "b": 1}
     batch = next(iter(dl))
     assert batch["images"].shape == (2, 16, 16, 3) and batch["images"].dtype == np.uint8
-    with pytest.raises(NotImplementedError, match="native"):
-        video_dataset.get_backend("native")
-    assert isinstance(video_dataset.get_backend("auto"), video_dataset.NpyBackend)
+    # native gives a NativeBackend; auto picks it where the library builds
+    from jepa_tpu_torch.native import build, videodec
+
+    try:
+        build.build()
+    except (RuntimeError, OSError):
+        assert isinstance(video_dataset.get_backend("auto"), video_dataset.NpyBackend)
+    else:
+        assert isinstance(video_dataset.get_backend("native"), videodec.NativeBackend)
+        assert isinstance(video_dataset.get_backend("auto"), videodec.NativeBackend)
 
 
 @pytest.mark.parametrize("motion", [False, True])

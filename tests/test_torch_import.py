@@ -1,5 +1,6 @@
 """The PyTorch port imports torch and numpy only (and PIL inside the image
-loader): no JAX, no jepa_tpu.
+loader, psutil inside the resource monitor, the native decoder through
+ctypes): no JAX, no jepa_tpu.
 That holds for the package and for chip_smoke.py, including imports made
 inside functions."""
 
@@ -20,7 +21,8 @@ for need in ("train.step", "train.optimizer", "train.losses", "masks.multiblock3
              "utils.logging", "utils.checkpoint", "configs", "apps.scaffold", "apps.main",
              "apps.vjepa.train", "data.randaugment", "data.image_dataset", "evals.aggregation",
              "evals.video_classification_frozen", "evals.image_classification_frozen",
-             "evals.scaffold", "evals.main"):
+             "evals.scaffold", "evals.main", "native", "native.build", "native.videodec",
+             "utils.monitoring", "models.pos_embed", "models.vit"):
     assert "jepa_tpu_torch." + need in names, need
 for name in names:
     importlib.import_module(name)
@@ -36,7 +38,7 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 47, res.stdout  # serving, the training step, the app, the evals
+    assert n_modules >= 51, res.stdout  # serving, the training step, the app, the evals, the decoder
 
 
 def test_port_sources_import_no_jax():
@@ -52,4 +54,4 @@ def test_port_sources_import_no_jax():
                 continue
             bad += [f"{path.name}: {m}" for m in mods
                     if m.split(".")[0] in ("jax", "jaxlib", "jepa_tpu")]
-    assert len(files) > 46 and not bad, bad
+    assert len(files) > 49 and not bad, bad

@@ -112,13 +112,6 @@ def test_vit_masks_and_image_path_match_jax():
     np.testing.assert_allclose(layers[0].numpy(), want_layers[0], atol=2e-4, rtol=0)
 
 
-def test_off_grid_input_raises():
-    cfg = factory.vit_cfg("vit_tiny", img_size=32, num_frames=4, compute_dtype=torch.float32)
-    model = init_vit(dataclasses.replace(cfg, depth=1), torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="grid"):
-        model(torch.zeros(1, 4, 48, 48, 3))
-
-
 @pytest.mark.parametrize("depth", [1, 2])
 def test_classifier_forward_matches_jax(depth):
     jacfg = JaxAttentiveCfg(embed_dim=64, num_heads=4, depth=depth, num_classes=7,

@@ -117,9 +117,3 @@ def test_predictor_cfg_for_matches_jax():
         if f.name not in ("compute_dtype",):
             assert getattr(got, f.name) == getattr(want, f.name), f.name
     assert got.num_patches == want.num_patches
-
-
-def test_diffusion_mode_is_not_ported():
-    _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError):
-        Predictor(dataclasses.replace(cfg, use_mask_tokens=False))
