@@ -121,13 +121,15 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      profile, the B=2 check; H8 24 per context forward, H3 24 for the
      target) and the A/B against the default update in turns, with each
      variant's peak memory.
- 17. the tube mask mode (data.mask_type random_tube, one mask of ratio
+ 17. at VITL_CUT_DEPTH (8) of ViT-L's 24 blocks (``cut_depth``), the tube
+     mask mode (data.mask_type random_tube, one mask of ratio
      0.9, the reference's default) at vitl16.yaml: 3 updates at B=24
      (context 152 tokens, predictor 1568), one B=2 update against the
      plain versions from the seeded state, then the app fixed 1 epoch and
      padded 1 epoch (one tier of static caps, 256 and 1536: the masked
      H1/H2);
- 18. activation checkpointing at vitl16.yaml, B=24: from one seeded
+ 18. at VITL_CUT_DEPTH blocks, activation checkpointing at vitl16.yaml,
+     B=24: from one seeded
      state, one update with remat False, True and 'attn' (encoder and
      predictor) each, whose loss, metrics, parameters and AdamW moments
      must be bit-equal, then two more of each in turns (ms, peak
@@ -141,17 +143,20 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      B=10: H1 and both H2 kernels) and the vith16_384 fp32 eval's train
      step (H1-fp32 c=80 at B=8, N=4608; H3-fp32 at M=8*4608) against their
      plain versions (one sample at a time where a batch's fp32 scores pass
-     PLAIN_BATCH_BYTES); then vith16.yaml (B=24) and vith16_384.yaml (B=10) with the app's
-     default remat ('attn'): TRAIN_STEPS updates each through
-     build_train_step (one profiled more) and the app (vith16: fixed 1 epoch of 2 updates, a
-     resume to 2 epochs, padded 1 epoch; vith16_384: fixed 1 epoch), each
-     ~10 GB checkpoint written in the temporary folder and removed;
- 20. the K400 16x8x3 evals of ViT-H (vith16_k400_16x8x3.yaml,
+     PLAIN_BATCH_BYTES); then, at VITH_CUT_DEPTH (8) of ViT-H's 32 blocks
+     (``cut_depth``), vith16.yaml (B=24) and vith16_384.yaml (B=10) with the
+     app's default remat ('attn'): TRAIN_STEPS updates each through
+     build_train_step (one profiled more) and the app (vith16: fixed 1
+     epoch of 2 updates, a resume to 2 epochs, padded 1 epoch; vith16_384:
+     fixed 1 epoch), each checkpoint written in the temporary folder and
+     removed;
+ 20. at VITH_CUT_DEPTH blocks, the K400 16x8x3 evals of ViT-H (vith16_k400_16x8x3.yaml,
      vith16_384_k400_16x8x3.yaml) in bf16 (batch 4: 2 train steps, 1 val
      step) and fp32 (batch 1: 2 and 1) on a seeded ViT-H .pth.tar, the
      features of each first train and val batch's first VITH_VIEWS_CHECKED
      (segments, views) through the kernels against the plain versions.
- 21. data parallelism (``phase_dist``), after phase 8: a vitl16.yaml
+ 21. data parallelism (``phase_dist``), after phase 8, ViT-L at DIST_DEPTH
+     (8) of its 24 blocks in every run (``cut_depth``): a vitl16.yaml
      update at B=24 in a 1-rank NCCL group (its collectives run) against
      the same update with no group, bit for bit; 2 gloo ranks sharing the
      card (spawned, the kernels built once by this process), 12 clips
@@ -184,12 +189,26 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      (``phase_app_instruments``), after phase 8: vitl16.yaml, synthetic,
      2 updates; the Chrome trace of the second and the resource CSV
      written, the device's busy share of the traced window.
+ 26. vit_giant (1408 wide, 40 blocks, 16 heads of 88 padded to 96) and
+     vit_gigantic (1664 wide, 48 blocks, 16 heads of 104 padded to 128, its
+     factory's patch 14: N = 2048), after phase 20: their kernel instances
+     (``phase_giant_kernels``: H1 and H2 at c=96, masked and not, H1-fp32
+     at c=96 and 128, H1 / H2 c=128 at N = 2048, H3 and H3-fp32 at K=1408
+     F=6144 and K=1664 F=6656, at the models' shapes and the tiles' edges),
+     then for each model serving (4 seeded requests of 2 clips), TRAIN_STEPS
+     updates of vitl16.yaml at B=24 with remat 'attn' (one profiled;
+     vit_giant also the B=2 check from the seeded state), and at
+     GIANT_CUT_DEPTH (8) blocks the K400 16x8x3 eval in bf16 (batch 4) and
+     fp32 (batch 1) with the features of each first batch against the
+     plain versions, and vit_giant's app (fixed + resume, padded;
+     checkpoints in the temporary folder, removed).
 The native decoder has no phase: the card's machine has no FFmpeg
 libraries (PERF.md §6), so it is held against the JAX package's on the
 CPU only (tests/test_torch_native.py).
 Phases 12-13 run after phase 7, phases 14-15 after phase 8, phase 16's
-kernel checks after phase 9, phases 17-20 after phase 15. Launch counts are checked as whole dicts of
-every counter (``_counts``): a kernel that should not run must count 0.
+kernel checks after phase 9, phases 17-20 after phase 15, phase 26 last.
+Launch counts are checked as whole dicts of every counter (``_counts``): a
+kernel that should not run must count 0.
 H1 (each head dim, masked or not), H1-fp32, H2 likewise, H3, H4, H5, H6,
 H7, H8 and H8-fp32 are each called a second time on the same inputs wherever
 they are held against their plain versions, and must give bit-equal outputs,
@@ -273,6 +292,11 @@ VITH_EVALS = ("vith16_k400_16x8x3.yaml", "vith16_384_k400_16x8x3.yaml")
 VITH_EVAL_ENTRIES = (8, 4)  # the ViT-H bf16 evals at batch 4: 2 train steps, 1 val step
 VITH_VIEWS_CHECKED = (2, 1)  # (segments, views) of each ViT-H eval sample whose features
                              # are held against the plain versions
+# depth cuts of earlier paths, each model's width kept (cut_depth, PERF.md §4)
+VITH_CUT_DEPTH = 8  # ViT-H's blocks in its updates, apps and evals (of 32)
+VITL_CUT_DEPTH = 8  # ViT-L's blocks in the tube mode's and the remat phase's runs (of 24)
+GIANT_CUT_DEPTH = 8  # vit_giant's and vit_gigantic's blocks in their K400 evals and
+                     # vit_giant's app (of 40, 48)
 # (c, N) of the H1 launches that stand in for K2: where the JAX package's
 # _pick_tm_fwd takes the kv-tiled forward on a driven path, vith16_384's
 # encoder (tests/test_torch_dispatch.py::test_jax_tm_kernel_picks); counted
@@ -979,13 +1003,16 @@ def _sdpa_bwd_ms(torch, qkv, do, h, scale):
                                                       retain_graph=True))
 
 
-def _sdpa_fwd_ms(torch, qkv, h, scale):
+def _sdpa_fwd_ms(torch, qkv, h, scale, mask=None):
+    """Library yardstick: torch's scaled_dot_product_attention forward on the
+    same q/k/v (a boolean key mask as its attn_mask; timed only)."""
     b, n, w3 = qkv.shape
     c = w3 // (3 * h)
     q, k, v = (t.transpose(1, 2).contiguous()
                for t in qkv.reshape(b, n, 3, h, c).unbind(2))
+    am = None if mask is None else mask[:, None, None, :]
     f = torch.nn.functional.scaled_dot_product_attention
-    return time_ms(torch, lambda: f(q, k, v, scale=scale))
+    return time_ms(torch, lambda: f(q, k, v, attn_mask=am, scale=scale))
 
 
 def fc1_bound_ms(m, k, f, outputs):
@@ -1492,6 +1519,19 @@ def plain_versions():
 VITL16_GEO = dict(img_size=224, num_frames=16, tubelet_size=2, uniform_power=True)
 
 
+@contextlib.contextmanager
+def cut_depth(model_name: str, depth: int):
+    """The factory's ``model_name`` at ``depth`` blocks, its width, heads,
+    MLP and patch kept, for every config, checkpoint, app and eval built
+    inside: a smoke-time cut of an earlier path's depth (PERF.md §4); each
+    instance it launches is held at its full shape elsewhere."""
+    from jepa_tpu_torch.models import factory
+
+    dim, _, heads, ratio, patch = factory._SPECS[model_name]
+    with mock.patch.dict(factory._SPECS, {model_name: (dim, depth, heads, ratio, patch)}):
+        yield
+
+
 def write_seeded_encoder(torch, workdir: str, model_name: str = "vit_large") -> str:
     """A seeded encoder (224 px, 16 frames, tubelet 2, uniform_power) as a
     zoo-layout .pth.tar in workdir; returns its path."""
@@ -1588,7 +1628,8 @@ def phase_serve(torch, workdir: str, model_name: str = "vit_large"):
 
 
 def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl16.yaml",
-                tube=None, remat=False, layout=None, use_mask_tokens=None):
+                tube=None, remat=False, layout=None, use_mask_tokens=None, patch_size=None,
+                pred_depth=None):
     """Configs of configs/pretrain/<config> (model, data geometry, mask,
     loss and optimization sections; default vitl16.yaml): its encoder (or
     ``model_name``) + the 12 x 384 predictor at full width and depth,
@@ -1601,7 +1642,9 @@ def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl
     (the app's default is ``'attn'``); ``layout``: the step's data-parallel
     layout (``parallel.mesh.make_layout``); ``use_mask_tokens``: the
     config's ``model.use_mask_tokens`` overridden (False: the diffusion-mode
-    predictor)."""
+    predictor); ``patch_size``: the config's ``data.patch_size`` overridden
+    (vit_gigantic's factory patch, 14); ``pred_depth``: the config's
+    ``model.pred_depth`` overridden (a depth cut, PERF.md §4)."""
     import yaml
 
     from jepa_tpu_torch.masks.multiblock3d import MaskGrid, MaskSpec, calibrate_keep_counts
@@ -1615,6 +1658,8 @@ def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl
         cfg = yaml.safe_load(f)
     m, d, lo, o = cfg["model"], cfg["data"], cfg["loss"], cfg["optimization"]
     m["model_name"] = model_name or m["model_name"]
+    d["patch_size"] = patch_size or d["patch_size"]
+    m["pred_depth"] = pred_depth or m["pred_depth"]
     if use_mask_tokens is not None:
         m["use_mask_tokens"] = use_mask_tokens
     enc_cfg = vit_cfg(m["model_name"], img_size=d["crop_size"], patch_size=d["patch_size"],
@@ -1649,7 +1694,8 @@ def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl
                 scheds=scheds,
                 specs=specs, grid=grid, yaml_batch=d["batch_size"], model_name=m["model_name"],
                 clip_shape=(d["num_frames"], d["crop_size"], d["crop_size"], 3),
-                config=config, tube=tube, remat=remat, use_mask_tokens=m["use_mask_tokens"])
+                config=config, tube=tube, remat=remat, use_mask_tokens=m["use_mask_tokens"],
+                patch_size=d["patch_size"])
 
 
 def attention_calls(enc_cfg, pred_cfg=None, pairs=()):
@@ -1729,7 +1775,8 @@ def _counts(fa, fm) -> dict:
          "dkv_masked": fa.dkv_masked_launches, "dq_masked": fa.dq_masked_launches,
          "h3": fm.launches, "h3_f32": fm.f32_launches,
          "h8": fm.z_launches, "h8_f32": fm.z_f32_launches,
-         "h1_f32": fa.f32_launches_by_head_dim[64], "h1_f32_c80": fa.f32_launches_by_head_dim[80],
+         "h1_f32": fa.f32_launches_by_head_dim[64],
+         **{f"h1_f32_c{hd}": fa.f32_launches_by_head_dim[hd] for hd in fa.F32_HEAD_DIMS[1:]},
          K2_KEY: fa.launches_by_tokens[K2_C, K2_N]}
     for hd in fa.KERNEL_HEAD_DIMS:
         c.update({f"h1_c{hd}": fa.launches_by_head_dim[hd],
@@ -1818,7 +1865,7 @@ def phase_train(torch, setup, determinism=False, steps=TRAIN_STEPS, b2=(False, T
     del state, small
     torch.cuda.empty_cache()
     return {"launches": launches, "median_ms": med, "peak_gib": peak_gib, "prof": prof,
-            "keep": setup["keep"], "per_step": want, "steps": steps}
+            "keep": setup["keep"], "per_step": want, "steps": steps, "batch": batch}
 
 
 def check_b2(torch, step_fn, state, batch, trained):
@@ -2040,6 +2087,7 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
     with open(os.path.join(repo, "configs", "pretrain", setup["config"])) as f:
         cfg = yaml.safe_load(f)
     cfg["data"]["dataset_type"] = "synthetic"
+    cfg["data"]["patch_size"] = setup["patch_size"]
     cfg["model"]["model_name"] = setup["model_name"]
     if setup["tube"]:
         cfg["data"]["mask_type"] = "random_tube"
@@ -2082,7 +2130,7 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
         raise RuntimeError(f"app: remat {remat}, not the JAX app's default ('attn', 'attn')")
 
     # the app's checkpoint through the serving API: the EMA target's features
-    geo = dict(VITL16_GEO, img_size=d["crop_size"])
+    geo = dict(VITL16_GEO, img_size=d["crop_size"], patch_size=d["patch_size"])
     clips = np.random.default_rng(SEED).integers(
         0, 256, size=(2, 16, d["crop_size"], d["crop_size"], 3), dtype=np.uint8)
     feats = api.load_encoder(ckpt, setup["model_name"], **geo).encode(clips)
@@ -2314,7 +2362,7 @@ def _fmt_host(share):
 
 def phase_eval_video(torch, repo, workdir, enc_path, bf16: bool,
                      config="vitl16_k400_16x8x3.yaml", entries=None, resume=None,
-                     views_checked=None):
+                     views_checked=None, model_name=None, patch_size=None):
     """The video eval (jepa_tpu_torch.evals.video_classification_frozen.main)
     on configs/evals/<config> (default vitl16_k400_16x8x3.yaml) at its
     model's full width and depth. bf16: the config's batch 4, ``entries``
@@ -2324,7 +2372,8 @@ def phase_eval_video(torch, repo, workdir, enc_path, bf16: bool,
     step, the resume step, the CSV, the probe checkpoint and finite
     results, then the features of the first train and val batch against
     the plain versions (``views_checked``: of their first (segments, views),
-    ``eval_features_vs_plain``)."""
+    ``eval_features_vs_plain``); ``model_name`` and ``patch_size`` override
+    the config's ``pretrain`` section (vit_giant, vit_gigantic at patch 14)."""
     from jepa_tpu_torch.evals import video_classification_frozen as vcf
     from jepa_tpu_torch.models.factory import vit_cfg
     from jepa_tpu_torch.ops import flash_attention as fa
@@ -2333,14 +2382,17 @@ def phase_eval_video(torch, repo, workdir, enc_path, bf16: bool,
     batch = 4 if bf16 else 1
     n_train, n_val = entries or (EVAL_BF16_ENTRIES if bf16 else EVAL_F32_ENTRIES)
     resume = bf16 if resume is None else resume
-    name = f"{config.split('_k400')[0]}_k400_{'bf16' if bf16 else 'fp32'}"
+    name = (f"{config.split('_k400')[0]}{'_' + model_name if model_name else ''}_k400_"
+            f"{'bf16' if bf16 else 'fp32'}")
     cfg = eval_config(repo, workdir, name, enc_path, n_train, n_val, config=config,
                       batch_size=batch, num_epochs=1, use_bfloat16=bf16)
     d, p = cfg["data"], cfg["pretrain"]
+    p["model_name"] = model_name or p["model_name"]
+    p["patch_size"] = patch_size or p["patch_size"]
     res = cfg["optimization"].get("resolution", d.get("resolution", 224))
     enc = vit_cfg(p["model_name"], img_size=res, patch_size=p["patch_size"],
                   num_frames=p["frames_per_clip"], tubelet_size=p["tubelet_size"])
-    depth, c = enc.depth, enc.embed_dim // enc.num_heads
+    depth, c = enc.depth, fa.padded_head_dim(enc.embed_dim // enc.num_heads)
     s, v = d["num_segments"], d["num_views_per_segment"]
     n_tok = enc.num_patches
     keys = (f"h1_c{c}", "h3") if bf16 else ("h1_f32" if c == 64 else f"h1_f32_c{c}", "h3_f32")
@@ -2742,6 +2794,84 @@ def timed(label, fn, *args, **kw):
 PLAIN_BATCH_BYTES = 4 * 2**30  # a batch's fp32 scores past this: plain versions by sample
 
 
+def _time_h1(torch, label, qkv, h, scale, c_real, mask=None, by_sample=False, f32=False):
+    """H1 (or H1-fp32) timed beside its plain version (``by_sample``: one
+    sample at a time), SDPA's forward on the same q/k/v (with the key mask
+    where there is one) and its bound at the real head dim c_real."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    b, n, w3 = qkv.shape
+    el = qkv.element_size()
+    pairs = None if mask is None else int(mask.sum().item()) * n
+    io = (qkv.numel() + w3 // 3 * b * n) * el + b * h * n * 4 + (0 if mask is None else b * n)
+    bound = (f32_bound_ms(4.0 * b * h * n * n * c_real, b * h * n * n, io) if f32 else
+             attn_bound_ms(b, n, h, c_real, 2, qkv.numel() * el + (0 if mask is None else b * n),
+                           w3 // 3 * b * n * el + b * h * n * 4, pairs))
+    lib = _sdpa_fwd_ms(torch, qkv, h, scale, mask)
+    r = dict(ms=time_ms(torch, lambda: fa.flash_self_attention_cuda(qkv, h, scale, mask)),
+             plain_ms=time_ms(torch, lambda: _by_sample(torch, by_sample,
+                                                        fa.flash_self_attention_ref, qkv, h,
+                                                        scale, mask), iters=3, warmup=1),
+             library_ms=lib, bound=bound, shape=(b, n, h, c_real))
+    log(f"{label} time: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library (SDPA "
+        f"forward{', bool mask' if mask is not None else ''}{', fp32' if f32 else ''}) "
+        f"{lib:.4f} ms, bound {bound[0]:.4f} ms ({bound[2]})")
+    return r
+
+
+def _time_h2(torch, label, qkv, do, lse, delta, h, scale, c_real, errs, mask=None):
+    """Both H2 kernels timed beside their plain versions, SDPA's whole
+    backward (with the key mask where there is one) and their bounds at the
+    real head dim c_real; returns {"dkv": ..., "dq": ...}."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    b, n, w3 = qkv.shape
+    qkv_b, o_b, vec_b = qkv.numel() * 2, w3 // 3 * b * n * 2, b * h * n * 4
+    m_b = 0 if mask is None else b * n
+    pairs = None if mask is None else int(mask.sum().item()) * n
+    lib = (_sdpa_masked_ms(torch, qkv, do, h, scale, mask)[1] if mask is not None
+           else _sdpa_bwd_ms(torch, qkv, do, h, scale))
+    out = torch.empty_like(qkv)
+    rep = {}
+    for key, fn, ref, products, outs, names in (
+            ("dkv", fa.flash_bwd_dkv_cuda, fa.flash_bwd_dkv_ref, 4, 2, ("dk", "dv")),
+            ("dq", fa.flash_bwd_dq_cuda, fa.flash_bwd_dq_ref, 3, 1, ("dq",))):
+        r = rep[key] = dict(
+            max_abs_err=max(errs[k] for k in names), shape=(b, n, h, c_real), library_ms=lib,
+            ms=time_ms(torch, lambda: fn(qkv, do, lse, delta, out, h, scale, mask)),
+            plain_ms=time_ms(torch, lambda: ref(qkv, do, lse, delta, h, scale, mask)),
+            bound=attn_bound_ms(b, n, h, c_real, products, qkv_b + o_b + 2 * vec_b + m_b,
+                                outs * o_b, pairs))
+        log(f"{key} {label} time: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library (SDPA's whole backward{', bool mask' if mask is not None else ''}) "
+            f"{lib:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][2]})")
+    return rep
+
+
+def _time_fc1(torch, label, gen, m, k, f, dt):
+    """H3 (bf16 ``dt``) or H3-fp32 on seeded x [m, k], w [f, k], b [f]:
+    held against its plain version (``_check_h3`` / ``_check_f32_fc1``),
+    then timed beside it, ``torch._addmm_activation`` and its bound."""
+    from jepa_tpu_torch.ops import fused_mlp as fm
+
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+    w = (torch.randn((f, k), generator=gen, device="cuda") / 32).to(dt)
+    bias = torch.randn((f,), generator=gen, device="cuda") * 0.1
+    label = f"{label} M={m} K={k} F={f}"
+    err = (_check_h3 if dt == torch.bfloat16 else _check_f32_fc1)(torch, label, x, w, bias)
+    bias_lp = bias.to(dt)
+    bound = (fc1_bound_ms(m, k, f, outputs=1) if dt == torch.bfloat16 else
+             f32_bound_ms(2.0 * m * k * f, 0, 4 * (m * k + f * k + f + m * f)))
+    r = dict(max_abs_err=err, shape=(m, k, f), bound=bound,
+             ms=time_ms(torch, lambda: fm.linear_gelu_cuda(x, w, bias)),
+             plain_ms=time_ms(torch, lambda: fm.linear_gelu_ref(x, w, bias)),
+             library_ms=time_ms(torch, lambda: torch._addmm_activation(bias_lp, x, w.t(),
+                                                                       use_gelu=True)))
+    log(f"{label} time: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+        f"(_addmm_activation) {r['library_ms']:.4f} ms, bound {bound[0]:.4f} ms ({bound[2]})")
+    return r
+
+
 def phase_vith_kernels(torch, setups):
     """The instances ViT-H's paths launch, at their shapes, against their
     plain versions on the card (each called a second time, bit-equal;
@@ -2756,7 +2886,6 @@ def phase_vith_kernels(torch, setups):
     vith16_384 at its train step's 8 clips (H1-fp32 c=80 at N=4608, H3-fp32
     at M=8*4608); ``held`` gives each instance's max|d| there."""
     from jepa_tpu_torch.ops import flash_attention as fa
-    from jepa_tpu_torch.ops import fused_mlp as fm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     rep = {}
@@ -2767,19 +2896,10 @@ def phase_vith_kernels(torch, setups):
         qkv = torch.randn((b, n, 3 * h * c), generator=gen, device="cuda").to(torch.bfloat16)
         label = f"H1 ViT-H B={b} N={n} H={h} c={c}"
         split = by_sample(b, h, n)
-        o, lse, err = _check_h1(torch, label, qkv, h, scale, by_sample=split)
-        plain = lambda: _by_sample(torch, split, fa.flash_self_attention_ref, qkv, h, scale)
-        r = rep[key] = dict(
-            max_abs_err=err, shape=(b, n, h, c),
-            ms=time_ms(torch, lambda: fa.flash_self_attention_cuda(qkv, h, scale)),
-            plain_ms=time_ms(torch, plain, iters=3, warmup=1),
-            library_ms=_sdpa_fwd_ms(torch, qkv, h, scale),
-            bound=attn_bound_ms(b, n, h, c, 2, qkv.numel() * 2,
-                                b * n * h * c * 2 + b * h * n * 4))
-        log(f"{label} time: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"(SDPA forward) {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][2]})")
-        del qkv, o, lse
+        _, _, err = _check_h1(torch, label, qkv, h, scale, by_sample=split)
+        rep[key] = dict(_time_h1(torch, label, qkv, h, scale, c, by_sample=split),
+                        max_abs_err=err)
+        del qkv
 
     ctx = setups[0]["keep"][0][0]  # vith16's first context
     b, n = TRAIN_BATCH, ctx
@@ -2787,39 +2907,13 @@ def phase_vith_kernels(torch, setups):
     o, lse, _ = _check_h1(torch, f"H1 ViT-H context B={b} N={n}", qkv, h, scale)
     delta, errs = _check_h2(torch, f"H2 ViT-H context B={b} N={n} H={h}", qkv, do, o, lse, h,
                             scale, c)
-    qkv_b, o_b, vec_b = qkv.numel() * 2, o.numel() * 2, b * h * n * 4
-    lib = _sdpa_bwd_ms(torch, qkv, do, h, scale)
-    out = torch.empty_like(qkv)
-    for key, fn, ref, products, outs, names in (
-            ("dkv_c80", fa.flash_bwd_dkv_cuda, fa.flash_bwd_dkv_ref, 4, 2, ("dk", "dv")),
-            ("dq_c80", fa.flash_bwd_dq_cuda, fa.flash_bwd_dq_ref, 3, 1, ("dq",))):
-        r = rep[key] = dict(
-            max_abs_err=max(errs[k] for k in names), shape=(b, n, h, c), library_ms=lib,
-            ms=time_ms(torch, lambda: fn(qkv, do, lse, delta, out, h, scale)),
-            plain_ms=time_ms(torch, lambda: ref(qkv, do, lse, delta, h, scale)),
-            bound=attn_bound_ms(b, n, h, c, products, qkv_b + o_b + 2 * vec_b, outs * o_b))
-        log(f"{key} ViT-H context B={b} N={n} H={h} c={c} time: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library (SDPA's whole backward) {lib:.4f} ms, bound "
-            f"{r['bound'][0]:.4f} ms ({r['bound'][2]})")
-    del qkv, do, o, lse, delta, out
+    for key, r in _time_h2(torch, f"ViT-H context B={b} N={n} H={h} c={c}", qkv, do, lse, delta,
+                           h, scale, c, errs).items():
+        rep[f"{key}_c80"] = r
+    del qkv, do, o, lse, delta
 
     m, k, f = TRAIN_BATCH * 1568, 1280, 5120
-    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
-    w = (torch.randn((f, k), generator=gen, device="cuda") / 32).to(torch.bfloat16)
-    bias = torch.randn((f,), generator=gen, device="cuda") * 0.1
-    err = _check_h3(torch, f"H3 ViT-H fc1 M={m} K={k} F={f}", x, w, bias)
-    bias_lp = bias.to(x.dtype)
-    r = rep["h3_k1280"] = dict(
-        max_abs_err=err, shape=(m, k, f),
-        ms=time_ms(torch, lambda: fm.linear_gelu_cuda(x, w, bias)),
-        plain_ms=time_ms(torch, lambda: fm.linear_gelu_ref(x, w, bias)),
-        library_ms=time_ms(torch, lambda: torch._addmm_activation(bias_lp, x, w.t(),
-                                                                  use_gelu=True)),
-        bound=fc1_bound_ms(m, k, f, outputs=1))
-    log(f"H3 ViT-H fc1 M={m} K={k} F={f} time: kernel {r['ms']:.4f} ms, plain "
-        f"{r['plain_ms']:.4f} ms, library (_addmm_activation) {r['library_ms']:.4f} ms, bound "
-        f"{r['bound'][0]:.4f} ms ({r['bound'][2]})")
-    del x, w, bias, bias_lp
+    rep["h3_k1280"] = _time_fc1(torch, "H3 ViT-H fc1", gen, m, k, f, torch.bfloat16)
 
     held = collections.defaultdict(float)
     done = {(TRAIN_BATCH, 1568, h, c), (10, 4608, h, c), (TRAIN_BATCH, ctx, h, c)}
@@ -2863,6 +2957,179 @@ def phase_vith_kernels(torch, setups):
     rep["held"] = held
     log(f"ViT-H's other call shapes against the plain versions, max|d| by instance: "
         f"{dict(held)}")
+    torch.cuda.empty_cache()
+    return rep
+
+
+# vit_giant and vit_gigantic: (model, data.patch_size in the pretrain YAML and
+# pretrain.patch_size in the eval YAML; None keeps the config's 16), each at
+# vitl16.yaml / vitl16_k400_16x8x3.yaml's geometry; gigantic at its factory's
+# patch 14 (N = 2048). Both update at B=24 with the app's default remat,
+# 'attn' (PERF.md §4: both fit).
+GIANTS = (("vit_giant", None), ("vit_gigantic", 14))
+
+
+def _f32_attn_inputs(torch, gen, b, n, h, c, c_real):
+    """Seeded fp32 qkv [B, N, 3*H*c] with the pad lanes past c_real zero."""
+    qkv = torch.randn((b, n, 3, h, c), generator=gen, device="cuda")
+    qkv[..., c_real:] = 0
+    return qkv.reshape(b, n, 3 * h * c)
+
+
+def phase_giant_kernels(torch, setups):
+    """The instances vit_giant's and vit_gigantic's paths launch, against
+    their plain versions on the card, each called a second time (bit-equal;
+    the plain versions one sample at a time where a batch's fp32 scores pass
+    PLAIN_BATCH_BYTES), timed beside a library call and their bound:
+    H1 c=88->96 at the vit_giant target (B=24, N=1568), both H2 kernels at
+    c=96 at its first context (B=24), H1 and both H2 kernels at c=96 with a
+    key mask at its padded mode's first context rung (B=24), H1 and both H2
+    kernels at c=104->128 at the vit_gigantic target (B=24, N=2048) and
+    first context, H1-fp32 at c=96 and c=128 at the fp32 evals' train step
+    (B=8, N=1568 and 2048), H3 and H3-fp32 at both fc1 (K=1408, F=6144;
+    K=1664, F=6656; M = 24 N and 8 N). Then, checked only: H1-fp32 at the
+    fp32 evals' val step (B=24), H1 and H2 at c=96 at the tile edges (N =
+    40 and 129; keys [128, 384) all pads at N = 640), H1-fp32 at c=96 and
+    128 at N = 40, 129 and 333, H3 and H3-fp32 at M = 2305, every other
+    padded-mode context rung and every other token-major call of one
+    update of each of ``setups`` (vit_giant, vit_gigantic: the contexts
+    under grad and the predictors, c=24->32); ``held`` gives each
+    instance's max|d| there."""
+    from jepa_tpu_torch.masks.multiblock3d import calibrate_pad_ladders
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    rng = np.random.default_rng(SEED + 15)
+    by_sample = lambda b, heads, n: b * heads * n * n * 4 > PLAIN_BATCH_BYTES
+    rep, held, done = {}, collections.defaultdict(float), set()
+    for setup in setups:
+        enc = setup["enc_cfg"]
+        h, c_real, n = enc.num_heads, enc.embed_dim // enc.num_heads, enc.num_patches
+        c, scale, b = fa.padded_head_dim(c_real), c_real**-0.5, setup["yaml_batch"]
+        sfx = "" if c == 96 else f"_{setup['model_name']}"
+        name = f"{setup['model_name']} B={b} H={h} c={c_real}->{c}"
+        # the target (grad-free) and the first context (under grad)
+        qkv, _ = _attn_inputs(torch, gen, b, n, h, c, c_real)
+        split = by_sample(b, h, n)
+        label = f"H1 {name} target N={n}"
+        _, _, err = _check_h1(torch, label, qkv, h, scale, by_sample=split)
+        rep[f"h1_c{c}{sfx}"] = dict(_time_h1(torch, label, qkv, h, scale, c_real,
+                                             by_sample=split), max_abs_err=err)
+        del qkv
+        ctx = setup["keep"][0][0]
+        qkv, do = _attn_inputs(torch, gen, b, ctx, h, c, c_real)
+        o, lse, err = _check_h1(torch, f"H1 {name} context N={ctx}", qkv, h, scale)
+        held[f"h1_c{c}"] = max(held[f"h1_c{c}"], err)
+        delta, errs = _check_h2(torch, f"H2 {name} context N={ctx}", qkv, do, o, lse, h, scale,
+                                c_real)
+        for key, r in _time_h2(torch, f"{name} context N={ctx}", qkv, do, lse, delta, h, scale,
+                               c_real, errs).items():
+            rep[f"{key}_c{c}{sfx}"] = r
+        done |= {(b, n, h, c), (b, ctx, h, c)}
+        del qkv, do, o, lse, delta
+        # the padded mode's context rungs, with the key mask (vit_giant's app)
+        if c == 96:
+            ladders = calibrate_pad_ladders(setup["specs"], setup["grid"], b)
+            first = ladders[0][0][0]  # the app's first padded context (expected_launches)
+            rungs = [first] + sorted({ce for ladder in ladders for ce, _ in ladder} - {first})
+            for i, ce in enumerate(rungs):
+                qkv, do = _attn_inputs(torch, gen, b, ce, h, c, c_real)
+                mask = padded_key_mask(torch, rng, b, ce, 0)
+                label = f"masked H1 {name} context rung N={ce}"
+                o, lse, err = _check_h1(torch, label, qkv, h, scale, mask)
+                delta, errs = _check_h2(torch, f"masked H2 {name} context rung N={ce}", qkv, do,
+                                        o, lse, h, scale, c_real, mask)
+                if i == 0:
+                    rep["h1_c96_masked"] = dict(_time_h1(torch, label, qkv, h, scale, c_real,
+                                                         mask), max_abs_err=err)
+                    for key, r in _time_h2(torch, f"masked {name} context rung N={ce}", qkv, do,
+                                           lse, delta, h, scale, c_real, errs, mask).items():
+                        rep[f"{key}_c96_masked"] = r
+                else:
+                    held["h1_c96_masked"] = max(held["h1_c96_masked"], err)
+                    held["dkv_c96_masked"] = max(held["dkv_c96_masked"], errs["dk"], errs["dv"])
+                    held["dq_c96_masked"] = max(held["dq_c96_masked"], errs["dq"])
+                del qkv, do, o, lse, delta, mask
+        # H1-fp32 at the fp32 eval's train step (batch 1: 8 clips)
+        qkv = _f32_attn_inputs(torch, gen, 8, n, h, c, c_real)
+        label = f"H1-fp32 {setup['model_name']} eval B=8 N={n} H={h} c={c_real}->{c}"
+        err = _check_h1_f32(torch, label, qkv, h, scale)
+        rep[f"h1_f32_c{c}"] = dict(_time_h1(torch, label, qkv, h, scale, c_real, f32=True),
+                                   max_abs_err=err)
+        qkv = _f32_attn_inputs(torch, gen, b, n, h, c, c_real)  # the val step's clips
+        held[f"h1_f32_c{c}"] = max(held[f"h1_f32_c{c}"], _check_h1_f32(
+            torch, f"H1-fp32 {setup['model_name']} eval B={b} N={n} H={h} c={c_real}->{c}", qkv,
+            h, scale, by_sample=by_sample(b, h, n)))
+        del qkv
+        # H3 and H3-fp32 at the encoder's fc1: the target's rows, the fp32 eval's;
+        # then at a ragged M
+        k, f = enc.embed_dim, enc.mlp_hidden
+        for dt, m, key, kind in ((torch.bfloat16, b * n, f"h3_k{k}", "H3"),
+                                 (torch.float32, 8 * n, f"h3_f32_k{k}", "H3-fp32")):
+            rep[key] = _time_fc1(torch, f"{kind} {setup['model_name']} fc1", gen, m, k, f, dt)
+            x = torch.randn((2305, k), generator=gen, device="cuda").to(dt)
+            w = (torch.randn((f, k), generator=gen, device="cuda") / 32).to(dt)
+            bias = torch.randn((f,), generator=gen, device="cuda") * 0.1
+            held[key] = max(held[key], (_check_h3 if dt == torch.bfloat16 else _check_f32_fc1)(
+                torch, f"{kind} {setup['model_name']} fc1 edge M=2305 K={k} F={f}", x, w, bias))
+            del x, w, bias
+
+    # tile edges: H1 and H2 at c=96, H1-fp32 at c=96 and c=128
+    for b, n in ((2, 40), (2, 129)):
+        qkv, do = _attn_inputs(torch, gen, b, n, 16, 96, 88)
+        o, lse, err = _check_h1(torch, f"H1 edge B={b} N={n} H=16 c=88->96", qkv, 16, 88**-0.5)
+        held["h1_c96"] = max(held["h1_c96"], err)
+        _, errs = _check_h2(torch, f"H2 edge B={b} N={n} H=16", qkv, do, o, lse, 16, 88**-0.5,
+                            88)
+        held["dq_c96"] = max(held["dq_c96"], errs["dq"])
+        held["dkv_c96"] = max(held["dkv_c96"], errs["dk"], errs["dv"])
+    qkv, do = _attn_inputs(torch, gen, 4, 640, 16, 96, 88)
+    mask = padded_key_mask(torch, rng, 4, 640, 0)
+    mask[:, 128:384] = False
+    label = "B=4 N=640 H=16, keys [128, 384) all pads"
+    o, lse, err = _check_h1(torch, f"masked H1 edge {label}, c=88->96", qkv, 16, 88**-0.5, mask)
+    held["h1_c96_masked"] = max(held["h1_c96_masked"], err)
+    _, errs = _check_h2(torch, f"masked H2 edge {label},", qkv, do, o, lse, 16, 88**-0.5, 88, mask)
+    held["dq_c96_masked"] = max(held["dq_c96_masked"], errs["dq"])
+    held["dkv_c96_masked"] = max(held["dkv_c96_masked"], errs["dk"], errs["dv"])
+    for c, c_real in ((96, 88), (128, 104)):
+        for n in (40, 129, 333):
+            qkv = _f32_attn_inputs(torch, gen, 2, n, 16, c, c_real)
+            err = _check_h1_f32(torch, f"H1-fp32 edge B=2 N={n} H=16 c={c_real}->{c}", qkv, 16,
+                                c_real**-0.5)
+            held[f"h1_f32_c{c}"] = max(held[f"h1_f32_c{c}"], err)
+    del qkv, do, o, lse, mask
+
+    # every other token-major call of one update of each setup
+    for setup in setups:
+        b = setup["yaml_batch"]
+        for n, heads, c_real, _, grad, _ in attention_calls(setup["enc_cfg"], setup["pred_cfg"],
+                                                            setup["keep"]):
+            cp = fa.padded_head_dim(c_real)
+            if (n < 128 or fa.self_attention_route(heads, c_real, n) != "tm"
+                    or (b, n, heads, cp) in done):
+                continue
+            done.add((b, n, heads, cp))
+            split = by_sample(b, heads, n)
+            label = (f"{setup['model_name']} B={b} N={n} H={heads}"
+                     + (" (plain versions by sample)" if split else ""))
+            qkv, do = _attn_inputs(torch, gen, b, n, heads, cp, c_real)
+            sc = c_real**-0.5
+            o, lse, err = _check_h1(torch, f"H1 {label} c={c_real}->{cp}", qkv, heads, sc,
+                                    by_sample=split)
+            held[f"h1_c{cp}"] = max(held[f"h1_c{cp}"], err)
+            if grad:
+                _, errs = _check_h2(torch, f"H2 {label}", qkv, do, o, lse, heads, sc, c_real,
+                                    by_sample=split)
+                held[f"dq_c{cp}"] = max(held[f"dq_c{cp}"], errs["dq"])
+                held[f"dkv_c{cp}"] = max(held[f"dkv_c{cp}"], errs["dk"], errs["dv"])
+            del qkv, do, o, lse
+            torch.cuda.empty_cache()
+    for key, r in rep.items():  # vit_gigantic's c=128 rows take c=128's other calls
+        r["max_abs_err"] = max(r["max_abs_err"], held.get(key.removesuffix("_vit_gigantic"), 0.0))
+    rep["held"] = held
+    log(f"vit_giant's and vit_gigantic's other call shapes against the plain versions, max|d| "
+        f"by instance: {dict(held)}")
     torch.cuda.empty_cache()
     return rep
 
@@ -3000,6 +3267,8 @@ DIST_LIMIT_FACTOR = 10.0
 DIST_REL_FLOOR = 1e-6  # a limit never below this relative difference (nor cosine above 1 - it)
 DIST_APP_IPE = 2  # (c): updates per epoch of the 2-rank app
 DIST_EVAL_ENTRIES = (8, 10)  # (d): train / val videos; 10 is no multiple of 2 ranks x 4
+DIST_DEPTH = 8  # ViT-L's depth in every run of phase_dist, its width kept (cut_depth)
+DIST_PRED_DEPTH = 4  # the predictor's depth there (model.pred_depth; 12 in vitl16.yaml)
 DIST_MODULES = ("encoder", "predictor", "target")
 
 
@@ -3065,8 +3334,9 @@ def _dist_update_rank(rank, world, repo):
     from jepa_tpu_torch.utils.checkpoint import gather_moments
 
     _rank_device(torch)
-    one = train_setup(repo, remat="attn")
-    two = train_setup(repo, remat="attn", layout=make_layout(1))
+    with cut_depth("vit_large", DIST_DEPTH):
+        one = train_setup(repo, remat="attn", pred_depth=DIST_PRED_DEPTH)
+        two = train_setup(repo, remat="attn", layout=make_layout(1), pred_depth=DIST_PRED_DEPTH)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     state0 = init_train_state(one["enc_cfg"], one["pred_cfg"], gen)
     clips = [torch.randn((TRAIN_BATCH, *one["clip_shape"]), generator=gen, device="cuda")
@@ -3147,7 +3417,8 @@ def _dist_app_rank(rank, world, argv):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(fa, fm)
     t0 = time.perf_counter()
-    state = main_distributed.main(argv)
+    with cut_depth("vit_large", DIST_DEPTH):
+        state = main_distributed.main(argv)
     torch.cuda.synchronize()
     return dict(step=state.step, writes=writes, launches=_counts(fa, fm),
                 secs=time.perf_counter() - t0,
@@ -3193,7 +3464,8 @@ def _dist_eval_rank(rank, world, argv):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(fa, fm)
     t0 = time.perf_counter()
-    accs = main_distributed.main(argv)
+    with cut_depth("vit_large", DIST_DEPTH):
+        accs = main_distributed.main(argv)
     torch.cuda.synchronize()
     launches = {k: v - rec["extra"].get(k, 0) for k, v in _counts(fa, fm).items()}
     return dict(accs=accs, writes=writes, launches=launches, counts=rec["counts"],
@@ -3287,6 +3559,8 @@ def phase_dist(torch, repo, setup, card):
     (d) the 2-rank K400 16x8x3 bf16 eval (batch 4 per rank, one epoch):
         the val pass counts each of an uneven val set's clips once and
         matches a 1-rank val pass of the same probe.
+    ``setup`` and every run here are ViT-L at DIST_DEPTH blocks
+    (``cut_depth``, entered by the caller and by each spawned rank).
     Spawned ranks fail the phase when they fail."""
     import copy
     import shutil
@@ -3379,6 +3653,7 @@ def phase_dist(torch, repo, setup, card):
             cfg = yaml.safe_load(f)
         cfg["data"]["dataset_type"] = "synthetic"
         cfg["data"]["num_workers"] = 4  # per rank: two ranks share the host's cores
+        cfg["model"]["pred_depth"] = DIST_PRED_DEPTH
         cfg["optimization"].update(ipe=DIST_APP_IPE, epochs=1)
         cfg_path = os.path.join(workdir, "dist_app.yaml")
         argv = ["--fname", cfg_path, "--backend", "gloo"]
@@ -3438,7 +3713,8 @@ def phase_dist(torch, repo, setup, card):
         ranks = _run_ranks(_dist_eval_rank, (["--fname", epath, "--backend", "gloo"],),
                            init_group=False, env=_slurm_env(2))
         steps = n_train // (2 * 4) + -(-n_val // (2 * 4))
-        per_step = {"h1": DEPTH, "h1_c64": DEPTH, "h3": DEPTH}
+        depth = setup["enc_cfg"].depth
+        per_step = {"h1": depth, "h1_c64": depth, "h3": depth}
         r0 = ranks[0]
         log(f"dist (d): card {card}; 2-rank K400 16x8x3 bf16 eval (batch 4 per rank, {n_train} "
             f"train / {n_val} val videos): val (correct, total) 2 ranks {r0['counts']}, 1 rank "
@@ -4057,46 +4333,84 @@ def main() -> int:
         app = timed("app", phase_app, torch, repo, setup, workdir)
         instr = timed("app with profile_steps and log_resources", phase_app_instruments,
                       torch, repo, setup, workdir)
-    dist = timed("dist", phase_dist, torch, repo, setup, card)
+    with cut_depth("vit_large", DIST_DEPTH):
+        dist_setup = train_setup(repo, pred_depth=DIST_PRED_DEPTH)
+        dist = timed("dist", phase_dist, torch, repo, dist_setup, card)
     # vit_tiny: its serving, updates and app, through the head-major kernels
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
         tiny_serve = timed("tiny_serve", phase_serve, torch, workdir, "vit_tiny")
         tiny_train = timed("tiny_train", phase_train, torch, tiny, determinism=True)
         tiny_app = timed("tiny_app", phase_app, torch, repo, tiny, workdir)
-    # the tube mask mode at vitl16.yaml: updates (one B=2 update against the
-    # plain versions), the app fixed and padded; then remat at ViT-L
-    tube = train_setup(repo, tube=TUBE_MASKS)
-    tube_train = timed("tube_train", phase_train, torch, tube, steps=3, b2=(False,))
-    with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
-        tube_app = timed("tube_app", phase_app, torch, repo, tube, workdir, epochs=1, resume=False)
-    remat = timed("remat", phase_remat, torch, repo)
-    # ViT-H: its kernel instances, vith16.yaml and vith16_384.yaml with the
-    # app's default remat ('attn') through build_train_step and the app, and
-    # the K400 16x8x3 evals of both in bf16 and fp32
-    vith = train_setup(repo, config="vith16.yaml", remat="attn")
-    vith384 = train_setup(repo, config="vith16_384.yaml", remat="attn")
-    vk = timed("vk", phase_vith_kernels, torch, (vith, vith384))
-    for key, row in (("h1_c32", bwd["h1_c32"]), ("dkv_c32", bwd["dkv"]), ("dq_c32", bwd["dq"]),
-                     ("h1_c80", vk["h1_c80"]), ("dkv_c80", vk["dkv_c80"]),
-                     ("dq_c80", vk["dq_c80"]),
-                     ("h1_f32_c80", f32["by_shape"][F32_H1_SHAPES[1]]),
-                     ("h3_f32_k1280", f32["by_shape"][F32_H3_SHAPES[1]])):
-        row["max_abs_err"] = max(row["max_abs_err"], vk["held"][key])
-    vith_train = timed("vith_train", phase_train, torch, vith, b2=())
-    vith384_train = timed("vith384_train", phase_train, torch, vith384, b2=())
-    evh = {}
-    with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
-        vith_app = timed("vith_app", phase_app, torch, repo, vith, workdir, ipe=2, epochs=1)
-        vith384_app = timed("vith384_app", phase_app, torch, repo, vith384, workdir, ipe=2,
-                            epochs=1, resume=False, padded=False)
-        enc_h = write_seeded_encoder(torch, workdir, "vit_huge")
-        for config in VITH_EVALS:
-            for bf16 in (True, False):
-                evh[config, bf16] = phase_eval_video(
-                    torch, repo, workdir, enc_h, bf16, config=config,
-                    entries=VITH_EVAL_ENTRIES if bf16 else EVAL_F32_ENTRIES, resume=False,
-                    views_checked=VITH_VIEWS_CHECKED)
-        os.remove(enc_h)
+    # at VITL_CUT_DEPTH of ViT-L's blocks: the tube mask mode at vitl16.yaml
+    # (updates, one B=2 update against the plain versions, the app fixed and
+    # padded), then remat
+    with cut_depth("vit_large", VITL_CUT_DEPTH):
+        tube = train_setup(repo, tube=TUBE_MASKS)
+        tube_train = timed("tube_train", phase_train, torch, tube, steps=3, b2=(False,))
+        with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
+            tube_app = timed("tube_app", phase_app, torch, repo, tube, workdir, epochs=1,
+                             resume=False)
+        remat = timed("remat", phase_remat, torch, repo)
+    # ViT-H: its kernel instances at their full shapes, then at VITH_CUT_DEPTH
+    # blocks vith16.yaml and vith16_384.yaml with the app's default remat
+    # ('attn') through build_train_step and the app, and the K400 16x8x3
+    # evals of both in bf16 and fp32
+    with cut_depth("vit_huge", VITH_CUT_DEPTH):
+        vith = train_setup(repo, config="vith16.yaml", remat="attn")
+        vith384 = train_setup(repo, config="vith16_384.yaml", remat="attn")
+        vk = timed("vk", phase_vith_kernels, torch, (vith, vith384))
+        for key, row in (("h1_c32", bwd["h1_c32"]), ("dkv_c32", bwd["dkv"]), ("dq_c32", bwd["dq"]),
+                         ("h1_c80", vk["h1_c80"]), ("dkv_c80", vk["dkv_c80"]),
+                         ("dq_c80", vk["dq_c80"]),
+                         ("h1_f32_c80", f32["by_shape"][F32_H1_SHAPES[1]]),
+                         ("h3_f32_k1280", f32["by_shape"][F32_H3_SHAPES[1]])):
+            row["max_abs_err"] = max(row["max_abs_err"], vk["held"][key])
+        vith_train = timed("vith_train", phase_train, torch, vith, b2=())
+        vith384_train = timed("vith384_train", phase_train, torch, vith384, b2=())
+        evh = {}
+        with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
+            vith_app = timed("vith_app", phase_app, torch, repo, vith, workdir, ipe=2, epochs=1)
+            vith384_app = timed("vith384_app", phase_app, torch, repo, vith384, workdir, ipe=2,
+                                epochs=1, resume=False, padded=False)
+            enc_h = write_seeded_encoder(torch, workdir, "vit_huge")
+            for config in VITH_EVALS:
+                for bf16 in (True, False):
+                    evh[config, bf16] = timed(
+                        f"{config} {'bf16' if bf16 else 'fp32'}", phase_eval_video,
+                        torch, repo, workdir, enc_h, bf16, config=config,
+                        entries=VITH_EVAL_ENTRIES if bf16 else EVAL_F32_ENTRIES, resume=False,
+                        views_checked=VITH_VIEWS_CHECKED)
+            os.remove(enc_h)
+    # vit_giant and vit_gigantic: their kernel instances, serving, updates at
+    # the config's batch; at GIANT_CUT_DEPTH blocks the K400 16x8x3 evals in
+    # bf16 and fp32 and vit_giant's app (fixed + resume, padded)
+    gsetups = {m: train_setup(repo, model_name=m, remat="attn", patch_size=p)
+               for m, p in GIANTS}
+    gk = timed("giant kernels", phase_giant_kernels, torch, tuple(gsetups.values()))
+    for key in ("h1_c32", "dkv_c32", "dq_c32"):  # the predictors' c=24->32
+        row = {"h1_c32": bwd["h1_c32"], "dkv_c32": bwd["dkv"], "dq_c32": bwd["dq"]}[key]
+        row["max_abs_err"] = max(row["max_abs_err"], gk["held"][key])
+    gruns = {}
+    for m, p in GIANTS:
+        r = gruns[m] = {}
+        with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
+            r["serve"] = timed(f"{m} serve", phase_serve, torch, workdir, m)
+            r["train"] = timed(f"{m} train", phase_train, torch, gsetups[m],
+                               b2=(False,) if m == "vit_giant" else ())
+            os.remove(r["serve"]["enc_path"])
+            with cut_depth(m, GIANT_CUT_DEPTH):
+                enc_path = write_seeded_encoder(torch, workdir, m)
+                for bf16 in (True, False):
+                    r[bf16] = timed(f"{m} eval {'bf16' if bf16 else 'fp32'}", phase_eval_video,
+                                    torch, repo, workdir, enc_path, bf16,
+                                    entries=VITH_EVAL_ENTRIES if bf16 else EVAL_F32_ENTRIES,
+                                    resume=False, views_checked=VITH_VIEWS_CHECKED,
+                                    model_name=m, patch_size=p)
+                os.remove(enc_path)
+                if m == "vit_giant":
+                    r["app"] = timed(f"{m} app", phase_app, torch, repo,
+                                     train_setup(repo, model_name=m, remat="attn"), workdir,
+                                     ipe=2, epochs=1)
     sl = _sum_launches(serve["launches"], off["launches"])
     al = app["padded"]["launches"]
     el, fl = ev16["launches"], ev32["launches"]
@@ -4118,6 +4432,12 @@ def main() -> int:
     vl = _sum_launches(*vith_runs, *(e["launches"] for e in evh.values()))
     vp = vith_app["padded"]["launches"]  # every attention call key-masked but the target's
     k2 = vl[K2_KEY] + vp[K2_KEY]
+    # vit_giant (gl; its padded app gp, every trainable call key-masked) and
+    # vit_gigantic (gg): serving, updates, evals and vit_giant's app
+    runs = lambda m: [gruns[m][k]["launches"] for k in ("serve", "train", True, False)]
+    gl = _sum_launches(*runs("vit_giant"), gruns["vit_giant"]["app"]["fixed"]["launches"])
+    gp = gruns["vit_giant"]["app"]["padded"]["launches"]
+    gg = _sum_launches(*runs("vit_gigantic"))
     fa_src, bwd_src = "jepa_tpu_torch/csrc/flash_attention.cu", "jepa_tpu_torch/csrc/flash_attention_bwd.cu"
     fa_py = "jepa_tpu/ops/flash_attention.py"
     kernels = [
@@ -4127,11 +4447,11 @@ def main() -> int:
                      kern["h1"]),
         # ViT-L's updates and ViT-H's predictors (c=32)
         kernel_entry("flash_self_attention_fwd_c32", fa_src, f"{fa_py}:955",
-                     tl["h1_c32"] + vl["h1_c32"], bwd["h1_c32"]),
-        kernel_entry("flash_bwd_dkv", bwd_src, f"{fa_py}:1452", tl["dkv"] + vl["dkv_c32"],
-                     bwd["dkv"]),
-        kernel_entry("flash_bwd_dq", bwd_src, f"{fa_py}:1400", tl["dq"] + vl["dq_c32"],
-                     bwd["dq"]),
+                     tl["h1_c32"] + vl["h1_c32"] + gl["h1_c32"] + gg["h1_c32"], bwd["h1_c32"]),
+        kernel_entry("flash_bwd_dkv", bwd_src, f"{fa_py}:1452",
+                     tl["dkv"] + vl["dkv_c32"] + gl["dkv_c32"] + gg["dkv_c32"], bwd["dkv"]),
+        kernel_entry("flash_bwd_dq", bwd_src, f"{fa_py}:1400",
+                     tl["dq"] + vl["dq_c32"] + gl["dq_c32"] + gg["dq_c32"], bwd["dq"]),
         kernel_entry("linear_gelu_fwd", "jepa_tpu_torch/csrc/fused_mlp.cu",
                      "jepa_tpu/ops/fused_mlp.py:92",
                      sl["h3"] + tl["h3"] + el["h3"] + il["h3"] + al["h3"], kern["h3"]),
@@ -4145,11 +4465,12 @@ def main() -> int:
         kernel_entry("flash_self_attention_fwd_masked", fa_src, f"{fa_py}:955",
                      al["h1_c64_masked"], masked["h1_c64"]),
         kernel_entry("flash_self_attention_fwd_masked_c32", fa_src, f"{fa_py}:955",
-                     al["h1_c32_masked"] + vp["h1_c32_masked"], masked["h1_c32"]),
+                     al["h1_c32_masked"] + vp["h1_c32_masked"] + gp["h1_c32_masked"],
+                     masked["h1_c32"]),
         kernel_entry("flash_bwd_dkv_masked", bwd_src, f"{fa_py}:1452",
-                     al["dkv_masked"] + vp["dkv_c32"], masked["dkv"]),
+                     al["dkv_masked"] + vp["dkv_c32"] + gp["dkv_c32"], masked["dkv"]),
         kernel_entry("flash_bwd_dq_masked", bwd_src, f"{fa_py}:1400",
-                     al["dq_masked"] + vp["dq_c32"], masked["dq"]),
+                     al["dq_masked"] + vp["dq_c32"] + gp["dq_c32"], masked["dq"]),
         # K11: the force update's context encoder; fp32: linear_gelu under autograd
         kernel_entry("linear_gelu_fwd_z", "jepa_tpu_torch/csrc/fused_mlp.cu",
                      "jepa_tpu/ops/fused_mlp.py:112", train_force["launches"]["h8"], k11["z"]),
@@ -4214,24 +4535,82 @@ def main() -> int:
                      sum(e["launches"]["h3_f32"] for e in evh.values()),
                      f32["by_shape"][F32_H3_SHAPES[1]]),
     ]
-    for name, r in (("tube (vitl16.yaml, ratio 0.9)", tube_train),
-                    ("vith16.yaml, remat 'attn'", vith_train),
-                    ("vith16_384.yaml, remat 'attn'", vith384_train)):
+    # vit_giant's instances (c=88->96, K=1408) and vit_gigantic's (c=104->128,
+    # K=1664): by the JAX pickers K1 for every forward (N = 1568, 2048) and K3
+    # for every trainable call, whose H2 pair is listed under K5 / K4 as above
+    kernels += [
+        kernel_entry("flash_self_attention_fwd_c96", fa_src, f"{fa_py}:955",
+                     gl["h1_c96"] + gp["h1_c96"], gk["h1_c96"]),
+        kernel_entry("flash_self_attention_fwd_masked_c96", fa_src, f"{fa_py}:955",
+                     gp["h1_c96_masked"], gk["h1_c96_masked"]),
+        kernel_entry("flash_bwd_dkv_c96", bwd_src, f"{fa_py}:1452", gl["dkv_c96"],
+                     gk["dkv_c96"]),
+        kernel_entry("flash_bwd_dq_c96", bwd_src, f"{fa_py}:1400", gl["dq_c96"], gk["dq_c96"]),
+        kernel_entry("flash_bwd_dkv_masked_c96", bwd_src, f"{fa_py}:1452", gp["dkv_c96"],
+                     gk["dkv_c96_masked"]),
+        kernel_entry("flash_bwd_dq_masked_c96", bwd_src, f"{fa_py}:1400", gp["dq_c96"],
+                     gk["dq_c96_masked"]),
+        kernel_entry("flash_self_attention_fwd_f32_c96", fa_src, f"{fa_py}:955",
+                     gl["h1_f32_c96"], gk["h1_f32_c96"]),
+        kernel_entry("flash_self_attention_fwd_f32_c128", fa_src, f"{fa_py}:955",
+                     gg["h1_f32_c128"], gk["h1_f32_c128"]),
+        kernel_entry("flash_self_attention_fwd_c128_n2048", fa_src, f"{fa_py}:955",
+                     gg["h1_c128"], gk["h1_c128_vit_gigantic"]),
+        kernel_entry("flash_bwd_dkv_c128_gigantic", bwd_src, f"{fa_py}:1452", gg["dkv_c128"],
+                     gk["dkv_c128_vit_gigantic"]),
+        kernel_entry("flash_bwd_dq_c128_gigantic", bwd_src, f"{fa_py}:1400", gg["dq_c128"],
+                     gk["dq_c128_vit_gigantic"]),
+        kernel_entry("linear_gelu_fwd_k1408", fc1_src, "jepa_tpu/ops/fused_mlp.py:92",
+                     gl["h3"] + gp["h3"], gk["h3_k1408"]),
+        kernel_entry("linear_gelu_fwd_k1664", fc1_src, "jepa_tpu/ops/fused_mlp.py:92", gg["h3"],
+                     gk["h3_k1664"]),
+        kernel_entry("linear_gelu_fwd_f32_k1408", fc1_src, "jepa_tpu/ops/fused_mlp.py:92",
+                     gl["h3_f32"], gk["h3_f32_k1408"]),
+        kernel_entry("linear_gelu_fwd_f32_k1664", fc1_src, "jepa_tpu/ops/fused_mlp.py:92",
+                     gg["h3_f32"], gk["h3_f32_k1664"]),
+    ]
+    for m, _ in GIANTS:
+        r = gruns[m]
+        t, g = r["train"], r["train"]["prof"]["groups"]
+        log(f"card: {card}; {m} serve median {r['serve']['median_ms']:.3f} ms/request (B=2), "
+            f"peak {r['serve']['peak_gib']:.3f} GiB; update (vitl16.yaml, B={t['batch']}, remat "
+            f"'attn'): median {t['median_ms']:.1f} ms/update, peak "
+            f"{t['peak_gib']:.2f} GiB, device {t['prof']['device_ms']:.1f} ms (" + ", ".join(
+                f"{k} {v:.1f}" for k, v in g.items()) + f"); launches/update {t['per_step']}")
+        for bf16 in (True, False):
+            e = r[bf16]
+            log(f"card: {card}; {m} ({GIANT_CUT_DEPTH} blocks) K400 16x8x3 eval "
+                f"{'bf16, batch 4' if bf16 else 'fp32, batch 1'}"
+                f": median train step {e['train_ms']:.1f} ms, val step {e['val_ms']:.1f} ms, peak "
+                f"{e['peak_gib']:.2f} GiB; features vs plain min cosine "
+                f"{min(e['feat_cos'].values()):.7f}")
+        for mode, a in r.get("app", {}).items():
+            log(f"card: {card}; {m} ({GIANT_CUT_DEPTH} blocks) app {mode}: median step "
+                f"{a['step_ms']:.0f} ms, wall "
+                f"{a['wall_ms']:.0f} ms, host share {100 * a['host']:.1f} %, peak "
+                f"{a['peak_gib']:.2f} GiB")
+    for name, r in ((f"tube (vitl16.yaml, ratio 0.9, {VITL_CUT_DEPTH} blocks)", tube_train),
+                    (f"vith16.yaml ({VITH_CUT_DEPTH} blocks), remat 'attn'", vith_train),
+                    (f"vith16_384.yaml ({VITH_CUT_DEPTH} blocks), remat 'attn'", vith384_train)):
         g = r["prof"]["groups"]
         log(f"card: {card}; {name} update: median {r['median_ms']:.1f} ms/update, peak "
             f"{r['peak_gib']:.2f} GiB, device {r['prof']['device_ms']:.1f} ms (" + ", ".join(
                 f"{k} {v:.1f}" for k, v in g.items()) + f"); launches/update {r['per_step']}")
-    for name, a in (("tube", tube_app), ("vith16", vith_app), ("vith16_384", vith384_app)):
+    for name, a in ((f"tube ({VITL_CUT_DEPTH} blocks)", tube_app),
+                    (f"vith16 ({VITH_CUT_DEPTH} blocks)", vith_app),
+                    (f"vith16_384 ({VITH_CUT_DEPTH} blocks)", vith384_app)):
         for mode, m in a.items():
             log(f"card: {card}; {name} app {mode}: median step {m['step_ms']:.0f} ms, wall "
                 f"{m['wall_ms']:.0f} ms, host share {100 * m['host']:.1f} %, peak "
                 f"{m['peak_gib']:.2f} GiB")
     for r, m in remat.items():
-        log(f"card: {card}; ViT-L update remat {r!r} (B={TRAIN_BATCH}, in turns): median "
+        log(f"card: {card}; ViT-L update ({VITL_CUT_DEPTH} blocks) remat {r!r} "
+            f"(B={TRAIN_BATCH}, in turns): median "
             f"{m['median_ms']:.1f} ms, device {m['prof']['device_ms']:.1f} ms, peak "
             f"{m['peak_gib']:.2f} GiB, bit-equal to remat False")
     for (config, bf16), e in evh.items():
-        log(f"card: {card}; {config} eval {'bf16, batch 4' if bf16 else 'fp32, batch 1'}: "
+        log(f"card: {card}; {config} eval ({VITH_CUT_DEPTH} blocks) "
+            f"{'bf16, batch 4' if bf16 else 'fp32, batch 1'}: "
             f"median train step {e['train_ms']:.1f} ms, val step {e['val_ms']:.1f} ms, peak "
             f"{e['peak_gib']:.2f} GiB; features vs plain min cosine "
             f"{min(e['feat_cos'].values()):.7f}")

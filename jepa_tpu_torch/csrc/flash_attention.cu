@@ -5,9 +5,10 @@
 // token-major TPU kernel) and computes the same math as its kv-blocked
 // sibling _fwd_tm_tiled_kernel (K2's geometry, B=1 N=4608 c=80, runs here).
 //
-// Head dims C in {32, 64, 80, 128}: 64/80 for the encoders, 32 for the
-// predictors' 24 zero-padded to 32 (see ops/flash_attention.py), 128 for
-// vit_tiny's 384-wide predictor (3 heads) and gigantic's 104 padded to 128.
+// Head dims C in {32, 64, 80, 96, 128}: 64/80 for the encoders, 32 for the
+// predictors' 24 zero-padded to 32 (see ops/flash_attention.py), 96 for
+// vit_giant's 88 padded to 96, 128 for vit_tiny's 384-wide predictor (3
+// heads) and vit_gigantic's 104 padded to 128.
 //
 // Inputs: qkv [B, N, 3*H*C] bf16, the projection output read by stride
 // (columns q|k|v, each head-major), and an optional key mask kvm [B, N]
@@ -59,9 +60,11 @@
 // and an empty mbarrier. Rows past N come back as zeros, never as the next
 // batch's rows. The box is one swizzle row wide: C=64 and C=128 take
 // 64-column boxes in the 128-byte swizzle (two per tile at C=128), C=32
-// one 32-column box in the 64-byte swizzle, C=80 (160-byte rows) five
-// 16-column boxes in the 32-byte swizzle; the wgmma descriptors use the
-// matching mode. Each consumer warpgroup (232 registers) owns 64 query
+// and C=96 32-column boxes in the 64-byte swizzle (three per tile at
+// C=96), C=80 (160-byte rows) five 16-column boxes in the 32-byte swizzle;
+// the wgmma descriptors use the matching mode (at C=96 and C=128 the PV
+// product's V operand spans the boxes through the descriptor's
+// leading-byte offset). Each consumer warpgroup (232 registers) owns 64 query
 // rows: it scales its Q rows by scale*log2e in place (elementwise, so the
 // swizzle is kept; fence.proxy.async before wgmma reads them), then per
 // stage S = Q K^T by wgmma m64n128k16 from shared memory (K K-major as
@@ -90,7 +93,8 @@ constexpr int STAGES = 2;
 // boxes across the head; 128-row boxes of BOX bytes, tiles of TILE bytes
 template <int C>
 struct Geo {
-  static constexpr int CB = C == 32 ? 32 : C == 80 ? 16 : 64;
+  static constexpr int CB = C == 32 || C == 96 ? 32 : C == 80 ? 16 : 64;
+  static_assert(C % CB == 0, "the box width must divide the head dim");
   static constexpr int NB = C / CB;
   static constexpr int RB = 2 * CB;
   static constexpr int SWZ = RB == 128 ? jt::kSwizzle128 : RB == 64 ? jt::kSwizzle64 : jt::kSwizzle32;
@@ -385,8 +389,8 @@ int launch(const void* qkv, const void* kvm, void* o, void* lse, int B, int N, i
 // rows of one (batch, head) with 256 threads. Thread (rg, cg) of warp w
 // (rg = 4w + lane%4, cg = lane/4) owns the 4 query rows 4rg..4rg+3 and,
 // per 32-key tile, the keys cg + 8i (i < 4) of S and the head columns
-// 4cg.., 32+4cg.. (and 64+2cg.. at C=80) of O, so a row's 8 owners sit in
-// one warp. The Q tile, scaled by qscale in fp32, is stored c-major once;
+// 32g + 4cg.. (g < C/32) and, at C=80, 64+2cg.. of O, so a row's 8 owners
+// sit in one warp. The Q tile, scaled by qscale in fp32, is stored c-major once;
 // K (rows padded to C+4 floats, so the 8 column groups' keys fall in 8
 // bank groups) and V tiles of 32 keys stream through a 2-stage cp.async
 // ring, one __syncthreads a tile. S: per 4 head columns a thread loads 4
@@ -394,7 +398,11 @@ int launch(const void* qkv, const void* kvm, void* o, void* lse, int B, int N, i
 // over the tile is taken by shuffles among the row's 8 owners; p goes to
 // the warp's own [32 keys][16 rows] slice of shared memory (a __syncwarp,
 // no block barrier); PV: per key a float4 of p (its rows) and 2-3 loads of
-// V for 32-40 FFMAs, and l takes p in key order in each owner (4 adds).
+// V for 32-64 FFMAs, and l takes p in key order in each owner (4 adds).
+// Head dims 64 and 80 ask for two blocks an SM (128 registers a thread);
+// at 96 and 128 the accumulators (48 and 64 a thread) and the shared
+// memory (113 and 145 KB a block) leave room for one, so the launch bound
+// asks for one and the registers spill nowhere.
 //
 // Numerics against the one-row-a-thread kernel this design replaced, kept
 // to the bit: s = an fmaf chain over c ascending from 0 with q*qscale
@@ -416,9 +424,10 @@ struct F32Geo {
   static constexpr int SV = F32_BKV * C;         // V tile [32][C]
   static constexpr int SP = 8 * F32_BKV * 16;    // p, per warp [32 keys][16 rows]
   static constexpr int SMEM = 4 * (SQ + F32_STAGES * (SK + SV) + SP);
-  static constexpr int NV = C / 32;              // float4 column groups of O (2)
+  static constexpr int NV = C / 32;              // float4 column groups of O (2-4)
   static constexpr int NT = (C % 32) / 8;        // float2 tail columns of O (0; 2 at C=80)
   static constexpr int COLS = 4 * NV + NT;       // O columns a thread owns
+  static constexpr int MINB = C <= 80 ? 2 : 1;   // blocks an SM, for the launch bound
 };
 
 // the K and V rows of keys [k0, k0 + 32) into one ring stage
@@ -438,7 +447,7 @@ __device__ __forceinline__ void f32_load_kv(float* sk, float* sv, const float* b
 }
 
 template <int C>
-__global__ void __launch_bounds__(F32_THREADS, 2)
+__global__ void __launch_bounds__(F32_THREADS, F32Geo<C>::MINB)
 flash_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ o,
                      float* __restrict__ lse, int N, int H, float qscale) {
   using G = F32Geo<C>;
@@ -610,6 +619,7 @@ int launch_f32(const void* qkv, void* o, void* lse, int B, int N, int H, float q
 JT_FWD_ENTRY(32)
 JT_FWD_ENTRY(64)
 JT_FWD_ENTRY(80)
+JT_FWD_ENTRY(96)
 JT_FWD_ENTRY(128)
 
 #define JT_FWD_F32_ENTRY(C)                                                     \
@@ -621,3 +631,5 @@ JT_FWD_ENTRY(128)
 
 JT_FWD_F32_ENTRY(64)
 JT_FWD_F32_ENTRY(80)
+JT_FWD_F32_ENTRY(96)
+JT_FWD_F32_ENTRY(128)

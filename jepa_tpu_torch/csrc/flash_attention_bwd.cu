@@ -43,8 +43,8 @@
 // product as wgmma from swizzled shared memory, with the score and
 // gradient tiles kept in registers as the next product's A operand. The
 // box is one swizzle row wide, as in H1: C=64 and C=128 64-column boxes in
-// the 128-byte swizzle, C=32 one 32-column box in the 64-byte swizzle,
-// C=80 five 16-column boxes in the 32-byte swizzle. The epilogue scales
+// the 128-byte swizzle, C=32 one and C=96 three 32-column boxes in the
+// 64-byte swizzle, C=80 five 16-column boxes in the 32-byte swizzle. The epilogue scales
 // the fp32 accumulators, writes bf16 into the block's own rows of its
 // shared tiles in the same swizzle and stores them through a TMA map of
 // dqkv (rows past N dropped by the hardware).
@@ -57,8 +57,8 @@
 //   through the descriptor's transpose bit.
 //
 //   dk/dv kernel: the block's K and V rows arrive once; Q and dO stream in
-//   64-row stages (32 at C=128, where dK and dV alone hold 128 fp32
-//   registers a thread), with the stage's lse and delta rows. The producer
+//   64-row stages (32 at C=96 and C=128, where dK and dV alone hold 96 and
+//   128 fp32 registers a thread), with the stage's lse and delta rows. The producer
 //   warpgroup scales each Q stage by scale*log2e in place before it
 //   releases the stage to the consumers, so both kernels read one Qs.
 //   S^T = K Qs^T and dP^T = V dO^T by wgmma (K-major as stored), p and ds
@@ -90,7 +90,8 @@ constexpr float INV_LOG2E = 0.6931471805599453f;
 // rows*RB bytes each
 template <int C>
 struct Geo {
-  static constexpr int CB = C == 32 ? 32 : C == 80 ? 16 : 64;
+  static constexpr int CB = C == 32 || C == 96 ? 32 : C == 80 ? 16 : 64;
+  static_assert(C % CB == 0, "the box width must divide the head dim");
   static constexpr int NB = C / CB;
   static constexpr int RB = 2 * CB;
   static constexpr int SWZ = RB == 128 ? jt::kSwizzle128 : RB == 64 ? jt::kSwizzle64 : jt::kSwizzle32;
@@ -537,4 +538,5 @@ int launch_dq(const void* qkv, const void* kvm, const void* dO, const void* lse,
 JT_BWD_ENTRIES(32)
 JT_BWD_ENTRIES(64)
 JT_BWD_ENTRIES(80)
+JT_BWD_ENTRIES(96)
 JT_BWD_ENTRIES(128)

@@ -37,7 +37,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> argtypes; every entry point returns cudaError_t (int)
-_TM_HEAD_DIMS = (32, 64, 80, 128)  # H1 and H2 (ops.flash_attention.KERNEL_HEAD_DIMS)
+_TM_HEAD_DIMS = (32, 64, 80, 96, 128)  # H1 and H2 (ops.flash_attention.KERNEL_HEAD_DIMS)
 _SIGNATURES = {
     # qkv, key mask (None: unmasked), o, lse, B, N, H, scale*log2e, stream
     **{f"jt_flash_fwd_c{c}": [_P, _P, _P, _P, _I, _I, _I, _F, _P] for c in _TM_HEAD_DIMS},
@@ -51,7 +51,8 @@ _SIGNATURES = {
     **{f"jt_flash_hm_{kind}_c{c}": [_P, _P]
        for kind in ("fwd", "dq", "dkv", "dqkv") for c in (32, 64)},
     # fp32 qkv, o, lse, B, N, H, scale*log2e, stream (no key mask)
-    **{f"jt_flash_fwd_f32_c{c}": [_P, _P, _P, _I, _I, _I, _F, _P] for c in (64, 80)},
+    # (ops.flash_attention.F32_HEAD_DIMS)
+    **{f"jt_flash_fwd_f32_c{c}": [_P, _P, _P, _I, _I, _I, _F, _P] for c in (64, 80, 96, 128)},
     # x, w, b, out, M, K, F, stream
     "jt_linear_gelu_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "jt_linear_gelu_f32": [_P, _P, _P, _P, _I, _I, _I, _P],

@@ -17,8 +17,8 @@ output [B, N, 3*H*c] feeds ``FlashSelfAttentionFn``:
     kernel), for a CPU tensor ``flash_self_attention_bwd_ref``. Both
     return one token-major dqkv [B, N, 3*H*c].
 
-Head dims outside the kernels' {32, 64, 80, 128} that are not multiples of 32
-(the predictors' 24) are zero-padded up to the next multiple of 32 in the
+Head dims outside the kernels' {32, 64, 80, 96, 128} that are not multiples
+of 32 (the predictors' 24, vit_giant's 88, vit_gigantic's 104) are zero-padded up to the next multiple of 32 in the
 projection's weight and bias, and o's pad lanes are sliced off, exactly
 as the JAX package does (flash_attention.py:1770-1812). That is exact: pad
 q/k/v lanes are zero, so every pad gradient is zero. The rule is the same
@@ -48,7 +48,7 @@ scope: the padded mode always keeps a context token.
 fp32 (the frozen evals with ``use_bfloat16: false``): a CUDA fp32 qkv
 launches H1-fp32, the same forward on the CUDA cores, where every rounding
 point above is a no-op (fp32 q*(scale*log2e), fp32 p). It takes the
-encoders' head dims 64 and 80, no key mask and no backward: an fp32
+encoders' head dims 64, 80, 96 (vit_giant) and 128 (vit_gigantic), no key mask and no backward: an fp32
 tensor reaching a bf16-only entry (H2, the masked H1) raises.
 
 Head-major attention (the second half of this module; counterpart of
@@ -91,8 +91,8 @@ from jepa_tpu_torch.ops import remat
 
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
-KERNEL_HEAD_DIMS = (32, 64, 80, 128)
-F32_HEAD_DIMS = (64, 80)  # H1-fp32: the encoders' head dims (ViT-L, ViT-H)
+KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128)
+F32_HEAD_DIMS = (64, 80, 96, 128)  # H1-fp32: the encoders' (padded) head dims, ViT-L to gigantic
 HM_HEAD_DIMS = (32, 64)   # H4-H7, bf16
 
 # wrapper-counted launches in this process
@@ -241,8 +241,8 @@ def flash_self_attention_cuda(
     kv_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch H1 on qkv's current stream. qkv [B, N, 3*H*c]: bf16 with c in
-    {32, 64, 80, 128} and kv_mask [B, N] (True = valid key) or None, or fp32
-    (H1-fp32) with c in {64, 80} and no mask. Differentiable only through
+    {32, 64, 80, 96, 128} and kv_mask [B, N] (True = valid key) or None, or
+    fp32 (H1-fp32) with c in {64, 80, 96, 128} and no mask. Differentiable only through
     ``FlashSelfAttentionFn`` (bf16)."""
     global launches
     from jepa_tpu_torch.ops._build import check, load_library

@@ -1,6 +1,8 @@
 """The shipped-config dispatch table: for each of the 3 pretrain and 15 eval
-YAMLs in configs/ (the evals in both use_bfloat16 settings), and for
-vitl16.yaml with model_name vit_tiny, every attention and fc1 call shape
+YAMLs in configs/ (the evals in both use_bfloat16 settings), for
+vitl16.yaml and vitl16_k400_16x8x3.yaml with the factory's largest models
+(vit_giant, vit_gigantic and vit_gigantic_intended, the gigantics at their
+patch 14), and for vitl16.yaml with model_name vit_tiny, every attention and fc1 call shape
 the port's path makes, resolved through the port's own dispatch rules
 (resolve_flash, self_attention_route, padded_head_dim, merged_bwd, the
 kernels' head dims, fused_tiling, the kernels' k panels) on a stand-in for
@@ -194,22 +196,34 @@ def _tm_entries(call):
     return entries
 
 
-_CASES = ([(p.name, None) for p in sorted((_CONFIGS / "pretrain").glob("*.yaml"))]
-          + [(p.name, bf16) for p in sorted((_CONFIGS / "evals").glob("*.yaml"))
-             for bf16 in (True, False)])
+# (model_name, patch_size) run on vitl16.yaml's and vitl16_k400_16x8x3.yaml's
+# geometry (no shipped YAML names them), and the head dim each encoder's
+# attention runs at (88 and 104 zero-padded)
+_MODELS = {"vit_giant": 16, "vit_gigantic": 14, "vit_gigantic_intended": 14}
+_PADDED = {"vit_giant": 96, "vit_gigantic": 128, "vit_gigantic_intended": 128}
+_CASES = ([(p.name, None, None) for p in sorted((_CONFIGS / "pretrain").glob("*.yaml"))]
+          + [(p.name, bf16, None) for p in sorted((_CONFIGS / "evals").glob("*.yaml"))
+             for bf16 in (True, False)]
+          + [("vitl16.yaml", None, m) for m in _MODELS]
+          + [("vitl16_k400_16x8x3.yaml", bf16, m) for m in _MODELS for bf16 in (True, False)])
 
 
 def test_shipped_configs_are_all_listed():
-    assert len([c for c in _CASES if c[1] is None]) == 3
-    assert len([c for c in _CASES if c[1] is not None]) == 2 * 15
+    shipped = [c for c in _CASES if c[2] is None]
+    assert len([c for c in shipped if c[1] is None]) == 3
+    assert len([c for c in shipped if c[1] is not None]) == 2 * 15
 
 
-@pytest.mark.parametrize("name,bf16", _CASES,
+@pytest.mark.parametrize("name,bf16,model", _CASES,
                          ids=[f"{n}-{'pretrain' if b is None else ('bf16' if b else 'fp32')}"
-                              for n, b in _CASES])
-def test_shipped_config_dispatch(name, bf16):
+                              + (f"-{m}" if m else "") for n, b, m in _CASES])
+def test_shipped_config_dispatch(name, bf16, model):
     kind = "pretrain" if bf16 is None else "evals"
     cfg = yaml.safe_load((_CONFIGS / kind / name).read_text())
+    if model:  # the model and its factory patch in place of the YAML's
+        sec = cfg["model"] if bf16 is None else cfg["pretrain"]
+        sec["model_name"] = model
+        (cfg["data"] if bf16 is None else sec)["patch_size"] = _MODELS[model]
     calls = _pretrain_calls(cfg) if bf16 is None else _eval_calls(cfg, bf16)
     table = [(call, _resolve(call)) for call in calls]
     print(f"\n{kind}/{name}" + ("" if bf16 is None else f" use_bfloat16={bf16}"))
@@ -220,6 +234,12 @@ def test_shipped_config_dispatch(name, bf16):
     # every shipped path runs the encoder's attention and fc1 through kernels
     assert all(how.startswith("jt_") for call, how in table
                if "encoder" in call.where or "target" in call.where)
+    if model:  # H1 (H1-fp32 in an fp32 eval) at the padded head dim
+        f32 = "_f32" if bf16 is False else ""
+        assert all(how.startswith(f"jt_flash_fwd{f32}_c{_PADDED[model]}") for call, how in table
+                   if isinstance(call, Attn) and not call.cross
+                   and ("encoder" in call.where or "target" in call.where
+                        or "context" in call.where) and not how.startswith("eager"))
 
 
 def test_vit_tiny_pretrain_dispatch():
@@ -344,18 +364,25 @@ def test_tma_layout_check(heads, c, elem, ok):
             check_tma_layout(heads, c, elem)
 
 
-@pytest.mark.parametrize("name", ["vitl16.yaml", "vith16.yaml", "vith16_384.yaml"])
+@pytest.mark.parametrize("name", ["vitl16.yaml", "vith16.yaml", "vith16_384.yaml",
+                                  "vitl16.yaml:vit_giant", "vitl16.yaml:vit_gigantic"])
 def test_jax_tm_kernel_picks(name):
     """Which TPU kernel the JAX package's pickers (``_pick_tm_fwd``,
     ``_pick_tm_bwd``) take at each token-major attention call of a shipped
-    pretrain YAML, the calls H1 and H2 run in the port; PERF.md's kernel
+    pretrain YAML (or vitl16.yaml with vit_giant, or vit_gigantic at its
+    patch 14), the calls H1 and H2 run in the port; PERF.md's kernel
     table attributes the port's launches by it. The grad-free target takes
     the one-shot forward K1, but at vith16_384's N=4608, c=80 the kv-tiled
-    K2; every trainable call takes K1 and the merged backward K3, so the
-    dual-tiled K4 + K5 run on no shipped training call."""
+    K2 (vit_gigantic's N=2048 at c=128 takes K1); every trainable call
+    takes K1 and the merged backward K3, so the dual-tiled K4 + K5 run on
+    no shipped training call."""
     from jepa_tpu.ops.flash_attention import _pick_tm_bwd, _pick_tm_fwd
 
+    name, _, model = name.partition(":")
     cfg = yaml.safe_load((_CONFIGS / "pretrain" / name).read_text())
+    if model:
+        cfg["model"]["model_name"] = model
+        cfg["data"]["patch_size"] = _MODELS[model]
     picks = {}
     for call in _pretrain_calls(cfg):
         if not isinstance(call, Attn) or not _resolve(call).startswith("jt_flash_fwd"):
