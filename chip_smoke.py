@@ -121,7 +121,7 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      profile, the B=2 check; H8 24 per context forward, H3 24 for the
      target) and the A/B against the default update in turns, with each
      variant's peak memory.
- 17. at VITL_CUT_DEPTH (8) of ViT-L's 24 blocks (``cut_depth``), the tube
+ 17. at VITL_CUT_DEPTH (4) of ViT-L's 24 blocks (``cut_depth``), the tube
      mask mode (data.mask_type random_tube, one mask of ratio
      0.9, the reference's default) at vitl16.yaml: 3 updates at B=24
      (context 152 tokens, predictor 1568), one B=2 update against the
@@ -143,7 +143,7 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      B=10: H1 and both H2 kernels) and the vith16_384 fp32 eval's train
      step (H1-fp32 c=80 at B=8, N=4608; H3-fp32 at M=8*4608) against their
      plain versions (one sample at a time where a batch's fp32 scores pass
-     PLAIN_BATCH_BYTES); then, at VITH_CUT_DEPTH (8) of ViT-H's 32 blocks
+     PLAIN_BATCH_BYTES); then, at VITH_CUT_DEPTH (4) of ViT-H's 32 blocks
      (``cut_depth``), vith16.yaml (B=24) and vith16_384.yaml (B=10) with the
      app's default remat ('attn'): TRAIN_STEPS updates each through
      build_train_step (one profiled more) and the app (vith16: fixed 1
@@ -156,7 +156,7 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      features of each first train and val batch's first VITH_VIEWS_CHECKED
      (segments, views) through the kernels against the plain versions.
  21. data parallelism (``phase_dist``), after phase 8, ViT-L at DIST_DEPTH
-     (8) of its 24 blocks in every run (``cut_depth``): a vitl16.yaml
+     (4) of its 24 blocks in every run (``cut_depth``): a vitl16.yaml
      update at B=24 in a 1-rank NCCL group (its collectives run) against
      the same update with no group, bit for bit; 2 gloo ranks sharing the
      card (spawned, the kernels built once by this process), 12 clips
@@ -198,10 +198,23 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      then for each model serving (4 seeded requests of 2 clips), TRAIN_STEPS
      updates of vitl16.yaml at B=24 with remat 'attn' (one profiled;
      vit_giant also the B=2 check from the seeded state), and at
-     GIANT_CUT_DEPTH (8) blocks the K400 16x8x3 eval in bf16 (batch 4) and
+     GIANT_CUT_DEPTH (4) blocks the K400 16x8x3 eval in bf16 (batch 4) and
      fp32 (batch 1) with the features of each first batch against the
      plain versions, and vit_giant's app (fixed + resume, padded;
      checkpoints in the temporary folder, removed).
+ 27. fp32 pretraining (``phase_f32_pretrain``), after phase 25: vitl16.yaml
+     with meta.dtype float32, ViT-L/16 + the 12 x 384 predictor at full
+     width and depth, remat 'attn': H1-fp32 (c=64 and c=24->32) and both
+     H2-fp32 kernels against their plain versions in fp32 (TF32 off) at
+     the encoder context, both predictors (B=24) and a ragged N=333, each
+     unmasked and with a mid-row run of pads and a ragged tail (masked
+     keys' dk and dv exactly 0, pad lanes exactly 0, second calls
+     bit-equal), timed beside SDPA fp32 and their FFMA / exp2 / bytes
+     bounds; TRAIN_STEPS updates at B=24 in the fixed and the padded mode
+     with their launches whole (H1-fp32, H2-fp32, H3-fp32; no bf16 entry),
+     a seeded B=2 update in each mode against the plain versions (limits
+     from their own re-ordered spread), and the app in fp32, fixed and
+     padded, 1 epoch each.
 The native decoder has no phase: the card's machine has no FFmpeg
 libraries (PERF.md §6), so it is held against the JAX package's on the
 CPU only (tests/test_torch_native.py).
@@ -276,12 +289,21 @@ F32_TOL = 1e-4     # H1-fp32 |o|, |lse| abs; H3-fp32 |d| <= 1e-4 * max(|ref|, 1)
 # the val step's 24). The first shape of each is the one the JSON line reports.
 F32_H1_SHAPES = ((2, 1568, 16, 64), (1, 1568, 16, 80), (8, 1568, 16, 64), (24, 1568, 16, 64))
 F32_H3_SHAPES = ((8 * 1568, 1024, 4096), (4 * 1568, 1280, 5120), (24 * 1568, 1024, 4096))
+# the A/B mode's further H1-fp32 rows: vit_giant's and vit_gigantic's (padded)
+# head dims
+F32_H1_SHAPES_AB = ((2, 1568, 16, 96), (2, 2048, 16, 128))
 # (M, K, F, outputs) of the A/B mode's fp32 fc1 rows: H3-fp32 at every
 # F32_H3_SHAPES row, H8-fp32 at the force update's long context
 F32_H3_SHAPES_AB = tuple(s + (1,) for s in F32_H3_SHAPES) + ((9024, 1024, 4096, 2),)
 F32_FEAT_COS_MIN = 0.99999  # fp32 eval features, kernels vs plain: only the order
                             # of fp32 sums differs
 PROB_TOL = 1e-3
+# fp32 pretraining (phase_f32_pretrain): vitl16.yaml with meta.dtype float32
+F32_B2_FACTOR = 10.0  # the fp32 B=2 check: |kernels - plain| / |plain| of the loss and
+F32_B2_FLOOR = 1e-5   # both grad norms <= max(10 x the plain versions' own spread with
+                      # their sums re-ordered (reversed_plain_versions), 1e-5); fixed
+                      # before the first run: only the order of fp32 sums differs
+F32_APP_IPE = 2       # the fp32 app's updates per epoch, fixed and padded
 EVAL_BF16_ENTRIES = (8, 6)  # (train, val) synthetic videos of the bf16 video eval at
                             # batch 4: 2 train steps, 2 val steps (the last one padded)
 EVAL_F32_ENTRIES = (2, 1)   # the fp32 video eval at batch 1: 2 train, 1 val step
@@ -293,9 +315,9 @@ VITH_EVAL_ENTRIES = (8, 4)  # the ViT-H bf16 evals at batch 4: 2 train steps, 1 
 VITH_VIEWS_CHECKED = (2, 1)  # (segments, views) of each ViT-H eval sample whose features
                              # are held against the plain versions
 # depth cuts of earlier paths, each model's width kept (cut_depth, PERF.md §4)
-VITH_CUT_DEPTH = 8  # ViT-H's blocks in its updates, apps and evals (of 32)
-VITL_CUT_DEPTH = 8  # ViT-L's blocks in the tube mode's and the remat phase's runs (of 24)
-GIANT_CUT_DEPTH = 8  # vit_giant's and vit_gigantic's blocks in their K400 evals and
+VITH_CUT_DEPTH = 4  # ViT-H's blocks in its updates, apps and evals (of 32)
+VITL_CUT_DEPTH = 4  # ViT-L's blocks in the tube mode's and the remat phase's runs (of 24)
+GIANT_CUT_DEPTH = 4  # vit_giant's and vit_gigantic's blocks in their K400 evals and
                      # vit_giant's app (of 40, 48)
 # (c, N) of the H1 launches that stand in for K2: where the JAX package's
 # _pick_tm_fwd takes the kv-tiled forward on a driven path, vith16_384's
@@ -593,15 +615,16 @@ def _check_h4(torch, label, q, k, v, scale, mask=None):
     return o, lse, err_o
 
 
-def _check_h1_f32(torch, label, qkv, h, scale, by_sample=False):
-    """H1-fp32 on fp32 qkv against its plain version on the card (finite,
-    |do| and |dlse| <= F32_TOL; ``by_sample``: the plain version one sample
-    at a time), then a second call on the same inputs, which must be
-    bit-equal. Returns max(|do|, |dlse|)."""
+def _check_h1_f32(torch, label, qkv, h, scale, by_sample=False, mask=None):
+    """H1-fp32 on fp32 qkv (with a key mask or none) against its plain
+    version on the card (finite, |do| and |dlse| <= F32_TOL; ``by_sample``:
+    the plain version one sample at a time), then a second call on the same
+    inputs, which must be bit-equal. Returns max(|do|, |dlse|)."""
     from jepa_tpu_torch.ops import flash_attention as fa
 
-    o, lse = fa.flash_self_attention_cuda(qkv, h, scale)
-    o_ref, lse_ref = _by_sample(torch, by_sample, fa.flash_self_attention_ref, qkv, h, scale)
+    o, lse = fa.flash_self_attention_cuda(qkv, h, scale, mask)
+    o_ref, lse_ref = _by_sample(torch, by_sample, fa.flash_self_attention_ref, qkv, h, scale,
+                                mask)
     torch.cuda.synchronize()
     if not (_finite(o) and _finite(lse)):
         raise RuntimeError(f"{label}: non-finite output")
@@ -611,7 +634,7 @@ def _check_h1_f32(torch, label, qkv, h, scale, by_sample=False):
     log(f"{label}: max|do| {err_o:.3e} max|dlse| {err_l:.3e} (tol {F32_TOL} each)")
     if not (err_o <= F32_TOL and err_l <= F32_TOL):
         raise RuntimeError(f"{label} disagrees with its plain version")
-    _same_bits(label, (o, lse), fa.flash_self_attention_cuda(qkv, h, scale))
+    _same_bits(label, (o, lse), fa.flash_self_attention_cuda(qkv, h, scale, mask))
     return max(err_o, err_l)
 
 
@@ -1629,7 +1652,7 @@ def phase_serve(torch, workdir: str, model_name: str = "vit_large"):
 
 def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl16.yaml",
                 tube=None, remat=False, layout=None, use_mask_tokens=None, patch_size=None,
-                pred_depth=None):
+                pred_depth=None, dtype=None, mask_mode=None):
     """Configs of configs/pretrain/<config> (model, data geometry, mask,
     loss and optimization sections; default vitl16.yaml): its encoder (or
     ``model_name``) + the 12 x 384 predictor at full width and depth,
@@ -1644,7 +1667,11 @@ def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl
     config's ``model.use_mask_tokens`` overridden (False: the diffusion-mode
     predictor); ``patch_size``: the config's ``data.patch_size`` overridden
     (vit_gigantic's factory patch, 14); ``pred_depth``: the config's
-    ``model.pred_depth`` overridden (a depth cut, PERF.md §4)."""
+    ``model.pred_depth`` overridden (a depth cut, PERF.md §4); ``dtype``: the
+    compute dtype (the app's ``meta.dtype``; default the config's, bf16);
+    ``mask_mode``: the config's ``meta.mask_mode`` overridden ('padded': the
+    step takes the host collator's padded masks, ``padded_batch``)."""
+    import torch
     import yaml
 
     from jepa_tpu_torch.masks.multiblock3d import MaskGrid, MaskSpec, calibrate_keep_counts
@@ -1662,11 +1689,16 @@ def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl
     m["pred_depth"] = pred_depth or m["pred_depth"]
     if use_mask_tokens is not None:
         m["use_mask_tokens"] = use_mask_tokens
+    dtype = dtype or {"bfloat16": torch.bfloat16, "float32": torch.float32}[
+        str(cfg["meta"].get("dtype", "bfloat16"))]
     enc_cfg = vit_cfg(m["model_name"], img_size=d["crop_size"], patch_size=d["patch_size"],
                       num_frames=d["num_frames"], tubelet_size=d["tubelet_size"],
-                      uniform_power=m["uniform_power"], fused_mlp=fused_mlp, remat=remat)
+                      uniform_power=m["uniform_power"], fused_mlp=fused_mlp, remat=remat,
+                      compute_dtype=dtype)
     if tube is not None:
         cfg["mask"] = tube
+    if mask_mode is not None:
+        cfg["meta"]["mask_mode"] = mask_mode
     pred_cfg = predictor_cfg_for(enc_cfg, predictor_embed_dim=m["pred_embed_dim"],
                                  depth=m["pred_depth"], use_mask_tokens=m["use_mask_tokens"],
                                  num_mask_tokens=len(cfg["mask"]),
@@ -1725,10 +1757,16 @@ def expected_launches(enc_cfg, pred_cfg=None, pairs=(), masked=False) -> dict:
     the context encoder under ``fused_mlp='force'`` (LinearGelu's forward).
     A trainable net with remat True / 'full' recomputes every block in the
     backward, so each of its attention forwards launches twice (H8 too);
-    'attn' keeps the forward's (o, lse) and launches no more than False."""
+    'attn' keeps the forward's (o, lse) and launches no more than False.
+    An fp32 config (``compute_dtype`` float32) counts H1-fp32 (the unmasked
+    c=64 instance as "h1_f32", the evals' key), H2-fp32 and H3-fp32 / H8-fp32
+    in place of the bf16 instances."""
+    import torch
+
     from jepa_tpu_torch.ops import flash_attention as fa
     from jepa_tpu_torch.ops.fused_mlp import fused_tiling
 
+    f32 = enc_cfg.compute_dtype == torch.float32
     want = {}
 
     def add(key, n):
@@ -1742,6 +1780,12 @@ def expected_launches(enc_cfg, pred_cfg=None, pairs=(), masked=False) -> dict:
             return
         sfx = "_masked" if mask else ""
         fwd = depth * (2 if grad and recompute else 1)
+        if route == "tm" and f32:  # H1-fp32, then H2-fp32 under a gradient
+            cp = fa.padded_head_dim(c)
+            add("h1_f32" if (cp, mask) == (64, False) else f"h1_f32_c{cp}{sfx}", fwd)
+            for k in ("dkv", "dq") if grad else ():
+                add(f"{k}_f32_c{cp}{sfx}", depth)
+            return
         if route == "tm":
             cp = fa.padded_head_dim(c)
             add("h1", fwd)
@@ -1763,9 +1807,10 @@ def expected_launches(enc_cfg, pred_cfg=None, pairs=(), masked=False) -> dict:
     for n, heads, c, depth, grad, cfg in attention_calls(enc_cfg, pred_cfg, pairs):
         attn(n, heads, c, depth, grad, masked and grad, full(cfg))
     if fused_tiling(8, enc_cfg.embed_dim, enc_cfg.mlp_hidden):
-        add("h3", enc_cfg.depth)
+        add("h3_f32" if f32 else "h3", enc_cfg.depth)
         if pairs and enc_cfg.fused_mlp == "force":
-            add("h8", enc_cfg.depth * len(pairs) * (2 if full(enc_cfg) else 1))
+            add("h8_f32" if f32 else "h8",
+                enc_cfg.depth * len(pairs) * (2 if full(enc_cfg) else 1))
     return want
 
 
@@ -1776,7 +1821,12 @@ def _counts(fa, fm) -> dict:
          "h3": fm.launches, "h3_f32": fm.f32_launches,
          "h8": fm.z_launches, "h8_f32": fm.z_f32_launches,
          "h1_f32": fa.f32_launches_by_head_dim[64],
-         **{f"h1_f32_c{hd}": fa.f32_launches_by_head_dim[hd] for hd in fa.F32_HEAD_DIMS[1:]},
+         **{f"h1_f32_c{hd}": fa.f32_launches_by_head_dim[hd] for hd in fa.F32_HEAD_DIMS
+            if hd != 64},
+         **{f"h1_f32_c{hd}_masked": fa.f32_masked_launches_by_head_dim[hd]
+            for hd in fa.F32_HEAD_DIMS},
+         **{f"{k}_f32_c{hd}{'_masked' if m else ''}": v
+            for (k, hd, m), v in fa.f32_bwd_launches.items()},
          K2_KEY: fa.launches_by_tokens[K2_C, K2_N]}
     for hd in fa.KERNEL_HEAD_DIMS:
         c.update({f"h1_c{hd}": fa.launches_by_head_dim[hd],
@@ -1808,19 +1858,33 @@ def phase_train(torch, setup, determinism=False, steps=TRAIN_STEPS, b2=(False, T
     state and from the state the timed updates leave (``check_b2``; ``b2``
     holds the ``trained`` flags of those it takes); with ``determinism``, first
     two B=2 updates through the kernels from copies of the trained state,
-    which must agree to the bit."""
+    which must agree to the bit. A padded-mode setup takes each update's
+    masks from the host collator, padded as the app pads them
+    (``padded_batch``), and expects the masked kernels' launches at the
+    caps each update picks; its B=2 checks are left to the caller."""
+    from jepa_tpu_torch.masks.multiblock3d import MaskCollator, calibrate_pad_ladders
     from jepa_tpu_torch.ops import flash_attention as fa
     from jepa_tpu_torch.ops import fused_mlp as fm
     from jepa_tpu_torch.train.step import init_train_state
 
     batch = setup["yaml_batch"]
-    want = expected_launches(setup["enc_cfg"], setup["pred_cfg"], setup["keep"])
+    padded = setup["tc"].mask_mode == "padded"
+    pairs = setup["keep"]
+    if padded:
+        if b2:
+            raise ValueError("phase_train: the padded mode takes no B=2 check here")
+        collator = MaskCollator(setup["specs"], setup["grid"], seed=setup["tc"].seed)
+        ladders = calibrate_pad_ladders(setup["specs"], setup["grid"], batch)
+        pairs = [rungs[0] for rungs in ladders]
+    want = expected_launches(setup["enc_cfg"], setup["pred_cfg"], pairs, masked=padded)
     log(f"train: {setup['config']}{' (tube masks)' if setup['tube'] else ''}"
         f"{'' if setup['use_mask_tokens'] else ' (diffusion-mode predictor)'}, "
         f"{setup['model_name']} (fused_mlp {setup['enc_cfg'].fused_mlp!r}, remat "
         f"{setup['remat']!r}) + predictor {setup['pred_cfg'].depth}x"
-        f"{setup['pred_cfg'].predictor_embed_dim}, batch {batch}, keep counts "
-        f"{setup['keep']}, expected launches/step {want}")
+        f"{setup['pred_cfg'].predictor_embed_dim}, {setup['enc_cfg'].compute_dtype}, "
+        f"{setup['tc'].mask_mode} masks, batch {batch}, keep counts "
+        f"{setup['keep']}, expected launches/step {want}"
+        + (f" at the first caps of {ladders}" if padded else ""))
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
@@ -1833,13 +1897,22 @@ def phase_train(torch, setup, determinism=False, steps=TRAIN_STEPS, b2=(False, T
     small = {"clips": clips[:2].contiguous()}
     if False in b2:
         check_b2(torch, step_fn, state, small, trained=False)
+
+    def next_batch():  # (the update's batch, the launches it implies)
+        if not padded:
+            return {"clips": clips}, want
+        b, tier = padded_batch(torch, collator, ladders, clips)
+        return b, expected_launches(setup["enc_cfg"], setup["pred_cfg"], tier, masked=True)
+
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(fa, fm)
-    times, per_step = [], []
+    times, per_step, wants = [], [], []
     for _ in range(steps):
+        upd, want_i = next_batch()
+        wants.append(want_i)
         before = _counts(fa, fm)
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, {"clips": clips})
+        state, metrics = step_fn(state, upd)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         per_step.append(_launch_diff(before, _counts(fa, fm)))
@@ -1850,14 +1923,15 @@ def phase_train(torch, setup, determinism=False, steps=TRAIN_STEPS, b2=(False, T
             raise RuntimeError(f"non-finite training metrics {vals}")
     launches = _counts(fa, fm)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    if any(p != want for p in per_step):
-        raise RuntimeError(f"launches per step {per_step} != expected {want}")
+    if per_step != wants:
+        raise RuntimeError(f"launches per step {per_step} != expected {wants}")
     med = statistics.median(times[1:])
     log(f"train: ms/step {[round(t, 1) for t in times]}; median after warm-up "
         f"{med:.1f} ms ({batch / med * 1e3:.2f} clips/s); peak allocated "
         f"{peak_gib:.2f} GiB; launches {launches}")
-    prof = profile_step(torch, step_fn, state, clips)
-    del clips
+    upd = next_batch()[0]
+    prof = profile_device(torch, lambda: step_fn(state, upd), "train")
+    del clips, upd
     if determinism:
         check_update_determinism(torch, step_fn, state, small)
     if True in b2:
@@ -1866,6 +1940,28 @@ def phase_train(torch, setup, determinism=False, steps=TRAIN_STEPS, b2=(False, T
     torch.cuda.empty_cache()
     return {"launches": launches, "median_ms": med, "peak_gib": peak_gib, "prof": prof,
             "keep": setup["keep"], "per_step": want, "steps": steps, "batch": batch}
+
+
+def padded_batch(torch, collator, ladders, clips):
+    """One padded-mode batch as the app assembles it (apps/vjepa/train.py):
+    the host collator's masks for the clips, each spec's padded to the
+    smallest rung of its cap ladder that covers them (``pad_masks``), with
+    validity weights. Returns (batch, the (context, target) caps)."""
+    from jepa_tpu_torch.masks.multiblock3d import select_pad_rungs
+    from jepa_tpu_torch.masks.padding import pad_masks
+
+    me_list, mp_list = collator.collate_chunks(clips.shape[0], 1)
+    rungs = select_pad_rungs(ladders, me_list, mp_list)
+    tier = [ladders[s][r] for s, r in enumerate(rungs)]
+    batch = {"clips": clips, "masks_enc": [], "enc_weights": [], "masks_pred": [],
+             "pred_weights": []}
+    for (mes, mps), (ce, cp) in zip(zip(me_list, mp_list), tier):
+        for masks, cap, (k_idx, k_w) in ((mes, ce, ("masks_enc", "enc_weights")),
+                                         (mps, cp, ("masks_pred", "pred_weights"))):
+            idx, w = pad_masks(masks[0], cap)
+            batch[k_idx].append(torch.from_numpy(idx).to(clips.device))
+            batch[k_w].append(torch.from_numpy(w).to(clips.device))
+    return batch, tier
 
 
 def check_b2(torch, step_fn, state, batch, trained):
@@ -1976,11 +2072,6 @@ def phase_force_ab(torch, setup, force):
     return out
 
 
-def profile_step(torch, step_fn, state, clips):
-    """One more update under torch.profiler: device time by kernel."""
-    return profile_device(torch, lambda: step_fn(state, {"clips": clips}), "train")
-
-
 def profile_device(torch, fn, label):
     """fn() once under torch.profiler: device self time by kernel group, the
     top kernels and the aten ops that launched the most device time."""
@@ -2002,7 +2093,7 @@ def profile_device(torch, fn, label):
     for name, ms, _ in rows:
         if "flash_hm" in name:
             groups["H4-H7 flash_hm"] += ms
-        elif "flash_fwd_kernel" in name:
+        elif "flash_fwd_kernel" in name or "flash_fwd_f32_kernel" in name:
             groups["H1 flash_fwd"] += ms
         elif "flash_bwd_dkv" in name:
             groups["H2 flash_bwd_dkv"] += ms
@@ -2092,11 +2183,13 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
     if setup["tube"]:
         cfg["data"]["mask_type"] = "random_tube"
         cfg["mask"] = setup["tube"]
+    cfg["meta"]["dtype"] = str(setup["enc_cfg"].compute_dtype).replace("torch.", "")
     cfg["optimization"]["ipe"] = ipe
     cfg["optimization"]["epochs"] = epochs
     cfg["logging"]["folder"] = os.path.join(workdir, "fixed")
     d = cfg["data"]
-    label = f"{setup['config']}{' (tube masks)' if setup['tube'] else ''} with {setup['model_name']}"
+    label = (f"{setup['config']}{' (tube masks)' if setup['tube'] else ''} with "
+             f"{setup['model_name']}, meta.dtype {cfg['meta']['dtype']}")
     torch.cuda.empty_cache()  # a fresh allocator, as the app has in its own process
     retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     log(f"app: {label}, synthetic data, ipe {ipe}, batch {d['batch_size']}, "
@@ -2133,7 +2226,8 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
     geo = dict(VITL16_GEO, img_size=d["crop_size"], patch_size=d["patch_size"])
     clips = np.random.default_rng(SEED).integers(
         0, 256, size=(2, 16, d["crop_size"], d["crop_size"], 3), dtype=np.uint8)
-    feats = api.load_encoder(ckpt, setup["model_name"], **geo).encode(clips)
+    feats = api.load_encoder(ckpt, setup["model_name"],
+                             compute_dtype=setup["enc_cfg"].compute_dtype, **geo).encode(clips)
     want = api.Encoder(model=state.target, cfg=setup["enc_cfg"]).encode(clips)
     err = (feats - want).abs().max().item()
     log(f"app: api.load_encoder on {os.path.basename(ckpt)} vs the state's target, "
@@ -2156,8 +2250,8 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
         steps = state.step
         del state
     step_ms, wall_ms, host, n_rows = _csv_times(csv)
-    if n_rows != steps:
-        raise RuntimeError(f"app: {n_rows} CSV rows != {steps}")
+    if n_rows != steps or not all(np.isfinite(float(x)) for x in _csv_losses(csv)):
+        raise RuntimeError(f"app: {n_rows} CSV rows != {steps}, or a loss not finite")
     out["fixed"] = dict(step_ms=step_ms, wall_ms=wall_ms, host=host, peak_gib=peak,
                         launches=fixed_launches, updates=steps)
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
@@ -2190,8 +2284,10 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
     if state.step != ipe or _launch_diff({}, got, ipe) != want_padded:
         raise RuntimeError(f"app padded: step {state.step}, launches {got} != "
                            f"{ipe} x {want_padded}")
-    step_ms, wall_ms, host, n_rows = _csv_times(
-        os.path.join(cfg["logging"]["folder"], f"{tag}_r0.csv"))
+    csv = os.path.join(cfg["logging"]["folder"], f"{tag}_r0.csv")
+    step_ms, wall_ms, host, n_rows = _csv_times(csv)
+    if n_rows != ipe or not all(np.isfinite(float(x)) for x in _csv_losses(csv)):
+        raise RuntimeError(f"app padded: {n_rows} CSV rows != {ipe}, or a loss not finite")
     out["padded"] = dict(step_ms=step_ms, wall_ms=wall_ms, host=host, peak_gib=peak,
                          launches=got, ladders=specs_caps, updates=ipe)
     log(f"app padded: step {state.step}, caps {specs_caps}; launches per update "
@@ -2201,6 +2297,184 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
     shutil.rmtree(cfg["logging"]["folder"])
     torch.cuda.empty_cache()
     return out
+
+
+def _check_h2_f32(torch, label, qkv, do, h, scale, c_real, mask=None):
+    """H1-fp32 (checked by ``_check_h1_f32``) then both H2-fp32 kernels on
+    fp32 qkv (with a key mask or none) against their plain versions on the
+    card, on the kernel's own lse: finite, each gradient |d| <= F32_TOL *
+    max(|ref|, 1) element by element (fp32 everywhere, only the order of
+    the sums differs), the pad lanes past c_real exactly 0 and, with a mask,
+    the masked keys' dk and dv exactly 0; then a second call on the same
+    inputs, which must be bit-equal. Returns (lse, delta, max|do - ref| of
+    H1-fp32, {gradient: max|d|})."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    err_h1 = _check_h1_f32(torch, f"H1-fp32 {label}", qkv, h, scale, mask=mask)
+    o, lse = fa.flash_self_attention_cuda(qkv, h, scale, mask)
+    delta = fa.attention_delta(do, o, h)
+    dqkv = fa.flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale, mask)
+    ref = fa.flash_self_attention_bwd_ref(qkv, do, lse, delta, h, scale, mask)
+    torch.cuda.synchronize()
+    if not _finite(dqkv):
+        raise RuntimeError(f"H2-fp32 {label}: non-finite output")
+    _same_bits(f"H2-fp32 {label} dq/dk/dv", (dqkv,),
+               (fa.flash_self_attention_bwd_cuda(qkv, do, lse, delta, h, scale, mask),))
+    b, n, w3 = qkv.shape
+    hc = w3 // 3
+    c = hc // h
+    errs = {}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        got, want = dqkv[..., i * hc:(i + 1) * hc], ref[..., i * hc:(i + 1) * hc]
+        d = (got - want).abs()
+        err = d.max().item()
+        excess = (d - F32_TOL * want.abs().clamp(min=1)).max().item()
+        pad = got.reshape(b, n, h, c)[..., c_real:].abs().max().item() if c_real < c else 0.0
+        keys = mask is not None and name != "dq"
+        masked = got[~mask].abs().max().item() if keys else 0.0
+        log(f"H2-fp32 {label} c={c_real}->{c}: {name} max|d| {err:.3e}, worst margin "
+            f"{excess:.3e} (tol |d| <= {F32_TOL} * max(|ref|, 1)), pad lanes max {pad:.1e}"
+            + (f", masked keys max|{name}| {masked:.1e} (must be 0)" if keys else ""))
+        if not (excess <= 0 and pad == 0.0 and masked == 0.0):
+            raise RuntimeError(f"H2-fp32 {label} {name} disagrees with its plain version")
+        errs[name] = err
+    del o, dqkv, ref
+    return lse, delta, err_h1, errs
+
+
+def check_b2_f32(torch, step_fn, state, batch, label):
+    """One B=2 update from ``state`` through the kernels, the plain versions
+    and the plain versions with their sums re-ordered
+    (``reversed_plain_versions``): the loss and both grad norms of the
+    kernels must lie within F32_B2_FACTOR times the plain versions' own
+    spread of the plain update (at least F32_B2_FLOOR, relative)."""
+    k = _b2_metrics(torch, step_fn, state, batch)
+    p = _b2_metrics(torch, step_fn, state, batch, plain_versions())
+    r = _b2_metrics(torch, step_fn, state, batch, reversed_plain_versions())
+    out = {}
+    for key in ("loss", "enc_grad_norm", "pred_grad_norm"):
+        got, spread = (abs(x[key] - p[key]) / abs(p[key]) for x in (k, r))
+        lim = max(F32_B2_FACTOR * spread, F32_B2_FLOOR)
+        out[key] = dict(kernels=k[key], plain=p[key], rel=got, spread=spread, limit=lim)
+        log(f"fp32 B=2 {label}: {key} kernels {k[key]:.9g} plain {p[key]:.9g} re-ordered "
+            f"{r[key]:.9g}: |kernels - plain| rel {got:.3e}, plain spread {spread:.3e}, "
+            f"limit {lim:.3e}")
+        if not (np.isfinite(k[key]) and got <= lim):
+            raise RuntimeError(f"the fp32 B=2 update ({label}) through the kernels disagrees "
+                               f"with the plain versions: {key}")
+    return out
+
+
+def phase_f32_pretrain(torch, repo, workdir):
+    """fp32 pretraining at vitl16.yaml (meta.dtype float32), ViT-L/16 + the
+    12 x 384 predictor at full width and depth, remat 'attn' (the app's
+    default):
+
+      * H1-fp32 (c=64 and c=24->32) and both H2-fp32 kernels against their
+        plain versions in fp32 (TF32 off) at the encoder context (B=24,
+        N=ke0, c=64), both predictors (B=24, N=ke+kp, c=24->32) and a
+        ragged N=333 (B=2, both head dims), each unmasked and with a key
+        mask of a mid-row run of pads and a ragged tail (``_check_h2_f32``);
+        each row timed (kernel, plain version, SDPA fp32 forward and whole
+        backward, the FFMA / exp2 / bytes bound);
+      * TRAIN_STEPS updates at TRAIN_BATCH through build_train_step in the
+        fixed and in the padded mode (``phase_train``: launches whole, ms,
+        peak, the profile's split), and a seeded B=2 update in each mode
+        against the plain versions (``check_b2_f32``);
+      * the pretrain app with meta.dtype float32, fixed 1 epoch and padded
+        1 epoch of F32_APP_IPE updates (``phase_app``: launches per update,
+        finite CSV losses, a checkpoint read back by api.load_encoder)."""
+    from jepa_tpu_torch.masks.multiblock3d import MaskCollator, calibrate_pad_ladders
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.train.step import init_train_state
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("TF32 is on: the fp32 plain versions would not be fp32")
+    fixed = train_setup(repo, dtype=torch.float32, remat="attn")
+    padded = train_setup(repo, dtype=torch.float32, remat="attn", mask_mode="padded")
+    (ke0, kp0), (ke1, kp1) = fixed["keep"]
+    enc_d, pred_d = fixed["enc_cfg"].depth, fixed["pred_cfg"].depth
+    # (label, B, N, H, c, c_real, mid-row pad start (0: random), launches per fixed update)
+    shapes = (("encoder context", TRAIN_BATCH, ke0, 16, 64, 64, 0, enc_d),
+              ("predictor, mask 1", TRAIN_BATCH, ke0 + kp0, 16, 32, 24, ke0, pred_d),
+              ("predictor, mask 2", TRAIN_BATCH, ke1 + kp1, 16, 32, 24, ke1, pred_d),
+              ("ragged c=64", 2, 333, 16, 64, 64, 0, 0),
+              ("ragged c=24", 2, 333, 16, 32, 24, 0, 0))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rng = np.random.default_rng(SEED + 5)
+    rows = {}
+    for label, b, n, h, c, c_real, mid, per_update in shapes:
+        qkv = _f32_attn_inputs(torch, gen, b, n, h, c, c_real)
+        do = torch.randn((b, n, h, c), generator=gen, device="cuda")
+        do[..., c_real:] = 0
+        do = do.reshape(b, n, h * c)
+        scale = c_real**-0.5
+        for mask in (None, padded_key_mask(torch, rng, b, n, mid)):
+            tag = f"{label}{'' if mask is None else ', masked'} B={b} N={n}"
+            lse, delta, err_h1, errs = _check_h2_f32(torch, tag, qkv, do, h, scale, c_real, mask)
+            pairs = b * n * n if mask is None else int(mask.sum().item()) * n
+            io = dict(qkv=4 * qkv.numel(), o=4 * b * n * h * c, vec=4 * b * h * n,
+                      mask=0 if mask is None else b * n)
+            ins = io["qkv"] + io["o"] + 2 * io["vec"] + io["mask"]  # qkv, do, lse, delta
+            out = torch.empty_like(qkv)
+            if mask is None:
+                lib_fwd = _sdpa_fwd_ms(torch, qkv, h, scale)
+                lib_bwd = _sdpa_bwd_ms(torch, qkv, do, h, scale)
+            else:
+                lib_fwd, lib_bwd = _sdpa_masked_ms(torch, qkv, do, h, scale, mask)
+            r = {
+                "h1": dict(ms=time_ms(torch, lambda: fa.flash_self_attention_cuda(
+                               qkv, h, scale, mask)),
+                           plain_ms=time_ms(torch, lambda: fa.flash_self_attention_ref(
+                               qkv, h, scale, mask)),
+                           library_ms=lib_fwd, max_abs_err=err_h1,
+                           bound=f32_bound_ms(4.0 * h * pairs * c_real, h * pairs,
+                                              io["qkv"] + io["mask"] + io["o"] + io["vec"])),
+                "dkv": dict(ms=time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(
+                                qkv, do, lse, delta, out, h, scale, mask)),
+                            plain_ms=time_ms(torch, lambda: fa.flash_bwd_dkv_ref(
+                                qkv, do, lse, delta, h, scale, mask)),
+                            library_ms=lib_bwd, max_abs_err=max(errs["dk"], errs["dv"]),
+                            bound=f32_bound_ms(8.0 * h * pairs * c_real, h * pairs,
+                                               ins + 2 * io["o"])),
+                "dq": dict(ms=time_ms(torch, lambda: fa.flash_bwd_dq_cuda(
+                               qkv, do, lse, delta, out, h, scale, mask)),
+                           plain_ms=time_ms(torch, lambda: fa.flash_bwd_dq_ref(
+                               qkv, do, lse, delta, h, scale, mask)),
+                           library_ms=lib_bwd, max_abs_err=errs["dq"],
+                           bound=f32_bound_ms(6.0 * h * pairs * c_real, h * pairs,
+                                              ins + io["o"])),
+            }
+            for k, x in r.items():
+                x.update(shape=(b, n, h, c_real), masked=mask is not None,
+                         per_update=per_update)
+                log(f"{'H1-fp32' if k == 'h1' else 'H2-fp32 ' + k} {tag} c={c_real}->{c} time: "
+                    f"kernel {x['ms']:.4f} ms, plain {x['plain_ms']:.4f} ms, library (SDPA fp32 "
+                    f"{'forward' if k == 'h1' else 'whole backward'}) {x['library_ms']:.4f} ms, "
+                    f"bound {x['bound'][0]:.4f} ms ({x['bound'][2]}), "
+                    f"{x['bound'][0] / x['ms']:.3f} of it; launches per fixed-mode update "
+                    f"{per_update}")
+            rows[tag] = r
+            del lse, delta, out
+        del qkv, do
+
+    runs = {}
+    for mode, setup in (("fixed", fixed), ("padded", padded)):
+        runs[mode] = phase_train(torch, setup, b2=())
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        state = init_train_state(setup["enc_cfg"], setup["pred_cfg"], gen)
+        clips = torch.randn((2, *setup["clip_shape"]), generator=gen, device="cuda")
+        batch = {"clips": clips}
+        if mode == "padded":
+            batch, _ = padded_batch(
+                torch, MaskCollator(setup["specs"], setup["grid"], seed=setup["tc"].seed),
+                calibrate_pad_ladders(setup["specs"], setup["grid"], TRAIN_BATCH), clips)
+        runs[mode]["b2"] = check_b2_f32(torch, setup["step_fn"], state, batch,
+                                        f"{mode}, seeded state")
+        del state, clips, batch
+        torch.cuda.empty_cache()
+    app = phase_app(torch, repo, fixed, workdir, ipe=F32_APP_IPE, epochs=1, resume=False)
+    return {"rows": rows, "runs": runs, "app": app}
 
 
 def eval_config(repo, workdir, name, enc_path, n_train, n_val,
@@ -3267,7 +3541,7 @@ DIST_LIMIT_FACTOR = 10.0
 DIST_REL_FLOOR = 1e-6  # a limit never below this relative difference (nor cosine above 1 - it)
 DIST_APP_IPE = 2  # (c): updates per epoch of the 2-rank app
 DIST_EVAL_ENTRIES = (8, 10)  # (d): train / val videos; 10 is no multiple of 2 ranks x 4
-DIST_DEPTH = 8  # ViT-L's depth in every run of phase_dist, its width kept (cut_depth)
+DIST_DEPTH = 4  # ViT-L's depth in every run of phase_dist, its width kept (cut_depth)
 DIST_PRED_DEPTH = 4  # the predictor's depth there (model.pred_depth; 12 in vitl16.yaml)
 DIST_MODULES = ("encoder", "predictor", "target")
 
@@ -4044,8 +4318,12 @@ def phase_kernel_ab(torch, others):
     rng = np.random.default_rng(SEED)
     rows = []
 
-    def ab(row, entry, args, outs, after=None):
-        calls = {name: (lambda lib=lib: _build.check(getattr(lib, entry)(*args()), entry))
+    def ab(row, entry, args, outs, after=None, per_lib=False):
+        """``args()`` the entry's arguments; with ``per_lib`` ``args(lib)``,
+        where they depend on the library (the key-mask argument H1-fp32
+        gained)."""
+        argv = lambda lib: args(lib) if per_lib else args()  # noqa: E731
+        calls = {name: (lambda lib=lib: _build.check(getattr(lib, entry)(*argv(lib)), entry))
                  for name, lib in libs.items()}
         got = {}
         for name, call in calls.items():
@@ -4226,18 +4504,21 @@ def phase_kernel_ab(torch, others):
                        bias, x, w.t(), use_gelu=True)))
         ab(row, entry, args, outs)
         del x, w, bias, outs
-    for b, n, h, c in F32_H1_SHAPES:
+    for b, n, h, c in F32_H1_SHAPES + F32_H1_SHAPES_AB:
         qkv = torch.randn((b, n, 3 * h * c), generator=gen, device="cuda")
         o = torch.empty((b, n, h * c), device="cuda")
         lse = torch.empty((b, h, n), device="cuda")
         scale = c**-0.5
-        args = lambda: (qkv.data_ptr(), o.data_ptr(), lse.data_ptr(), b, n, h,  # noqa: E731
-                        scale * fa._LOG2E, stream())
+        entry = f"jt_flash_fwd_f32_c{c}"
+        # unmasked; a library built before the key-mask argument takes no None
+        args = lambda lib: (  # noqa: E731
+            qkv.data_ptr(), *((None,) if len(getattr(lib, entry).argtypes) == 9 else ()),
+            o.data_ptr(), lse.data_ptr(), b, n, h, scale * fa._LOG2E, stream())
         row = dict(row=f"H1-fp32 B={b} N={n} H={h} c={c}",
                    library_ms=_sdpa_fwd_ms(torch, qkv, h, scale),
                    bound=f32_bound_ms(4.0 * b * h * n * n * c, b * h * n * n,
                                       4 * (qkv.numel() + o.numel() + lse.numel())))
-        ab(row, f"jt_flash_fwd_f32_c{c}", args, (o, lse))
+        ab(row, entry, args, (o, lse), per_lib=True)
         del qkv, o, lse
     print(json.dumps({"kernel_ab": rows}))
     return rows
@@ -4333,6 +4614,8 @@ def main() -> int:
         app = timed("app", phase_app, torch, repo, setup, workdir)
         instr = timed("app with profile_steps and log_resources", phase_app_instruments,
                       torch, repo, setup, workdir)
+    with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
+        f32pre = timed("f32_pretrain", phase_f32_pretrain, torch, repo, workdir)
     with cut_depth("vit_large", DIST_DEPTH):
         dist_setup = train_setup(repo, pred_depth=DIST_PRED_DEPTH)
         dist = timed("dist", phase_dist, torch, repo, dist_setup, card)
@@ -4440,6 +4723,11 @@ def main() -> int:
     gg = _sum_launches(*runs("vit_gigantic"))
     fa_src, bwd_src = "jepa_tpu_torch/csrc/flash_attention.cu", "jepa_tpu_torch/csrc/flash_attention_bwd.cu"
     fa_py = "jepa_tpu/ops/flash_attention.py"
+    # fp32 pretraining: the fixed mode's updates and app (fx), the padded
+    # mode's (fp; every trainable call key-masked)
+    f32runs, f32app = f32pre["runs"], f32pre["app"]
+    fx = _sum_launches(f32runs["fixed"]["launches"], f32app["fixed"]["launches"])
+    fp = _sum_launches(f32runs["padded"]["launches"], f32app["padded"]["launches"])
     kernels = [
         # the padded apps' unmasked launches: their target forwards (H1, H3)
         kernel_entry("flash_self_attention_fwd", fa_src, f"{fa_py}:955",
@@ -4456,10 +4744,11 @@ def main() -> int:
                      "jepa_tpu/ops/fused_mlp.py:92",
                      sl["h3"] + tl["h3"] + el["h3"] + il["h3"] + al["h3"], kern["h3"]),
         # the fp32 instances: the fp32 video eval's launches
-        kernel_entry("flash_self_attention_fwd_f32", fa_src, f"{fa_py}:955", fl["h1_f32"],
-                     f32["h1"]),
+        kernel_entry("flash_self_attention_fwd_f32", fa_src, f"{fa_py}:955",
+                     fl["h1_f32"] + fx["h1_f32"] + fp["h1_f32"], f32["h1"]),
         kernel_entry("linear_gelu_fwd_f32", "jepa_tpu_torch/csrc/fused_mlp.cu",
-                     "jepa_tpu/ops/fused_mlp.py:92", fl["h3_f32"], f32["h3"]),
+                     "jepa_tpu/ops/fused_mlp.py:92", fl["h3_f32"] + fx["h3_f32"] + fp["h3_f32"],
+                     f32["h3"]),
         # the key-masked instances: the padded-mode apps' launches (ViT-L;
         # ViT-H's predictors at c=32)
         kernel_entry("flash_self_attention_fwd_masked", fa_src, f"{fa_py}:955",
@@ -4569,6 +4858,47 @@ def main() -> int:
         kernel_entry("linear_gelu_fwd_f32_k1664", fc1_src, "jepa_tpu/ops/fused_mlp.py:92",
                      gg["h3_f32"], gk["h3_f32_k1664"]),
     ]
+    # H1-fp32 at c=32 and masked, H2-fp32 (fp32 pretraining): each entry
+    # reports its first row (the fixed-mode update's shape; masked: the same
+    # shape with pads), max_abs_err over every row of its instance
+    f32src = "jepa_tpu_torch/csrc/flash_attention_bwd_f32.cu"
+    f32rows = f32pre["rows"]
+
+    def f32_entry(name, src, replaces, launches, kind, c, masked):
+        rs = [r[kind] for r in f32rows.values()
+              if r[kind]["shape"][3] in ((24,) if c == 32 else (c,))
+              and r[kind]["masked"] == masked]
+        return kernel_entry(name, src, replaces, launches,
+                            dict(rs[0], max_abs_err=max(x["max_abs_err"] for x in rs)))
+
+    kernels += [
+        f32_entry("flash_self_attention_fwd_f32_c32", fa_src, f"{fa_py}:955",
+                  fx["h1_f32_c32"], "h1", 32, False),
+        f32_entry("flash_self_attention_fwd_f32_masked", fa_src, f"{fa_py}:955",
+                  fp["h1_f32_c64_masked"], "h1", 64, True),
+        f32_entry("flash_self_attention_fwd_f32_masked_c32", fa_src, f"{fa_py}:955",
+                  fp["h1_f32_c32_masked"], "h1", 32, True),
+    ]
+    from jepa_tpu_torch.ops.flash_attention import F32_BWD_HEAD_DIMS
+
+    for c in F32_BWD_HEAD_DIMS:
+        sfx = "" if c == 64 else f"_c{c}"
+        for kind, line in (("dkv", 1452), ("dq", 1400)):
+            kernels += [
+                f32_entry(f"flash_bwd_{kind}_f32{sfx}", f32src, f"{fa_py}:{line}",
+                          fx[f"{kind}_f32_c{c}"], kind, c, False),
+                f32_entry(f"flash_bwd_{kind}_f32_masked{sfx}", f32src, f"{fa_py}:{line}",
+                          fp[f"{kind}_f32_c{c}_masked"], kind, c, True)]
+    for mode in ("fixed", "padded"):
+        t, a = f32runs[mode], f32app[mode]
+        g = t["prof"]["groups"]
+        log(f"card: {card}; fp32 update (vitl16.yaml, meta.dtype float32, {mode} masks, "
+            f"B={t['batch']}, remat 'attn'): median {t['median_ms']:.1f} ms/update, peak "
+            f"{t['peak_gib']:.2f} GiB, device {t['prof']['device_ms']:.1f} ms (" + ", ".join(
+                f"{k} {v:.1f}" for k, v in g.items()) + f"); launches/update {t['per_step']}; "
+            f"B=2 seeded loss rel {t['b2']['loss']['rel']:.2e}; app {mode}: median step "
+            f"{a['step_ms']:.0f} ms, wall {a['wall_ms']:.0f} ms, host share "
+            f"{100 * a['host']:.1f} %, peak {a['peak_gib']:.2f} GiB")
     for m, _ in GIANTS:
         r = gruns[m]
         t, g = r["train"], r["train"]["prof"]["groups"]

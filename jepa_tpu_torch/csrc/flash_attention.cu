@@ -375,8 +375,16 @@ int launch(const void* qkv, const void* kvm, void* o, void* lse, int B, int N, i
 //
 // The reference's rounding points are dtype-generic, and for fp32 they are
 // no-ops: q * (scale*log2e) stays fp32, QK^T and PV are fp32 products with
-// fp32 sums, p stays fp32. Same base-2 online softmax as above. No key
-// mask (no eval passes one; the wrapper raises on a mask).
+// fp32 sums, p stays fp32. Same base-2 online softmax as above.
+//
+// Head dims 64, 80, 96 and 128 serve the fp32 evals' encoders; 32 (the
+// predictors' 24 zero-padded) and 64 also fp32 pretraining (meta.dtype:
+// float32), whose backward is csrc/flash_attention_bwd_f32.cu (H2-fp32).
+// Key mask (the padded mask mode), a template flag as in H1: each thread
+// reads the bytes of its 4 keys of a tile, and a masked key scores -1e30
+// before the row max, so it gets p = 0 exactly (a tile whose keys are all
+// masked is scaled away by the first valid key's alpha = 0, as above). The
+// unmasked instances keep the arithmetic they had before the flag.
 //
 // What bounds it on the H100: fp32 has no dense tensor-core path (TF32 is
 // not fp32), so the 4*N^2*C flops per head run on the CUDA cores (FFMA,
@@ -399,7 +407,7 @@ int launch(const void* qkv, const void* kvm, void* o, void* lse, int B, int N, i
 // the warp's own [32 keys][16 rows] slice of shared memory (a __syncwarp,
 // no block barrier); PV: per key a float4 of p (its rows) and 2-3 loads of
 // V for 32-64 FFMAs, and l takes p in key order in each owner (4 adds).
-// Head dims 64 and 80 ask for two blocks an SM (128 registers a thread);
+// Head dims 32, 64 and 80 ask for two blocks an SM (128 registers a thread);
 // at 96 and 128 the accumulators (48 and 64 a thread) and the shared
 // memory (113 and 145 KB a block) leave room for one, so the launch bound
 // asks for one and the registers spill nowhere.
@@ -424,7 +432,7 @@ struct F32Geo {
   static constexpr int SV = F32_BKV * C;         // V tile [32][C]
   static constexpr int SP = 8 * F32_BKV * 16;    // p, per warp [32 keys][16 rows]
   static constexpr int SMEM = 4 * (SQ + F32_STAGES * (SK + SV) + SP);
-  static constexpr int NV = C / 32;              // float4 column groups of O (2-4)
+  static constexpr int NV = C / 32;              // float4 column groups of O (1-4)
   static constexpr int NT = (C % 32) / 8;        // float2 tail columns of O (0; 2 at C=80)
   static constexpr int COLS = 4 * NV + NT;       // O columns a thread owns
   static constexpr int MINB = C <= 80 ? 2 : 1;   // blocks an SM, for the launch bound
@@ -446,10 +454,11 @@ __device__ __forceinline__ void f32_load_kv(float* sk, float* sv, const float* b
   }
 }
 
-template <int C>
+template <int C, bool MASKED>
 __global__ void __launch_bounds__(F32_THREADS, F32Geo<C>::MINB)
-flash_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ o,
-                     float* __restrict__ lse, int N, int H, float qscale) {
+flash_fwd_f32_kernel(const float* __restrict__ qkv, const uint8_t* __restrict__ kvm,
+                     float* __restrict__ o, float* __restrict__ lse, int N, int H,
+                     float qscale) {
   using G = F32Geo<C>;
   float* sQ = reinterpret_cast<float*>(jt::smem_bytes());
   float* sK = sQ + G::SQ;                  // stage s at s * SK
@@ -503,6 +512,14 @@ flash_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ o,
     }
     const float* sk = sK + s * G::SK + cg * G::KLD;  // key cg; key cg + 8i at + 8i*KLD
     const float* sv = sV + s * G::SV;
+    bool key_ok[4] = {true, true, true, true};  // MASKED: key cg + 8i valid or past N
+    if constexpr (MASKED) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + cg + 8 * i;
+        key_ok[i] = key >= N || kvm[(size_t)b * N + key];
+      }
+    }
 
     // S = Qs K^T over c ascending: s[r][i] for row r0 + r, key cg + 8i
     float sc[4][4];
@@ -539,6 +556,9 @@ flash_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ o,
       float mx = m[r];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
+        if constexpr (MASKED) {
+          if (!key_ok[i]) sc[r][i] = -1e30f;  // masked key: -1e30 before the row max
+        }
         if (k0 + cg + 8 * i >= N) sc[r][i] = -INFINITY;  // ragged kv edge: no weight
         mx = fmaxf(mx, sc[r][i]);
       }
@@ -599,12 +619,14 @@ flash_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ o,
   }
 }
 
+// kvm == nullptr launches the unmasked instance
 template <int C>
-int launch_f32(const void* qkv, void* o, void* lse, int B, int N, int H, float qscale,
-               void* stream) {
+int launch_f32(const void* qkv, const void* kvm, void* o, void* lse, int B, int N, int H,
+               float qscale, void* stream) {
   const dim3 grid((N + F32_BQ - 1) / F32_BQ, H, B);
-  return jt::launch(flash_fwd_f32_kernel<C>, grid, F32_THREADS, F32Geo<C>::SMEM, stream,
-                    (const float*)qkv, (float*)o, (float*)lse, N, H, qscale);
+  return jt::launch(kvm ? flash_fwd_f32_kernel<C, true> : flash_fwd_f32_kernel<C, false>, grid,
+                    F32_THREADS, F32Geo<C>::SMEM, stream, (const float*)qkv,
+                    (const uint8_t*)kvm, (float*)o, (float*)lse, N, H, qscale);
 }
 
 }  // namespace
@@ -623,12 +645,13 @@ JT_FWD_ENTRY(96)
 JT_FWD_ENTRY(128)
 
 #define JT_FWD_F32_ENTRY(C)                                                     \
-  extern "C" int jt_flash_fwd_f32_c##C(const void* qkv, void* o, void* lse,     \
-                                       int B, int N, int H, float qscale,       \
-                                       void* stream) {                          \
-    return launch_f32<C>(qkv, o, lse, B, N, H, qscale, stream);                 \
+  extern "C" int jt_flash_fwd_f32_c##C(const void* qkv, const void* kvm,        \
+                                       void* o, void* lse, int B, int N, int H, \
+                                       float qscale, void* stream) {            \
+    return launch_f32<C>(qkv, kvm, o, lse, B, N, H, qscale, stream);            \
   }
 
+JT_FWD_F32_ENTRY(32)
 JT_FWD_F32_ENTRY(64)
 JT_FWD_F32_ENTRY(80)
 JT_FWD_F32_ENTRY(96)

@@ -45,11 +45,18 @@ The pads may sit anywhere in the row (the predictor's mask is
 concat(context valid, target valid)). A row with no valid key is out of
 scope: the padded mode always keeps a context token.
 
-fp32 (the frozen evals with ``use_bfloat16: false``): a CUDA fp32 qkv
-launches H1-fp32, the same forward on the CUDA cores, where every rounding
-point above is a no-op (fp32 q*(scale*log2e), fp32 p). It takes the
-encoders' head dims 64, 80, 96 (vit_giant) and 128 (vit_gigantic), no key mask and no backward: an fp32
-tensor reaching a bf16-only entry (H2, the masked H1) raises.
+fp32 (the frozen evals with ``use_bfloat16: false``, and pretraining with
+``meta.dtype: float32``): a CUDA fp32 qkv launches H1-fp32, the same
+forward on the CUDA cores, where every rounding point above is a no-op
+(fp32 q*(scale*log2e), fp32 p), with or without a key mask, at head dims
+32 (the predictors' 24 padded), 64, 80, 96 (vit_giant) and 128
+(vit_gigantic) (``F32_HEAD_DIMS``). Its backward is H2-fp32
+(``csrc/flash_attention_bwd_f32.cu``: a dq and a dk/dv kernel, masked or
+not) at head dims 32 and 64 (``F32_BWD_HEAD_DIMS``: ViT-L's encoder and
+predictor). Not yet ported, so raising NotImplementedError on a CUDA
+tensor: the fp32 backward at 80, 96 and 128 (ViT-H, vit_giant and
+vit_gigantic fp32 pretraining) and every fp32 head-major call (H4-H7,
+vit_tiny); no fp32 call falls back to a plain version.
 
 Head-major attention (the second half of this module; counterpart of
 ``flash_attention_bhnd`` / ``flash_attention_packed`` / ``flash_attention``
@@ -92,7 +99,8 @@ from jepa_tpu_torch.ops import remat
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128)
-F32_HEAD_DIMS = (64, 80, 96, 128)  # H1-fp32: the encoders' (padded) head dims, ViT-L to gigantic
+F32_HEAD_DIMS = (32, 64, 80, 96, 128)  # H1-fp32: the predictors' 32, the encoders' 64-128
+F32_BWD_HEAD_DIMS = (32, 64)  # H2-fp32: ViT-L's predictor (24 padded) and encoder
 HM_HEAD_DIMS = (32, 64)   # H4-H7, bf16
 
 # wrapper-counted launches in this process
@@ -100,7 +108,11 @@ launches = 0      # H1 (bf16), every head dim, masked or not
 launches_by_head_dim = {c: 0 for c in KERNEL_HEAD_DIMS}  # H1 unmasked, per instance
 masked_launches_by_head_dim = {c: 0 for c in KERNEL_HEAD_DIMS}  # H1 with a key mask
 launches_by_tokens = collections.Counter()  # H1 unmasked, by (head dim, N)
-f32_launches_by_head_dim = {c: 0 for c in F32_HEAD_DIMS}  # H1-fp32
+f32_launches_by_head_dim = {c: 0 for c in F32_HEAD_DIMS}  # H1-fp32 unmasked, per instance
+f32_masked_launches_by_head_dim = {c: 0 for c in F32_HEAD_DIMS}  # H1-fp32 with a key mask
+# H2-fp32 by (kernel "dkv" or "dq", head dim, masked)
+f32_bwd_launches = {(k, c, m): 0 for k in ("dkv", "dq") for c in F32_BWD_HEAD_DIMS
+                    for m in (False, True)}
 dkv_launches = 0  # H2, dk/dv kernel, masked or not
 dq_launches = 0   # H2, dq kernel, masked or not
 dkv_masked_launches = 0  # of which with a key mask
@@ -116,7 +128,8 @@ def reset_launch_counts() -> None:
     global launches, dkv_launches, dq_launches, dkv_masked_launches, dq_masked_launches
     launches = dkv_launches = dq_launches = dkv_masked_launches = dq_masked_launches = 0
     for counts in (launches_by_head_dim, masked_launches_by_head_dim,
-                   f32_launches_by_head_dim, dkv_launches_by_head_dim,
+                   f32_launches_by_head_dim, f32_masked_launches_by_head_dim,
+                   f32_bwd_launches, dkv_launches_by_head_dim,
                    dq_launches_by_head_dim, hm_launches, hm_masked_launches):
         for c in counts:
             counts[c] = 0
@@ -241,9 +254,10 @@ def flash_self_attention_cuda(
     kv_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch H1 on qkv's current stream. qkv [B, N, 3*H*c]: bf16 with c in
-    {32, 64, 80, 96, 128} and kv_mask [B, N] (True = valid key) or None, or
-    fp32 (H1-fp32) with c in {64, 80, 96, 128} and no mask. Differentiable only through
-    ``FlashSelfAttentionFn`` (bf16)."""
+    {32, 64, 80, 96, 128}, or fp32 (H1-fp32) with c in {32, 64, 80, 96,
+    128}; kv_mask [B, N] (True = valid key) or None in both. Differentiable
+    only through ``FlashSelfAttentionFn``, whose backward takes bf16 at
+    every head dim here and fp32 at 32 and 64 (H2-fp32)."""
     global launches
     from jepa_tpu_torch.ops._build import check, load_library
 
@@ -253,17 +267,17 @@ def flash_self_attention_cuda(
                                   "FlashSelfAttentionFn")
     qscale = float(scale) * _LOG2E
     if qkv.dtype == torch.float32:
-        if kv_mask is not None:
-            raise NotImplementedError(f"{name}: the fp32 instance takes no key mask")
         c = _check_qkv(qkv, num_heads, name, torch.float32, F32_HEAD_DIMS)
+        mask = _kernel_mask(kv_mask, qkv, name)
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         b, n, _ = qkv.shape
         o = torch.empty((b, n, num_heads * c), dtype=qkv.dtype, device=qkv.device)
         lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
         entry = f"jt_flash_fwd_f32_c{c}"
-        check(getattr(load_library(), entry)(qkv.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                                             b, n, num_heads, qscale, stream), entry)
-        f32_launches_by_head_dim[c] += 1
+        check(getattr(load_library(), entry)(
+            qkv.data_ptr(), None if mask is None else mask.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, n, num_heads, qscale, stream), entry)
+        (f32_launches_by_head_dim if mask is None else f32_masked_launches_by_head_dim)[c] += 1
         return o, lse
     c = _check_qkv(qkv, num_heads, name)
     check_tma_layout(num_heads, c, qkv.element_size(), name)
@@ -285,13 +299,15 @@ def flash_self_attention_cuda(
 
 def _launch_bwd(kind: str, qkv, do, lse, delta, dqkv, num_heads: int,
                 scale: float, kv_mask=None) -> None:
-    """Check the operands of one H2 kernel (``kind`` "dkv" or "dq") and
-    launch it on qkv's current stream."""
+    """Check the operands of one H2 kernel (``kind`` "dkv" or "dq"; H2-fp32
+    for an fp32 qkv) and launch it on qkv's current stream."""
     global dkv_launches, dq_launches, dkv_masked_launches, dq_masked_launches
     from jepa_tpu_torch.ops._build import check, load_library
 
     name = f"flash_bwd_{kind}_cuda"
-    c = _check_qkv(qkv, num_heads, name)
+    f32 = qkv.dtype == torch.float32
+    c = (_check_qkv(qkv, num_heads, name, torch.float32, F32_BWD_HEAD_DIMS) if f32
+         else _check_qkv(qkv, num_heads, name))
     mask = _kernel_mask(kv_mask, qkv, name)
     b, n, _ = qkv.shape
     hc = num_heads * c
@@ -301,19 +317,22 @@ def _launch_bwd(kind: str, qkv, do, lse, delta, dqkv, num_heads: int,
         if (t.dtype != torch.float32 or tuple(t.shape) != (b, num_heads, n)
                 or not t.is_contiguous()):
             raise ValueError(f"{name}: {label} must be contiguous fp32 [B, H, N]")
-    if do.data_ptr() % 16:
-        raise ValueError(f"{name}: do must be 16-byte aligned")
-    check_tma_layout(num_heads, c, qkv.element_size(), name)
+    if do.data_ptr() % 16 or dqkv.data_ptr() % 16:
+        raise ValueError(f"{name}: do and dqkv must be 16-byte aligned")
+    if not f32:  # H2's TMA maps; H2-fp32 reads and writes float4s (rows of c*4 bytes)
+        check_tma_layout(num_heads, c, qkv.element_size(), name)
     if dqkv.shape != qkv.shape or dqkv.dtype != qkv.dtype or not dqkv.is_contiguous():
         raise ValueError(f"{name}: dqkv must be shaped like qkv")
-    entry = f"jt_flash_bwd_{kind}_c{c}"
+    entry = f"jt_flash_bwd_{kind}_f32_c{c}" if f32 else f"jt_flash_bwd_{kind}_c{c}"
     extra = (float(scale),) if kind == "dq" else ()  # dq's accumulator scale
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     check(getattr(load_library(), entry)(
         qkv.data_ptr(), None if mask is None else mask.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), b, n, num_heads,
         float(scale) * _LOG2E, *extra, stream), entry)
-    if kind == "dq":
+    if f32:
+        f32_bwd_launches[kind, c, mask is not None] += 1
+    elif kind == "dq":
         dq_launches += 1
         dq_masked_launches += mask is not None
         dq_launches_by_head_dim[c] += 1
@@ -325,8 +344,8 @@ def _launch_bwd(kind: str, qkv, do, lse, delta, dqkv, num_heads: int,
 
 def flash_bwd_dkv_cuda(qkv, do, lse, delta, dqkv, num_heads: int, scale: float,
                        kv_mask=None) -> None:
-    """Launch H2's dk/dv kernel: writes dk and dv into columns [H*c, 3*H*c)
-    of dqkv [B, N, 3*H*c] bf16; masked keys get exactly 0."""
+    """Launch H2's dk/dv kernel (H2-fp32's for fp32): writes dk and dv into
+    columns [H*c, 3*H*c) of dqkv [B, N, 3*H*c]; masked keys get exactly 0."""
     _launch_bwd("dkv", qkv, do, lse, delta, dqkv, num_heads, scale, kv_mask)
 
 
@@ -338,7 +357,8 @@ def flash_bwd_dq_cuda(qkv, do, lse, delta, dqkv, num_heads: int, scale: float,
 
 def flash_self_attention_bwd_cuda(qkv, do, lse, delta, num_heads: int,
                                   scale: float, kv_mask=None) -> torch.Tensor:
-    """H2: both backward kernels into one token-major dqkv [B, N, 3*H*c]."""
+    """H2 (H2-fp32 for fp32): both backward kernels into one token-major
+    dqkv [B, N, 3*H*c]."""
     dqkv = torch.empty_like(qkv)
     flash_bwd_dkv_cuda(qkv, do, lse, delta, dqkv, num_heads, scale, kv_mask)
     flash_bwd_dq_cuda(qkv, do, lse, delta, dqkv, num_heads, scale, kv_mask)
@@ -398,7 +418,8 @@ def attention_delta(do: torch.Tensor, o: torch.Tensor, num_heads: int) -> torch.
 
 class FlashSelfAttentionFn(torch.autograd.Function):
     """o = attention(qkv) with the flash kernels: H1 forward, H2 backward
-    on CUDA tensors, their plain versions on CPU tensors.
+    (H1-fp32 and H2-fp32 for fp32) on CUDA tensors, their plain versions on
+    CPU tensors.
 
     qkv [B, N, 3*H*c] -> o [B, N, H*c], with an optional key mask
     kv_mask [B, N]; saves (qkv, o, lse, kv_mask). The backward returns one

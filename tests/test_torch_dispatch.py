@@ -37,6 +37,7 @@ from jepa_tpu_torch.models.factory import predictor_cfg_for, vit_cfg
 from jepa_tpu_torch.ops import _build
 from jepa_tpu_torch.ops.attention import resolve_flash
 from jepa_tpu_torch.ops.flash_attention import (
+    F32_BWD_HEAD_DIMS,
     F32_HEAD_DIMS,
     HM_HEAD_DIMS,
     KERNEL_HEAD_DIMS,
@@ -149,6 +150,17 @@ def _pretrain_calls(cfg, model_name=None, force=False, keep=None):
 def _resolve(call):
     """The kernel entries (or the eager path) a call resolves to; asserts
     the entries exist."""
+    entries = _entries(call)
+    if isinstance(entries, str):
+        return entries
+    for e in entries:
+        assert e in _build._SIGNATURES and e in _ENTRIES, (call, e)
+    return " + ".join(entries)
+
+
+def _entries(call):
+    """The kernel entries a call needs, whether or not they exist yet, or
+    the eager path it runs."""
     if isinstance(call, Attn):
         if call.cross or not resolve_flash("auto", call.nq, call.nk, _CARD):
             # separate q/k/v and short sequences run xla_attention, as the JAX
@@ -159,11 +171,12 @@ def _resolve(call):
         if route == "eager":  # no token-major split and past 2048 tokens
             return "eager xla_attention"
         if route == "hm":  # flash_attention_packed: H4, then H7 or H5 + H6
-            assert call.dtype == torch.bfloat16 and call.c in HM_HEAD_DIMS, call
-            entries = [f"jt_flash_hm_fwd_c{call.c}"]
+            assert call.dtype == torch.float32 or call.c in HM_HEAD_DIMS, call
+            f32 = "_f32" if call.dtype == torch.float32 else ""  # not yet ported
+            entries = [f"jt_flash_hm_fwd{f32}_c{call.c}"]
             if call.grad:
                 kinds = ["dqkv"] if merged_bwd(call.nq, call.nk, call.c) else ["dq", "dkv"]
-                entries += [f"jt_flash_hm_{k}_c{call.c}" for k in kinds]
+                entries += [f"jt_flash_hm_{k}{f32}_c{call.c}" for k in kinds]
         else:
             entries = _tm_entries(call)
     else:
@@ -176,24 +189,32 @@ def _resolve(call):
         kind = "_z" if call.grad else ""  # H8 (LinearGelu's forward) or H3
         entries = [f"jt_linear_gelu{kind}_bf16" if call.dtype == torch.bfloat16
                    else f"jt_linear_gelu{kind}_f32"]
-    for e in entries:
-        assert e in _build._SIGNATURES and e in _ENTRIES, (call, e)
-    return " + ".join(entries)
+    return entries
 
 
 def _tm_entries(call):
-    """H1 (and H2 under a gradient) at the padded head dim and the dtype."""
+    """H1 (and H2 under a gradient) at the padded head dim and the dtype:
+    bf16 H1 / H2, or H1-fp32 / H2-fp32."""
     cp = padded_head_dim(call.c)
-    if call.dtype == torch.bfloat16:
+    f32 = "_f32" if call.dtype == torch.float32 else ""
+    if not f32:
         assert cp in KERNEL_HEAD_DIMS, call
         check_tma_layout(call.heads, cp)  # H1's TMA maps, as the wrapper checks them
-        entries = [f"jt_flash_fwd_c{cp}"]
-        if call.grad:  # FlashSelfAttentionFn: H2 for the backward
-            entries += [f"jt_flash_bwd_dkv_c{cp}", f"jt_flash_bwd_dq_c{cp}"]
-    else:
-        assert cp in F32_HEAD_DIMS and not call.grad, call
-        entries = [f"jt_flash_fwd_f32_c{cp}"]
+    entries = [f"jt_flash_fwd{f32}_c{cp}"]
+    if call.grad:  # FlashSelfAttentionFn: H2 or H2-fp32 for the backward
+        entries += [f"jt_flash_bwd_dkv{f32}_c{cp}", f"jt_flash_bwd_dq{f32}_c{cp}"]
     return entries
+
+
+def test_f32_head_dims_are_the_entries():
+    """The wrapper's fp32 head dims (H1-fp32, H2-fp32) are exactly the
+    instances the sources define and the build binds."""
+    f32 = lambda stem: {int(e.rsplit("_c", 1)[1]) for e in _ENTRIES if e.startswith(stem)}
+    assert f32("jt_flash_fwd_f32_c") == set(F32_HEAD_DIMS)
+    assert f32("jt_flash_bwd_dkv_f32_c") == f32("jt_flash_bwd_dq_f32_c") == set(F32_BWD_HEAD_DIMS)
+    for e in _ENTRIES:
+        if "_f32_c" in e:
+            assert e in _build._SIGNATURES, e
 
 
 # (model_name, patch_size) run on vitl16.yaml's and vitl16_k400_16x8x3.yaml's
@@ -400,3 +421,84 @@ def test_jax_tm_kernel_picks(name):
     # at 224 px mask 1's context (96 tokens) runs eager
     assert len(trainable) == (4 if name == "vith16_384.yaml" else 3)
     assert all(v == "K1 + K3" for v in trainable)
+
+
+def _f32_vitl16(mode, model_name=None, config="vitl16.yaml"):
+    """``config`` with ``meta.dtype: float32`` (and ``model_name``) in the
+    fixed mode (the calibrated keep counts) or the padded mode (every rung
+    of each mask config's cap ladder), as its call list."""
+    from jepa_tpu_torch.masks.multiblock3d import calibrate_pad_ladders
+
+    cfg = yaml.safe_load((_CONFIGS / "pretrain" / config).read_text())
+    cfg["meta"]["dtype"] = "float32"
+    keep = None
+    if mode == "padded":
+        d = cfg["data"]
+        grid = MaskGrid.from_data_cfg(d["crop_size"], d["patch_size"], d["num_frames"],
+                                      d["tubelet_size"])
+        specs = [MaskSpec.from_cfg(x) for x in cfg["mask"]]
+        keep = [r for rungs in calibrate_pad_ladders(specs, grid, d["batch_size"]) for r in rungs]
+    return _pretrain_calls(cfg, model_name, keep=keep)
+
+
+@pytest.mark.parametrize("mode", ["fixed", "padded"])
+def test_f32_pretrain_dispatch(mode):
+    """vitl16.yaml with ``meta.dtype: float32`` (ViT-L/16, fixed masks or
+    every padded cap): every encoder and predictor self-attention at 128
+    tokens or more resolves to H1-fp32 at c=64 (encoder) or c=24->32
+    (predictor), and under a gradient to H2-fp32 at the same head dim; the
+    target's fc1 to H3-fp32; nothing to a bf16 entry."""
+    table = [(call, _resolve(call)) for call in _f32_vitl16(mode)]
+    for call, how in table:
+        print(f"  {mode} {call.where:32s} -> {how}")
+    attn = [(call, how) for call, how in table if isinstance(call, Attn)]
+    assert len(attn) == 1 + 2 * (2 if mode == "fixed" else 6)
+    for call, how in attn:
+        if how.startswith("eager"):  # fixed mode's 96-token context, as in the JAX package
+            assert call.nq < 128 and mode == "fixed" and "context" in call.where, call
+            continue
+        cp = 64 if call.c == 64 else 32
+        want = [f"jt_flash_fwd_f32_c{cp}"]
+        if call.grad:
+            want += [f"jt_flash_bwd_dkv_f32_c{cp}", f"jt_flash_bwd_dq_f32_c{cp}"]
+        assert how == " + ".join(want), (call, how)
+    assert sum("jt_flash_bwd_dq_f32" in how for _, how in attn) == (3 if mode == "fixed" else 12)
+    fc1 = {call.where: how for call, how in table if isinstance(call, Fc1)}
+    assert fc1["target fc1"] == "jt_linear_gelu_f32"
+    assert not any("bf16" in how for _, how in table)
+
+
+@pytest.mark.parametrize("name,model", [("vitl16.yaml", "vit_tiny"), ("vith16.yaml", None),
+                                        ("vitl16.yaml", "vit_giant")])
+def test_f32_pretrain_not_yet_ported(name, model):
+    """fp32 pretraining whose attention needs an instance no source defines
+    yet (ROADMAP queue 2): vit_tiny at vitl16.yaml's geometry (its encoder
+    head-major, fp32 H4-H7; its 384-wide predictor H2-fp32 at c=128),
+    ViT-H (H2-fp32 at c=80) and vit_giant (c=88->96). Each call's entries
+    are listed and at least one is missing, so the wrapper raises
+    NotImplementedError on the card; a slice that ports them flips this."""
+    missing = set()
+    for mode in ("fixed", "padded"):
+        for call in _f32_vitl16(mode, model, name):
+            entries = _entries(call)
+            if not isinstance(entries, str):
+                missing |= {e for e in entries if e not in _ENTRIES}
+    print(f"  {name} {model}: missing {sorted(missing)}")
+    want = {"vit_tiny": {"jt_flash_hm_fwd_f32_c64", "jt_flash_bwd_dkv_f32_c128"},
+            None: {"jt_flash_bwd_dkv_f32_c80", "jt_flash_bwd_dq_f32_c80"},
+            "vit_giant": {"jt_flash_bwd_dkv_f32_c96"}}[model]
+    assert want <= missing
+    assert not missing & set(_build._SIGNATURES)
+
+
+def test_f32_fixture_dispatch():
+    """The CPU pretrain fixture (tests/fixtures/pretrain_smoke.yaml: vit_tiny,
+    fp32, 32 px and 4 frames, so 8 tokens): every attention runs eager (fewer
+    than 128 tokens, in both packages) and the fc1 (K=192) the eager GELU,
+    so on the card it launches no kernel; its model at a real geometry is
+    ``test_f32_pretrain_not_yet_ported[vitl16.yaml-vit_tiny]``."""
+    cfg = yaml.safe_load((pathlib.Path(__file__).parent / "fixtures"
+                          / "pretrain_smoke.yaml").read_text())
+    table = [(call, _resolve(call)) for call in _pretrain_calls(cfg)]
+    assert table and all(how.startswith("eager") for _, how in table)
+    assert all(call.dtype == torch.float32 for call, _ in table)

@@ -181,13 +181,19 @@ TRAIN = dict(loss_exp=1.0, reg_coeff=0.1, clip_grad=0.05, clip_after_step=0,
              mask_mode="padded", seed=7)
 
 
-@pytest.fixture(scope="module")
-def jax_padded_update():
+# (encoder width, heads, predictor width): narrow, and ViT-L's head dims
+# (encoder c=64, predictor c=24 padded to 32: H1-fp32 / H2-fp32 at c=64
+# and 32, masked, on the card)
+WIDTHS = {"narrow": (64, 4, 32), "vitl_heads": (256, 4, 96)}
+
+
+def _jax_padded_update(geo):
     """The JAX package's padded-mode update (attn_impl='xla', fp32) on
     seeded weights with the host collator's masks, padded past their K."""
-    jenc = JaxViTCfg(**GEO, embed_dim=64, depth=2, num_heads=4, uniform_power=True,
+    dim, heads, pred_dim = WIDTHS[geo]
+    jenc = JaxViTCfg(**GEO, embed_dim=dim, depth=2, num_heads=heads, uniform_power=True,
                      compute_dtype=jnp.float32, attn_impl="xla")
-    jpred = jax_predictor_cfg_for(jenc, predictor_embed_dim=32, depth=2)
+    jpred = jax_predictor_cfg_for(jenc, predictor_embed_dim=pred_dim, depth=2)
     state, consts = jax_step.init_train_state(jax.random.PRNGKey(13), jenc, jpred)
     specs = [jax_masks.MaskSpec.from_cfg(m) for m in TINY_MASKS]
     grid = jax_masks.MaskGrid(**TINY_GRID)
@@ -211,15 +217,30 @@ def jax_padded_update():
                 batch=batch, keep=keep)
 
 
-@pytest.mark.parametrize("attn_impl", ["xla", "flash"])
-def test_one_padded_update_matches_jax(jax_padded_update, attn_impl):
+@pytest.fixture(scope="module")
+def jax_padded_update():
+    return _jax_padded_update("narrow")
+
+
+@pytest.fixture(scope="module")
+def jax_padded_update_vitl_heads():
+    return _jax_padded_update("vitl_heads")
+
+
+@pytest.mark.parametrize("attn_impl,geo", [("xla", "narrow"), ("flash", "narrow"),
+                                           ("flash", "vitl_heads")],
+                         ids=["xla", "flash", "flash-vitl-heads"])
+def test_one_padded_update_matches_jax(request, attn_impl, geo):
     """The port's padded-mode update against the JAX package's on the same
     state, clips and padded masks (the fixed-mode update's tolerances: loss rtol 2e-4,
-    parameters and target atol 5e-5, fp32)."""
-    ju = jax_padded_update
-    enc = ViTCfg(**GEO, embed_dim=64, depth=2, num_heads=4, uniform_power=True,
+    parameters and target atol 5e-5, fp32); ``vitl_heads`` at ViT-L's head
+    dims, the key-masked plain versions of H1-fp32 / H2-fp32 at c=64 and 32."""
+    ju = request.getfixturevalue("jax_padded_update" if geo == "narrow"
+                                 else "jax_padded_update_vitl_heads")
+    dim, heads, pred_dim = WIDTHS[geo]
+    enc = ViTCfg(**GEO, embed_dim=dim, depth=2, num_heads=heads, uniform_power=True,
                  compute_dtype=torch.float32, attn_impl=attn_impl)
-    pred = predictor_cfg_for(enc, predictor_embed_dim=32, depth=2)
+    pred = predictor_cfg_for(enc, predictor_embed_dim=pred_dim, depth=2)
     state = train_state_from_jax(ju["state"], ju["consts"], enc, pred, device="cpu")
     specs = [masks.MaskSpec.from_cfg(m) for m in TINY_MASKS]
     grid = masks.MaskGrid(**TINY_GRID)

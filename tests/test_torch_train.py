@@ -232,15 +232,20 @@ UPDATE_MASKS = [dict(num_blocks=4, spatial_scale=[0.15, 0.15], aspect_ratio=[0.7
 SCHED = dict(ipe=10, num_epochs=4, warmup_epochs=1, start_lr=2e-4, ref_lr=1e-3,
              final_lr=1e-6, wd=0.04, final_wd=0.4, ema=(0.99, 1.0))
 TRAIN = dict(loss_exp=1.0, reg_coeff=0.0, clip_grad=0.05, clip_after_step=0, seed=7)
+# (encoder width, heads, predictor width): narrow (head dims 16 and 8, both
+# zero-padded to 32 on the flash path), and ViT-L's head geometry (the
+# encoder's c=64, the predictor's c=24 padded to 32, a token-major split
+# of 4 heads each: H1-fp32 / H2-fp32 at c=64 and 32 on the card)
+WIDTHS = {"narrow": (64, 4, 32), "vitl_heads": (256, 4, 96)}
 
 
-@pytest.fixture(scope="module")
-def jax_update():
+def _jax_update(geo):
     """The JAX package's update (attn_impl='xla', fp32) on seeded weights,
     with the masks its step samples, as numpy."""
-    jenc = JaxViTCfg(**GEO, embed_dim=64, depth=2, num_heads=4, uniform_power=True,
+    dim, heads, pred_dim = WIDTHS[geo]
+    jenc = JaxViTCfg(**GEO, embed_dim=dim, depth=2, num_heads=heads, uniform_power=True,
                      compute_dtype=jnp.float32, attn_impl="xla")
-    jpred = jax_predictor_cfg_for(jenc, predictor_embed_dim=32, depth=2)
+    jpred = jax_predictor_cfg_for(jenc, predictor_embed_dim=pred_dim, depth=2)
     state, consts = jax_step.init_train_state(jax.random.PRNGKey(11), jenc, jpred)
     specs = [jax_masks.MaskSpec.from_cfg(m) for m in UPDATE_MASKS]
     grid = jax_masks.MaskGrid(t=2, h=4, w=4)
@@ -260,16 +265,35 @@ def jax_update():
                 keep=keep, jpred=jpred)
 
 
-@pytest.mark.parametrize("attn_impl", ["xla", "flash"])
-def test_one_update_matches_jax(jax_update, attn_impl):
+@pytest.fixture(scope="module")
+def jax_update():
+    return _jax_update("narrow")
+
+
+@pytest.fixture(scope="module")
+def jax_update_vitl_heads():
+    return _jax_update("vitl_heads")
+
+
+@pytest.mark.parametrize("attn_impl,geo", [("xla", "narrow"), ("flash", "narrow"),
+                                           ("flash", "vitl_heads")],
+                         ids=["xla", "flash", "flash-vitl-heads"])
+def test_one_update_matches_jax(request, attn_impl, geo):
     """attn_impl='flash' puts FlashSelfAttentionFn and the plain versions of
-    H1/H2 (with the predictor's head dim 8 zero-padded to 32) inside the
-    port's step; the JAX side runs its XLA attention. Tolerances of
-    tests/test_train_parity.py."""
-    ju = jax_update
-    enc = ViTCfg(**GEO, embed_dim=64, depth=2, num_heads=4, uniform_power=True,
+    H1/H2 (with the predictor's head dim zero-padded to 32) inside the
+    port's step, in fp32 the plain versions of H1-fp32 / H2-fp32; at
+    ``vitl_heads`` at ViT-L's head dims (64; 24 padded to 32). The JAX side
+    runs its XLA attention. Tolerances of tests/test_train_parity.py."""
+    ju = request.getfixturevalue("jax_update" if geo == "narrow" else "jax_update_vitl_heads")
+    dim, heads, pred_dim = WIDTHS[geo]
+    enc = ViTCfg(**GEO, embed_dim=dim, depth=2, num_heads=heads, uniform_power=True,
                  compute_dtype=torch.float32, attn_impl=attn_impl)
-    pred = predictor_cfg_for(enc, predictor_embed_dim=32, depth=2)
+    pred = predictor_cfg_for(enc, predictor_embed_dim=pred_dim, depth=2)
+    if geo == "vitl_heads":  # the token-major route at ViT-L's head dims
+        from jepa_tpu_torch.ops.flash_attention import padded_head_dim, self_attention_route
+
+        assert (dim // heads, pred_dim // heads) == (64, 24) and padded_head_dim(24) == 32
+        assert self_attention_route(heads, 64, 32) == self_attention_route(heads, 24, 32) == "tm"
     state = train_state_from_jax(ju["state"], ju["consts"], enc, pred, device="cpu")
     specs = [masks.MaskSpec.from_cfg(m) for m in UPDATE_MASKS]
     grid = masks.MaskGrid(t=2, h=4, w=4)
