@@ -6,9 +6,10 @@
                                             # only the spread of phase 6's B=2
                                             # check (phase_b2_spread)
     python3 chip_smoke.py --kernel-ab --other DIR...
-                                            # only H1-H8, H1-fp32, H3-fp32 and
-                                            # H8-fp32 against another
-                                            # checkout's (phase_kernel_ab)
+                                            # only H1-H8, H1-fp32, H2-fp32,
+                                            # H3-fp32 and H8-fp32 against
+                                            # another checkout's
+                                            # (phase_kernel_ab)
     python3 chip_smoke.py --update-ab --other DIR
                                             # only the 1-rank vit_tiny and
                                             # ViT-L updates of this checkout
@@ -215,11 +216,24 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      a seeded B=2 update in each mode against the plain versions (limits
      from their own re-ordered spread), and the app in fp32, fixed and
      padded, 1 epoch each.
+ 28. vit_tiny in fp32 (``phase_tiny_f32``), after phase 27: H4-H7-fp32
+     (c=64, and c=32 for the 96-wide predictor) and H1-fp32 / H2-fp32 at
+     c=128 (the 384-wide predictor) against their plain versions in fp32
+     at the target, the contexts and every padded rung (key mask), both
+     predictors, the split geometry (N=1568) and N=333, timed beside SDPA
+     fp32 and their bounds; the split backward through
+     flash_attention_packed under autograd; serving with compute_dtype
+     float32, the fp32 K400 16x8x3 eval, TRAIN_STEPS updates of vitl16.yaml
+     with meta.dtype float32 at B=24 'attn' fixed and padded (seeded B=2
+     checks) and 2 in each mode with the 96-wide predictor, and the app
+     fixed and padded.
 The native decoder has no phase: the card's machine has no FFmpeg
 libraries (PERF.md §6), so it is held against the JAX package's on the
 CPU only (tests/test_torch_native.py).
 Phases 12-13 run after phase 7, phases 14-15 after phase 8, phase 16's
 kernel checks after phase 9, phases 17-20 after phase 15, phase 26 last.
+Every fp32 attention kernel (H1-fp32, H2-fp32, H4-H7-fp32) is one body in
+jepa_tpu_torch/csrc/flash_f32.cuh, the JSON line's source for them.
 Launch counts are checked as whole dicts of every counter (``_counts``): a
 kernel that should not run must count 0.
 H1 (each head dim, masked or not), H1-fp32, H2 likewise, H3, H4, H5, H6,
@@ -249,6 +263,7 @@ from unittest import mock
 import numpy as np
 
 SEED = 0
+T0 = 0.0  # main's start (time.perf_counter)
 DEPTH = 24  # vit_large
 # tolerances of kernel vs plain version on the card (reasons in PERF.md)
 H1_O_TOL = 2e-2    # |o| abs, unit-scale inputs: p rounds to bf16 against a
@@ -597,19 +612,20 @@ def _check_h2(torch, label, qkv, do, o, lse, h, scale, c_real, mask=None, by_sam
 
 
 def _check_h4(torch, label, q, k, v, scale, mask=None):
-    """H4 on head-major q, k, v (with a key mask or none) against its plain
-    version on the card (finite, |do| <= HM_O_TOL, |dlse| <= HM_LSE_TOL),
-    then a second call on the same inputs, which must be bit-equal.
-    Returns (o, lse, max|do|)."""
+    """H4 (H4-fp32 for fp32 operands) on head-major q, k, v (with a key mask
+    or none) against its plain version on the card (finite, |do| <=
+    HM_O_TOL, |dlse| <= HM_LSE_TOL; fp32: F32_TOL each), then a second call
+    on the same inputs, which must be bit-equal. Returns (o, lse, max|do|)."""
     from jepa_tpu_torch.ops import flash_attention as fa
 
+    o_tol, lse_tol = (F32_TOL, F32_TOL) if q.dtype == torch.float32 else (HM_O_TOL, HM_LSE_TOL)
     o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale, mask)
     o_ref, lse_ref = fa.flash_fwd_hm_ref(q, k, v, scale, mask)
     torch.cuda.synchronize()
     err_o = (o.float() - o_ref.float()).abs().max().item()
     err_l = (lse - lse_ref).abs().max().item()
-    log(f"{label}: max|do| {err_o:.3e} (tol {HM_O_TOL}) max|dlse| {err_l:.3e} (tol {HM_LSE_TOL})")
-    if not (_finite(o) and _finite(lse) and err_o <= HM_O_TOL and err_l <= HM_LSE_TOL):
+    log(f"{label}: max|do| {err_o:.3e} (tol {o_tol}) max|dlse| {err_l:.3e} (tol {lse_tol})")
+    if not (_finite(o) and _finite(lse) and err_o <= o_tol and err_l <= lse_tol):
         raise RuntimeError(f"{label} disagrees with its plain version")
     _same_bits(label, (o, lse), fa.flash_fwd_hm_cuda(q, k, v, scale, mask))
     return o, lse, err_o
@@ -696,12 +712,13 @@ HM_BWD_GRADS = {"dq": ("dq",), "dkv": ("dk", "dv"), "dqkv": ("dq", "dk", "dv")}
 
 def _check_hm_bwd(torch, kind, label, q, k, v, do, scale, mask=None, out=None):
     """A head-major backward, H5 (``kind`` "dq", the split dq), H6 ("dkv",
-    the split dk/dv) or H7 ("dqkv", merged), on q, k, v and do, its lse and
-    delta from H4, against its plain version on the card: each gradient
-    within H2_REL * max|ref| and, with a key mask, the masked keys' dk and
-    dv exactly 0 (``_check_grads``); written into ``out`` when given; then
-    a second call on the same inputs, which must be bit-equal. Returns
-    (lse, delta, max|d|)."""
+    the split dk/dv) or H7 ("dqkv", merged), or its fp32 instance for fp32
+    operands, on q, k, v and do, its lse and delta from H4, against its
+    plain version on the card: each gradient within H2_REL * max|ref|
+    (fp32: F32_TOL * max(|ref|, 1) element by element) and, with a key
+    mask, the masked keys' dk and dv exactly 0 (``_check_grads``); written
+    into ``out`` when given; then a second call on the same inputs, which
+    must be bit-equal. Returns (lse, delta, max|d|)."""
     from jepa_tpu_torch.ops import flash_attention as fa
 
     cuda = getattr(fa, f"flash_bwd_{kind}_hm_cuda")
@@ -713,7 +730,8 @@ def _check_hm_bwd(torch, kind, label, q, k, v, do, scale, mask=None, out=None):
     torch.cuda.synchronize()
     got = tuple(t.clone() for t in got)
     _same_bits(label, got, grads(cuda(q, k, v, do, lse, delta, scale, mask, out=out)))
-    return lse, delta, _check_grads(label, got, want, HM_BWD_GRADS[kind], mask)
+    return lse, delta, _check_grads(label, got, want, HM_BWD_GRADS[kind], mask,
+                                    f32=q.dtype == torch.float32)
 
 
 def _hm_args(fa, q, k, v, scale, mask=None, **ops):
@@ -1230,18 +1248,20 @@ def phase_masked_kernels(torch, shapes):
     return rep
 
 
-def _hm_inputs(torch, gen, b, h, nq, nk, c):
-    """Seeded bf16 operands as the head-major path sees them: for self-attention
-    the q, k, v planes of a token-major [B, N, 3, H, c] projection (strided
-    views), else separate [B, H, N, c] tensors; do [B, H, Nq, c] token-major
-    (as o's gradient arrives through the transpose back)."""
+def _hm_inputs(torch, gen, b, h, nq, nk, c, dtype=None):
+    """Seeded operands (bf16, or ``dtype``) as the head-major path sees them:
+    for self-attention the q, k, v planes of a token-major [B, N, 3, H, c]
+    projection (strided views), else separate [B, H, N, c] tensors; do [B,
+    H, Nq, c] token-major (as o's gradient arrives through the transpose
+    back)."""
+    dt = dtype or torch.bfloat16
     if nq == nk:
-        qkv = torch.randn((b, nq, 3, h, c), generator=gen, device="cuda").to(torch.bfloat16)
+        qkv = torch.randn((b, nq, 3, h, c), generator=gen, device="cuda").to(dt)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
     else:
-        q, k, v = (torch.randn((b, h, n, c), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = (torch.randn((b, h, n, c), generator=gen, device="cuda").to(dt)
                    for n in (nq, nk, nk))
-    do = torch.randn((b, nq, h, c), generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn((b, nq, h, c), generator=gen, device="cuda").to(dt)
     return q, k, v, do.transpose(1, 2)
 
 
@@ -1259,19 +1279,26 @@ def _sdpa_hm_ms(torch, q, k, v, do, scale, mask=None):
     return fwd, bwd
 
 
-def _check_grads(label, got, want, names, mask=None):
-    """Each gradient within H2_REL * max|ref| of its plain version; with a
-    key mask the masked keys' dk and dv exactly 0. Returns the max |d|."""
+def _check_grads(label, got, want, names, mask=None, f32=False):
+    """Each gradient within H2_REL * max|ref| of its plain version (``f32``:
+    |d| <= F32_TOL * max(|ref|, 1) element by element); with a key mask the
+    masked keys' dk and dv exactly 0. Returns the max |d|."""
     worst = 0.0
     for name, g, w in zip(names, got, want):
-        err = (g.float() - w.float()).abs().max().item()
-        tol = H2_REL * w.float().abs().max().item()
+        d = (g.float() - w.float()).abs()
+        err = d.max().item()
+        if f32:
+            excess = (d - F32_TOL * w.float().abs().clamp(min=1)).max().item()
+            rule = f"worst margin {excess:.3e} (tol |d| <= {F32_TOL} * max(|ref|, 1))"
+        else:
+            excess = err - H2_REL * w.float().abs().max().item()
+            rule = f"(tol {err - excess:.3e} = 2^-6 * max|ref|)"
         masked = 0.0
         if mask is not None and name in ("dk", "dv"):
             masked = g.transpose(1, 2)[~mask].abs().max().item()
-        log(f"{label}: {name} max|d| {err:.3e} (tol {tol:.3e} = 2^-6 * max|ref|)"
+        log(f"{label}: {name} max|d| {err:.3e} {rule}"
             + ("" if mask is None or name == "dq" else f", masked keys max|{name}| {masked:.1e}"))
-        if not (_finite(g) and err <= tol and masked == 0.0):
+        if not (_finite(g) and excess <= 0 and masked == 0.0):
             raise RuntimeError(f"{label} {name} disagrees with its plain version")
         worst = max(worst, err)
     return worst
@@ -1279,6 +1306,44 @@ def _check_grads(label, got, want, names, mask=None):
 
 def _finite(t) -> bool:
     return bool(t.float().isfinite().all().item())
+
+
+def _check_packed_split(torch, q, k, v, do, mask, scale):
+    """The split backward (H5 + H6; H5-fp32 + H6-fp32 for fp32 operands)
+    driven through flash_attention_packed under autograd on the token-major
+    projection of q, k, v, every counter set to 0 just before and read just
+    after (one forward, one dq and one dk/dv launch, masked where the key
+    mask is given, and nothing else); its grads against the same op through
+    the plain versions. Returns {kind: launches} and {kind: masked launches}
+    over HM_KINDS."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+
+    f32 = q.dtype == torch.float32
+    key = (lambda kind: f"hm_f32_{kind}_c{q.shape[-1]}") if f32 else (lambda kind: f"hm_{kind}")
+    grads = []
+    for plain in (False, True):
+        # the token-major projection [B, N, 3, H, c] and its [3, B, H, N, c] view
+        tok = torch.stack((q, k, v)).permute(1, 3, 0, 2, 4).contiguous().requires_grad_(True)
+        with plain_versions() if plain else contextlib.nullcontext():
+            _reset_counts(fa, fm)
+            o = fa.flash_attention_packed(tok.permute(2, 0, 3, 1, 4), kv_mask=mask, scale=scale)
+            o.backward(do)
+            torch.cuda.synchronize()
+            if not plain:
+                got = _launch_diff({}, _counts(fa, fm))
+        grads.append(tok.grad.permute(2, 0, 3, 1, 4))
+    want = {key(kind) + sfx: 1 for kind in ("fwd", "dq", "dkv")
+            for sfx in ("", "_masked")[:1 + (mask is not None)]}
+    tag = (f"flash_attention_packed {tuple(q.shape)} {str(q.dtype)[6:]}"
+           f"{' with a key mask' if mask is not None else ''}")
+    if got != want:
+        raise RuntimeError(f"{tag}: the split backward launched {got}, not {want}")
+    _check_grads(f"{tag} under autograd, kernels vs plain", grads[0].unbind(0),
+                 grads[1].unbind(0), ("dq", "dk", "dv"), mask, f32=f32)
+    log(f"{tag}: launches {got}")
+    return ({kind: got.get(key(kind), 0) for kind in fa.HM_KINDS},
+            {kind: got.get(key(kind) + "_masked", 0) for kind in fa.HM_KINDS})
 
 
 def phase_hm_kernels(torch, setup, caps):
@@ -1419,37 +1484,10 @@ def phase_hm_kernels(torch, setup, caps):
     del o, lse, delta
 
     # the split backward driven through the public op under autograd, with
-    # and without the c=64 key mask, its launches counted (every counter set
-    # to 0 just before); the same op through the plain versions holds its grads
-    want = {"fwd": 1, "dq": 1, "dkv": 1, "dqkv": 0}
-    for masked in (False, True):
-        mask = masks[masked]
-        grads = []
-        for plain in (False, True):
-            # the token-major projection [B, N, 3, H, c] and its [3, B, H, N, c] view
-            tok = torch.stack((q, k, v)).permute(1, 3, 0, 2, 4).contiguous().requires_grad_(True)
-            with plain_versions() if plain else contextlib.nullcontext():
-                fa.reset_launch_counts()
-                o = fa.flash_attention_packed(tok.permute(2, 0, 3, 1, 4), kv_mask=mask,
-                                              scale=scale)
-                o.backward(do)
-                torch.cuda.synchronize()
-                if not plain:
-                    launches = {k: fa.hm_launches[k] for k in fa.HM_KINDS}
-                    masked_launches = {k: fa.hm_masked_launches[k] for k in fa.HM_KINDS}
-            grads.append(tok.grad.permute(2, 0, 3, 1, 4))
-        key = "split_masked_launches" if masked else "split_launches"
-        rep[key] = masked_launches if masked else launches
-        want_masked = want if masked else dict.fromkeys(want, 0)
-        if launches != want or masked_launches != want_masked:
-            raise RuntimeError(f"flash_attention_packed's split backward"
-                               f"{' with a key mask' if masked else ''} launched {launches}, "
-                               f"masked {masked_launches}")
-        _check_grads(f"flash_attention_packed B={b} N={n}{' masked' if masked else ''} under "
-                     f"autograd, kernels vs plain", grads[0].unbind(0), grads[1].unbind(0),
-                     ("dq", "dk", "dv"), mask)
-        log(f"H5 + H6 through flash_attention_packed{' with a key mask' if masked else ''}: "
-            f"launches {launches}, masked {masked_launches}")
+    # and without the c=64 key mask (``_check_packed_split``)
+    rep["split_launches"] = _check_packed_split(torch, q, k, v, do, masks[False], scale)[0]
+    rep["split_masked_launches"] = _check_packed_split(torch, q, k, v, do, masks[True],
+                                                       scale)[1]
     return rep
 
 
@@ -1569,11 +1607,13 @@ def write_seeded_encoder(torch, workdir: str, model_name: str = "vit_large") -> 
     return path
 
 
-def phase_serve(torch, workdir: str, model_name: str = "vit_large"):
+def phase_serve(torch, workdir: str, model_name: str = "vit_large", dtype=None):
     """Serving through jepa_tpu_torch.api on a seeded encoder .pth.tar (at
     vitl16_k400_16x8x3.yaml's geometry), which it writes to workdir and
     returns (``enc_path``) for the evals: 4 requests of 2 clips, each
-    launching exactly the kernels the routes give (``expected_launches``)."""
+    launching exactly the kernels the routes give (``expected_launches``);
+    ``dtype`` the compute dtype (default bf16; fp32: the features held at
+    F32_FEAT_COS_MIN)."""
     from jepa_tpu_torch import api
     from jepa_tpu_torch.models.attentive import AttentiveCfg, init_attentive_classifier
     from jepa_tpu_torch.models.factory import vit_cfg
@@ -1581,7 +1621,9 @@ def phase_serve(torch, workdir: str, model_name: str = "vit_large"):
     from jepa_tpu_torch.ops import fused_mlp as fm
 
     geo = VITL16_GEO
-    cfg = vit_cfg(model_name, **geo)
+    dtype = dtype or torch.bfloat16
+    cfg = vit_cfg(model_name, compute_dtype=dtype, **geo)
+    cos_min = F32_FEAT_COS_MIN if dtype == torch.float32 else FEAT_COS_MIN
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
     enc_path = write_seeded_encoder(torch, workdir, model_name)
@@ -1591,7 +1633,7 @@ def phase_serve(torch, workdir: str, model_name: str = "vit_large"):
     torch.save({"classifier": {k: v.cpu() for k, v in probe.state_dict().items()}},
                probe_path)
     del probe
-    enc = api.load_encoder(enc_path, model_name, **geo)  # device="cuda"
+    enc = api.load_encoder(enc_path, model_name, compute_dtype=dtype, **geo)  # device="cuda"
     clf = api.load_classifier(probe_path, enc, num_classes=400)
     torch.cuda.synchronize()
     want = expected_launches(cfg)
@@ -1641,10 +1683,10 @@ def phase_serve(torch, workdir: str, model_name: str = "vit_large"):
     cos = torch.nn.functional.cosine_similarity(feats, feats_ref, dim=-1).min().item()
     f_err = (feats - feats_ref).abs().max().item()
     p_err = (probs_all[0] - probs_ref).abs().max().item()
-    log(f"serve {model_name}: kernel vs plain path, features min cosine {cos:.6f} (min "
-        f"{FEAT_COS_MIN}), max|d| {f_err:.3e}; probabilities max|d| {p_err:.3e} "
+    log(f"serve {model_name} ({dtype}): kernel vs plain path, features min cosine {cos:.7f} "
+        f"(min {cos_min}), max|d| {f_err:.3e}; probabilities max|d| {p_err:.3e} "
         f"(tol {PROB_TOL})")
-    if cos < FEAT_COS_MIN or p_err > PROB_TOL:
+    if cos < cos_min or p_err > PROB_TOL:
         raise RuntimeError("serving path disagrees with its plain version")
     return {"launches": launches, "median_ms": med, "peak_gib": peak_gib, "enc_path": enc_path,
             "feat_cos": cos, "prof": prof}
@@ -1652,7 +1694,7 @@ def phase_serve(torch, workdir: str, model_name: str = "vit_large"):
 
 def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl16.yaml",
                 tube=None, remat=False, layout=None, use_mask_tokens=None, patch_size=None,
-                pred_depth=None, dtype=None, mask_mode=None):
+                pred_depth=None, dtype=None, mask_mode=None, pred_embed_dim=None):
     """Configs of configs/pretrain/<config> (model, data geometry, mask,
     loss and optimization sections; default vitl16.yaml): its encoder (or
     ``model_name``) + the 12 x 384 predictor at full width and depth,
@@ -1667,7 +1709,9 @@ def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl
     config's ``model.use_mask_tokens`` overridden (False: the diffusion-mode
     predictor); ``patch_size``: the config's ``data.patch_size`` overridden
     (vit_gigantic's factory patch, 14); ``pred_depth``: the config's
-    ``model.pred_depth`` overridden (a depth cut, PERF.md §4); ``dtype``: the
+    ``model.pred_depth`` overridden (a depth cut, PERF.md §4);
+    ``pred_embed_dim``: the config's ``model.pred_embed_dim`` overridden (the
+    CPU fixture's 96-wide predictor at vit_tiny); ``dtype``: the
     compute dtype (the app's ``meta.dtype``; default the config's, bf16);
     ``mask_mode``: the config's ``meta.mask_mode`` overridden ('padded': the
     step takes the host collator's padded masks, ``padded_batch``)."""
@@ -1687,6 +1731,7 @@ def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl
     m["model_name"] = model_name or m["model_name"]
     d["patch_size"] = patch_size or d["patch_size"]
     m["pred_depth"] = pred_depth or m["pred_depth"]
+    m["pred_embed_dim"] = pred_embed_dim or m["pred_embed_dim"]
     if use_mask_tokens is not None:
         m["use_mask_tokens"] = use_mask_tokens
     dtype = dtype or {"bfloat16": torch.bfloat16, "float32": torch.float32}[
@@ -1759,8 +1804,9 @@ def expected_launches(enc_cfg, pred_cfg=None, pairs=(), masked=False) -> dict:
     backward, so each of its attention forwards launches twice (H8 too);
     'attn' keeps the forward's (o, lse) and launches no more than False.
     An fp32 config (``compute_dtype`` float32) counts H1-fp32 (the unmasked
-    c=64 instance as "h1_f32", the evals' key), H2-fp32 and H3-fp32 / H8-fp32
-    in place of the bf16 instances."""
+    c=64 instance as "h1_f32", the evals' key), H2-fp32, H4-H7-fp32 (by
+    kind and head dim) and H3-fp32 / H8-fp32 in place of the bf16
+    instances."""
     import torch
 
     from jepa_tpu_torch.ops import flash_attention as fa
@@ -1800,9 +1846,10 @@ def expected_launches(enc_cfg, pred_cfg=None, pairs=(), masked=False) -> dict:
             return
         kinds = ["fwd"] + (["dqkv"] if fa.merged_bwd(n, n, c) else ["dq", "dkv"]) * grad
         for k in kinds:
-            add(f"hm_{k}", fwd if k == "fwd" else depth)
+            key = f"hm_f32_{k}_c{c}" if f32 else f"hm_{k}"  # H4-H7-fp32 by head dim
+            add(key, fwd if k == "fwd" else depth)
             if mask:
-                add(f"hm_{k}_masked", fwd if k == "fwd" else depth)
+                add(f"{key}_masked", fwd if k == "fwd" else depth)
 
     for n, heads, c, depth, grad, cfg in attention_calls(enc_cfg, pred_cfg, pairs):
         attn(n, heads, c, depth, grad, masked and grad, full(cfg))
@@ -1835,6 +1882,9 @@ def _counts(fa, fm) -> dict:
                   f"dq_c{hd}": fa.dq_launches_by_head_dim[hd]})
     for k in fa.HM_KINDS:
         c.update({f"hm_{k}": fa.hm_launches[k], f"hm_{k}_masked": fa.hm_masked_launches[k]})
+    for (k, hd), v in fa.hm_f32_launches.items():
+        c.update({f"hm_f32_{k}_c{hd}": v,
+                  f"hm_f32_{k}_c{hd}_masked": fa.hm_f32_masked_launches[k, hd]})
     return c
 
 
@@ -1939,7 +1989,8 @@ def phase_train(torch, setup, determinism=False, steps=TRAIN_STEPS, b2=(False, T
     del state, small
     torch.cuda.empty_cache()
     return {"launches": launches, "median_ms": med, "peak_gib": peak_gib, "prof": prof,
-            "keep": setup["keep"], "per_step": want, "steps": steps, "batch": batch}
+            "keep": setup["keep"], "per_step": want, "steps": steps, "batch": batch,
+            "mode": setup["tc"].mask_mode}
 
 
 def padded_batch(torch, collator, ladders, clips):
@@ -2342,6 +2393,41 @@ def _check_h2_f32(torch, label, qkv, do, h, scale, c_real, mask=None):
     return lse, delta, err_h1, errs
 
 
+def _tm_f32_times(torch, qkv, do, lse, delta, h, scale, c_real, mask):
+    """H1-fp32 and both H2-fp32 kernels on fp32 qkv (with a key mask or
+    none), each timed beside its plain version, SDPA fp32 (forward; whole
+    backward) and its FFMA / exp2 / bytes bound at the real head dim c_real
+    over the valid pairs. Returns {"h1" | "dkv" | "dq": times}."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    b, n, w3 = qkv.shape
+    c = w3 // (3 * h)
+    pairs = b * n * n if mask is None else int(mask.sum().item()) * n
+    io = dict(qkv=4 * qkv.numel(), o=4 * b * n * h * c, vec=4 * b * h * n,
+              mask=0 if mask is None else b * n)
+    ins = io["qkv"] + io["o"] + 2 * io["vec"] + io["mask"]  # qkv, do, lse, delta
+    if mask is None:
+        lib_fwd, lib_bwd = _sdpa_fwd_ms(torch, qkv, h, scale), _sdpa_bwd_ms(torch, qkv, do, h,
+                                                                             scale)
+    else:
+        lib_fwd, lib_bwd = _sdpa_masked_ms(torch, qkv, do, h, scale, mask)
+    out = torch.empty_like(qkv)
+    rows = {}
+    for kind, fn, plain, flops, io_b, lib in (
+            ("h1", lambda: fa.flash_self_attention_cuda(qkv, h, scale, mask),
+             lambda: fa.flash_self_attention_ref(qkv, h, scale, mask), 4,
+             io["qkv"] + io["mask"] + io["o"] + io["vec"], lib_fwd),
+            ("dkv", lambda: fa.flash_bwd_dkv_cuda(qkv, do, lse, delta, out, h, scale, mask),
+             lambda: fa.flash_bwd_dkv_ref(qkv, do, lse, delta, h, scale, mask), 8,
+             ins + 2 * io["o"], lib_bwd),
+            ("dq", lambda: fa.flash_bwd_dq_cuda(qkv, do, lse, delta, out, h, scale, mask),
+             lambda: fa.flash_bwd_dq_ref(qkv, do, lse, delta, h, scale, mask), 6,
+             ins + io["o"], lib_bwd)):
+        rows[kind] = dict(ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain), library_ms=lib,
+                          bound=f32_bound_ms(flops * h * pairs * c_real, h * pairs, io_b))
+    return rows
+
+
 def check_b2_f32(torch, step_fn, state, batch, label):
     """One B=2 update from ``state`` through the kernels, the plain versions
     and the plain versions with their sums re-ordered
@@ -2412,39 +2498,10 @@ def phase_f32_pretrain(torch, repo, workdir):
         for mask in (None, padded_key_mask(torch, rng, b, n, mid)):
             tag = f"{label}{'' if mask is None else ', masked'} B={b} N={n}"
             lse, delta, err_h1, errs = _check_h2_f32(torch, tag, qkv, do, h, scale, c_real, mask)
-            pairs = b * n * n if mask is None else int(mask.sum().item()) * n
-            io = dict(qkv=4 * qkv.numel(), o=4 * b * n * h * c, vec=4 * b * h * n,
-                      mask=0 if mask is None else b * n)
-            ins = io["qkv"] + io["o"] + 2 * io["vec"] + io["mask"]  # qkv, do, lse, delta
-            out = torch.empty_like(qkv)
-            if mask is None:
-                lib_fwd = _sdpa_fwd_ms(torch, qkv, h, scale)
-                lib_bwd = _sdpa_bwd_ms(torch, qkv, do, h, scale)
-            else:
-                lib_fwd, lib_bwd = _sdpa_masked_ms(torch, qkv, do, h, scale, mask)
-            r = {
-                "h1": dict(ms=time_ms(torch, lambda: fa.flash_self_attention_cuda(
-                               qkv, h, scale, mask)),
-                           plain_ms=time_ms(torch, lambda: fa.flash_self_attention_ref(
-                               qkv, h, scale, mask)),
-                           library_ms=lib_fwd, max_abs_err=err_h1,
-                           bound=f32_bound_ms(4.0 * h * pairs * c_real, h * pairs,
-                                              io["qkv"] + io["mask"] + io["o"] + io["vec"])),
-                "dkv": dict(ms=time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(
-                                qkv, do, lse, delta, out, h, scale, mask)),
-                            plain_ms=time_ms(torch, lambda: fa.flash_bwd_dkv_ref(
-                                qkv, do, lse, delta, h, scale, mask)),
-                            library_ms=lib_bwd, max_abs_err=max(errs["dk"], errs["dv"]),
-                            bound=f32_bound_ms(8.0 * h * pairs * c_real, h * pairs,
-                                               ins + 2 * io["o"])),
-                "dq": dict(ms=time_ms(torch, lambda: fa.flash_bwd_dq_cuda(
-                               qkv, do, lse, delta, out, h, scale, mask)),
-                           plain_ms=time_ms(torch, lambda: fa.flash_bwd_dq_ref(
-                               qkv, do, lse, delta, h, scale, mask)),
-                           library_ms=lib_bwd, max_abs_err=errs["dq"],
-                           bound=f32_bound_ms(6.0 * h * pairs * c_real, h * pairs,
-                                              ins + io["o"])),
-            }
+            r = _tm_f32_times(torch, qkv, do, lse, delta, h, scale, c_real, mask)
+            r["h1"]["max_abs_err"] = err_h1
+            r["dkv"]["max_abs_err"] = max(errs["dk"], errs["dv"])
+            r["dq"]["max_abs_err"] = errs["dq"]
             for k, x in r.items():
                 x.update(shape=(b, n, h, c_real), masked=mask is not None,
                          per_update=per_update)
@@ -2455,7 +2512,7 @@ def phase_f32_pretrain(torch, repo, workdir):
                     f"{x['bound'][0] / x['ms']:.3f} of it; launches per fixed-mode update "
                     f"{per_update}")
             rows[tag] = r
-            del lse, delta, out
+            del lse, delta
         del qkv, do
 
     runs = {}
@@ -2475,6 +2532,227 @@ def phase_f32_pretrain(torch, repo, workdir):
         torch.cuda.empty_cache()
     app = phase_app(torch, repo, fixed, workdir, ipe=F32_APP_IPE, epochs=1, resume=False)
     return {"rows": rows, "runs": runs, "app": app}
+
+
+TINY_F32_PRED96 = dict(pred_embed_dim=96, pred_depth=2)  # the CPU fixture's predictor
+TINY_F32_PRED96_STEPS = 2  # its updates at B=24 in each mask mode
+RAGGED_N = 333  # a ragged sequence: two 128-row blocks and 77 rows
+
+
+def _hm_f32_times(torch, kind, q, k, v, do, scale, mask, lib):
+    """One head-major fp32 kernel (``kind`` fwd: H4-fp32, dq: H5-fp32, dkv:
+    H6-fp32, dqkv: H7-fp32) timed beside its plain version, ``lib`` (SDPA
+    fp32 forward ms, whole backward ms) and its FFMA / exp2 / bytes bound
+    (each input read once, each output written once; the valid pairs
+    only)."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    b, h, nq, c = q.shape
+    nk = k.shape[2]
+    pairs = int(mask.sum().item()) * nq if mask is not None else b * nq * nk
+    qb, kb, vec, mb = 4 * b * h * nq * c, 4 * b * h * nk * c, 4 * b * h * nq, (
+        0 if mask is None else b * nk)
+    if kind == "fwd":
+        fn = lambda: fa.flash_fwd_hm_cuda(q, k, v, scale, mask)  # noqa: E731
+        plain = lambda: fa.flash_fwd_hm_ref(q, k, v, scale, mask)  # noqa: E731
+        flops, io, lib_ms = 4, 2 * qb + 2 * kb + vec + mb, lib[0]
+    else:
+        o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale, mask)
+        delta = fa.hm_delta(do, o)
+        cuda, ref = (getattr(fa, f"flash_bwd_{kind}_hm_{x}") for x in ("cuda", "ref"))
+        fn = lambda: cuda(q, k, v, do, lse, delta, scale, mask)  # noqa: E731
+        plain = lambda: ref(q, k, v, do, lse, delta, scale, mask)  # noqa: E731
+        flops, outs = {"dq": (6, qb), "dkv": (8, 2 * kb), "dqkv": (10, qb + 2 * kb)}[kind]
+        io, lib_ms = 2 * qb + 2 * kb + 2 * vec + mb + outs, lib[1]
+    return dict(ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain, iters=5, warmup=1),
+                library_ms=lib_ms, bound=f32_bound_ms(flops * h * pairs * c, h * pairs, io),
+                shape=(b, h, nq, nk, c), masked=mask is not None)
+
+
+def phase_tiny_f32(torch, repo, workdir):
+    """vit_tiny in fp32 on the card (serving with compute_dtype float32, the
+    K400 probe with use_bfloat16: false, vitl16.yaml with meta.dtype
+    float32), TF32 off:
+
+      * the kernels against their plain versions in fp32: H4-fp32 at the
+        serving (B=2) and target (B=24) shapes, N=1568, c=64; H4-fp32 +
+        H7-fp32 at the fixed context and every padded context rung (key
+        mask), and at c=32 (the 96-wide predictor, 3 heads) at its fixed
+        sequences and merged padded rungs; H5-fp32 and H6-fp32 at N=1568
+        (and the 96-wide predictor's top rung, 1664) at c=64 and 32, masked
+        or not, then through flash_attention_packed under autograd (the
+        launches the JSON line reports); H1-fp32 + H2-fp32 at c=128 (the
+        384-wide predictor) at its fixed sequences and padded rungs; a
+        ragged N=333 of each. |d| <= F32_TOL * max(|ref|, 1), masked keys'
+        dk and dv exactly 0, second calls bit-equal; the first row of each
+        instance timed (kernel, plain version, SDPA fp32, bound);
+      * serving (``phase_serve``, 4 requests of 2 clips) and the fp32 K400
+        16x8x3 eval (``phase_eval_video``, batch 1) with vit_tiny;
+      * TRAIN_STEPS updates at B=24, remat 'attn', in the fixed and the
+        padded mode with the 384-wide predictor, and TINY_F32_PRED96_STEPS
+        in each mode with the 96-wide one (``phase_train``: launches whole,
+        ms, peak, the profile's split), a seeded B=2 update in each mode
+        against the plain versions (``check_b2_f32``);
+      * the pretrain app in fp32, fixed and padded, 1 epoch of F32_APP_IPE
+        updates each (``phase_app``)."""
+    from jepa_tpu_torch.masks.multiblock3d import (
+        MaskCollator,
+        calibrate_pad_ladders,
+    )
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.train.step import init_train_state
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("TF32 is on: the fp32 plain versions would not be fp32")
+    f32 = torch.float32
+    fixed = train_setup(repo, "vit_tiny", dtype=f32, remat="attn")
+    padded = train_setup(repo, "vit_tiny", dtype=f32, remat="attn", mask_mode="padded")
+    narrow = train_setup(repo, "vit_tiny", dtype=f32, remat="attn", **TINY_F32_PRED96)
+    narrow_padded = train_setup(repo, "vit_tiny", dtype=f32, remat="attn", mask_mode="padded",
+                                **TINY_F32_PRED96)
+    ladders = calibrate_pad_ladders(fixed["specs"], fixed["grid"], TRAIN_BATCH)
+    enc = fixed["enc_cfg"]
+    h, n_full = enc.num_heads, enc.num_patches
+    c = enc.embed_dim // h
+    hp = fixed["pred_cfg"].num_heads
+    cp = fixed["pred_cfg"].predictor_embed_dim // hp
+    hn = narrow["pred_cfg"].num_heads
+    cn = narrow["pred_cfg"].predictor_embed_dim // hn
+    if (h, c, hp, cp, hn, cn) != (3, 64, 3, 128, 3, 32):
+        raise RuntimeError(f"vit_tiny's heads {(h, c, hp, cp, hn, cn)}")
+    enc_d, pred_d, nar_d = enc.depth, fixed["pred_cfg"].depth, narrow["pred_cfg"].depth
+    keep = fixed["keep"]
+    ctx_rungs = sorted({ce for rungs in ladders for ce, _ in rungs if ce >= 128}, reverse=True)
+    pred_rungs = sorted({r for rungs in ladders for r in rungs}, key=sum, reverse=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rng = np.random.default_rng(SEED + 6)
+    rows = {}
+
+    def note(key, err, times=None, per_update=None):
+        r = rows.setdefault(key, {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if times is not None and "ms" not in r:
+            r.update(times, per_update=per_update)
+            log(f"{key} {times['shape']}{' masked' if times['masked'] else ''} time: kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library (SDPA fp32 "
+                f"{'forward' if key.startswith(('hm_fwd', 'h1')) else 'whole backward'}) "
+                f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][2]}), "
+                f"{r['bound'][0] / r['ms']:.3f} of it; launches per update {per_update}")
+
+    # H4-fp32 alone: serving and the target
+    for label, b, timed_row in (("serving", 2, False), ("target", TRAIN_BATCH, True)):
+        q, k, v, do = _hm_inputs(torch, gen, b, h, n_full, n_full, c, f32)
+        _, _, err = _check_h4(torch, f"H4-fp32 {label} B={b} N={n_full} c={c}", q, k, v, c**-0.5)
+        note("hm_fwd_c64", err, _hm_f32_times(
+            torch, "fwd", q, k, v, do, c**-0.5, None, _sdpa_hm_ms(torch, q, k, v, do, c**-0.5))
+            if timed_row else None, enc_d)
+        del q, k, v, do
+    # H4-fp32 + H7-fp32 (merged): the contexts (c=64), the 96-wide predictor
+    # (c=32), ragged; (label, B, N, H, c, mid-row pad start or None, per update)
+    merged = ([(f"context {ke}", TRAIN_BATCH, ke, h, c, None, enc_d) for ke, _ in keep
+               if ke >= 128]
+              + [(f"context rung {n}", TRAIN_BATCH, n, h, c, 0, enc_d) for n in ctx_rungs]
+              + [(f"96-wide predictor {ke}+{kp}", TRAIN_BATCH, ke + kp, hn, cn, None, nar_d)
+                 for ke, kp in keep]
+              + [(f"96-wide predictor rung {ce}+{cq}", TRAIN_BATCH, ce + cq, hn, cn, ce, nar_d)
+                 for ce, cq in pred_rungs if fa.merged_bwd(ce + cq, ce + cq, cn)]
+              + [(f"ragged c={cc}", 2, RAGGED_N, 3, cc, mid, 0) for cc in (c, cn)
+                 for mid in (None, 0)])
+    for label, b, n, hh, cc, mid, per_update in merged:
+        if not fa.merged_bwd(n, n, cc):
+            raise RuntimeError(f"H7-fp32 {label}: N={n} does not take the merged backward")
+        q, k, v, do = _hm_inputs(torch, gen, b, hh, n, n, cc, f32)
+        mask = None if mid is None else padded_key_mask(torch, rng, b, n, mid)
+        sfx = f"_c{cc}" + ("" if mask is None else "_masked")
+        tag = f"{label} B={b} N={n} H={hh} c={cc}{'' if mask is None else ' masked'}"
+        scale = cc**-0.5
+        _, _, err_f = _check_h4(torch, f"H4-fp32 {tag}", q, k, v, scale, mask)
+        _, _, err_b = _check_hm_bwd(torch, "dqkv", f"H7-fp32 {tag}", q, k, v, do, scale, mask)
+        first = f"hm_dqkv{sfx}" not in rows and per_update
+        lib = _sdpa_hm_ms(torch, q, k, v, do, scale, mask) if first else None
+        note(f"hm_fwd{sfx}", err_f, _hm_f32_times(torch, "fwd", q, k, v, do, scale, mask, lib)
+             if first and f"hm_fwd{sfx}" not in rows else None, per_update)
+        note(f"hm_dqkv{sfx}", err_b, _hm_f32_times(torch, "dqkv", q, k, v, do, scale, mask, lib)
+             if first else None, per_update)
+        del q, k, v, do, mask
+    # H5-fp32 + H6-fp32 (the split backward past the merged rule's reach)
+    split = ([(f"N={n_full}", n_full, cc, masked, None) for cc in (c, cn)
+              for masked in (False, True)]
+             + [(f"96-wide predictor rung {ce}+{cq}", ce + cq, cn, True, ce)
+                for ce, cq in pred_rungs if not fa.merged_bwd(ce + cq, ce + cq, cn)][:1]
+             + [(f"ragged N={RAGGED_N}", RAGGED_N, c, True, None)])
+    packed_masks = {}
+    for label, n, cc, masked, mid in split:
+        b = 2 if n == RAGGED_N else TRAIN_BATCH
+        q, k, v, do = _hm_inputs(torch, gen, b, 3, n, n, cc, f32)
+        mask = padded_key_mask(torch, rng, b, n, mid or 0) if masked else None
+        sfx = f"_c{cc}" + ("_masked" if masked else "")
+        tag = f"{label} B={b} H=3 c={cc}{' masked' if masked else ''}"
+        scale = cc**-0.5
+        errs = {kind: _check_hm_bwd(torch, kind, f"H{5 if kind == 'dq' else 6}-fp32 {tag}", q,
+                                    k, v, do, scale, mask)[2] for kind in ("dq", "dkv")}
+        first = f"hm_dq{sfx}" not in rows and n == n_full
+        lib = _sdpa_hm_ms(torch, q, k, v, do, scale, mask) if first else None
+        for kind in ("dq", "dkv"):
+            note(f"hm_{kind}{sfx}", errs[kind], _hm_f32_times(
+                torch, kind, q, k, v, do, scale, mask, lib) if first else None, 0)
+        if n == n_full and cc == c:
+            packed_masks[masked] = (q, k, v, do, mask)
+        else:
+            del q, k, v, do, mask
+    # the split backward through the public op under autograd
+    # (``_check_packed_split``), the launches the JSON line reports
+    split_launches = {masked: _check_packed_split(torch, *packed, c**-0.5)[masked]
+                      for masked, packed in packed_masks.items()}
+    del packed_masks
+    # H1-fp32 + H2-fp32 at c=128: the 384-wide predictor, ragged
+    tm = ([(f"predictor {ke}+{kp}", TRAIN_BATCH, ke + kp, None, pred_d) for ke, kp in keep]
+          + [(f"predictor rung {ce}+{cq}", TRAIN_BATCH, ce + cq, ce, pred_d)
+             for ce, cq in pred_rungs]
+          + [("ragged", 2, RAGGED_N, None, 0), ("ragged", 2, RAGGED_N, 0, 0)])
+    for label, b, n, mid, per_update in tm:
+        qkv = _f32_attn_inputs(torch, gen, b, n, hp, cp, cp)
+        do = torch.randn((b, n, hp * cp), generator=gen, device="cuda")
+        mask = None if mid is None else padded_key_mask(torch, rng, b, n, mid)
+        sfx = "_c128" + ("" if mask is None else "_masked")
+        tag = f"c=128 {label}{'' if mask is None else ', masked'} B={b} N={n}"
+        scale = cp**-0.5
+        lse, delta, err_h1, errs = _check_h2_f32(torch, tag, qkv, do, hp, scale, cp, mask)
+        times = {}
+        if f"h1{sfx}" not in rows and per_update:  # the instance's first row: timed
+            times = _tm_f32_times(torch, qkv, do, lse, delta, hp, scale, cp, mask)
+            for t in times.values():
+                t.update(shape=(b, hp, n, n, cp), masked=mask is not None)
+        note(f"h1{sfx}", err_h1, times.get("h1"), per_update)
+        note(f"dkv{sfx}", max(errs["dk"], errs["dv"]), times.get("dkv"), per_update)
+        note(f"dq{sfx}", errs["dq"], times.get("dq"), per_update)
+        del qkv, do, lse, delta, mask
+    torch.cuda.empty_cache()
+
+    serve = phase_serve(torch, workdir, "vit_tiny", dtype=f32)
+    ev = phase_eval_video(torch, repo, workdir, serve["enc_path"], bf16=False, resume=False,
+                          model_name="vit_tiny")
+    os.remove(serve["enc_path"])
+    runs = {}
+    for mode, setup in (("fixed", fixed), ("padded", padded)):
+        runs[mode] = phase_train(torch, setup, b2=())
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        state = init_train_state(setup["enc_cfg"], setup["pred_cfg"], g)
+        clips = torch.randn((2, *setup["clip_shape"]), generator=g, device="cuda")
+        batch = {"clips": clips}
+        if mode == "padded":
+            batch, _ = padded_batch(
+                torch, MaskCollator(setup["specs"], setup["grid"], seed=setup["tc"].seed),
+                calibrate_pad_ladders(setup["specs"], setup["grid"], TRAIN_BATCH), clips)
+        runs[mode]["b2"] = check_b2_f32(torch, setup["step_fn"], state, batch,
+                                        f"vit_tiny {mode}, seeded state")
+        del state, clips, batch
+        torch.cuda.empty_cache()
+    for mode, setup in (("narrow", narrow), ("narrow_padded", narrow_padded)):
+        runs[mode] = phase_train(torch, setup, steps=TINY_F32_PRED96_STEPS, b2=())
+    app = phase_app(torch, repo, fixed, workdir, ipe=F32_APP_IPE, epochs=1, resume=False)
+    return {"rows": rows, "split": split_launches, "serve": serve, "eval": ev, "runs": runs,
+            "app": app}
 
 
 def eval_config(repo, workdir, name, enc_path, n_train, n_val,
@@ -2579,7 +2857,7 @@ def _check_steps(rec, want, label):
         steps = rec[kind]
         for i, s in enumerate(steps):
             got = {k: v for k, v in s["launches"].items() if v}
-            if got != launches or s["h3_rows"] != [rows]:
+            if got != launches or s["h3_rows"] != ([rows] if rows else []):
                 raise RuntimeError(f"{label} {kind} {i}: launches {got}, H3 rows "
                                    f"{s['h3_rows']} != {launches}, [{rows}]")
         walls = [s for s in steps if s["wall_ms"]]
@@ -2665,18 +2943,16 @@ def phase_eval_video(torch, repo, workdir, enc_path, bf16: bool,
     p["patch_size"] = patch_size or p["patch_size"]
     res = cfg["optimization"].get("resolution", d.get("resolution", 224))
     enc = vit_cfg(p["model_name"], img_size=res, patch_size=p["patch_size"],
-                  num_frames=p["frames_per_clip"], tubelet_size=p["tubelet_size"])
-    depth, c = enc.depth, fa.padded_head_dim(enc.embed_dim // enc.num_heads)
+                  num_frames=p["frames_per_clip"], tubelet_size=p["tubelet_size"],
+                  compute_dtype=torch.bfloat16 if bf16 else torch.float32)
     s, v = d["num_segments"], d["num_views_per_segment"]
     n_tok = enc.num_patches
-    keys = (f"h1_c{c}", "h3") if bf16 else ("h1_f32" if c == 64 else f"h1_f32_c{c}", "h3_f32")
-    per_step = {k: depth for k in keys}
-    if bf16:
-        per_step["h1"] = depth  # the bf16 total counter moves with its instance's
-        if (c, n_tok) == (K2_C, K2_N):
-            per_step[K2_KEY] = depth
-    want = {"train_step": (per_step, batch * s * n_tok),
-            "val_step": (per_step, batch * s * v * n_tok)}
+    # one encoder pass over every clip of the step: the grad-free routes'
+    # launches (H1 or H4 by route and dtype; H3 where its tiling takes the fc1)
+    per_step = expected_launches(enc)
+    fc1 = any(k.startswith("h3") for k in per_step)  # H3 rows: the step's tokens
+    want = {"train_step": (per_step, batch * s * n_tok if fc1 else None),
+            "val_step": (per_step, batch * s * v * n_tok if fc1 else None)}
     log(f"eval {name}: {config} ({p['model_name']}, {res} px), batch {batch}, "
         f"{s} segments x {v} views, "
         f"{n_train} train / {n_val} val synthetic videos; expected per step {per_step}, "
@@ -4257,6 +4533,16 @@ AB_H2_ROWS = (
     ("H2 c=80 B=1 N=4608 H=16 (K3 geometry)", 1, 4608, 16, 80, 80, None),
     ("H2 c=80 B=1 N=333 H=16 (ragged)", 1, 333, 16, 80, 80, None),
 )
+# (label, B, N, H, c, c_real, mid) of the A/B mode's fp32 token-major rows:
+# H1-fp32 (masked where mid is not None) and both H2-fp32 kernels at fp32
+# pretraining's instances, c=64 and c=24->32, masked or not, and a ragged N
+AB_F32_TM_ROWS = (
+    ("c=64 B=24 N=376 H=16 (ViT-L fp32 context)", 24, 376, 16, 64, 64, None),
+    ("c=64 masked B=24 N=384 H=16 (context rung)", 24, 384, 16, 64, 64, 0),
+    ("c=24->32 B=24 N=1109 H=16 (ViT-L fp32 predictor)", 24, 1109, 16, 32, 24, None),
+    ("c=24->32 masked B=24 N=1152 H=16 (predictor rung)", 24, 1152, 16, 32, 24, 384),
+    ("c=64 masked B=2 N=333 H=16 (ragged)", 2, 333, 16, 64, 64, 0),
+)
 
 
 def queued_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -4291,8 +4577,9 @@ def _host_us(torch, fn, n=48) -> float:
 
 
 def phase_kernel_ab(torch, others):
-    """The bf16 H1, H3, H8, H4 and H2, H6, H7 and H5, and H1-fp32, H3-fp32
-    and H8-fp32, of this checkout against each other checkout's (``python3
+    """The bf16 H1, H3, H8, H4 and H2, H6, H7 and H5, and H1-fp32 (masked or
+    not), H2-fp32, H3-fp32 and H8-fp32, of this checkout against each other
+    checkout's (``python3
     chip_smoke.py --kernel-ab --other DIR...``, not part of the smoke run),
     at the shapes of PERF.md's kernel tables, both called through the C
     entry points (shared names and signatures). Per
@@ -4504,6 +4791,44 @@ def phase_kernel_ab(torch, others):
                        bias, x, w.t(), use_gelu=True)))
         ab(row, entry, args, outs)
         del x, w, bias, outs
+    # fp32 pretraining's token-major instances: H1-fp32 masked or not, then
+    # both H2-fp32 kernels on its lse (each row compares its own columns)
+    for label, b, n, h, c, c_real, mid in AB_F32_TM_ROWS:
+        qkv = _f32_attn_inputs(torch, gen, b, n, h, c, c_real)
+        do = torch.randn((b, n, h, c), generator=gen, device="cuda")
+        do[..., c_real:] = 0
+        do = do.reshape(b, n, h * c)
+        mask = None if mid is None else padded_key_mask(torch, rng, b, n, mid)
+        m8 = None if mask is None else mask.to(torch.uint8).contiguous()
+        scale = c_real**-0.5
+        o = torch.empty((b, n, h * c), device="cuda")
+        lse = torch.empty((b, h, n), device="cuda")
+        pairs = b * n * n if mask is None else int(mask.sum().item()) * n
+        io = 4 * (qkv.numel() + o.numel() + lse.numel()) + (0 if m8 is None else b * n)
+        args = lambda: (qkv.data_ptr(), None if m8 is None else m8.data_ptr(),  # noqa: E731
+                        o.data_ptr(), lse.data_ptr(), b, n, h, scale * fa._LOG2E, stream())
+        lib_fwd, lib_bwd = (_sdpa_masked_ms(torch, qkv, do, h, scale, mask) if mask is not None
+                            else (_sdpa_fwd_ms(torch, qkv, h, scale),
+                                  _sdpa_bwd_ms(torch, qkv, do, h, scale)))
+        ab(dict(row=f"H1-fp32 {label}", library_ms=lib_fwd,
+                bound=f32_bound_ms(4.0 * h * pairs * c_real, h * pairs, io)),
+           f"jt_flash_fwd_f32_c{c}", args, (o, lse))
+        o, lse = fa.flash_self_attention_cuda(qkv, h, scale, mask)
+        delta = fa.attention_delta(do, o, h)
+        dqkv = torch.zeros_like(qkv)
+        hc = h * c
+        for kind, products, cols in (("dkv", 8, slice(hc, 3 * hc)), ("dq", 6, slice(0, hc))):
+            extra = (scale,) if kind == "dq" else ()
+            args = lambda extra=extra: (  # noqa: E731
+                qkv.data_ptr(), None if m8 is None else m8.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), b, n, h, scale * fa._LOG2E,
+                *extra, stream())
+            ab(dict(row=f"H2-fp32 {label} {kind}", library_ms=lib_bwd,
+                    bound=f32_bound_ms(products * h * pairs * c_real, h * pairs,
+                                       io + 4 * (do.numel() + lse.numel())
+                                       + 4 * do.numel() * (2 if kind == "dkv" else 1))),
+               f"jt_flash_bwd_{kind}_f32_c{c}", args, (dqkv[..., cols],))
+        del qkv, do, o, lse, delta, dqkv
     for b, n, h, c in F32_H1_SHAPES + F32_H1_SHAPES_AB:
         qkv = torch.randn((b, n, 3 * h * c), generator=gen, device="cuda")
         o = torch.empty((b, n, h * c), device="cuda")
@@ -4545,6 +4870,8 @@ def kernel_entry(name, source, replaces, launches, rep) -> dict:
 def main() -> int:
     import torch
 
+    global T0
+    T0 = time.perf_counter()
     card = phase_device(torch)
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
@@ -4616,6 +4943,8 @@ def main() -> int:
                       torch, repo, setup, workdir)
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
         f32pre = timed("f32_pretrain", phase_f32_pretrain, torch, repo, workdir)
+    with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
+        tiny32 = timed("tiny_f32", phase_tiny_f32, torch, repo, workdir)
     with cut_depth("vit_large", DIST_DEPTH):
         dist_setup = train_setup(repo, pred_depth=DIST_PRED_DEPTH)
         dist = timed("dist", phase_dist, torch, repo, dist_setup, card)
@@ -4722,6 +5051,10 @@ def main() -> int:
     gp = gruns["vit_giant"]["app"]["padded"]["launches"]
     gg = _sum_launches(*runs("vit_gigantic"))
     fa_src, bwd_src = "jepa_tpu_torch/csrc/flash_attention.cu", "jepa_tpu_torch/csrc/flash_attention_bwd.cu"
+    # the fp32 attention kernels (H1-fp32, H2-fp32, H4-H7-fp32), whose C
+    # entries live in flash_attention.cu, flash_attention_bwd_f32.cu and
+    # flash_attention_hm_f32.cu
+    f32_attn_src = "jepa_tpu_torch/csrc/flash_f32.cuh"
     fa_py = "jepa_tpu/ops/flash_attention.py"
     # fp32 pretraining: the fixed mode's updates and app (fx), the padded
     # mode's (fp; every trainable call key-masked)
@@ -4744,7 +5077,7 @@ def main() -> int:
                      "jepa_tpu/ops/fused_mlp.py:92",
                      sl["h3"] + tl["h3"] + el["h3"] + il["h3"] + al["h3"], kern["h3"]),
         # the fp32 instances: the fp32 video eval's launches
-        kernel_entry("flash_self_attention_fwd_f32", fa_src, f"{fa_py}:955",
+        kernel_entry("flash_self_attention_fwd_f32", f32_attn_src, f"{fa_py}:955",
                      fl["h1_f32"] + fx["h1_f32"] + fp["h1_f32"], f32["h1"]),
         kernel_entry("linear_gelu_fwd_f32", "jepa_tpu_torch/csrc/fused_mlp.cu",
                      "jepa_tpu/ops/fused_mlp.py:92", fl["h3_f32"] + fx["h3_f32"] + fp["h3_f32"],
@@ -4818,7 +5151,7 @@ def main() -> int:
                      dict(masked["dq_c80"], max_abs_err=masked["dq"]["max_abs_err"])),
         kernel_entry("linear_gelu_fwd_k1280", fc1_src, "jepa_tpu/ops/fused_mlp.py:92",
                      vl["h3"] + vp["h3"], vk["h3_k1280"]),
-        kernel_entry("flash_self_attention_fwd_f32_c80", fa_src, f"{fa_py}:955",
+        kernel_entry("flash_self_attention_fwd_f32_c80", f32_attn_src, f"{fa_py}:955",
                      vl["h1_f32_c80"], f32["by_shape"][F32_H1_SHAPES[1]]),
         kernel_entry("linear_gelu_fwd_f32_k1280", fc1_src, "jepa_tpu/ops/fused_mlp.py:92",
                      sum(e["launches"]["h3_f32"] for e in evh.values()),
@@ -4839,9 +5172,9 @@ def main() -> int:
                      gk["dkv_c96_masked"]),
         kernel_entry("flash_bwd_dq_masked_c96", bwd_src, f"{fa_py}:1400", gp["dq_c96"],
                      gk["dq_c96_masked"]),
-        kernel_entry("flash_self_attention_fwd_f32_c96", fa_src, f"{fa_py}:955",
+        kernel_entry("flash_self_attention_fwd_f32_c96", f32_attn_src, f"{fa_py}:955",
                      gl["h1_f32_c96"], gk["h1_f32_c96"]),
-        kernel_entry("flash_self_attention_fwd_f32_c128", fa_src, f"{fa_py}:955",
+        kernel_entry("flash_self_attention_fwd_f32_c128", f32_attn_src, f"{fa_py}:955",
                      gg["h1_f32_c128"], gk["h1_f32_c128"]),
         kernel_entry("flash_self_attention_fwd_c128_n2048", fa_src, f"{fa_py}:955",
                      gg["h1_c128"], gk["h1_c128_vit_gigantic"]),
@@ -4861,7 +5194,6 @@ def main() -> int:
     # H1-fp32 at c=32 and masked, H2-fp32 (fp32 pretraining): each entry
     # reports its first row (the fixed-mode update's shape; masked: the same
     # shape with pads), max_abs_err over every row of its instance
-    f32src = "jepa_tpu_torch/csrc/flash_attention_bwd_f32.cu"
     f32rows = f32pre["rows"]
 
     def f32_entry(name, src, replaces, launches, kind, c, masked):
@@ -4872,23 +5204,96 @@ def main() -> int:
                             dict(rs[0], max_abs_err=max(x["max_abs_err"] for x in rs)))
 
     kernels += [
-        f32_entry("flash_self_attention_fwd_f32_c32", fa_src, f"{fa_py}:955",
+        f32_entry("flash_self_attention_fwd_f32_c32", f32_attn_src, f"{fa_py}:955",
                   fx["h1_f32_c32"], "h1", 32, False),
-        f32_entry("flash_self_attention_fwd_f32_masked", fa_src, f"{fa_py}:955",
+        f32_entry("flash_self_attention_fwd_f32_masked", f32_attn_src, f"{fa_py}:955",
                   fp["h1_f32_c64_masked"], "h1", 64, True),
-        f32_entry("flash_self_attention_fwd_f32_masked_c32", fa_src, f"{fa_py}:955",
+        f32_entry("flash_self_attention_fwd_f32_masked_c32", f32_attn_src, f"{fa_py}:955",
                   fp["h1_f32_c32_masked"], "h1", 32, True),
     ]
-    from jepa_tpu_torch.ops.flash_attention import F32_BWD_HEAD_DIMS
-
-    for c in F32_BWD_HEAD_DIMS:
+    for c in (32, 64):  # ViT-L's instances; c=128 below (vit_tiny's predictor)
         sfx = "" if c == 64 else f"_c{c}"
         for kind, line in (("dkv", 1452), ("dq", 1400)):
             kernels += [
-                f32_entry(f"flash_bwd_{kind}_f32{sfx}", f32src, f"{fa_py}:{line}",
+                f32_entry(f"flash_bwd_{kind}_f32{sfx}", f32_attn_src, f"{fa_py}:{line}",
                           fx[f"{kind}_f32_c{c}"], kind, c, False),
-                f32_entry(f"flash_bwd_{kind}_f32_masked{sfx}", f32src, f"{fa_py}:{line}",
+                f32_entry(f"flash_bwd_{kind}_f32_masked{sfx}", f32_attn_src, f"{fa_py}:{line}",
                           fp[f"{kind}_f32_c{c}_masked"], kind, c, True)]
+    # vit_tiny in fp32: H4-H7-fp32 (c=64 encoder, c=32 the 96-wide
+    # predictor) and H1-fp32 / H2-fp32 at c=128 (the 384-wide predictor):
+    # serving, the fp32 eval, the updates (fixed, padded, 96-wide) and the
+    # app; H5-fp32 / H6-fp32 through flash_attention_packed under autograd
+    tr, ta = tiny32["rows"], tiny32["app"]
+    t32 = _sum_launches(tiny32["serve"]["launches"], tiny32["eval"]["launches"],
+                        *(r["launches"] for r in tiny32["runs"].values()),
+                        ta["fixed"]["launches"], ta["padded"]["launches"])
+    sp, spm = tiny32["split"][False], tiny32["split"][True]
+    tiny_f32 = [
+        ("flash_attention_hm_fwd_f32", 122,
+         t32["hm_f32_fwd_c64"] - t32["hm_f32_fwd_c64_masked"], "hm_fwd_c64"),
+        ("flash_attention_hm_fwd_f32_masked", 122, t32["hm_f32_fwd_c64_masked"],
+         "hm_fwd_c64_masked"),
+        ("flash_attention_hm_fwd_f32_c32", 122,
+         t32["hm_f32_fwd_c32"] - t32["hm_f32_fwd_c32_masked"], "hm_fwd_c32"),
+        ("flash_attention_hm_bwd_merged_f32", 318,
+         t32["hm_f32_dqkv_c64"] - t32["hm_f32_dqkv_c64_masked"], "hm_dqkv_c64"),
+        ("flash_attention_hm_bwd_merged_f32_masked", 318,
+         t32["hm_f32_dqkv_c64_masked"], "hm_dqkv_c64_masked"),
+        ("flash_attention_hm_bwd_merged_f32_c32", 318,
+         t32["hm_f32_dqkv_c32"] - t32["hm_f32_dqkv_c32_masked"], "hm_dqkv_c32"),
+        ("flash_attention_hm_bwd_dq_f32", 225, sp["dq"], "hm_dq_c64"),
+        ("flash_attention_hm_bwd_dq_f32_masked", 225, spm["dq"], "hm_dq_c64_masked"),
+        ("flash_attention_hm_bwd_dkv_f32", 254, sp["dkv"], "hm_dkv_c64"),
+        ("flash_attention_hm_bwd_dkv_f32_masked", 254, spm["dkv"],
+         "hm_dkv_c64_masked"),
+        ("flash_self_attention_fwd_f32_c128_predictor", 955, t32["h1_f32_c128"],
+         "h1_c128"),
+        ("flash_self_attention_fwd_f32_masked_c128", 955, t32["h1_f32_c128_masked"],
+         "h1_c128_masked"),
+        ("flash_bwd_dkv_f32_c128", 1452, t32["dkv_f32_c128"], "dkv_c128"),
+        ("flash_bwd_dq_f32_c128", 1400, t32["dq_f32_c128"], "dq_c128"),
+        ("flash_bwd_dkv_f32_masked_c128", 1452, t32["dkv_f32_c128_masked"],
+         "dkv_c128_masked"),
+        ("flash_bwd_dq_f32_masked_c128", 1400, t32["dq_f32_c128_masked"],
+         "dq_c128_masked"),
+    ]
+    for name, line, launches, key in tiny_f32:
+        if launches < 1:
+            raise RuntimeError(f"{name}: no launch on vit_tiny's fp32 path")
+        kernels.append(kernel_entry(name, f32_attn_src, f"{fa_py}:{line}", launches, tr[key]))
+    # the 96-wide predictor's masked instances, launched as the padded mode's
+    # seeded masks pick its rungs (merged up to 1300 tokens, split past)
+    for name, line, kind in (("flash_attention_hm_fwd_f32_masked_c32", 122, "fwd"),
+                             ("flash_attention_hm_bwd_merged_f32_masked_c32", 318, "dqkv"),
+                             ("flash_attention_hm_bwd_dq_f32_masked_c32", 225, "dq"),
+                             ("flash_attention_hm_bwd_dkv_f32_masked_c32", 254, "dkv")):
+        launches = t32[f"hm_f32_{kind}_c32_masked"]
+        if launches:
+            kernels.append(kernel_entry(name, f32_attn_src, f"{fa_py}:{line}", launches,
+                                        tr[f"hm_{kind}_c32_masked"]))
+    for key, r in tr.items():
+        if "ms" not in r:
+            log(f"{key}: held against its plain version, max|d| {r['max_abs_err']:.3e} "
+                "(no launch on the driven path: not in the JSON line)")
+    for mode, t in tiny32["runs"].items():
+        g = t["prof"]["groups"]
+        pred = "the 2 x 96 predictor" if mode.startswith("narrow") else "the 12 x 384 predictor"
+        log(f"card: {card}; vit_tiny fp32 update (vitl16.yaml, meta.dtype float32, "
+            f"{t['mode']} masks, {pred}, "
+            f"B={t['batch']}, remat 'attn'): median {t['median_ms']:.1f} ms/update, peak "
+            f"{t['peak_gib']:.2f} GiB, device {t['prof']['device_ms']:.1f} ms (" + ", ".join(
+                f"{k} {v:.1f}" for k, v in g.items()) + f"); launches/update {t['per_step']}"
+            + (f"; B=2 seeded loss rel {t['b2']['loss']['rel']:.2e}" if "b2" in t else ""))
+    for mode in ("fixed", "padded"):
+        a = ta[mode]
+        log(f"card: {card}; vit_tiny fp32 app {mode}: median step {a['step_ms']:.0f} ms, wall "
+            f"{a['wall_ms']:.0f} ms, host share {100 * a['host']:.1f} %, peak "
+            f"{a['peak_gib']:.2f} GiB")
+    e = tiny32["eval"]
+    log(f"card: {card}; vit_tiny fp32 serve median {tiny32['serve']['median_ms']:.3f} ms/request "
+        f"(B=2), peak {tiny32['serve']['peak_gib']:.3f} GiB; K400 16x8x3 eval fp32, batch 1: "
+        f"median train step {e['train_ms']:.1f} ms, val step {e['val_ms']:.1f} ms, peak "
+        f"{e['peak_gib']:.2f} GiB; features vs plain min cosine {min(e['feat_cos'].values()):.7f}")
     for mode in ("fixed", "padded"):
         t, a = f32runs[mode], f32app[mode]
         g = t["prof"]["groups"]
@@ -5006,6 +5411,7 @@ def main() -> int:
         log(f"card: {card}; image eval through evals.main with {IMAGE_EVAL_WORKERS} {mode} "
             f"(nproc {os.cpu_count()}): median train step {r['train_ms']:.1f} ms, host share "
             f"{_fmt_host(r['host'])}, val step {r['val_ms']:.1f} ms, {r['secs']:.1f} s")
+    log(f"smoke: {time.perf_counter() - T0:.1f} s from the start of main")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

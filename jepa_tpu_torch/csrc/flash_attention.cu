@@ -1,5 +1,6 @@
 // H1: flash self-attention forward over the fused qkv projection, bf16
-// (and, at the end of this file, H1-fp32 for fp32 qkv).
+// (and, at the end of this file, the entries of H1-fp32 for fp32 qkv,
+// csrc/flash_f32.cuh's FFMA forward).
 //
 // Replaces jepa_tpu/ops/flash_attention.py:_fwd_tm_kernel (the one-shot
 // token-major TPU kernel) and computes the same math as its kv-blocked
@@ -78,6 +79,7 @@
 // in the same swizzle and stores them by TMA (rows past N dropped by the
 // hardware); lse goes out directly.
 #include "common.cuh"
+#include "flash_f32.cuh"
 
 namespace {
 
@@ -369,266 +371,6 @@ int launch(const void* qkv, const void* kvm, void* o, void* lse, int B, int N, i
                     H, qscale);
 }
 
-// ---------------------------------------------------------------------------
-// H1-fp32: the same forward for fp32 qkv (the frozen evals with
-// optimization.use_bfloat16: false), the fp32 instance of _fwd_tm_kernel.
-//
-// The reference's rounding points are dtype-generic, and for fp32 they are
-// no-ops: q * (scale*log2e) stays fp32, QK^T and PV are fp32 products with
-// fp32 sums, p stays fp32. Same base-2 online softmax as above.
-//
-// Head dims 64, 80, 96 and 128 serve the fp32 evals' encoders; 32 (the
-// predictors' 24 zero-padded) and 64 also fp32 pretraining (meta.dtype:
-// float32), whose backward is csrc/flash_attention_bwd_f32.cu (H2-fp32).
-// Key mask (the padded mask mode), a template flag as in H1: each thread
-// reads the bytes of its 4 keys of a tile, and a masked key scores -1e30
-// before the row max, so it gets p = 0 exactly (a tile whose keys are all
-// masked is scaled away by the first valid key's alpha = 0, as above). The
-// unmasked instances keep the arithmetic they had before the flag.
-//
-// What bounds it on the H100: fp32 has no dense tensor-core path (TF32 is
-// not fp32), so the 4*N^2*C flops per head run on the CUDA cores (FFMA,
-// 66.9 TFLOP/s): at ViT-L (N=1568, C=64) the flops are ~1,000 per byte
-// moved, so it is FFMA-bound, and a kernel that feeds every FFMA its
-// operands from shared memory one at a time is bound by the shared-memory
-// pipe instead.
-//
-// Design (register-tiled FFMA, as a SIMT GEMM): a block takes 128 query
-// rows of one (batch, head) with 256 threads. Thread (rg, cg) of warp w
-// (rg = 4w + lane%4, cg = lane/4) owns the 4 query rows 4rg..4rg+3 and,
-// per 32-key tile, the keys cg + 8i (i < 4) of S and the head columns
-// 32g + 4cg.. (g < C/32) and, at C=80, 64+2cg.. of O, so a row's 8 owners
-// sit in one warp. The Q tile, scaled by qscale in fp32, is stored c-major once;
-// K (rows padded to C+4 floats, so the 8 column groups' keys fall in 8
-// bank groups) and V tiles of 32 keys stream through a 2-stage cp.async
-// ring, one __syncthreads a tile. S: per 4 head columns a thread loads 4
-// float4 of Qs (its rows) and 4 of K (its keys) for 64 FFMAs. The row max
-// over the tile is taken by shuffles among the row's 8 owners; p goes to
-// the warp's own [32 keys][16 rows] slice of shared memory (a __syncwarp,
-// no block barrier); PV: per key a float4 of p (its rows) and 2-3 loads of
-// V for 32-64 FFMAs, and l takes p in key order in each owner (4 adds).
-// Head dims 32, 64 and 80 ask for two blocks an SM (128 registers a thread);
-// at 96 and 128 the accumulators (48 and 64 a thread) and the shared
-// memory (113 and 145 KB a block) leave room for one, so the launch bound
-// asks for one and the registers spill nowhere.
-//
-// Numerics against the one-row-a-thread kernel this design replaced, kept
-// to the bit: s = an fmaf chain over c ascending from 0 with q*qscale
-// rounded once; the max moves every 32 keys; alpha = exp2f(m - mx); l =
-// fmaf(l, alpha, p of the tile's first key) (the contraction the compiler
-// made of that kernel's l *= alpha; l += p), then += p in key order; acc =
-// acc*alpha, then fmaf(p, v, acc) in key order; o = acc*(1/l), lse = m +
-// log2f(l) (chip_smoke.py --kernel-ab).
-constexpr int F32_BQ = 128;       // query rows per block, 4 a thread
-constexpr int F32_BKV = 32;       // keys per tile: the running max moves every 32 keys
-constexpr int F32_THREADS = 256;  // 8 warps of 4 row groups x 8 column groups
-constexpr int F32_STAGES = 2;
-
-template <int C>
-struct F32Geo {
-  static constexpr int KLD = C + 4;              // padded K row, floats
-  static constexpr int SQ = C * F32_BQ;          // Qs [C][128]
-  static constexpr int SK = F32_BKV * KLD;       // K tile [32][C+4]
-  static constexpr int SV = F32_BKV * C;         // V tile [32][C]
-  static constexpr int SP = 8 * F32_BKV * 16;    // p, per warp [32 keys][16 rows]
-  static constexpr int SMEM = 4 * (SQ + F32_STAGES * (SK + SV) + SP);
-  static constexpr int NV = C / 32;              // float4 column groups of O (1-4)
-  static constexpr int NT = (C % 32) / 8;        // float2 tail columns of O (0; 2 at C=80)
-  static constexpr int COLS = 4 * NV + NT;       // O columns a thread owns
-  static constexpr int MINB = C <= 80 ? 2 : 1;   // blocks an SM, for the launch bound
-};
-
-// the K and V rows of keys [k0, k0 + 32) into one ring stage
-// (rows past N zero-filled); K of head h at column kcol of a qkv row, V
-// H*C columns further
-template <int C>
-__device__ __forceinline__ void f32_load_kv(float* sk, float* sv, const float* base, size_t rs,
-                                            int kcol, int HC, int k0, int N, int tid) {
-  using G = F32Geo<C>;
-  for (int i = tid; i < F32_BKV * C / 4; i += F32_THREADS) {
-    const int r = i / (C / 4), c4 = 4 * (i % (C / 4));
-    const bool ok = k0 + r < N;
-    const float* src = base + (size_t)(ok ? k0 + r : 0) * rs + kcol + c4;
-    jt::cp_async16(sk + r * G::KLD + c4, src, ok);
-    jt::cp_async16(sv + r * C + c4, src + HC, ok);
-  }
-}
-
-template <int C, bool MASKED>
-__global__ void __launch_bounds__(F32_THREADS, F32Geo<C>::MINB)
-flash_fwd_f32_kernel(const float* __restrict__ qkv, const uint8_t* __restrict__ kvm,
-                     float* __restrict__ o, float* __restrict__ lse, int N, int H,
-                     float qscale) {
-  using G = F32Geo<C>;
-  float* sQ = reinterpret_cast<float*>(jt::smem_bytes());
-  float* sK = sQ + G::SQ;                  // stage s at s * SK
-  float* sV = sK + F32_STAGES * G::SK;     // stage s at s * SV
-  float* sP = sV + F32_STAGES * G::SV;
-
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * F32_BQ;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int rl = lane % 4, cg = lane / 4, r0 = 4 * (4 * warp + rl);  // block row of row 0
-  const int HC = H * C;
-  const size_t rs = 3 * (size_t)HC;  // token row stride of qkv
-  const float* base = qkv + (size_t)b * N * rs;
-  const int nkv = (N + F32_BKV - 1) / F32_BKV;
-
-  f32_load_kv<C>(sK, sV, base, rs, HC + h * C, HC, 0, N, tid);
-  jt::cp_async_commit();
-  // Qs c-major: column c of the tile's rows at sQ + c * 128
-  for (int i = tid; i < F32_BQ * C / 4; i += F32_THREADS) {
-    const int r = i % F32_BQ, c4 = 4 * (i / F32_BQ);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < N)
-      x = *reinterpret_cast<const float4*>(base + (size_t)(q0 + r) * rs + h * C + c4);
-    sQ[(c4 + 0) * F32_BQ + r] = x.x * qscale;
-    sQ[(c4 + 1) * F32_BQ + r] = x.y * qscale;
-    sQ[(c4 + 2) * F32_BQ + r] = x.z * qscale;
-    sQ[(c4 + 3) * F32_BQ + r] = x.w * qscale;
-  }
-
-  float acc[4][G::COLS];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < G::COLS; ++j) acc[r][j] = 0.f;
-  float m[4], l[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-  }
-  float* myp = sP + warp * F32_BKV * 16;  // this warp's p: [key][16 rows]
-
-  for (int it = 0; it < nkv; ++it) {
-    const int s = it % F32_STAGES, k0 = it * F32_BKV;
-    jt::cp_async_wait_all();
-    __syncthreads();  // tile it (and Qs) in; every thread is done with tile it - 1
-    if (it + 1 < nkv) {
-      const int n = (it + 1) % F32_STAGES;
-      f32_load_kv<C>(sK + n * G::SK, sV + n * G::SV, base, rs, HC + h * C, HC, k0 + F32_BKV, N,
-                     tid);
-      jt::cp_async_commit();
-    }
-    const float* sk = sK + s * G::SK + cg * G::KLD;  // key cg; key cg + 8i at + 8i*KLD
-    const float* sv = sV + s * G::SV;
-    bool key_ok[4] = {true, true, true, true};  // MASKED: key cg + 8i valid or past N
-    if constexpr (MASKED) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + cg + 8 * i;
-        key_ok[i] = key >= N || kvm[(size_t)b * N + key];
-      }
-    }
-
-    // S = Qs K^T over c ascending: s[r][i] for row r0 + r, key cg + 8i
-    float sc[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[r][i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; c += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc)
-        qv[cc] = *reinterpret_cast<const float4*>(sQ + (c + cc) * F32_BQ + r0);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) kv[i] = *reinterpret_cast<const float4*>(sk + 8 * i * G::KLD + c);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float kc[4] = {kv[i].x, kv[i].y, kv[i].z, kv[i].w};
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          sc[0][i] = fmaf(qv[cc].x, kc[cc], sc[0][i]);
-          sc[1][i] = fmaf(qv[cc].y, kc[cc], sc[1][i]);
-          sc[2][i] = fmaf(qv[cc].z, kc[cc], sc[2][i]);
-          sc[3][i] = fmaf(qv[cc].w, kc[cc], sc[3][i]);
-        }
-      }
-    }
-
-    // the tile's row max among the row's 8 owners, p = exp2f(s - m) into
-    // this warp's slice, O and the factor for l rescaled
-    float alpha[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float mx = m[r];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if constexpr (MASKED) {
-          if (!key_ok[i]) sc[r][i] = -1e30f;  // masked key: -1e30 before the row max
-        }
-        if (k0 + cg + 8 * i >= N) sc[r][i] = -INFINITY;  // ragged kv edge: no weight
-        mx = fmaxf(mx, sc[r][i]);
-      }
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      // key 0 lies in the first tile, so the max is finite from here on
-      alpha[r] = exp2f(m[r] - mx);
-      m[r] = mx;
-#pragma unroll
-      for (int j = 0; j < G::COLS; ++j) acc[r][j] *= alpha[r];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(myp + (cg + 8 * i) * 16 + 4 * rl) =
-          make_float4(exp2f(sc[0][i] - m[0]), exp2f(sc[1][i] - m[1]), exp2f(sc[2][i] - m[2]),
-                      exp2f(sc[3][i] - m[3]));
-    __syncwarp();
-
-    // O += P V and l += p, keys in order
-#pragma unroll
-    for (int j = 0; j < F32_BKV; ++j) {
-      const float4 p4 = *reinterpret_cast<const float4*>(myp + j * 16 + 4 * rl);
-      const float p[4] = {p4.x, p4.y, p4.z, p4.w};
-      float v[G::COLS];
-#pragma unroll
-      for (int g = 0; g < G::NV; ++g) {
-        const float4 x = *reinterpret_cast<const float4*>(sv + j * C + 32 * g + 4 * cg);
-        v[4 * g] = x.x, v[4 * g + 1] = x.y, v[4 * g + 2] = x.z, v[4 * g + 3] = x.w;
-      }
-      if constexpr (G::NT > 0) {
-        const float2 x = *reinterpret_cast<const float2*>(sv + j * C + 32 * G::NV + 2 * cg);
-        v[4 * G::NV] = x.x, v[4 * G::NV + 1] = x.y;
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        l[r] = j == 0 ? fmaf(l[r], alpha[r], p[r]) : l[r] + p[r];
-#pragma unroll
-        for (int c = 0; c < G::COLS; ++c) acc[r][c] = fmaf(p[r], v[c], acc[r][c]);
-      }
-    }  // the next tile's barrier orders these reads before its p writes
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + r0 + r;
-    if (row >= N) continue;
-    const float inv = 1.f / l[r];
-    float* orow = o + ((size_t)b * N + row) * HC + h * C;
-#pragma unroll
-    for (int g = 0; g < G::NV; ++g)
-      *reinterpret_cast<float4*>(orow + 32 * g + 4 * cg) =
-          make_float4(acc[r][4 * g] * inv, acc[r][4 * g + 1] * inv, acc[r][4 * g + 2] * inv,
-                      acc[r][4 * g + 3] * inv);
-    if constexpr (G::NT > 0)
-      *reinterpret_cast<float2*>(orow + 32 * G::NV + 2 * cg) =
-          make_float2(acc[r][4 * G::NV] * inv, acc[r][4 * G::NV + 1] * inv);
-    if (cg == 0) lse[((size_t)b * H + h) * N + row] = m[r] + log2f(l[r]);
-  }
-}
-
-// kvm == nullptr launches the unmasked instance
-template <int C>
-int launch_f32(const void* qkv, const void* kvm, void* o, void* lse, int B, int N, int H,
-               float qscale, void* stream) {
-  const dim3 grid((N + F32_BQ - 1) / F32_BQ, H, B);
-  return jt::launch(kvm ? flash_fwd_f32_kernel<C, true> : flash_fwd_f32_kernel<C, false>, grid,
-                    F32_THREADS, F32Geo<C>::SMEM, stream, (const float*)qkv,
-                    (const uint8_t*)kvm, (float*)o, (float*)lse, N, H, qscale);
-}
-
 }  // namespace
 
 #define JT_FWD_ENTRY(C)                                                         \
@@ -644,11 +386,22 @@ JT_FWD_ENTRY(80)
 JT_FWD_ENTRY(96)
 JT_FWD_ENTRY(128)
 
+// H1-fp32: the same forward for fp32 qkv (the frozen evals with
+// optimization.use_bfloat16: false, and pretraining with meta.dtype:
+// float32), the fp32 instance of _fwd_tm_kernel: csrc/flash_f32.cuh's FFMA
+// forward over the column ranges of qkv. Head dims 64, 80, 96 and 128 serve
+// the fp32 evals' encoders; 32 (the predictors' 24 zero-padded), 64 and
+// 128 (vit_tiny's 384-wide predictor) also fp32 pretraining, whose backward
+// is H2-fp32 (csrc/flash_attention_bwd_f32.cu).
 #define JT_FWD_F32_ENTRY(C)                                                     \
   extern "C" int jt_flash_fwd_f32_c##C(const void* qkv, const void* kvm,        \
                                        void* o, void* lse, int B, int N, int H, \
                                        float qscale, void* stream) {            \
-    return launch_f32<C>(qkv, kvm, o, lse, B, N, H, qscale, stream);            \
+    HmArgs a;                                                                   \
+    if (!jtf32::tm_args(a, qkv, kvm, nullptr, o, lse, nullptr, nullptr, B, N,   \
+                        H, C, qscale, 0.f))                                     \
+      return (int)cudaErrorInvalidValue;                                        \
+    return jtf32::launch_fwd<C>(a, stream);                                     \
   }
 
 JT_FWD_F32_ENTRY(32)

@@ -154,32 +154,13 @@
 // K rows zero-filled by TMA, both operands of the edge rows are zero, as K9
 // zeroes them (:355-364).
 //
-#include "common.cuh"
-
-// the launch arguments, field for field ops/flash_attention.py::_HmArgs
-struct HmArgs {
-  const void *q, *k, *v, *kvm;
-  void* o;
-  const void* dO;
-  void* lse;
-  const void* delta;
-  void *dq, *dk, *dv;
-  float* ws;
-  int B, H, Nq, Nk;
-  int q_s[3], k_s[3], v_s[3], o_s[3], do_s[3], dq_s[3], dk_s[3], dv_s[3];
-  float qscale, scale;
-};
+#include "flash_hm.cuh"
 
 namespace {
 
 using jt::bf16;
 
 constexpr float INV_LOG2E = 0.6931471805599453f;
-
-// the [N, C] rows of head h of batch b of a strided operand
-__device__ __forceinline__ bf16* rows(void* p, const int* s, int b, int h) {
-  return static_cast<bf16*>(p) + (size_t)b * s[0] + (size_t)h * s[1];
-}
 
 // H4 geometry: the TMA box is the whole head row (C columns, one swizzle
 // row of RB bytes), 128 rows a box
@@ -892,34 +873,6 @@ flash_hm_bwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   }
 }
 
-// H7's second pass: dq = bf16(scale * the k-block slabs summed in order),
-// one thread per 4 columns of a row; the slabs are read once (streaming
-// loads), four k-blocks' loads in flight at a time
-template <int C>
-__global__ void __launch_bounds__(256) flash_hm_dq_finish_kernel(const HmArgs a) {
-  const size_t quads = (size_t)a.B * a.H * a.Nq * (C / 4);
-  const size_t i = blockIdx.x * (size_t)256 + threadIdx.x;
-  if (i >= quads) return;
-  const int nkb = (a.Nk + 63) / 64;  // H7's k-blocks: one consumer warpgroup's 64 kv rows
-  const float4* p = reinterpret_cast<const float4*>(a.ws) + i;  // [nkb][B][H][Nq][C]
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-  for (int kb = 0; kb < nkb; ++kb) {
-    const float4 q = __ldcs(p + kb * quads);
-    v.x += q.x;
-    v.y += q.y;
-    v.z += q.z;
-    v.w += q.w;
-  }
-  const size_t row = i / (C / 4);  // (b * H + h) * Nq + n
-  const int n = (int)(row % a.Nq), bh = (int)(row / a.Nq);
-  bf16* out = rows(a.dq, a.dq_s, bh / a.H, bh % a.H) + (size_t)n * a.dq_s[2] + (i % (C / 4)) * 4;
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x * a.scale, v.y * a.scale);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z * a.scale, v.w * a.scale);
-  *reinterpret_cast<uint2*>(out) =
-      make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
-}
-
 dim3 grid_of(const HmArgs& a, int rows_per_block, int n) {
   return dim3((n + rows_per_block - 1) / rows_per_block, a.H, a.B);
 }
@@ -986,9 +939,7 @@ int launch_bwd(const HmArgs* a, void* stream) {
                      tdk, tdv, (const uint8_t*)a->kvm, (const float*)a->lse,
                      (const float*)a->delta, a->ws, a->Nq, a->Nk, a->H, a->B, a->qscale);
   if (err || !kDQ) return err;
-  const size_t quads = (size_t)a->B * a->H * a->Nq * (C / 4);
-  return jt::launch(flash_hm_dq_finish_kernel<C>, dim3((unsigned)((quads + 255) / 256)), 256, 0,
-                    stream, *a);
+  return launch_dq_finish<C, 64, bf16>(*a, stream);  // one consumer warpgroup's 64 kv rows
 }
 
 }  // namespace

@@ -47,18 +47,19 @@ _SIGNATURES = {
     # qkv, key mask, do, lse, delta, dqkv, B, N, H, scale*log2e, scale, stream
     **{f"jt_flash_bwd_dq_c{c}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P]
        for c in _TM_HEAD_DIMS},
-    # head-major H4-H7: a pointer to the HmArgs struct (ops/flash_attention.py), stream
-    **{f"jt_flash_hm_{kind}_c{c}": [_P, _P]
-       for kind in ("fwd", "dq", "dkv", "dqkv") for c in (32, 64)},
+    # head-major H4-H7 and H4-H7-fp32: a pointer to the HmArgs struct
+    # (ops/flash_attention.py), stream
+    **{f"jt_flash_hm_{kind}{dt}_c{c}": [_P, _P]
+       for kind in ("fwd", "dq", "dkv", "dqkv") for dt in ("", "_f32") for c in (32, 64)},
     # H1-fp32: fp32 qkv, key mask (None: unmasked), o, lse, B, N, H, scale*log2e,
     # stream (ops.flash_attention.F32_HEAD_DIMS)
     **{f"jt_flash_fwd_f32_c{c}": [_P, _P, _P, _P, _I, _I, _I, _F, _P]
        for c in (32, 64, 80, 96, 128)},
     # H2-fp32, the bf16 H2 entries' arguments (ops.flash_attention.F32_BWD_HEAD_DIMS)
     **{f"jt_flash_bwd_dkv_f32_c{c}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
-       for c in (32, 64)},
+       for c in (32, 64, 128)},
     **{f"jt_flash_bwd_dq_f32_c{c}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P]
-       for c in (32, 64)},
+       for c in (32, 64, 128)},
     # x, w, b, out, M, K, F, stream
     "jt_linear_gelu_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "jt_linear_gelu_f32": [_P, _P, _P, _P, _I, _I, _I, _P],

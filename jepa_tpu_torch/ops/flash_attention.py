@@ -45,18 +45,19 @@ The pads may sit anywhere in the row (the predictor's mask is
 concat(context valid, target valid)). A row with no valid key is out of
 scope: the padded mode always keeps a context token.
 
-fp32 (the frozen evals with ``use_bfloat16: false``, and pretraining with
-``meta.dtype: float32``): a CUDA fp32 qkv launches H1-fp32, the same
-forward on the CUDA cores, where every rounding point above is a no-op
-(fp32 q*(scale*log2e), fp32 p), with or without a key mask, at head dims
-32 (the predictors' 24 padded), 64, 80, 96 (vit_giant) and 128
-(vit_gigantic) (``F32_HEAD_DIMS``). Its backward is H2-fp32
+fp32 (the frozen evals with ``use_bfloat16: false``, serving with
+``compute_dtype=torch.float32`` and pretraining with ``meta.dtype:
+float32``): a CUDA fp32 qkv launches H1-fp32, the same forward on the CUDA
+cores, where every rounding point above is a no-op (fp32 q*(scale*log2e),
+fp32 p), with or without a key mask, at head dims 32 (the predictors' 24
+padded), 64, 80, 96 (vit_giant) and 128 (vit_gigantic, vit_tiny's 384-wide
+predictor) (``F32_HEAD_DIMS``). Its backward is H2-fp32
 (``csrc/flash_attention_bwd_f32.cu``: a dq and a dk/dv kernel, masked or
-not) at head dims 32 and 64 (``F32_BWD_HEAD_DIMS``: ViT-L's encoder and
-predictor). Not yet ported, so raising NotImplementedError on a CUDA
-tensor: the fp32 backward at 80, 96 and 128 (ViT-H, vit_giant and
-vit_gigantic fp32 pretraining) and every fp32 head-major call (H4-H7,
-vit_tiny); no fp32 call falls back to a plain version.
+not) at head dims 32, 64 and 128 (``F32_BWD_HEAD_DIMS``: ViT-L's encoder
+and predictor, vit_tiny's 384-wide predictor). Not yet ported, so raising
+NotImplementedError on a CUDA tensor: the fp32 backward at 80 and 96
+(ViT-H and vit_giant fp32 pretraining); no fp32 call falls back to a
+plain version.
 
 Head-major attention (the second half of this module; counterpart of
 ``flash_attention_bhnd`` / ``flash_attention_packed`` / ``flash_attention``
@@ -68,11 +69,15 @@ H4 forward (K6), H5 dq (K7), H6 dk/dv (K8) and H7, the merged backward
 ``_bwd_merged`` (``merged_bwd``, its ``_merged_fits`` rule). They read
 every operand by (b, h, n) strides, so the three planes of a packed
 [3, B, H, N, c] qkv, or a permuted view of the token-major projection,
-are read with no copy. bf16 with c in {32, 64}; fp32 and other head dims
-raise on CUDA (the plain versions take any). K6's numerics: row max, p in
-fp32, the denominator the fp32 sum of the *unrounded* p, p rounded to
-bf16 only as the PV operand, o / max(l, 1e-30), lse = m + log2(max(l,
-1e-30)); a fully masked row gives the uniform average.
+are read with no copy. bf16 with c in {32, 64} (``HM_HEAD_DIMS``); fp32
+(H4-H7-fp32, ``csrc/flash_attention_hm_f32.cu``: the FFMA kernels of
+H1-fp32 and H2-fp32 through the same strides) with c in {32, 64}
+(``HM_F32_HEAD_DIMS``: vit_tiny's encoder and its 96-wide predictor);
+other head dims and a mix of dtypes raise on CUDA (the plain versions take
+any). K6's numerics: row max, p in fp32, the denominator the fp32 sum of
+the *unrounded* p, p rounded to bf16 only as the PV operand, o / max(l,
+1e-30), lse = m + log2(max(l, 1e-30)); a fully masked row gives the
+uniform average.
 
 ``flash_self_attention`` routes as the JAX package does
 (``self_attention_route``): the token-major H1/H2 where a head split
@@ -100,8 +105,10 @@ _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128)
 F32_HEAD_DIMS = (32, 64, 80, 96, 128)  # H1-fp32: the predictors' 32, the encoders' 64-128
-F32_BWD_HEAD_DIMS = (32, 64)  # H2-fp32: ViT-L's predictor (24 padded) and encoder
+F32_BWD_HEAD_DIMS = (32, 64, 128)  # H2-fp32: ViT-L's predictor (24 padded) and encoder,
+                                   # vit_tiny's 384-wide predictor
 HM_HEAD_DIMS = (32, 64)   # H4-H7, bf16
+HM_F32_HEAD_DIMS = (32, 64)  # H4-H7-fp32: vit_tiny's encoder and 96-wide predictor
 
 # wrapper-counted launches in this process
 launches = 0      # H1 (bf16), every head dim, masked or not
@@ -122,6 +129,9 @@ dq_launches_by_head_dim = {c: 0 for c in KERNEL_HEAD_DIMS}   # H2 dq, per instan
 HM_KINDS = ("fwd", "dq", "dkv", "dqkv")  # H4, H5, H6, H7
 hm_launches = dict.fromkeys(HM_KINDS, 0)         # masked or not
 hm_masked_launches = dict.fromkeys(HM_KINDS, 0)  # of which with a key mask
+# H4-H7-fp32 by (kind, head dim): masked or not, and of which with a key mask
+hm_f32_launches = {(k, c): 0 for k in HM_KINDS for c in HM_F32_HEAD_DIMS}
+hm_f32_masked_launches = dict.fromkeys(hm_f32_launches, 0)
 
 
 def reset_launch_counts() -> None:
@@ -130,7 +140,8 @@ def reset_launch_counts() -> None:
     for counts in (launches_by_head_dim, masked_launches_by_head_dim,
                    f32_launches_by_head_dim, f32_masked_launches_by_head_dim,
                    f32_bwd_launches, dkv_launches_by_head_dim,
-                   dq_launches_by_head_dim, hm_launches, hm_masked_launches):
+                   dq_launches_by_head_dim, hm_launches, hm_masked_launches,
+                   hm_f32_launches, hm_f32_masked_launches):
         for c in counts:
             counts[c] = 0
     launches_by_tokens.clear()
@@ -257,7 +268,7 @@ def flash_self_attention_cuda(
     {32, 64, 80, 96, 128}, or fp32 (H1-fp32) with c in {32, 64, 80, 96,
     128}; kv_mask [B, N] (True = valid key) or None in both. Differentiable
     only through ``FlashSelfAttentionFn``, whose backward takes bf16 at
-    every head dim here and fp32 at 32 and 64 (H2-fp32)."""
+    every head dim here and fp32 at 32, 64 and 128 (H2-fp32)."""
     global launches
     from jepa_tpu_torch.ops._build import check, load_library
 
@@ -676,33 +687,48 @@ def _hm_operand(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.contiguous()
 
 
+def hm_slab_keys(dtype: torch.dtype) -> int:
+    """Keys per k-block of the merged backward's dq workspace: H7's 64
+    (one consumer warpgroup's kv rows), H7-fp32's 128 (one block's)."""
+    return 128 if dtype == torch.float32 else 64
+
+
 def _check_hm(name: str, q, k, v, kv_mask, ops: dict):
     """Validate the head-major kernels' operands: q, k, v and the named
-    [B, H, N, c] operands ``ops`` bf16 CUDA tensors of matching shapes with
-    a contiguous head dim, laid out as TMA needs (``check_hm_tma_layout``);
-    lse and delta contiguous fp32 [B, H, Nq]; the workspace contiguous fp32
-    [ceil(Nk/64), B, H, Nq, c].
+    [B, H, N, c] operands ``ops`` CUDA tensors of one dtype, bf16 (H4-H7,
+    c in ``HM_HEAD_DIMS``) or fp32 (H4-H7-fp32, c in ``HM_F32_HEAD_DIMS``),
+    of matching shapes with a contiguous head dim, laid out as TMA and the
+    fp32 kernels' 16-byte copies need (``check_hm_tma_layout``); lse and
+    delta contiguous fp32 [B, H, Nq]; the workspace contiguous fp32
+    [ceil(Nk / hm_slab_keys), B, H, Nq, c].
     Returns (B, H, Nq, Nk, c, the uint8 key mask or None)."""
     b, h, nq, c = q.shape if q.dim() == 4 else (0,) * 4
     nk = k.shape[2] if k.dim() == 4 else 0
     shapes = dict(q=(b, h, nq, c), k=(b, h, nk, c), v=(b, h, nk, c), o=(b, h, nq, c),
                   do=(b, h, nq, c), dq=(b, h, nq, c), dk=(b, h, nk, c), dv=(b, h, nk, c))
-    for n, t in dict(q=q, k=k, v=v, **ops).items():
+    dims = {torch.bfloat16: HM_HEAD_DIMS, torch.float32: HM_F32_HEAD_DIMS}
+    named = dict(q=q, k=k, v=v, **ops)
+    for n, t in named.items():
         if not t.is_cuda:
             raise ValueError(f"{name}: operands must be CUDA tensors")
+        if n in _HM_STRIDED and t.dtype != q.dtype:
+            raise ValueError(f"{name}: {n} is {t.dtype} and q {q.dtype}; the operands "
+                             "must share one dtype")
+    if q.dtype not in dims:
+        raise NotImplementedError(f"{name} takes bf16 or fp32 operands, got {q.dtype}")
+    if c not in dims[q.dtype]:
+        raise NotImplementedError(f"{name}: head dim {c} not in {dims[q.dtype]} for {q.dtype}")
+    ws_rows = -(-nk // hm_slab_keys(q.dtype))
+    for n, t in named.items():
         if n in _HM_STRIDED:
-            if t.dtype != torch.bfloat16:
-                raise NotImplementedError(f"{name} takes bf16 operands, got {t.dtype}")
             if tuple(t.shape) != shapes[n] or t.stride(-1) != 1:
                 raise ValueError(f"{name}: {n} must be {shapes[n]} = [B, H, N, c] with a "
                                  f"contiguous head dim")
             check_hm_tma_layout(t.data_ptr(), t.stride()[:-1], t.element_size(), f"{name}: {n}")
         elif (t.dtype != torch.float32 or not t.is_contiguous() or tuple(t.shape) != (
-                (-(-nk // 64), b, h, nq, c) if n == "ws" else (b, h, nq))):
+                (ws_rows, b, h, nq, c) if n == "ws" else (b, h, nq))):
             raise ValueError(f"{name}: {n} must be contiguous fp32 "
-                             f"{'[ceil(Nk/64), B, H, Nq, c]' if n == 'ws' else '[B, H, Nq]'}")
-    if c not in HM_HEAD_DIMS:
-        raise NotImplementedError(f"{name}: head dim {c} not in {HM_HEAD_DIMS}")
+                             f"{'[ceil(Nk/slab keys), B, H, Nq, c]' if n == 'ws' else '[B, H, Nq]'}")
     if min(b, h, nq, nk) < 1:
         raise ValueError(f"{name}: empty input")
     mask = None
@@ -716,7 +742,7 @@ def _check_hm(name: str, q, k, v, kv_mask, ops: dict):
 def _launch_hm(kind: str, q, k, v, scale: float, kv_mask, **ops) -> None:
     """Fill HmArgs from q, k, v, the mask and the named operands ``ops``
     (o, do, lse, delta, dq, dk, dv, ws) and launch the H4-H7 entry ``kind``
-    on q's current stream."""
+    (H4-H7-fp32's for fp32 operands) on q's current stream."""
     from jepa_tpu_torch.ops._build import check, load_library
 
     name = f"flash_hm_{kind}_cuda"
@@ -727,11 +753,16 @@ def _launch_hm(kind: str, q, k, v, scale: float, kv_mask, **ops) -> None:
             setattr(a, n, t.data_ptr())
             if n in _HM_STRIDED:
                 setattr(a, f"{n}_s", (ctypes.c_int * 3)(*t.stride()[:3]))
-    entry = f"jt_flash_hm_{kind}_c{c}"
+    f32 = q.dtype == torch.float32
+    entry = f"jt_flash_hm_{kind}{'_f32' if f32 else ''}_c{c}"
     stream = torch.cuda.current_stream(q.device).cuda_stream
     check(getattr(load_library(), entry)(ctypes.addressof(a), stream), entry)
-    hm_launches[kind] += 1
-    hm_masked_launches[kind] += mask is not None
+    if f32:
+        hm_f32_launches[kind, c] += 1
+        hm_f32_masked_launches[kind, c] += mask is not None
+    else:
+        hm_launches[kind] += 1
+        hm_masked_launches[kind] += mask is not None
 
 
 def flash_fwd_hm_cuda(q, k, v, scale: float, kv_mask=None):
@@ -758,12 +789,14 @@ def flash_bwd_dkv_hm_cuda(q, k, v, do, lse, delta, scale: float, kv_mask=None, o
 
 
 def flash_bwd_dqkv_hm_cuda(q, k, v, do, lse, delta, scale: float, kv_mask=None, out=None):
-    """Launch H7 (K9), the merged backward: (dq, dk, dv) (into ``out`` when
-    given). Each 64-key block stores its fp32 dq partial in its own slab of
-    a workspace [ceil(Nk/64), B, H, Nq, c]; the same entry then sums the
-    slabs in block order (deterministic), scales and casts."""
+    """Launch H7 (K9; H7-fp32 for fp32), the merged backward: (dq, dk, dv)
+    (into ``out`` when given). Each k-block of ``hm_slab_keys`` keys (64 in
+    bf16, 128 in fp32) stores its fp32 dq partial in its own slab of a
+    workspace [ceil(Nk / slab keys), B, H, Nq, c]; the same entry then sums
+    the slabs in block order (deterministic), scales and casts."""
     dq, dk, dv = (_alloc_like(q), _alloc_like(k), _alloc_like(v)) if out is None else out
-    ws = torch.empty((-(-k.shape[2] // 64), *q.shape), dtype=torch.float32, device=q.device)
+    ws = torch.empty((-(-k.shape[2] // hm_slab_keys(q.dtype)), *q.shape), dtype=torch.float32,
+                     device=q.device)
     _launch_hm("dqkv", q, k, v, scale, kv_mask, do=do, lse=lse, delta=delta, dq=dq, dk=dk,
                dv=dv, ws=ws)
     return dq, dk, dv

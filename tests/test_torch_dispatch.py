@@ -2,13 +2,16 @@
 YAMLs in configs/ (the evals in both use_bfloat16 settings), for
 vitl16.yaml and vitl16_k400_16x8x3.yaml with the factory's largest models
 (vit_giant, vit_gigantic and vit_gigantic_intended, the gigantics at their
-patch 14), and for vitl16.yaml with model_name vit_tiny, every attention and fc1 call shape
+patch 14), for vitl16_k400_16x8x3.yaml with vit_tiny in both dtypes, and
+for vitl16.yaml with model_name vit_tiny (bf16, and fp32 in both mask
+modes with the 384- and the 96-wide predictor), every attention and fc1 call shape
 the port's path makes, resolved through the port's own dispatch rules
 (resolve_flash, self_attention_route, padded_head_dim, merged_bwd, the
 kernels' head dims, fused_tiling, the kernels' k panels) on a stand-in for
 a CUDA tensor. Each call must reach a kernel instance that exists (a C
 entry the build binds and a source defines: H1 by head dim and dtype, H2
-for a differentiated H1, H4 and H7 or H5 + H6 on the head-major route, H3
+for a differentiated H1, H4 and H7 or H5 + H6 on the head-major route (the
+fp32 instances H4-H7-fp32 in fp32), H3
 by K/F tiling and dtype, H8 for a fused fc1 under a gradient) or the
 documented eager path: attention with fewer than 128 queries or keys (the
 probe's 1-query cross-attention, short contexts), head-major sequences past
@@ -39,6 +42,7 @@ from jepa_tpu_torch.ops.attention import resolve_flash
 from jepa_tpu_torch.ops.flash_attention import (
     F32_BWD_HEAD_DIMS,
     F32_HEAD_DIMS,
+    HM_F32_HEAD_DIMS,
     HM_HEAD_DIMS,
     KERNEL_HEAD_DIMS,
     check_tma_layout,
@@ -171,8 +175,8 @@ def _entries(call):
         if route == "eager":  # no token-major split and past 2048 tokens
             return "eager xla_attention"
         if route == "hm":  # flash_attention_packed: H4, then H7 or H5 + H6
-            assert call.dtype == torch.float32 or call.c in HM_HEAD_DIMS, call
-            f32 = "_f32" if call.dtype == torch.float32 else ""  # not yet ported
+            f32 = "_f32" if call.dtype == torch.float32 else ""  # H4-H7-fp32
+            assert call.c in (HM_F32_HEAD_DIMS if f32 else HM_HEAD_DIMS), call
             entries = [f"jt_flash_hm_fwd{f32}_c{call.c}"]
             if call.grad:
                 kinds = ["dqkv"] if merged_bwd(call.nq, call.nk, call.c) else ["dq", "dkv"]
@@ -207,11 +211,13 @@ def _tm_entries(call):
 
 
 def test_f32_head_dims_are_the_entries():
-    """The wrapper's fp32 head dims (H1-fp32, H2-fp32) are exactly the
-    instances the sources define and the build binds."""
+    """The wrapper's fp32 head dims (H1-fp32, H2-fp32, H4-H7-fp32) are
+    exactly the instances the sources define and the build binds."""
     f32 = lambda stem: {int(e.rsplit("_c", 1)[1]) for e in _ENTRIES if e.startswith(stem)}
     assert f32("jt_flash_fwd_f32_c") == set(F32_HEAD_DIMS)
     assert f32("jt_flash_bwd_dkv_f32_c") == f32("jt_flash_bwd_dq_f32_c") == set(F32_BWD_HEAD_DIMS)
+    for kind in ("fwd", "dq", "dkv", "dqkv"):
+        assert f32(f"jt_flash_hm_{kind}_f32_c") == set(HM_F32_HEAD_DIMS), kind
     for e in _ENTRIES:
         if "_f32_c" in e:
             assert e in _build._SIGNATURES, e
@@ -226,7 +232,8 @@ _CASES = ([(p.name, None, None) for p in sorted((_CONFIGS / "pretrain").glob("*.
           + [(p.name, bf16, None) for p in sorted((_CONFIGS / "evals").glob("*.yaml"))
              for bf16 in (True, False)]
           + [("vitl16.yaml", None, m) for m in _MODELS]
-          + [("vitl16_k400_16x8x3.yaml", bf16, m) for m in _MODELS for bf16 in (True, False)])
+          + [("vitl16_k400_16x8x3.yaml", bf16, m) for m in (*_MODELS, "vit_tiny")
+             for bf16 in (True, False)])
 
 
 def test_shipped_configs_are_all_listed():
@@ -244,7 +251,7 @@ def test_shipped_config_dispatch(name, bf16, model):
     if model:  # the model and its factory patch in place of the YAML's
         sec = cfg["model"] if bf16 is None else cfg["pretrain"]
         sec["model_name"] = model
-        (cfg["data"] if bf16 is None else sec)["patch_size"] = _MODELS[model]
+        (cfg["data"] if bf16 is None else sec)["patch_size"] = _MODELS.get(model, 16)
     calls = _pretrain_calls(cfg) if bf16 is None else _eval_calls(cfg, bf16)
     table = [(call, _resolve(call)) for call in calls]
     print(f"\n{kind}/{name}" + ("" if bf16 is None else f" use_bfloat16={bf16}"))
@@ -253,10 +260,15 @@ def test_shipped_config_dispatch(name, bf16, model):
                  if isinstance(call, Attn) else f"M={call.m} K={call.k} F={call.f}")
         print(f"  {call.where:32s} {shape:34s} {str(call.dtype)[6:]:8s} -> {how}")
     # every shipped path runs the encoder's attention and fc1 through kernels
+    # (vit_tiny's fc1, K=192, runs the eager GELU in both packages)
     assert all(how.startswith("jt_") for call, how in table
-               if "encoder" in call.where or "target" in call.where)
-    if model:  # H1 (H1-fp32 in an fp32 eval) at the padded head dim
-        f32 = "_f32" if bf16 is False else ""
+               if ("encoder" in call.where or "target" in call.where)
+               and not (model == "vit_tiny" and isinstance(call, Fc1)))
+    f32 = "_f32" if bf16 is False else ""
+    if model == "vit_tiny":  # 3 heads of 64: H4 (H4-fp32 in the fp32 eval)
+        assert [how for call, how in table if "encoder self-attn" in call.where] == [
+            f"jt_flash_hm_fwd{f32}_c64"] * 2
+    elif model:  # H1 (H1-fp32 in an fp32 eval) at the padded head dim
         assert all(how.startswith(f"jt_flash_fwd{f32}_c{_PADDED[model]}") for call, how in table
                    if isinstance(call, Attn) and not call.cross
                    and ("encoder" in call.where or "target" in call.where
@@ -423,13 +435,15 @@ def test_jax_tm_kernel_picks(name):
     assert all(v == "K1 + K3" for v in trainable)
 
 
-def _f32_vitl16(mode, model_name=None, config="vitl16.yaml"):
-    """``config`` with ``meta.dtype: float32`` (and ``model_name``) in the
-    fixed mode (the calibrated keep counts) or the padded mode (every rung
-    of each mask config's cap ladder), as its call list."""
+def _f32_vitl16(mode, model_name=None, config="vitl16.yaml", cfg=None):
+    """``config`` (or the parsed ``cfg``) with ``meta.dtype: float32`` (and
+    ``model_name``) in the fixed mode (the calibrated keep counts) or the
+    padded mode (every rung of each mask config's cap ladder), as its call
+    list."""
     from jepa_tpu_torch.masks.multiblock3d import calibrate_pad_ladders
 
-    cfg = yaml.safe_load((_CONFIGS / "pretrain" / config).read_text())
+    if cfg is None:
+        cfg = yaml.safe_load((_CONFIGS / "pretrain" / config).read_text())
     cfg["meta"]["dtype"] = "float32"
     keep = None
     if mode == "padded":
@@ -468,15 +482,13 @@ def test_f32_pretrain_dispatch(mode):
     assert not any("bf16" in how for _, how in table)
 
 
-@pytest.mark.parametrize("name,model", [("vitl16.yaml", "vit_tiny"), ("vith16.yaml", None),
-                                        ("vitl16.yaml", "vit_giant")])
+@pytest.mark.parametrize("name,model", [("vith16.yaml", None), ("vitl16.yaml", "vit_giant")])
 def test_f32_pretrain_not_yet_ported(name, model):
     """fp32 pretraining whose attention needs an instance no source defines
-    yet (ROADMAP queue 2): vit_tiny at vitl16.yaml's geometry (its encoder
-    head-major, fp32 H4-H7; its 384-wide predictor H2-fp32 at c=128),
-    ViT-H (H2-fp32 at c=80) and vit_giant (c=88->96). Each call's entries
-    are listed and at least one is missing, so the wrapper raises
-    NotImplementedError on the card; a slice that ports them flips this."""
+    yet (ROADMAP queue 2): ViT-H (H2-fp32 at c=80) and vit_giant
+    (c=88->96). Each call's entries are listed and at least one is missing,
+    so the wrapper raises NotImplementedError on the card; a slice that
+    ports them flips this."""
     missing = set()
     for mode in ("fixed", "padded"):
         for call in _f32_vitl16(mode, model, name):
@@ -484,19 +496,74 @@ def test_f32_pretrain_not_yet_ported(name, model):
             if not isinstance(entries, str):
                 missing |= {e for e in entries if e not in _ENTRIES}
     print(f"  {name} {model}: missing {sorted(missing)}")
-    want = {"vit_tiny": {"jt_flash_hm_fwd_f32_c64", "jt_flash_bwd_dkv_f32_c128"},
-            None: {"jt_flash_bwd_dkv_f32_c80", "jt_flash_bwd_dq_f32_c80"},
+    want = {None: {"jt_flash_bwd_dkv_f32_c80", "jt_flash_bwd_dq_f32_c80"},
             "vit_giant": {"jt_flash_bwd_dkv_f32_c96"}}[model]
     assert want <= missing
     assert not missing & set(_build._SIGNATURES)
+
+
+# (model, predictor width, mode) of vitl16.yaml with meta.dtype float32 whose
+# every instance is ported: vit_tiny with its 384-wide predictor (3 x 128,
+# token-major: H1-fp32 + H2-fp32 at c=128) and the fixture's 96-wide one (3 x
+# 32, head-major), and vit_gigantic (16 x 104 padded to 128, patch 14)
+_F32_RESOLVED = [("vit_tiny", w, mode) for w in (384, 96) for mode in ("fixed", "padded")] + [
+    ("vit_gigantic", None, mode) for mode in ("fixed", "padded")]
+
+
+@pytest.mark.parametrize("model,pred_width,mode", _F32_RESOLVED,
+                         ids=[f"{m}-{w or 'yaml'}-{mode}" for m, w, mode in _F32_RESOLVED])
+def test_f32_pretrain_resolves(model, pred_width, mode):
+    """vitl16.yaml with ``meta.dtype: float32``: every call of vit_tiny's
+    update reaches an fp32 entry or the eager path the JAX package takes:
+    the encoder's self-attention (3 x 64, no token-major split) H4-fp32 and,
+    under a gradient, H7-fp32 (the contexts: ``merged_bwd``); the 384-wide
+    predictor H1-fp32 + H2-fp32 at c=128, the 96-wide predictor H4-fp32 and
+    H7-fp32 at c=32 (H5-fp32 + H6-fp32 at the padded top rung, 1664 tokens,
+    past the merged backward's rule); the fc1 (K=192) the eager GELU. vit_gigantic's resolves to H1-fp32 / H2-fp32 at c=128 (encoder)
+    and c=32 (predictor) and H3-fp32. Nothing reaches a bf16 entry."""
+    cfg = yaml.safe_load((_CONFIGS / "pretrain" / "vitl16.yaml").read_text())
+    if pred_width:
+        cfg["model"].update(pred_embed_dim=pred_width,
+                            pred_depth=2 if pred_width == 96 else cfg["model"]["pred_depth"])
+    if model == "vit_gigantic":
+        cfg["data"]["patch_size"] = _MODELS[model]
+    table = [(call, _resolve(call)) for call in _f32_vitl16(mode, model, cfg=cfg)]
+    for call, how in table:
+        print(f"  {model} {pred_width} {mode} {call.where:32s} -> {how}")
+    assert not any("bf16" in how or ("jt_" in how and "_f32" not in how) for _, how in table)
+    for call, how in table:
+        if how.startswith("eager"):  # fewer than 128 tokens, or the fc1 at K=192
+            assert (isinstance(call, Attn) and call.nq < 128) or (
+                isinstance(call, Fc1) and (model == "vit_tiny" or not call.fused)), (call, how)
+            continue
+        if not isinstance(call, Attn):
+            assert how == "jt_linear_gelu_f32" and model == "vit_gigantic", (call, how)
+            continue
+        pred = "predictor" in call.where
+        if model == "vit_gigantic":
+            cp = 32 if pred else 128
+            want = [f"jt_flash_fwd_f32_c{cp}"] + [
+                f"jt_flash_bwd_{k}_f32_c{cp}" for k in ("dkv", "dq")] * call.grad
+        elif pred and pred_width == 384:
+            want = ["jt_flash_fwd_f32_c128"] + [
+                f"jt_flash_bwd_{k}_f32_c128" for k in ("dkv", "dq")] * call.grad
+        else:
+            c = 32 if pred else 64  # the merged backward, or dq + dk/dv past it
+            kinds = ["dqkv"] if merged_bwd(call.nq, call.nk, c) else ["dq", "dkv"]
+            want = [f"jt_flash_hm_fwd_f32_c{c}"] + [
+                f"jt_flash_hm_{k}_f32_c{c}" for k in kinds] * call.grad
+        assert how == " + ".join(want), (call, how)
+    trainable = [how for call, how in table if isinstance(call, Attn) and call.grad
+                 and not how.startswith("eager")]
+    assert len(trainable) == (3 if mode == "fixed" else 12)
 
 
 def test_f32_fixture_dispatch():
     """The CPU pretrain fixture (tests/fixtures/pretrain_smoke.yaml: vit_tiny,
     fp32, 32 px and 4 frames, so 8 tokens): every attention runs eager (fewer
     than 128 tokens, in both packages) and the fc1 (K=192) the eager GELU,
-    so on the card it launches no kernel; its model at a real geometry is
-    ``test_f32_pretrain_not_yet_ported[vitl16.yaml-vit_tiny]``."""
+    so on the card it launches no kernel; its model and predictor at a real
+    geometry are ``test_f32_pretrain_resolves[vit_tiny-96-*]``."""
     cfg = yaml.safe_load((pathlib.Path(__file__).parent / "fixtures"
                           / "pretrain_smoke.yaml").read_text())
     table = [(call, _resolve(call)) for call in _pretrain_calls(cfg)]

@@ -6,10 +6,12 @@ backward kernels in Pallas interpret mode, on the CPU: the dual-tiled K4
 21 rows), and the merged K3 (``_bwd_tm_kernel``) that the JAX pickers choose
 for these calls. Both sides take the same qkv, do, o and lse (the JAX
 forward's), so only the backward is compared. Head dims 24 (zero-padded to
-32, 4 heads) and 64 (2 heads), unmasked and with a key mask (a tail of pads;
-a mid-row run and a tail). Inputs come from numpy with a seed; JAX runs
-first in each test, torch after. Last, the fp32 head dims H2-fp32 lacks
-raise NotImplementedError on a (stand-in) CUDA tensor.
+32, 4 heads), 64 (2 heads) and 128 (3 heads: vit_tiny's 384-wide
+predictor), unmasked and with a key mask (a tail of pads; a mid-row run and
+a tail). Inputs come from numpy with a seed; JAX runs first in each test,
+torch after. Last, the fp32 head dims H2-fp32 lacks, an fp32 head-major
+call at a head dim H4-H7-fp32 lacks and head-major operands of mixed dtypes
+raise on a (stand-in) CUDA tensor.
 """
 
 import types
@@ -25,7 +27,7 @@ from jepa_tpu_torch.ops import flash_attention as fa
 
 B, N = 2, 149
 TOL = 3e-5  # fp32 attention gradients (the JAX suite's flash tolerance, PARITY.md:13)
-GEOMETRY = {24: (4, 32), 64: (2, 64)}  # real head dim -> (heads, padded head dim)
+GEOMETRY = {24: (4, 32), 64: (2, 64), 128: (3, 128)}  # real head dim -> (heads, padded)
 
 
 def _mask(kind):
@@ -43,7 +45,7 @@ def _mask(kind):
 
 @pytest.mark.parametrize("kernel", ["K4+K5", "K3"])
 @pytest.mark.parametrize("kind", ["none", "tail", "mid"])
-@pytest.mark.parametrize("c", [24, 64])
+@pytest.mark.parametrize("c", [24, 64, 128])
 def test_f32_backward_matches_jax_kernels(c, kind, kernel):
     h, cp = GEOMETRY[c]
     rng = np.random.default_rng(c + len(kind) + len(kernel))
@@ -94,18 +96,28 @@ class _OnTheCard(types.SimpleNamespace):
         return len(self.shape)
 
 
-@pytest.mark.parametrize("c", [80, 96, 128])
+@pytest.mark.parametrize("c", [80, 96])
 def test_f32_backward_outside_its_instances_raises(c):
     """An fp32 backward at a head dim H2-fp32 has no instance for (ViT-H's
-    80, vit_giant's 96, vit_tiny's predictor and vit_gigantic's 128) raises
-    NotImplementedError on a CUDA tensor before any launch, and never falls
-    back to the plain version; the forward H1-fp32 has them all."""
+    80, vit_giant's 96) raises NotImplementedError on a CUDA tensor before
+    any launch, and never falls back to the plain version; the forward
+    H1-fp32 has them all."""
     qkv = _OnTheCard(dtype=torch.float32, shape=(2, 40, 3 * 16 * c))
     assert c in fa.F32_HEAD_DIMS and c not in fa.F32_BWD_HEAD_DIMS
     for launch in (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda):
         with pytest.raises(NotImplementedError, match="head dim"):
             launch(qkv, None, None, None, None, 16, c**-0.5)
-    with pytest.raises(NotImplementedError, match="float32"):  # fp32 head-major (H4-H7)
-        fa._check_hm("flash_hm_fwd_cuda", _OnTheCard(dtype=torch.float32, shape=(2, 3, 40, 64)),
-                     _OnTheCard(dtype=torch.float32, shape=(2, 3, 40, 64)),
-                     _OnTheCard(dtype=torch.float32, shape=(2, 3, 40, 64)), None, {})
+
+
+@pytest.mark.parametrize("case", ["fp32 c=16", "fp32 q, bf16 k"])
+def test_f32_head_major_outside_its_instances_raises(case):
+    """H4-H7-fp32 take fp32 operands at head dims 32 and 64: an fp32 call at
+    another head dim raises NotImplementedError, and operands of two dtypes
+    raise ValueError, on a CUDA tensor before any launch."""
+    c = 16 if case == "fp32 c=16" else 64
+    q = _OnTheCard(dtype=torch.float32, shape=(2, 3, 40, c))
+    k = _OnTheCard(dtype=torch.float32 if c == 16 else torch.bfloat16, shape=(2, 3, 40, c))
+    assert c not in fa.HM_F32_HEAD_DIMS or case != "fp32 c=16"
+    with pytest.raises(NotImplementedError if c == 16 else ValueError,
+                       match="head dim" if c == 16 else "one dtype"):
+        fa._check_hm("flash_hm_fwd_cuda", q, k, k, None, {})

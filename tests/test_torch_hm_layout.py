@@ -10,7 +10,9 @@ operands of vit_tiny's self-attention route (permuted views of the
 token-major projection), of ``flash_attention_packed`` and of
 ``dot_product_attention(impl='flash')`` (the probe's cross-attention),
 as the plain versions receive them, must pass as they are (no copy), and
-layouts TMA cannot address must be refused.
+layouts TMA cannot address must be refused. The fp32 instances
+(H4-H7-fp32) read the same operands with 16-byte copies, so the same rule
+holds at 4-byte elements.
 """
 
 import pytest
@@ -107,6 +109,31 @@ def test_probe_cross_attention_operands(monkeypatch):
     dot_product_attention(q, k, v, impl="flash").float().sum().backward()
     want = {"fwd", "bwd_dqkv"} if fa.merged_bwd(1, n, c) else {"fwd", "bwd_dq", "bwd_dkv"}
     _check_all(seen, want)
+
+
+@pytest.mark.parametrize("n,heads,c,kinds", [
+    (376, 3, 64, {"fwd", "bwd_dqkv"}),             # vit_tiny's fixed context
+    (1568, 3, 64, {"fwd", "bwd_dq", "bwd_dkv"}),   # vit_tiny's full clip
+    (1109, 3, 32, {"fwd", "bwd_dqkv"}),            # the 96-wide predictor's
+    (1664, 3, 32, {"fwd", "bwd_dq", "bwd_dkv"}),   # its padded top rung
+])
+def test_f32_self_attention_operands(monkeypatch, n, heads, c, kinds):
+    """fp32 (H4-H7-fp32): the same routes hand the packed planes of the
+    token-major projection at 4-byte elements, which pass the 16-byte rule
+    with elem_bytes=4 (the kernels' float4 copies) and are read in place."""
+    d = heads * c
+    assert fa.self_attention_route(heads, c, n) == "hm"
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((1, n, d), generator=gen).requires_grad_(True)
+    w = torch.randn((3 * d, d), generator=gen) / 16
+    seen = _spy_operands(monkeypatch)
+    o = fa.flash_self_attention(x, w, torch.zeros(3 * d), heads)
+    o.backward(torch.randn(o.shape, generator=gen))  # a dense gradient, as attn.proj's
+    assert all(t.dtype == torch.float32 for _, ops in seen for t in ops.values())
+    _check_all(seen, kinds)
+    for _, ops in seen:
+        for t in ops.values():
+            fa.check_hm_tma_layout(t.data_ptr(), t.stride()[:3], elem_bytes=4)
 
 
 _TOK = 1568 * 3 * 3 * 64  # a vit_tiny projection's batch stride, in elements

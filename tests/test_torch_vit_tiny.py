@@ -147,3 +147,86 @@ def test_vit_tiny_update_matches_jax(pred_width):
         assert set(got_sd) == set(want_sd)
         for k, v in want_sd.items():
             np.testing.assert_allclose(got_sd[k].numpy(), v.numpy(), atol=5e-5, err_msg=k)
+
+
+# padded mode at vit_tiny's heads with contexts of >= 128 tokens: 96 px at
+# patch 8 over 4 frames (a 2 x 12 x 12 grid, 288 tokens), one small-block
+# mask config, the collator's masks padded past their K (a ragged key mask)
+PAD_GEO = dict(img_size=96, patch_size=8, num_frames=4, tubelet_size=2)
+PAD_GRID = dict(t=2, h=12, w=12)
+PAD_MASKS = [dict(num_blocks=2, spatial_scale=[0.15, 0.15], aspect_ratio=[0.75, 1.5])]
+PAD_TRAIN = dict(TRAIN, reg_coeff=0.1, mask_mode="padded")
+
+
+@pytest.mark.parametrize("pred_width", [384, 96])
+def test_vit_tiny_padded_update_matches_jax(pred_width):
+    """One padded-mode update, fp32, of a vit_tiny-width encoder (depth 2)
+    whose contexts hold >= 128 tokens, with the 384-wide (token-major) or
+    96-wide (head-major) predictor: the port with attn_impl='flash' takes
+    the 'hm' route with the key mask (the masked plain versions of
+    H4-fp32 / H7-fp32, and of H1-fp32 / H2-fp32 at c=128 for the 384-wide
+    predictor) against build_train_step(mask_mode='padded') with its XLA
+    attention on the same state, clips and padded masks (loss rtol 2e-4,
+    parameters atol 5e-5)."""
+    from jepa_tpu.masks import padding as jax_padding
+
+    jenc = JaxViTCfg(**PAD_GEO, **TINY, uniform_power=True, compute_dtype=jnp.float32,
+                     attn_impl="xla")
+    jpred = jax_predictor_cfg_for(jenc, predictor_embed_dim=pred_width, depth=2)
+    jstate, jconsts = jax_step.init_train_state(jax.random.PRNGKey(17), jenc, jpred)
+    jspecs = [jax_masks.MaskSpec.from_cfg(m) for m in PAD_MASKS]
+    jgrid = jax_masks.MaskGrid(**PAD_GRID)
+    keep = [jax_masks.calibrate_keep_counts(s, jgrid, B) for s in jspecs]
+    me_list, mp_list = jax_masks.MaskCollator(jspecs, jgrid, seed=7).collate_chunks(B, 1)
+    batch = {k: [] for k in ("masks_enc", "enc_weights", "masks_pred", "pred_weights")}
+    for (me,), (mp,) in zip(me_list, mp_list):
+        assert me.shape[1] >= 128  # the flash rule's floor: the kernels' route on the card
+        for m, keys in ((me, ("masks_enc", "enc_weights")), (mp, ("masks_pred", "pred_weights"))):
+            idx, w = jax_padding.pad_masks(m, m.shape[1] + 5)
+            batch[keys[0]].append(idx)
+            batch[keys[1]].append(w)
+    clips = np.random.default_rng(18).normal(size=(B, 4, 96, 96, 3)).astype(np.float32)
+    tc = jax_step.TrainCfg(**PAD_TRAIN, batch_size=B)
+    step_fn = jax_step.build_train_step(jenc, jpred, jconsts, tc,
+                                        *jax_sched.build_schedules(**SCHED), jspecs, jgrid, keep)
+    jnew, jmetrics = jax.jit(step_fn)(jstate, {"clips": jnp.asarray(clips),
+                                               **{k: [jnp.asarray(a) for a in v]
+                                                  for k, v in batch.items()}})
+    to_np = lambda t: jax.tree.map(np.asarray, t)
+    jstate, jconsts, jnew = to_np(jstate), to_np(jconsts), to_np(jnew)
+
+    enc = ViTCfg(**PAD_GEO, **TINY, uniform_power=True, compute_dtype=torch.float32,
+                 attn_impl="flash")
+    pred = predictor_cfg_for(enc, predictor_embed_dim=pred_width, depth=2)
+    state = train_state_from_jax(jstate, jconsts, enc, pred, device="cpu")
+    port_step = build_train_step(enc, pred, TrainCfg(**PAD_TRAIN),
+                                 *schedulers.build_schedules(**SCHED),
+                                 [masks.MaskSpec.from_cfg(m) for m in PAD_MASKS],
+                                 masks.MaskGrid(**PAD_GRID), keep)
+    spies = _spies()
+    with spies["flash_fwd_hm_ref"] as fwd, spies["flash_bwd_dqkv_hm_ref"] as bwd, \
+            spies["flash_self_attention_ref"] as tm:
+        state, metrics = port_step(state, {"clips": torch.from_numpy(clips),
+                                           **{k: [torch.from_numpy(a) for a in v]
+                                              for k, v in batch.items()}})
+    # the context's blocks (and the 96-wide predictor's) head-major with the
+    # key mask, forward and backward; the target's blocks forward, unmasked
+    per_mask = TINY["depth"] + (2 if pred_width == 96 else 0)
+    assert fwd.call_count == TINY["depth"] + per_mask
+    assert bwd.call_count == per_mask
+    assert all(c.args[4] is not None for c in fwd.call_args_list[TINY["depth"]:])
+    assert all(c.args[7] is not None for c in bwd.call_args_list)
+    assert tm.call_count == (2 if pred_width == 384 else 0)
+
+    for k in ("loss", "enc_grad_norm", "pred_grad_norm"):
+        np.testing.assert_allclose(metrics[k].item(), float(jmetrics[k]), rtol=2e-4, err_msg=k)
+    checks = [(state.encoder, encoder_state_from_jax(jnew["params"]["encoder"],
+                                                     jconsts["encoder"], enc)),
+              (state.predictor, predictor_state_from_jax(jnew["params"]["predictor"],
+                                                         jconsts["predictor"], pred)),
+              (state.target, encoder_state_from_jax(jnew["target"], jconsts["encoder"], enc))]
+    for module, want_sd in checks:
+        got_sd = module.state_dict()
+        assert set(got_sd) == set(want_sd)
+        for k, v in want_sd.items():
+            np.testing.assert_allclose(got_sd[k].numpy(), v.numpy(), atol=5e-5, err_msg=k)
