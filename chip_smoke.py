@@ -19,6 +19,12 @@
                                             # only a pretrain config with
                                             # remat False: its ms and peak
                                             # memory (phase_remat_peak)
+    python3 chip_smoke.py --f32-peak vitl16.yaml:vit_giant [--padded]
+                                            # only a pretrain config (and
+                                            # model) in fp32 at full depth:
+                                            # its ms and peak memory, or the
+                                            # OOM and the largest batch that
+                                            # fits (phase_f32_peak)
 
 Phases (any failure raises and exits non-zero):
   1. device: require CUDA, print the card's name and power limit, turn
@@ -196,13 +202,13 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      (``phase_giant_kernels``: H1 and H2 at c=96, masked and not, H1-fp32
      at c=96 and 128, H1 / H2 c=128 at N = 2048, H3 and H3-fp32 at K=1408
      F=6144 and K=1664 F=6656, at the models' shapes and the tiles' edges),
-     then for each model serving (4 seeded requests of 2 clips), TRAIN_STEPS
-     updates of vitl16.yaml at B=24 with remat 'attn' (one profiled;
-     vit_giant also the B=2 check from the seeded state), and at
-     GIANT_CUT_DEPTH (4) blocks the K400 16x8x3 eval in bf16 (batch 4) and
-     fp32 (batch 1) with the features of each first batch against the
-     plain versions, and vit_giant's app (fixed + resume, padded;
-     checkpoints in the temporary folder, removed).
+     then for each model at GIANT_CUT_DEPTH (4) blocks serving (4 seeded
+     requests of 2 clips), TRAIN_STEPS updates of vitl16.yaml at B=24 with
+     remat 'attn' (one profiled; vit_giant also the B=2 check from the
+     seeded state), the K400 16x8x3 eval in bf16 (batch 4) and fp32 (batch
+     1) with the features of each first batch against the plain versions,
+     and vit_giant's app (fixed + resume, padded; checkpoints in the
+     temporary folder, removed).
  27. fp32 pretraining (``phase_f32_pretrain``), after phase 25: vitl16.yaml
      with meta.dtype float32, ViT-L/16 + the 12 x 384 predictor at full
      width and depth, remat 'attn': H1-fp32 (c=64 and c=24->32) and both
@@ -214,8 +220,8 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      bounds; TRAIN_STEPS updates at B=24 in the fixed and the padded mode
      with their launches whole (H1-fp32, H2-fp32, H3-fp32; no bf16 entry),
      a seeded B=2 update in each mode against the plain versions (limits
-     from their own re-ordered spread), and the app in fp32, fixed and
-     padded, 1 epoch each.
+     from their own re-ordered spread), and the app in fp32 at
+     VITL_CUT_DEPTH blocks, fixed and padded, 1 epoch each.
  28. vit_tiny in fp32 (``phase_tiny_f32``), after phase 27: H4-H7-fp32
      (c=64, and c=32 for the 96-wide predictor) and H1-fp32 / H2-fp32 at
      c=128 (the 384-wide predictor) against their plain versions in fp32
@@ -227,6 +233,18 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      with meta.dtype float32 at B=24 'attn' fixed and padded (seeded B=2
      checks) and 2 in each mode with the 96-wide predictor, and the app
      fixed and padded.
+ 29. ViT-H and the giants in fp32 (``phase_f32_giants``), after phase 28:
+     H1-fp32 and both H2-fp32 kernels against their plain versions in fp32
+     at the vith16 context (c=80), the vit_giant (c=88->96) and
+     vit_gigantic (c=104->128) contexts (B=24), vith16_384's first padded
+     context rung (B=10) and N=333 at c=80 and 88->96, masked or not,
+     timed beside SDPA fp32 and their bounds, and every H2-fp32 instance
+     with its last 16 columns of dq, dk and dv nonzero; vith16.yaml whole
+     (32 blocks, B=24) with meta.dtype float32, TRAIN_STEPS updates in the
+     fixed and the padded mode and a seeded B=2 check in each;
+     vith16_384.yaml, vit_giant and vit_gigantic at 4 blocks, full width,
+     F32_CUT_STEPS updates in each mode; the app on vith16.yaml in fp32 at
+     VITH_CUT_DEPTH blocks, fixed and padded.
 The native decoder has no phase: the card's machine has no FFmpeg
 libraries (PERF.md §6), so it is held against the JAX package's on the
 CPU only (tests/test_torch_native.py).
@@ -332,8 +350,15 @@ VITH_VIEWS_CHECKED = (2, 1)  # (segments, views) of each ViT-H eval sample whose
 # depth cuts of earlier paths, each model's width kept (cut_depth, PERF.md §4)
 VITH_CUT_DEPTH = 4  # ViT-H's blocks in its updates, apps and evals (of 32)
 VITL_CUT_DEPTH = 4  # ViT-L's blocks in the tube mode's and the remat phase's runs (of 24)
-GIANT_CUT_DEPTH = 4  # vit_giant's and vit_gigantic's blocks in their K400 evals and
-                     # vit_giant's app (of 40, 48)
+GIANT_CUT_DEPTH = 4  # vit_giant's and vit_gigantic's blocks in their serving, updates,
+                     # K400 evals and vit_giant's app (of 40, 48)
+# fp32 pretraining of ViT-H and the giants (phase_f32_giants): vith16.yaml whole;
+# (config, model_name, patch_size, depth) of the runs at full width and cut depth
+# (each instance they launch is held at its full shape in the phase's kernel rows)
+F32_GIANT_RUNS = (("vith16_384.yaml", None, None, VITH_CUT_DEPTH),
+                  ("vitl16.yaml", "vit_giant", None, GIANT_CUT_DEPTH),
+                  ("vitl16.yaml", "vit_gigantic", 14, GIANT_CUT_DEPTH))
+F32_CUT_STEPS = 2  # their updates in each mask mode: a warm-up and a timed one
 # (c, N) of the H1 launches that stand in for K2: where the JAX package's
 # _pick_tm_fwd takes the kv-tiled forward on a driven path, vith16_384's
 # encoder (tests/test_torch_dispatch.py::test_jax_tm_kernel_picks); counted
@@ -1990,7 +2015,7 @@ def phase_train(torch, setup, determinism=False, steps=TRAIN_STEPS, b2=(False, T
     torch.cuda.empty_cache()
     return {"launches": launches, "median_ms": med, "peak_gib": peak_gib, "prof": prof,
             "keep": setup["keep"], "per_step": want, "steps": steps, "batch": batch,
-            "mode": setup["tc"].mask_mode}
+            "mode": setup["tc"].mask_mode, "depth": setup["enc_cfg"].depth}
 
 
 def padded_batch(torch, collator, ladders, clips):
@@ -2356,9 +2381,11 @@ def _check_h2_f32(torch, label, qkv, do, h, scale, c_real, mask=None):
     card, on the kernel's own lse: finite, each gradient |d| <= F32_TOL *
     max(|ref|, 1) element by element (fp32 everywhere, only the order of
     the sums differs), the pad lanes past c_real exactly 0 and, with a mask,
-    the masked keys' dk and dv exactly 0; then a second call on the same
-    inputs, which must be bit-equal. Returns (lse, delta, max|do - ref| of
-    H1-fp32, {gradient: max|d|})."""
+    the masked keys' dk and dv exactly 0, and each head's last 16 real
+    columns [c_real - 16, c_real) of each gradient nonzero (a geometry that
+    drops a thread's tail columns leaves them 0); then a second call on the
+    same inputs, which must be bit-equal. Returns (lse, delta, max|do - ref|
+    of H1-fp32, {gradient: max|d|})."""
     from jepa_tpu_torch.ops import flash_attention as fa
 
     err_h1 = _check_h1_f32(torch, f"H1-fp32 {label}", qkv, h, scale, mask=mask)
@@ -2383,10 +2410,13 @@ def _check_h2_f32(torch, label, qkv, do, h, scale, c_real, mask=None):
         pad = got.reshape(b, n, h, c)[..., c_real:].abs().max().item() if c_real < c else 0.0
         keys = mask is not None and name != "dq"
         masked = got[~mask].abs().max().item() if keys else 0.0
+        tail = got.reshape(b, n, h, c)[..., c_real - 16:c_real].abs().amax(dim=(0, 1, 3))
         log(f"H2-fp32 {label} c={c_real}->{c}: {name} max|d| {err:.3e}, worst margin "
             f"{excess:.3e} (tol |d| <= {F32_TOL} * max(|ref|, 1)), pad lanes max {pad:.1e}"
-            + (f", masked keys max|{name}| {masked:.1e} (must be 0)" if keys else ""))
-        if not (excess <= 0 and pad == 0.0 and masked == 0.0):
+            + (f", masked keys max|{name}| {masked:.1e} (must be 0)" if keys else "")
+            + f", least head max|{name}| over columns [{c_real - 16}, {c_real}) "
+            f"{tail.min().item():.3e} (must be > 0)")
+        if not (excess <= 0 and pad == 0.0 and masked == 0.0 and tail.min().item() > 0):
             raise RuntimeError(f"H2-fp32 {label} {name} disagrees with its plain version")
         errs[name] = err
     del o, dqkv, ref
@@ -2467,13 +2497,10 @@ def phase_f32_pretrain(torch, repo, workdir):
         fixed and in the padded mode (``phase_train``: launches whole, ms,
         peak, the profile's split), and a seeded B=2 update in each mode
         against the plain versions (``check_b2_f32``);
-      * the pretrain app with meta.dtype float32, fixed 1 epoch and padded
-        1 epoch of F32_APP_IPE updates (``phase_app``: launches per update,
-        finite CSV losses, a checkpoint read back by api.load_encoder)."""
-    from jepa_tpu_torch.masks.multiblock3d import MaskCollator, calibrate_pad_ladders
-    from jepa_tpu_torch.ops import flash_attention as fa
-    from jepa_tpu_torch.train.step import init_train_state
-
+      * the pretrain app with meta.dtype float32 at VITL_CUT_DEPTH blocks,
+        fixed 1 epoch and padded 1 epoch of F32_APP_IPE updates
+        (``phase_app``: launches per update, finite CSV losses, a
+        checkpoint read back by api.load_encoder)."""
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise RuntimeError("TF32 is on: the fp32 plain versions would not be fp32")
     fixed = train_setup(repo, dtype=torch.float32, remat="attn")
@@ -2486,8 +2513,23 @@ def phase_f32_pretrain(torch, repo, workdir):
               ("predictor, mask 2", TRAIN_BATCH, ke1 + kp1, 16, 32, 24, ke1, pred_d),
               ("ragged c=64", 2, 333, 16, 64, 64, 0, 0),
               ("ragged c=24", 2, 333, 16, 32, 24, 0, 0))
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    rng = np.random.default_rng(SEED + 5)
+    rows = f32_attn_rows(torch, shapes, SEED + 5)
+    runs = f32_updates(torch, fixed, padded)
+    with cut_depth("vit_large", VITL_CUT_DEPTH):
+        app = phase_app(torch, repo, train_setup(repo, dtype=torch.float32, remat="attn"),
+                        workdir, ipe=F32_APP_IPE, epochs=1, resume=False)
+    return {"rows": rows, "runs": runs, "app": app}
+
+
+def f32_attn_rows(torch, shapes, seed):
+    """H1-fp32 and both H2-fp32 kernels at each (label, B, N, H, c, c_real,
+    mid-row pad start (0: random), launches per fixed-mode update) of
+    ``shapes``, unmasked and with a key mask of a mid-row run of pads and a
+    ragged tail: held against their plain versions (``_check_h2_f32``) and
+    timed (``_tm_f32_times``). Returns {row label: {"h1" | "dkv" | "dq":
+    times, max_abs_err, shape (B, N, H, c_real), masked, per_update}}."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
     rows = {}
     for label, b, n, h, c, c_real, mid, per_update in shapes:
         qkv = _f32_attn_inputs(torch, gen, b, n, h, c, c_real)
@@ -2514,10 +2556,23 @@ def phase_f32_pretrain(torch, repo, workdir):
             rows[tag] = r
             del lse, delta
         del qkv, do
+    return rows
+
+
+def f32_updates(torch, fixed, padded, steps=TRAIN_STEPS, b2=True):
+    """``steps`` updates of the fp32 setups ``fixed`` and ``padded``
+    (``phase_train``: launches whole, ms, peak, the profile's split) and,
+    with ``b2``, a seeded B=2 update in each mode against the plain
+    versions (``check_b2_f32``). Returns {mode: phase_train's dict, with
+    "b2"}."""
+    from jepa_tpu_torch.masks.multiblock3d import MaskCollator, calibrate_pad_ladders
+    from jepa_tpu_torch.train.step import init_train_state
 
     runs = {}
     for mode, setup in (("fixed", fixed), ("padded", padded)):
-        runs[mode] = phase_train(torch, setup, b2=())
+        runs[mode] = phase_train(torch, setup, steps=steps, b2=())
+        if not b2:
+            continue
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         state = init_train_state(setup["enc_cfg"], setup["pred_cfg"], gen)
         clips = torch.randn((2, *setup["clip_shape"]), generator=gen, device="cuda")
@@ -2525,12 +2580,81 @@ def phase_f32_pretrain(torch, repo, workdir):
         if mode == "padded":
             batch, _ = padded_batch(
                 torch, MaskCollator(setup["specs"], setup["grid"], seed=setup["tc"].seed),
-                calibrate_pad_ladders(setup["specs"], setup["grid"], TRAIN_BATCH), clips)
+                calibrate_pad_ladders(setup["specs"], setup["grid"], setup["yaml_batch"]),
+                clips)
         runs[mode]["b2"] = check_b2_f32(torch, setup["step_fn"], state, batch,
-                                        f"{mode}, seeded state")
+                                        f"{setup['config']} {setup['model_name']} {mode}, "
+                                        "seeded state")
         del state, clips, batch
         torch.cuda.empty_cache()
-    app = phase_app(torch, repo, fixed, workdir, ipe=F32_APP_IPE, epochs=1, resume=False)
+    return runs
+
+
+def phase_f32_giants(torch, repo, workdir):
+    """fp32 pretraining (meta.dtype float32, remat 'attn') of ViT-H and the
+    giants, whose encoders run H1-fp32 and H2-fp32 at c=80 (ViT-H), 88->96
+    (vit_giant) and 104->128 (vit_gigantic), their predictors at c=24->32:
+
+      * H1-fp32 and both H2-fp32 kernels against their plain versions in
+        fp32 (TF32 off) at the vith16 context (B=24, N=376, c=80), the
+        vit_giant and vit_gigantic contexts (B=24), vith16_384's first
+        padded context rung (B=10) and a ragged N=333 at c=80 and 88->96,
+        each unmasked and with a mid-row run of pads and a ragged tail
+        (``f32_attn_rows``: second calls bit-equal, timed beside SDPA fp32
+        and the FFMA bound); then every H2-fp32 instance at c_real = c
+        (B=2, N=333, 4 heads), masked or not, whose last 16 columns of
+        dq, dk and dv must be nonzero and match (``_check_h2_f32``);
+      * vith16.yaml whole (32 blocks, B=24): TRAIN_STEPS updates in the
+        fixed and the padded mode and a seeded B=2 update in each against
+        the plain versions (``f32_updates``);
+      * vith16_384.yaml (B=10), vit_giant and vit_gigantic (patch 14) at
+        vitl16.yaml (B=24) at VITH_CUT_DEPTH / GIANT_CUT_DEPTH blocks, full
+        width: F32_CUT_STEPS updates in each mode, launches whole;
+      * the pretrain app on vith16.yaml in fp32 at VITH_CUT_DEPTH blocks,
+        fixed and padded, F32_APP_IPE updates each, a checkpoint read back
+        by api.load_encoder."""
+    from jepa_tpu_torch.masks.multiblock3d import calibrate_pad_ladders
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("TF32 is on: the fp32 plain versions would not be fp32")
+    f32 = dict(dtype=torch.float32, remat="attn")
+    vith = train_setup(repo, config="vith16.yaml", **f32)
+    vith_padded = train_setup(repo, config="vith16.yaml", mask_mode="padded", **f32)
+    cut = {}  # (config, model): (fixed setup, padded setup), at their cut depth
+    for config, model, patch, depth in F32_GIANT_RUNS:
+        with cut_depth(model or "vit_huge", depth):
+            cut[config, model or "vit_huge"] = tuple(
+                train_setup(repo, model_name=model, config=config, patch_size=patch,
+                            mask_mode=mode, **f32) for mode in (None, "padded"))
+    h384 = cut["vith16_384.yaml", "vit_huge"][0]
+    rung = calibrate_pad_ladders(h384["specs"], h384["grid"], h384["yaml_batch"])[0][0][0]
+    ctx = {m: cut["vitl16.yaml", m][0]["keep"][0][0] for m in ("vit_giant", "vit_gigantic")}
+    # (label, B, N, H, c, c_real, mid-row pad start (0: random), launches per fixed update
+    # at full depth)
+    shapes = (("vith16 context", TRAIN_BATCH, vith["keep"][0][0], 16, 80, 80, 0, 32),
+              ("vit_giant context", TRAIN_BATCH, ctx["vit_giant"], 16, 96, 88, 0, 40),
+              ("vit_gigantic context", TRAIN_BATCH, ctx["vit_gigantic"], 16, 128, 104, 0, 48),
+              ("vith16_384 context rung", h384["yaml_batch"], rung, 16, 80, 80, 0, 32),
+              ("ragged c=80", 2, RAGGED_N, 16, 80, 80, 0, 0),
+              ("ragged c=88", 2, RAGGED_N, 16, 96, 88, 0, 0))
+    rows = f32_attn_rows(torch, shapes, SEED + 21)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    rng = np.random.default_rng(SEED + 22)
+    for c in fa.F32_BWD_HEAD_DIMS:  # each instance's own columns, c_real = c
+        qkv = _f32_attn_inputs(torch, gen, 2, RAGGED_N, 4, c, c)
+        do = torch.randn((2, RAGGED_N, 4 * c), generator=gen, device="cuda")
+        for mask in (None, padded_key_mask(torch, rng, 2, RAGGED_N, 0)):
+            tag = f"instance c={c}{'' if mask is None else ', masked'} B=2 N={RAGGED_N} H=4"
+            _check_h2_f32(torch, tag, qkv, do, 4, c**-0.5, c, mask)
+        del qkv, do
+
+    runs = {("vith16.yaml", "vit_huge"): f32_updates(torch, vith, vith_padded)}
+    for key, (fixed, padded) in cut.items():
+        runs[key] = f32_updates(torch, fixed, padded, steps=F32_CUT_STEPS, b2=False)
+    with cut_depth("vit_huge", VITH_CUT_DEPTH):
+        app = phase_app(torch, repo, train_setup(repo, config="vith16.yaml", **f32), workdir,
+                        ipe=F32_APP_IPE, epochs=1, resume=False)
     return {"rows": rows, "runs": runs, "app": app}
 
 
@@ -3568,8 +3692,11 @@ def phase_giant_kernels(torch, setups):
         del qkv
         ctx = setup["keep"][0][0]
         qkv, do = _attn_inputs(torch, gen, b, ctx, h, c, c_real)
-        o, lse, err = _check_h1(torch, f"H1 {name} context N={ctx}", qkv, h, scale)
+        label = f"H1 {name} context N={ctx}"
+        o, lse, err = _check_h1(torch, label, qkv, h, scale)
         held[f"h1_c{c}"] = max(held[f"h1_c{c}"], err)
+        rep[f"h1_ctx_c{c}{sfx}"] = dict(_time_h1(torch, label, qkv, h, scale, c_real),
+                                        max_abs_err=err)
         delta, errs = _check_h2(torch, f"H2 {name} context N={ctx}", qkv, do, o, lse, h, scale,
                                 c_real)
         for key, r in _time_h2(torch, f"{name} context N={ctx}", qkv, do, lse, delta, h, scale,
@@ -3806,6 +3933,48 @@ def phase_remat_peak(torch, repo, config, padded):
         shutil.rmtree(workdir)
     log(f"remat-peak {config} padded app, remat False: step {step_ms:.0f} ms, wall "
         f"{wall_ms:.0f} ms, peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def phase_f32_peak(torch, repo, spec, padded):
+    """``--f32-peak CONFIG[:MODEL] [--padded]``: one pretrain config in fp32
+    (meta.dtype float32, remat 'attn', the app's default) at full depth,
+    outside the smoke: TRAIN_STEPS updates through build_train_step at the
+    config's batch (fixed masks, or with ``padded`` the collator's padded
+    masks), with their launches checked whole; prints ms per update and the
+    peak of allocated memory. MODEL overrides the config's model_name
+    (vit_gigantic takes its factory patch, 14). Where the batch does not
+    fit, the out-of-memory error is printed and the next smaller batch of
+    ``f32_peak_batches`` is tried, until one fits."""
+    import gc
+
+    config, _, model = spec.partition(":")
+    kw = dict(config=config, model_name=model or None, patch_size=dict(GIANTS).get(model),
+              dtype=torch.float32, remat="attn", mask_mode="padded" if padded else None)
+    yaml_batch = train_setup(repo, **kw)["yaml_batch"]
+    label = f"f32-peak {spec} {'padded' if padded else 'fixed'}"
+    for batch in f32_peak_batches(yaml_batch):
+        setup = dict(train_setup(repo, **kw), yaml_batch=batch)
+        try:
+            r = phase_train(torch, setup, b2=())
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"{label} B={batch}: out of memory ({str(e).splitlines()[0]}); peak allocated "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
+                f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB")
+            r = None
+        if r is None:  # past the handler, whose traceback held the update's tensors
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        log(f"{label} B={batch} (the config's {yaml_batch}), {setup['model_name']} "
+            f"{setup['enc_cfg'].depth} blocks: median {r['median_ms']:.1f} ms/update, peak "
+            f"allocated {r['peak_gib']:.2f} GiB, device {r['prof']['device_ms']:.1f} ms/update")
+        return
+    raise RuntimeError(f"{label}: no batch of {f32_peak_batches(yaml_batch)} fits")
+
+
+def f32_peak_batches(batch):
+    """The batches ``--f32-peak`` tries, the config's first, then smaller."""
+    return sorted({max(1, batch * k // 6) for k in (6, 5, 4, 3, 2, 1)}, reverse=True)
 
 
 # ---- phase_dist: data parallelism ------------------------------------------------
@@ -4535,13 +4704,16 @@ AB_H2_ROWS = (
 )
 # (label, B, N, H, c, c_real, mid) of the A/B mode's fp32 token-major rows:
 # H1-fp32 (masked where mid is not None) and both H2-fp32 kernels at fp32
-# pretraining's instances, c=64 and c=24->32, masked or not, and a ragged N
+# pretraining's instances, c=64, c=24->32 and c=104->128, masked or not, and a
+# ragged N
 AB_F32_TM_ROWS = (
     ("c=64 B=24 N=376 H=16 (ViT-L fp32 context)", 24, 376, 16, 64, 64, None),
     ("c=64 masked B=24 N=384 H=16 (context rung)", 24, 384, 16, 64, 64, 0),
     ("c=24->32 B=24 N=1109 H=16 (ViT-L fp32 predictor)", 24, 1109, 16, 32, 24, None),
     ("c=24->32 masked B=24 N=1152 H=16 (predictor rung)", 24, 1152, 16, 32, 24, 384),
     ("c=64 masked B=2 N=333 H=16 (ragged)", 2, 333, 16, 64, 64, 0),
+    ("c=104->128 B=24 N=513 H=16 (vit_gigantic fp32 context)", 24, 513, 16, 128, 104, None),
+    ("c=104->128 masked B=24 N=513 H=16", 24, 513, 16, 128, 104, 0),
 )
 
 
@@ -4880,6 +5052,10 @@ def main() -> int:
         phase_remat_peak(torch, repo, sys.argv[sys.argv.index("--remat-peak") + 1],
                          "--padded" in sys.argv)
         return 0
+    if "--f32-peak" in sys.argv:
+        phase_f32_peak(torch, repo, sys.argv[sys.argv.index("--f32-peak") + 1],
+                       "--padded" in sys.argv)
+        return 0
     if "--update-ab" in sys.argv:
         phase_update_ab(repo, [sys.argv[i + 1] for i, a in enumerate(sys.argv)
                                if a == "--other"])
@@ -4945,6 +5121,8 @@ def main() -> int:
         f32pre = timed("f32_pretrain", phase_f32_pretrain, torch, repo, workdir)
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
         tiny32 = timed("tiny_f32", phase_tiny_f32, torch, repo, workdir)
+    with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
+        giants32 = timed("f32_giants", phase_f32_giants, torch, repo, workdir)
     with cut_depth("vit_large", DIST_DEPTH):
         dist_setup = train_setup(repo, pred_depth=DIST_PRED_DEPTH)
         dist = timed("dist", phase_dist, torch, repo, dist_setup, card)
@@ -4993,11 +5171,13 @@ def main() -> int:
                         entries=VITH_EVAL_ENTRIES if bf16 else EVAL_F32_ENTRIES, resume=False,
                         views_checked=VITH_VIEWS_CHECKED)
             os.remove(enc_h)
-    # vit_giant and vit_gigantic: their kernel instances, serving, updates at
-    # the config's batch; at GIANT_CUT_DEPTH blocks the K400 16x8x3 evals in
-    # bf16 and fp32 and vit_giant's app (fixed + resume, padded)
-    gsetups = {m: train_setup(repo, model_name=m, remat="attn", patch_size=p)
-               for m, p in GIANTS}
+    # vit_giant and vit_gigantic: their kernel instances at full shapes; at
+    # GIANT_CUT_DEPTH blocks serving, updates at the config's batch, the K400
+    # 16x8x3 evals in bf16 and fp32 and vit_giant's app (fixed + resume, padded)
+    gsetups = {}
+    for m, p in GIANTS:
+        with cut_depth(m, GIANT_CUT_DEPTH):
+            gsetups[m] = train_setup(repo, model_name=m, remat="attn", patch_size=p)
     gk = timed("giant kernels", phase_giant_kernels, torch, tuple(gsetups.values()))
     for key in ("h1_c32", "dkv_c32", "dq_c32"):  # the predictors' c=24->32
         row = {"h1_c32": bwd["h1_c32"], "dkv_c32": bwd["dkv"], "dq_c32": bwd["dq"]}[key]
@@ -5005,24 +5185,24 @@ def main() -> int:
     gruns = {}
     for m, p in GIANTS:
         r = gruns[m] = {}
-        with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
+        with (tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir,
+              cut_depth(m, GIANT_CUT_DEPTH)):
             r["serve"] = timed(f"{m} serve", phase_serve, torch, workdir, m)
             r["train"] = timed(f"{m} train", phase_train, torch, gsetups[m],
                                b2=(False,) if m == "vit_giant" else ())
             os.remove(r["serve"]["enc_path"])
-            with cut_depth(m, GIANT_CUT_DEPTH):
-                enc_path = write_seeded_encoder(torch, workdir, m)
-                for bf16 in (True, False):
-                    r[bf16] = timed(f"{m} eval {'bf16' if bf16 else 'fp32'}", phase_eval_video,
-                                    torch, repo, workdir, enc_path, bf16,
-                                    entries=VITH_EVAL_ENTRIES if bf16 else EVAL_F32_ENTRIES,
-                                    resume=False, views_checked=VITH_VIEWS_CHECKED,
-                                    model_name=m, patch_size=p)
-                os.remove(enc_path)
-                if m == "vit_giant":
-                    r["app"] = timed(f"{m} app", phase_app, torch, repo,
-                                     train_setup(repo, model_name=m, remat="attn"), workdir,
-                                     ipe=2, epochs=1)
+            enc_path = write_seeded_encoder(torch, workdir, m)
+            for bf16 in (True, False):
+                r[bf16] = timed(f"{m} eval {'bf16' if bf16 else 'fp32'}", phase_eval_video,
+                                torch, repo, workdir, enc_path, bf16,
+                                entries=VITH_EVAL_ENTRIES if bf16 else EVAL_F32_ENTRIES,
+                                resume=False, views_checked=VITH_VIEWS_CHECKED,
+                                model_name=m, patch_size=p)
+            os.remove(enc_path)
+            if m == "vit_giant":
+                r["app"] = timed(f"{m} app", phase_app, torch, repo,
+                                 train_setup(repo, model_name=m, remat="attn"), workdir,
+                                 ipe=2, epochs=1)
     sl = _sum_launches(serve["launches"], off["launches"])
     al = app["padded"]["launches"]
     el, fl = ev16["launches"], ev32["launches"]
@@ -5056,11 +5236,24 @@ def main() -> int:
     # flash_attention_hm_f32.cu
     f32_attn_src = "jepa_tpu_torch/csrc/flash_f32.cuh"
     fa_py = "jepa_tpu/ops/flash_attention.py"
-    # fp32 pretraining: the fixed mode's updates and app (fx), the padded
-    # mode's (fp; every trainable call key-masked)
+    # fp32 pretraining of ViT-H (vith16 whole, vith16_384 cut, vith16's app),
+    # vit_giant and vit_gigantic (cut): by model, fixed (gx) and padded (gp32)
+    g32runs, g32app = giants32["runs"], giants32["app"]
+    gx, gp32 = {}, {}
+    for name in ("vit_huge", "vit_giant", "vit_gigantic"):
+        runs = [r for (_, n), r in g32runs.items() if n == name] + (
+            [g32app] if name == "vit_huge" else [])
+        for out, mode in ((gx, "fixed"), (gp32, "padded")):
+            out[name] = _sum_launches(*(r[mode]["launches"] for r in runs))
+    g32 = {name: _sum_launches(gx[name], gp32[name]) for name in gx}  # both modes
+    g32x, g32p = _sum_launches(*gx.values()), _sum_launches(*gp32.values())
+    # ViT-L's fp32 pretraining: the fixed mode's updates and app (fx), the
+    # padded mode's (fp; every trainable call key-masked); the predictors'
+    # c=24->32 instances also in every fp32 run of ViT-H and the giants
     f32runs, f32app = f32pre["runs"], f32pre["app"]
-    fx = _sum_launches(f32runs["fixed"]["launches"], f32app["fixed"]["launches"])
-    fp = _sum_launches(f32runs["padded"]["launches"], f32app["padded"]["launches"])
+    c32 = lambda d: {k: v for k, v in d.items() if "_c32" in k}  # noqa: E731
+    fx = _sum_launches(f32runs["fixed"]["launches"], f32app["fixed"]["launches"], c32(g32x))
+    fp = _sum_launches(f32runs["padded"]["launches"], f32app["padded"]["launches"], c32(g32p))
     kernels = [
         # the padded apps' unmasked launches: their target forwards (H1, H3)
         kernel_entry("flash_self_attention_fwd", fa_src, f"{fa_py}:955",
@@ -5152,10 +5345,10 @@ def main() -> int:
         kernel_entry("linear_gelu_fwd_k1280", fc1_src, "jepa_tpu/ops/fused_mlp.py:92",
                      vl["h3"] + vp["h3"], vk["h3_k1280"]),
         kernel_entry("flash_self_attention_fwd_f32_c80", f32_attn_src, f"{fa_py}:955",
-                     vl["h1_f32_c80"], f32["by_shape"][F32_H1_SHAPES[1]]),
+                     vl["h1_f32_c80"] + g32x["h1_f32_c80"], f32["by_shape"][F32_H1_SHAPES[1]]),
         kernel_entry("linear_gelu_fwd_f32_k1280", fc1_src, "jepa_tpu/ops/fused_mlp.py:92",
-                     sum(e["launches"]["h3_f32"] for e in evh.values()),
-                     f32["by_shape"][F32_H3_SHAPES[1]]),
+                     sum(e["launches"]["h3_f32"] for e in evh.values())
+                     + g32["vit_huge"]["h3_f32"], f32["by_shape"][F32_H3_SHAPES[1]]),
     ]
     # vit_giant's instances (c=88->96, K=1408) and vit_gigantic's (c=104->128,
     # K=1664): by the JAX pickers K1 for every forward (N = 1568, 2048) and K3
@@ -5173,9 +5366,9 @@ def main() -> int:
         kernel_entry("flash_bwd_dq_masked_c96", bwd_src, f"{fa_py}:1400", gp["dq_c96"],
                      gk["dq_c96_masked"]),
         kernel_entry("flash_self_attention_fwd_f32_c96", f32_attn_src, f"{fa_py}:955",
-                     gl["h1_f32_c96"], gk["h1_f32_c96"]),
+                     gl["h1_f32_c96"] + g32x["h1_f32_c96"], gk["h1_f32_c96"]),
         kernel_entry("flash_self_attention_fwd_f32_c128", f32_attn_src, f"{fa_py}:955",
-                     gg["h1_f32_c128"], gk["h1_f32_c128"]),
+                     gg["h1_f32_c128"] + gx["vit_gigantic"]["h1_f32_c128"], gk["h1_f32_c128"]),
         kernel_entry("flash_self_attention_fwd_c128_n2048", fa_src, f"{fa_py}:955",
                      gg["h1_c128"], gk["h1_c128_vit_gigantic"]),
         kernel_entry("flash_bwd_dkv_c128_gigantic", bwd_src, f"{fa_py}:1452", gg["dkv_c128"],
@@ -5187,38 +5380,48 @@ def main() -> int:
         kernel_entry("linear_gelu_fwd_k1664", fc1_src, "jepa_tpu/ops/fused_mlp.py:92", gg["h3"],
                      gk["h3_k1664"]),
         kernel_entry("linear_gelu_fwd_f32_k1408", fc1_src, "jepa_tpu/ops/fused_mlp.py:92",
-                     gl["h3_f32"], gk["h3_f32_k1408"]),
+                     gl["h3_f32"] + g32["vit_giant"]["h3_f32"], gk["h3_f32_k1408"]),
         kernel_entry("linear_gelu_fwd_f32_k1664", fc1_src, "jepa_tpu/ops/fused_mlp.py:92",
-                     gg["h3_f32"], gk["h3_f32_k1664"]),
+                     gg["h3_f32"] + g32["vit_gigantic"]["h3_f32"], gk["h3_f32_k1664"]),
     ]
     # H1-fp32 at c=32 and masked, H2-fp32 (fp32 pretraining): each entry
     # reports its first row (the fixed-mode update's shape; masked: the same
     # shape with pads), max_abs_err over every row of its instance
-    f32rows = f32pre["rows"]
-
-    def f32_entry(name, src, replaces, launches, kind, c, masked):
-        rs = [r[kind] for r in f32rows.values()
-              if r[kind]["shape"][3] in ((24,) if c == 32 else (c,))
-              and r[kind]["masked"] == masked]
+    def f32_entry(name, src, replaces, launches, kind, c_real, masked, rows=f32pre["rows"]):
+        rs = [r[kind] for r in rows.values()
+              if r[kind]["shape"][3] == c_real and r[kind]["masked"] == masked]
         return kernel_entry(name, src, replaces, launches,
                             dict(rs[0], max_abs_err=max(x["max_abs_err"] for x in rs)))
 
     kernels += [
         f32_entry("flash_self_attention_fwd_f32_c32", f32_attn_src, f"{fa_py}:955",
-                  fx["h1_f32_c32"], "h1", 32, False),
+                  fx["h1_f32_c32"], "h1", 24, False),
         f32_entry("flash_self_attention_fwd_f32_masked", f32_attn_src, f"{fa_py}:955",
                   fp["h1_f32_c64_masked"], "h1", 64, True),
         f32_entry("flash_self_attention_fwd_f32_masked_c32", f32_attn_src, f"{fa_py}:955",
-                  fp["h1_f32_c32_masked"], "h1", 32, True),
+                  fp["h1_f32_c32_masked"], "h1", 24, True),
     ]
-    for c in (32, 64):  # ViT-L's instances; c=128 below (vit_tiny's predictor)
+    for c, c_real in ((32, 24), (64, 64)):  # ViT-L's instances; c=128 below (vit_tiny's)
         sfx = "" if c == 64 else f"_c{c}"
         for kind, line in (("dkv", 1452), ("dq", 1400)):
             kernels += [
                 f32_entry(f"flash_bwd_{kind}_f32{sfx}", f32_attn_src, f"{fa_py}:{line}",
-                          fx[f"{kind}_f32_c{c}"], kind, c, False),
+                          fx[f"{kind}_f32_c{c}"], kind, c_real, False),
                 f32_entry(f"flash_bwd_{kind}_f32_masked{sfx}", f32_attn_src, f"{fa_py}:{line}",
-                          fp[f"{kind}_f32_c{c}_masked"], kind, c, True)]
+                          fp[f"{kind}_f32_c{c}_masked"], kind, c_real, True)]
+    # ViT-H's (c=80) and vit_giant's (c=88->96) fp32 instances: H2-fp32, and
+    # H1-fp32 with a key mask (its unmasked instances are listed above)
+    g32rows = giants32["rows"]
+    for c, c_real in ((80, 80), (96, 88)):
+        kernels.append(f32_entry(f"flash_self_attention_fwd_f32_masked_c{c}", f32_attn_src,
+                                 f"{fa_py}:955", g32p[f"h1_f32_c{c}_masked"], "h1", c_real, True,
+                                 g32rows))
+        for kind, line in (("dkv", 1452), ("dq", 1400)):
+            for masked, runs in ((False, g32x), (True, g32p)):
+                sfx = "_masked" if masked else ""
+                kernels.append(f32_entry(
+                    f"flash_bwd_{kind}_f32{sfx}_c{c}", f32_attn_src, f"{fa_py}:{line}",
+                    runs[f"{kind}_f32_c{c}{sfx}"], kind, c_real, masked, g32rows))
     # vit_tiny in fp32: H4-H7-fp32 (c=64 encoder, c=32 the 96-wide
     # predictor) and H1-fp32 / H2-fp32 at c=128 (the 384-wide predictor):
     # serving, the fp32 eval, the updates (fixed, padded, 96-wide) and the
@@ -5226,7 +5429,9 @@ def main() -> int:
     tr, ta = tiny32["rows"], tiny32["app"]
     t32 = _sum_launches(tiny32["serve"]["launches"], tiny32["eval"]["launches"],
                         *(r["launches"] for r in tiny32["runs"].values()),
-                        ta["fixed"]["launches"], ta["padded"]["launches"])
+                        ta["fixed"]["launches"], ta["padded"]["launches"],
+                        {k: v for k, v in g32["vit_gigantic"].items()
+                         if k.startswith(("dkv_f32_c128", "dq_f32_c128", "h1_f32_c128_masked"))})
     sp, spm = tiny32["split"][False], tiny32["split"][True]
     tiny_f32 = [
         ("flash_attention_hm_fwd_f32", 122,
@@ -5301,13 +5506,29 @@ def main() -> int:
             f"B={t['batch']}, remat 'attn'): median {t['median_ms']:.1f} ms/update, peak "
             f"{t['peak_gib']:.2f} GiB, device {t['prof']['device_ms']:.1f} ms (" + ", ".join(
                 f"{k} {v:.1f}" for k, v in g.items()) + f"); launches/update {t['per_step']}; "
-            f"B=2 seeded loss rel {t['b2']['loss']['rel']:.2e}; app {mode}: median step "
+            f"B=2 seeded loss rel {t['b2']['loss']['rel']:.2e}; app ({VITL_CUT_DEPTH} blocks) "
+            f"{mode}: median step "
+            f"{a['step_ms']:.0f} ms, wall {a['wall_ms']:.0f} ms, host share "
+            f"{100 * a['host']:.1f} %, peak {a['peak_gib']:.2f} GiB")
+    for (config, name), modes in g32runs.items():
+        for mode, t in modes.items():
+            g = t["prof"]["groups"]
+            depth = "" if config == "vith16.yaml" else f", {t['depth']} blocks"
+            log(f"card: {card}; fp32 update ({config}, {name}{depth}, meta.dtype float32, "
+                f"{mode} masks, B={t['batch']}, remat 'attn'): median {t['median_ms']:.1f} "
+                f"ms/update, peak {t['peak_gib']:.2f} GiB, device {t['prof']['device_ms']:.1f} "
+                "ms (" + ", ".join(f"{k} {v:.1f}" for k, v in g.items())
+                + f"); launches/update {t['per_step']}"
+                + (f"; B=2 seeded loss rel {t['b2']['loss']['rel']:.2e}" if "b2" in t else ""))
+    for mode, a in g32app.items():
+        log(f"card: {card}; vith16 fp32 app ({VITH_CUT_DEPTH} blocks) {mode}: median step "
             f"{a['step_ms']:.0f} ms, wall {a['wall_ms']:.0f} ms, host share "
             f"{100 * a['host']:.1f} %, peak {a['peak_gib']:.2f} GiB")
     for m, _ in GIANTS:
         r = gruns[m]
         t, g = r["train"], r["train"]["prof"]["groups"]
-        log(f"card: {card}; {m} serve median {r['serve']['median_ms']:.3f} ms/request (B=2), "
+        log(f"card: {card}; {m} ({GIANT_CUT_DEPTH} blocks) serve median "
+            f"{r['serve']['median_ms']:.3f} ms/request (B=2), "
             f"peak {r['serve']['peak_gib']:.3f} GiB; update (vitl16.yaml, B={t['batch']}, remat "
             f"'attn'): median {t['median_ms']:.1f} ms/update, peak "
             f"{t['peak_gib']:.2f} GiB, device {t['prof']['device_ms']:.1f} ms (" + ", ".join(

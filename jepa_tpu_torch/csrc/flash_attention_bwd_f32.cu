@@ -10,10 +10,13 @@
 // atomics, each output element written by one thread in a fixed order, so
 // a second call gives the same bits.
 //
-// Head dims C in {32, 64, 128}: ViT-L's encoder (64), the predictors' 24
-// zero-padded to 32, and vit_tiny's 384-wide predictor (3 heads of 128;
-// at C=128 the dk/dv kernel takes 231,936 of the 232,448 bytes of shared
-// memory a block may have, one block an SM). Inputs: qkv [B, N, 3*H*C] fp32
+// Head dims C in {32, 64, 80, 96, 128}: ViT-L's encoder (64), the
+// predictors' 24 zero-padded to 32, ViT-H's encoder (80; each thread's
+// columns end in a float2 tail), vit_giant's 88 zero-padded to 96, and
+// vit_gigantic's 104 padded to 128 and vit_tiny's 384-wide predictor (3
+// heads of 128; at C=128 the dk/dv kernel takes 231,936 of the 232,448
+// bytes of shared memory a block may have, one block an SM; 158,208 /
+// 182,784 at C=80 / 96, the dq kernel 141,312 / 165,888). Inputs: qkv [B, N, 3*H*C] fp32
 // (columns q|k|v, each head-major), an optional key mask kvm [B, N] uint8
 // (1 = valid key), do [B, N, H*C] fp32, lse and delta [B, H, N] fp32
 // (H1-fp32's base-2 lse; delta = sum_c do*o). Output dqkv [B, N, 3*H*C]
@@ -48,4 +51,6 @@
 
 JT_BWD_F32_ENTRIES(32)
 JT_BWD_F32_ENTRIES(64)
+JT_BWD_F32_ENTRIES(80)
+JT_BWD_F32_ENTRIES(96)
 JT_BWD_F32_ENTRIES(128)

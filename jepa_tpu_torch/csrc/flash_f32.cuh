@@ -325,9 +325,13 @@ struct BwdGeo {
   static constexpr int SR = C * BR;        // a block operand, c-major [C][128]
   static constexpr int ST = BT * LD;       // a streamed tile [32][C+4]
   static constexpr int SW = 8 * BT * 16;   // p or ds, per warp [32][16 rows]
-  static constexpr int NV = C / 32;        // float4 column groups a thread owns (1, 2 or 4)
-  static constexpr int COLS = 4 * NV;      // output columns a thread owns
+  static constexpr int NV = C / 32;        // float4 column groups a thread owns (1-4)
+  static constexpr int NT = (C % 32) / 8;  // float2 tail columns a thread owns (0; 2 at C=80)
+  static constexpr int COLS = 4 * NV + NT; // output columns a thread owns
   static constexpr int MINB = C == 32 ? 2 : 1;  // blocks an SM, for the launch bound
+  // the 8 column groups' float4s and float2 tails cover columns [0, C) exactly
+  static_assert(C % 16 == 0 && (NT == 0 || NT == 2) && 8 * COLS == C,
+                "BwdGeo: the columns a block owns must cover the head dim exactly");
   // dq: Qs, dO; K and V tiles; ds
   static constexpr int DQ_SMEM = 4 * (2 * SR + 2 * B_STAGES * ST + SW);
   // dk/dv: K, V; Qs and dO tiles; lse and delta tiles; p and ds
@@ -422,32 +426,43 @@ __device__ __forceinline__ void score_pair(float (&a)[4][4], float (&bb)[4][4], 
   }
 }
 
-// the columns 32g + 4cg.. of a tile row (g < C/32)
+// the columns 32g + 4cg.. (g < C/32) and, at C=80, 64 + 2cg.. of a tile row
 template <int C>
 __device__ __forceinline__ void tile_cols(float (&v)[BwdGeo<C>::COLS], const float* row, int cg) {
+  constexpr int NV = BwdGeo<C>::NV;
 #pragma unroll
-  for (int g = 0; g < BwdGeo<C>::NV; ++g) {
+  for (int g = 0; g < NV; ++g) {
     const float4 x = *reinterpret_cast<const float4*>(row + 32 * g + 4 * cg);
     v[4 * g] = x.x, v[4 * g + 1] = x.y, v[4 * g + 2] = x.z, v[4 * g + 3] = x.w;
   }
+  if constexpr (BwdGeo<C>::NT > 0) {
+    const float2 x = *reinterpret_cast<const float2*>(row + 32 * NV + 2 * cg);
+    v[4 * NV] = x.x, v[4 * NV + 1] = x.y;
+  }
 }
 
-// acc[r][...] * mul into the row's columns 32g + 4cg.. of a head's rows
+// v[...] * mul into a row's columns 32g + 4cg.. (and the C=80 tail 64 + 2cg..)
+template <int C>
+__device__ __forceinline__ void put_cols(float* o, const float* v, float mul, int cg) {
+  constexpr int NV = BwdGeo<C>::NV;
+#pragma unroll
+  for (int g = 0; g < NV; ++g)
+    *reinterpret_cast<float4*>(o + 32 * g + 4 * cg) =
+        make_float4(v[4 * g] * mul, v[4 * g + 1] * mul, v[4 * g + 2] * mul, v[4 * g + 3] * mul);
+  if constexpr (BwdGeo<C>::NT > 0)
+    *reinterpret_cast<float2*>(o + 32 * NV + 2 * cg) =
+        make_float2(v[4 * NV] * mul, v[4 * NV + 1] * mul);
+}
+
+// acc[r][...] * mul into the row's columns (put_cols) of a head's rows
 // (row stride rs; rows past n dropped)
 template <int C>
 __device__ __forceinline__ void store_rows(float* rows, int rs,
                                            const float (&acc)[4][BwdGeo<C>::COLS], float mul,
                                            int row0, int n, int cg) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    if (row0 + r >= n) continue;
-    float* o = rows + (size_t)(row0 + r) * rs;
-#pragma unroll
-    for (int g = 0; g < BwdGeo<C>::NV; ++g)
-      *reinterpret_cast<float4*>(o + 32 * g + 4 * cg) =
-          make_float4(acc[r][4 * g] * mul, acc[r][4 * g + 1] * mul, acc[r][4 * g + 2] * mul,
-                      acc[r][4 * g + 3] * mul);
-  }
+  for (int r = 0; r < 4; ++r)
+    if (row0 + r < n) put_cols<C>(rows + (size_t)(row0 + r) * rs, acc[r], mul, cg);
 }
 
 template <int C, bool MASKED>
@@ -662,11 +677,8 @@ flash_bwd_dkv_f32_kernel(const HmArgs a) {
         }
       }
       if (q0 + jq < Nq) {
-        float* w = a.ws + ((((size_t)blockIdx.x * a.B + b) * a.H + h) * Nq + q0 + jq) * C;
-#pragma unroll
-        for (int g = 0; g < G::NV; ++g)
-          *reinterpret_cast<float4*>(w + 32 * g + 4 * cg) =
-              make_float4(dq[4 * g], dq[4 * g + 1], dq[4 * g + 2], dq[4 * g + 3]);
+        put_cols<C>(a.ws + ((((size_t)blockIdx.x * a.B + b) * a.H + h) * Nq + q0 + jq) * C, dq,
+                    1.f, cg);
       }
     } else {
       __syncwarp();

@@ -37,7 +37,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> argtypes; every entry point returns cudaError_t (int)
-_TM_HEAD_DIMS = (32, 64, 80, 96, 128)  # H1 and H2 (ops.flash_attention.KERNEL_HEAD_DIMS)
+# H1, H2, H1-fp32 and H2-fp32 (ops.flash_attention.KERNEL_HEAD_DIMS, F32_HEAD_DIMS,
+# F32_BWD_HEAD_DIMS)
+_TM_HEAD_DIMS = (32, 64, 80, 96, 128)
 _SIGNATURES = {
     # qkv, key mask (None: unmasked), o, lse, B, N, H, scale*log2e, stream
     **{f"jt_flash_fwd_c{c}": [_P, _P, _P, _P, _I, _I, _I, _F, _P] for c in _TM_HEAD_DIMS},
@@ -53,13 +55,12 @@ _SIGNATURES = {
        for kind in ("fwd", "dq", "dkv", "dqkv") for dt in ("", "_f32") for c in (32, 64)},
     # H1-fp32: fp32 qkv, key mask (None: unmasked), o, lse, B, N, H, scale*log2e,
     # stream (ops.flash_attention.F32_HEAD_DIMS)
-    **{f"jt_flash_fwd_f32_c{c}": [_P, _P, _P, _P, _I, _I, _I, _F, _P]
-       for c in (32, 64, 80, 96, 128)},
+    **{f"jt_flash_fwd_f32_c{c}": [_P, _P, _P, _P, _I, _I, _I, _F, _P] for c in _TM_HEAD_DIMS},
     # H2-fp32, the bf16 H2 entries' arguments (ops.flash_attention.F32_BWD_HEAD_DIMS)
     **{f"jt_flash_bwd_dkv_f32_c{c}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
-       for c in (32, 64, 128)},
+       for c in _TM_HEAD_DIMS},
     **{f"jt_flash_bwd_dq_f32_c{c}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P]
-       for c in (32, 64, 128)},
+       for c in _TM_HEAD_DIMS},
     # x, w, b, out, M, K, F, stream
     "jt_linear_gelu_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "jt_linear_gelu_f32": [_P, _P, _P, _P, _I, _I, _I, _P],

@@ -53,11 +53,11 @@ fp32 p), with or without a key mask, at head dims 32 (the predictors' 24
 padded), 64, 80, 96 (vit_giant) and 128 (vit_gigantic, vit_tiny's 384-wide
 predictor) (``F32_HEAD_DIMS``). Its backward is H2-fp32
 (``csrc/flash_attention_bwd_f32.cu``: a dq and a dk/dv kernel, masked or
-not) at head dims 32, 64 and 128 (``F32_BWD_HEAD_DIMS``: ViT-L's encoder
-and predictor, vit_tiny's 384-wide predictor). Not yet ported, so raising
-NotImplementedError on a CUDA tensor: the fp32 backward at 80 and 96
-(ViT-H and vit_giant fp32 pretraining); no fp32 call falls back to a
-plain version.
+not) at the same head dims (``F32_BWD_HEAD_DIMS``: the predictors' 32,
+ViT-L's 64, ViT-H's 80, vit_giant's 96, vit_gigantic's and vit_tiny's
+384-wide predictor's 128). An fp32 head dim outside them raises
+NotImplementedError on a CUDA tensor; no fp32 call falls back to a plain
+version.
 
 Head-major attention (the second half of this module; counterpart of
 ``flash_attention_bhnd`` / ``flash_attention_packed`` / ``flash_attention``
@@ -105,8 +105,7 @@ _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128)
 F32_HEAD_DIMS = (32, 64, 80, 96, 128)  # H1-fp32: the predictors' 32, the encoders' 64-128
-F32_BWD_HEAD_DIMS = (32, 64, 128)  # H2-fp32: ViT-L's predictor (24 padded) and encoder,
-                                   # vit_tiny's 384-wide predictor
+F32_BWD_HEAD_DIMS = (32, 64, 80, 96, 128)  # H2-fp32: the predictors' 32, the encoders' 64-128
 HM_HEAD_DIMS = (32, 64)   # H4-H7, bf16
 HM_F32_HEAD_DIMS = (32, 64)  # H4-H7-fp32: vit_tiny's encoder and 96-wide predictor
 
@@ -267,8 +266,8 @@ def flash_self_attention_cuda(
     """Launch H1 on qkv's current stream. qkv [B, N, 3*H*c]: bf16 with c in
     {32, 64, 80, 96, 128}, or fp32 (H1-fp32) with c in {32, 64, 80, 96,
     128}; kv_mask [B, N] (True = valid key) or None in both. Differentiable
-    only through ``FlashSelfAttentionFn``, whose backward takes bf16 at
-    every head dim here and fp32 at 32, 64 and 128 (H2-fp32)."""
+    only through ``FlashSelfAttentionFn``, whose backward takes both at
+    every head dim here (H2, H2-fp32)."""
     global launches
     from jepa_tpu_torch.ops._build import check, load_library
 

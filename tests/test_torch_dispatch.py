@@ -482,54 +482,48 @@ def test_f32_pretrain_dispatch(mode):
     assert not any("bf16" in how for _, how in table)
 
 
-@pytest.mark.parametrize("name,model", [("vith16.yaml", None), ("vitl16.yaml", "vit_giant")])
-def test_f32_pretrain_not_yet_ported(name, model):
-    """fp32 pretraining whose attention needs an instance no source defines
-    yet (ROADMAP queue 2): ViT-H (H2-fp32 at c=80) and vit_giant
-    (c=88->96). Each call's entries are listed and at least one is missing,
-    so the wrapper raises NotImplementedError on the card; a slice that
-    ports them flips this."""
-    missing = set()
-    for mode in ("fixed", "padded"):
-        for call in _f32_vitl16(mode, model, name):
-            entries = _entries(call)
-            if not isinstance(entries, str):
-                missing |= {e for e in entries if e not in _ENTRIES}
-    print(f"  {name} {model}: missing {sorted(missing)}")
-    want = {None: {"jt_flash_bwd_dkv_f32_c80", "jt_flash_bwd_dq_f32_c80"},
-            "vit_giant": {"jt_flash_bwd_dkv_f32_c96"}}[model]
-    assert want <= missing
-    assert not missing & set(_build._SIGNATURES)
+# (config, model, predictor width, mode) of a pretrain config with
+# meta.dtype float32 whose every instance is ported: vitl16.yaml with
+# vit_tiny with its 384-wide predictor (3 x 128, token-major: H1-fp32 +
+# H2-fp32 at c=128) and the fixture's 96-wide one (3 x 32, head-major), and
+# with vit_gigantic (16 x 104 padded to 128, patch 14) and vit_giant (16 x 88
+# padded to 96); vith16.yaml and vith16_384.yaml (ViT-H, 16 x 80)
+_F32_RESOLVED = [("vitl16.yaml", "vit_tiny", w, mode) for w in (384, 96)
+                 for mode in ("fixed", "padded")] + [
+    ("vitl16.yaml", "vit_gigantic", None, mode) for mode in ("fixed", "padded")] + [
+    (config, model, None, mode) for config, model in (("vith16.yaml", None),
+                                                      ("vith16_384.yaml", None),
+                                                      ("vitl16.yaml", "vit_giant"))
+    for mode in ("fixed", "padded")]
+_F32_IDS = [f"{m}-{w or 'yaml'}-{mode}" if m in ("vit_tiny", "vit_gigantic")
+            else f"{m or config[:-5]}-yaml-{mode}" for config, m, w, mode in _F32_RESOLVED]
+# the encoder's padded head dim of each model on the token-major route
+_F32_ENCODER_C = {"vit_gigantic": 128, "vit_giant": 96, "vit_huge": 80}
 
 
-# (model, predictor width, mode) of vitl16.yaml with meta.dtype float32 whose
-# every instance is ported: vit_tiny with its 384-wide predictor (3 x 128,
-# token-major: H1-fp32 + H2-fp32 at c=128) and the fixture's 96-wide one (3 x
-# 32, head-major), and vit_gigantic (16 x 104 padded to 128, patch 14)
-_F32_RESOLVED = [("vit_tiny", w, mode) for w in (384, 96) for mode in ("fixed", "padded")] + [
-    ("vit_gigantic", None, mode) for mode in ("fixed", "padded")]
-
-
-@pytest.mark.parametrize("model,pred_width,mode", _F32_RESOLVED,
-                         ids=[f"{m}-{w or 'yaml'}-{mode}" for m, w, mode in _F32_RESOLVED])
-def test_f32_pretrain_resolves(model, pred_width, mode):
-    """vitl16.yaml with ``meta.dtype: float32``: every call of vit_tiny's
-    update reaches an fp32 entry or the eager path the JAX package takes:
-    the encoder's self-attention (3 x 64, no token-major split) H4-fp32 and,
-    under a gradient, H7-fp32 (the contexts: ``merged_bwd``); the 384-wide
-    predictor H1-fp32 + H2-fp32 at c=128, the 96-wide predictor H4-fp32 and
-    H7-fp32 at c=32 (H5-fp32 + H6-fp32 at the padded top rung, 1664 tokens,
-    past the merged backward's rule); the fc1 (K=192) the eager GELU. vit_gigantic's resolves to H1-fp32 / H2-fp32 at c=128 (encoder)
-    and c=32 (predictor) and H3-fp32. Nothing reaches a bf16 entry."""
-    cfg = yaml.safe_load((_CONFIGS / "pretrain" / "vitl16.yaml").read_text())
+@pytest.mark.parametrize("config,model,pred_width,mode", _F32_RESOLVED, ids=_F32_IDS)
+def test_f32_pretrain_resolves(config, model, pred_width, mode):
+    """A pretrain config with ``meta.dtype: float32``: every call of the
+    update reaches an fp32 entry or the eager path the JAX package takes.
+    vit_tiny at vitl16.yaml: the encoder's self-attention (3 x 64, no
+    token-major split) H4-fp32 and, under a gradient, H7-fp32 (the
+    contexts: ``merged_bwd``); the 384-wide predictor H1-fp32 + H2-fp32 at
+    c=128, the 96-wide predictor H4-fp32 and H7-fp32 at c=32 (H5-fp32 +
+    H6-fp32 at the padded top rung, 1664 tokens, past the merged backward's
+    rule); the fc1 (K=192) the eager GELU. vit_gigantic's, vit_giant's and
+    ViT-H's (vith16.yaml, vith16_384.yaml) resolve to H1-fp32 / H2-fp32 at
+    c=128, 96 and 80 (encoder) and c=32 (predictor) and H3-fp32. Nothing
+    reaches a bf16 entry."""
+    cfg = yaml.safe_load((_CONFIGS / "pretrain" / config).read_text())
     if pred_width:
         cfg["model"].update(pred_embed_dim=pred_width,
                             pred_depth=2 if pred_width == 96 else cfg["model"]["pred_depth"])
-    if model == "vit_gigantic":
+    if model in _MODELS:
         cfg["data"]["patch_size"] = _MODELS[model]
+    model = model or cfg["model"]["model_name"]
     table = [(call, _resolve(call)) for call in _f32_vitl16(mode, model, cfg=cfg)]
     for call, how in table:
-        print(f"  {model} {pred_width} {mode} {call.where:32s} -> {how}")
+        print(f"  {config} {model} {pred_width} {mode} {call.where:32s} -> {how}")
     assert not any("bf16" in how or ("jt_" in how and "_f32" not in how) for _, how in table)
     for call, how in table:
         if how.startswith("eager"):  # fewer than 128 tokens, or the fc1 at K=192
@@ -537,11 +531,11 @@ def test_f32_pretrain_resolves(model, pred_width, mode):
                 isinstance(call, Fc1) and (model == "vit_tiny" or not call.fused)), (call, how)
             continue
         if not isinstance(call, Attn):
-            assert how == "jt_linear_gelu_f32" and model == "vit_gigantic", (call, how)
+            assert how == "jt_linear_gelu_f32" and model in _F32_ENCODER_C, (call, how)
             continue
         pred = "predictor" in call.where
-        if model == "vit_gigantic":
-            cp = 32 if pred else 128
+        if model in _F32_ENCODER_C:
+            cp = 32 if pred else _F32_ENCODER_C[model]
             want = [f"jt_flash_fwd_f32_c{cp}"] + [
                 f"jt_flash_bwd_{k}_f32_c{cp}" for k in ("dkv", "dq")] * call.grad
         elif pred and pred_width == 384:
@@ -555,7 +549,9 @@ def test_f32_pretrain_resolves(model, pred_width, mode):
         assert how == " + ".join(want), (call, how)
     trainable = [how for call, how in table if isinstance(call, Attn) and call.grad
                  and not how.startswith("eager")]
-    assert len(trainable) == (3 if mode == "fixed" else 12)
+    # at 224 px mask 1's context (96 tokens) runs eager in the fixed mode
+    fixed = 4 if config == "vith16_384.yaml" else 3
+    assert len(trainable) == (fixed if mode == "fixed" else 12)
 
 
 def test_f32_fixture_dispatch():

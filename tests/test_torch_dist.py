@@ -70,6 +70,17 @@ TRAIN = dict(loss_exp=1.0, reg_coeff=0.0, clip_grad=0.05, clip_after_step=0, see
 PADDED_TRAIN = dict(TRAIN, reg_coeff=0.1, mask_mode="padded")
 
 
+@pytest.fixture(autouse=True)
+def _keep_torch_threads():
+    """The rank functions set torch to one thread, as each spawned rank
+    runs; where a test calls one in this process (the 1-rank side), the
+    process's thread count is restored after it, so the tests that run
+    next in this process keep the count they started with."""
+    n = torch.get_num_threads()
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 

@@ -6,12 +6,15 @@ backward kernels in Pallas interpret mode, on the CPU: the dual-tiled K4
 21 rows), and the merged K3 (``_bwd_tm_kernel``) that the JAX pickers choose
 for these calls. Both sides take the same qkv, do, o and lse (the JAX
 forward's), so only the backward is compared. Head dims 24 (zero-padded to
-32, 4 heads), 64 (2 heads) and 128 (3 heads: vit_tiny's 384-wide
-predictor), unmasked and with a key mask (a tail of pads; a mid-row run and
-a tail). Inputs come from numpy with a seed; JAX runs first in each test,
-torch after. Last, the fp32 head dims H2-fp32 lacks, an fp32 head-major
-call at a head dim H4-H7-fp32 lacks and head-major operands of mixed dtypes
-raise on a (stand-in) CUDA tensor.
+32, 4 heads), 64 (2 heads), 80 (8 heads: ViT-H), 88 (zero-padded to 96, 4
+heads: vit_giant; the fewest heads whose width, 640 and 384, the JAX
+token-major kernels take in 128-lane groups) and 128 (3 heads: vit_tiny's
+384-wide predictor),
+unmasked and with a key mask (a tail of pads; a mid-row run and a tail).
+Inputs come from numpy with a seed; JAX runs first in each test, torch
+after. Last, fp32 head dims no H1-fp32 / H2-fp32 instance has, an fp32
+head-major call at a head dim H4-H7-fp32 lacks and head-major operands of
+mixed dtypes raise on a (stand-in) CUDA tensor.
 """
 
 import types
@@ -27,7 +30,8 @@ from jepa_tpu_torch.ops import flash_attention as fa
 
 B, N = 2, 149
 TOL = 3e-5  # fp32 attention gradients (the JAX suite's flash tolerance, PARITY.md:13)
-GEOMETRY = {24: (4, 32), 64: (2, 64), 128: (3, 128)}  # real head dim -> (heads, padded)
+# real head dim -> (heads, padded)
+GEOMETRY = {24: (4, 32), 64: (2, 64), 80: (8, 80), 88: (4, 96), 128: (3, 128)}
 
 
 def _mask(kind):
@@ -45,7 +49,7 @@ def _mask(kind):
 
 @pytest.mark.parametrize("kernel", ["K4+K5", "K3"])
 @pytest.mark.parametrize("kind", ["none", "tail", "mid"])
-@pytest.mark.parametrize("c", [24, 64, 128])
+@pytest.mark.parametrize("c", [24, 64, 80, 88, 128])
 def test_f32_backward_matches_jax_kernels(c, kind, kernel):
     h, cp = GEOMETRY[c]
     rng = np.random.default_rng(c + len(kind) + len(kernel))
@@ -96,14 +100,14 @@ class _OnTheCard(types.SimpleNamespace):
         return len(self.shape)
 
 
-@pytest.mark.parametrize("c", [80, 96])
+@pytest.mark.parametrize("c", [48, 112])
 def test_f32_backward_outside_its_instances_raises(c):
-    """An fp32 backward at a head dim H2-fp32 has no instance for (ViT-H's
-    80, vit_giant's 96) raises NotImplementedError on a CUDA tensor before
-    any launch, and never falls back to the plain version; the forward
-    H1-fp32 has them all."""
+    """An fp32 backward at a head dim H2-fp32 has no instance for (48 and
+    112: multiples of 16 that no model's padding reaches) raises
+    NotImplementedError on a CUDA tensor before any launch, and never falls
+    back to the plain version; H2-fp32 has every head dim H1-fp32 has."""
     qkv = _OnTheCard(dtype=torch.float32, shape=(2, 40, 3 * 16 * c))
-    assert c in fa.F32_HEAD_DIMS and c not in fa.F32_BWD_HEAD_DIMS
+    assert c not in fa.F32_BWD_HEAD_DIMS and fa.F32_BWD_HEAD_DIMS == fa.F32_HEAD_DIMS
     for launch in (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda):
         with pytest.raises(NotImplementedError, match="head dim"):
             launch(qkv, None, None, None, None, 16, c**-0.5)

@@ -183,8 +183,10 @@ TRAIN = dict(loss_exp=1.0, reg_coeff=0.1, clip_grad=0.05, clip_after_step=0,
 
 # (encoder width, heads, predictor width): narrow, and ViT-L's head dims
 # (encoder c=64, predictor c=24 padded to 32: H1-fp32 / H2-fp32 at c=64
-# and 32, masked, on the card)
-WIDTHS = {"narrow": (64, 4, 32), "vitl_heads": (256, 4, 96)}
+# and 32, masked, on the card), ViT-H's (c=80) and vit_giant's (c=88
+# padded to 96)
+WIDTHS = {"narrow": (64, 4, 32), "vitl_heads": (256, 4, 96), "vith_heads": (320, 4, 96),
+          "giant_heads": (352, 4, 96)}
 
 
 def _jax_padded_update(geo):
@@ -227,16 +229,29 @@ def jax_padded_update_vitl_heads():
     return _jax_padded_update("vitl_heads")
 
 
+@pytest.fixture(scope="module")
+def jax_padded_update_vith_heads():
+    return _jax_padded_update("vith_heads")
+
+
+@pytest.fixture(scope="module")
+def jax_padded_update_giant_heads():
+    return _jax_padded_update("giant_heads")
+
+
 @pytest.mark.parametrize("attn_impl,geo", [("xla", "narrow"), ("flash", "narrow"),
-                                           ("flash", "vitl_heads")],
-                         ids=["xla", "flash", "flash-vitl-heads"])
+                                           ("flash", "vitl_heads"), ("flash", "vith_heads"),
+                                           ("flash", "giant_heads")],
+                         ids=["xla", "flash", "flash-vitl-heads", "flash-vith-heads",
+                              "flash-giant-heads"])
 def test_one_padded_update_matches_jax(request, attn_impl, geo):
     """The port's padded-mode update against the JAX package's on the same
     state, clips and padded masks (the fixed-mode update's tolerances: loss rtol 2e-4,
     parameters and target atol 5e-5, fp32); ``vitl_heads`` at ViT-L's head
-    dims, the key-masked plain versions of H1-fp32 / H2-fp32 at c=64 and 32."""
+    dims, the key-masked plain versions of H1-fp32 / H2-fp32 at c=64 and 32;
+    ``vith_heads`` and ``giant_heads`` at c=80 and c=88 padded to 96."""
     ju = request.getfixturevalue("jax_padded_update" if geo == "narrow"
-                                 else "jax_padded_update_vitl_heads")
+                                 else f"jax_padded_update_{geo}")
     dim, heads, pred_dim = WIDTHS[geo]
     enc = ViTCfg(**GEO, embed_dim=dim, depth=2, num_heads=heads, uniform_power=True,
                  compute_dtype=torch.float32, attn_impl=attn_impl)

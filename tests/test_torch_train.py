@@ -235,8 +235,11 @@ TRAIN = dict(loss_exp=1.0, reg_coeff=0.0, clip_grad=0.05, clip_after_step=0, see
 # (encoder width, heads, predictor width): narrow (head dims 16 and 8, both
 # zero-padded to 32 on the flash path), and ViT-L's head geometry (the
 # encoder's c=64, the predictor's c=24 padded to 32, a token-major split
-# of 4 heads each: H1-fp32 / H2-fp32 at c=64 and 32 on the card)
-WIDTHS = {"narrow": (64, 4, 32), "vitl_heads": (256, 4, 96)}
+# of 4 heads each: H1-fp32 / H2-fp32 at c=64 and 32 on the card); ViT-H's
+# (c=80) and vit_giant's (c=88 padded to 96) encoder head dims likewise
+WIDTHS = {"narrow": (64, 4, 32), "vitl_heads": (256, 4, 96), "vith_heads": (320, 4, 96),
+          "giant_heads": (352, 4, 96)}
+HEAD_DIMS = {"vitl_heads": 64, "vith_heads": 80, "giant_heads": 88}  # the encoder's c
 
 
 def _jax_update(geo):
@@ -275,25 +278,40 @@ def jax_update_vitl_heads():
     return _jax_update("vitl_heads")
 
 
+@pytest.fixture(scope="module")
+def jax_update_vith_heads():
+    return _jax_update("vith_heads")
+
+
+@pytest.fixture(scope="module")
+def jax_update_giant_heads():
+    return _jax_update("giant_heads")
+
+
 @pytest.mark.parametrize("attn_impl,geo", [("xla", "narrow"), ("flash", "narrow"),
-                                           ("flash", "vitl_heads")],
-                         ids=["xla", "flash", "flash-vitl-heads"])
+                                           ("flash", "vitl_heads"), ("flash", "vith_heads"),
+                                           ("flash", "giant_heads")],
+                         ids=["xla", "flash", "flash-vitl-heads", "flash-vith-heads",
+                              "flash-giant-heads"])
 def test_one_update_matches_jax(request, attn_impl, geo):
     """attn_impl='flash' puts FlashSelfAttentionFn and the plain versions of
     H1/H2 (with the predictor's head dim zero-padded to 32) inside the
     port's step, in fp32 the plain versions of H1-fp32 / H2-fp32; at
-    ``vitl_heads`` at ViT-L's head dims (64; 24 padded to 32). The JAX side
-    runs its XLA attention. Tolerances of tests/test_train_parity.py."""
-    ju = request.getfixturevalue("jax_update" if geo == "narrow" else "jax_update_vitl_heads")
+    ``vitl_heads`` at ViT-L's head dims (64; 24 padded to 32), at
+    ``vith_heads`` / ``giant_heads`` at ViT-H's encoder head dim (80) and
+    vit_giant's (88, padded to 96). The JAX side runs its XLA attention.
+    Tolerances of tests/test_train_parity.py."""
+    ju = request.getfixturevalue("jax_update" if geo == "narrow" else f"jax_update_{geo}")
     dim, heads, pred_dim = WIDTHS[geo]
     enc = ViTCfg(**GEO, embed_dim=dim, depth=2, num_heads=heads, uniform_power=True,
                  compute_dtype=torch.float32, attn_impl=attn_impl)
     pred = predictor_cfg_for(enc, predictor_embed_dim=pred_dim, depth=2)
-    if geo == "vitl_heads":  # the token-major route at ViT-L's head dims
+    if geo != "narrow":  # the token-major route at the model's head dims
         from jepa_tpu_torch.ops.flash_attention import padded_head_dim, self_attention_route
 
-        assert (dim // heads, pred_dim // heads) == (64, 24) and padded_head_dim(24) == 32
-        assert self_attention_route(heads, 64, 32) == self_attention_route(heads, 24, 32) == "tm"
+        c = HEAD_DIMS[geo]
+        assert (dim // heads, pred_dim // heads) == (c, 24) and padded_head_dim(24) == 32
+        assert self_attention_route(heads, c, 32) == self_attention_route(heads, 24, 32) == "tm"
     state = train_state_from_jax(ju["state"], ju["consts"], enc, pred, device="cpu")
     specs = [masks.MaskSpec.from_cfg(m) for m in UPDATE_MASKS]
     grid = masks.MaskGrid(t=2, h=4, w=4)
