@@ -125,10 +125,10 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      against the plain version (bf16 and fp32, the fp32 launches those of
      linear_gelu under autograd), then, after phase 6, the vitl16.yaml
      update with the encoder's ``fused_mlp='force'`` (TRAIN_STEPS updates,
-     profile, the B=2 check; H8 24 per context forward, H3 24 for the
+     the B=2 check; H8 24 per context forward, H3 24 for the
      target) and the A/B against the default update in turns, with each
      variant's peak memory.
- 17. at VITL_CUT_DEPTH (4) of ViT-L's 24 blocks (``cut_depth``), the tube
+ 17. at VITL_CUT_DEPTH (2) of ViT-L's 24 blocks (``cut_depth``), the tube
      mask mode (data.mask_type random_tube, one mask of ratio
      0.9, the reference's default) at vitl16.yaml: 3 updates at B=24
      (context 152 tokens, predictor 1568), one B=2 update against the
@@ -140,7 +140,7 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      state, one update with remat False, True and 'attn' (encoder and
      predictor) each, whose loss, metrics, parameters and AdamW moments
      must be bit-equal, then two more of each in turns (ms, peak
-     memory) and one profiled; the launches per update those of False
+     memory); the launches per update those of False
      ('attn') or one more H1 per trainable attention block (True);
  19. ViT-H: H1 c=80 at the vith16 target (B=24, N=1568) and the
      vith16_384 target (B=10, N=4608), both H2 kernels at c=80 at the
@@ -150,20 +150,19 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      B=10: H1 and both H2 kernels) and the vith16_384 fp32 eval's train
      step (H1-fp32 c=80 at B=8, N=4608; H3-fp32 at M=8*4608) against their
      plain versions (one sample at a time where a batch's fp32 scores pass
-     PLAIN_BATCH_BYTES); then, at VITH_CUT_DEPTH (4) of ViT-H's 32 blocks
+     PLAIN_BATCH_BYTES); then, at VITH_CUT_DEPTH (2) of ViT-H's 32 blocks
      (``cut_depth``), vith16.yaml (B=24) and vith16_384.yaml (B=10) with the
      app's default remat ('attn'): TRAIN_STEPS updates each through
-     build_train_step (one profiled more) and the app (vith16: fixed 1
-     epoch of 2 updates, a resume to 2 epochs, padded 1 epoch; vith16_384:
-     fixed 1 epoch), each checkpoint written in the temporary folder and
-     removed;
+     build_train_step and the app (vith16: fixed 1 epoch of 2 updates,
+     padded 1 epoch; vith16_384: fixed 1 epoch), each checkpoint written in
+     the temporary folder and removed; runs at a cut depth are not profiled;
  20. at VITH_CUT_DEPTH blocks, the K400 16x8x3 evals of ViT-H (vith16_k400_16x8x3.yaml,
-     vith16_384_k400_16x8x3.yaml) in bf16 (batch 4: 2 train steps, 1 val
+     vith16_384_k400_16x8x3.yaml) in bf16 (batch 4: 1 train step, 1 val
      step) and fp32 (batch 1: 2 and 1) on a seeded ViT-H .pth.tar, the
      features of each first train and val batch's first VITH_VIEWS_CHECKED
      (segments, views) through the kernels against the plain versions.
  21. data parallelism (``phase_dist``), after phase 8, ViT-L at DIST_DEPTH
-     (4) of its 24 blocks in every run (``cut_depth``): a vitl16.yaml
+     (2) of its 24 blocks in every run (``cut_depth``): a vitl16.yaml
      update at B=24 in a 1-rank NCCL group (its collectives run) against
      the same update with no group, bit for bit; 2 gloo ranks sharing the
      card (spawned, the kernels built once by this process), 12 clips
@@ -190,8 +189,8 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      the probe checkpoint, the host share of each, the process pool's
      features against the plain versions;
  24. the diffusion-mode predictor (``phase_diffusion``, use_mask_tokens
-     false), after phase 16: 3 vitl16.yaml updates at B=24, one profiled,
-     and the B=2 checks from the seeded and the trained state;
+     false), after phase 16: 3 vitl16.yaml updates at B=24 and the B=2
+     checks from the seeded and the trained state;
  25. the app with logging.profile_steps [1, 1] and log_resources
      (``phase_app_instruments``), after phase 8: vitl16.yaml, synthetic,
      2 updates; the Chrome trace of the second and the resource CSV
@@ -202,12 +201,12 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      (``phase_giant_kernels``: H1 and H2 at c=96, masked and not, H1-fp32
      at c=96 and 128, H1 / H2 c=128 at N = 2048, H3 and H3-fp32 at K=1408
      F=6144 and K=1664 F=6656, at the models' shapes and the tiles' edges),
-     then for each model at GIANT_CUT_DEPTH (4) blocks serving (4 seeded
+     then for each model at GIANT_CUT_DEPTH (2) blocks serving (4 seeded
      requests of 2 clips), TRAIN_STEPS updates of vitl16.yaml at B=24 with
-     remat 'attn' (one profiled; vit_giant also the B=2 check from the
+     remat 'attn' (vit_giant also the B=2 check from the
      seeded state), the K400 16x8x3 eval in bf16 (batch 4) and fp32 (batch
      1) with the features of each first batch against the plain versions,
-     and vit_giant's app (fixed + resume, padded; checkpoints in the
+     and vit_giant's app (fixed, padded; checkpoints in the
      temporary folder, removed).
  27. fp32 pretraining (``phase_f32_pretrain``), after phase 25: vitl16.yaml
      with meta.dtype float32, ViT-L/16 + the 12 x 384 predictor at full
@@ -242,14 +241,25 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      with its last 16 columns of dq, dk and dv nonzero; vith16.yaml whole
      (32 blocks, B=24) with meta.dtype float32, TRAIN_STEPS updates in the
      fixed and the padded mode and a seeded B=2 check in each;
-     vith16_384.yaml, vit_giant and vit_gigantic at 4 blocks, full width,
+     vith16_384.yaml, vit_giant and vit_gigantic at 2 blocks, full width,
      F32_CUT_STEPS updates in each mode; the app on vith16.yaml in fp32 at
      VITH_CUT_DEPTH blocks, fixed and padded.
+ 30. vit_small and vit_base (``small_base_paths``), after phase 26: H4-H7
+     and H4-H7-fp32 at c=16 (vit_small's 96-wide predictor, 6 heads of 16)
+     against their plain versions at its fixed sequences, every padded rung
+     (key mask), the top rung's split backward and N=333, timed beside SDPA
+     and their bounds; H1 + H2 at 6 x 64, 12 x 64 and 12 x 32, H3 at K=384
+     and 768, H1-fp32 + H2-fp32 at 6 x 64 and H3-fp32 at K=384; serving both
+     models; TRAIN_STEPS updates fixed and padded with a seeded B=2 check
+     each for vit_small (12 x 384 predictor; 2 x 96 in bf16 and fp32, the
+     padded mode's last update at the top rungs) and vit_base (12 x 384);
+     the app with no model.model_name (its default, vit_base) fixed, a
+     resume and padded.
 The native decoder has no phase: the card's machine has no FFmpeg
 libraries (PERF.md §6), so it is held against the JAX package's on the
 CPU only (tests/test_torch_native.py).
 Phases 12-13 run after phase 7, phases 14-15 after phase 8, phase 16's
-kernel checks after phase 9, phases 17-20 after phase 15, phase 26 last.
+kernel checks after phase 9, phases 17-20 after phase 15, phases 26 and 30 last.
 Every fp32 attention kernel (H1-fp32, H2-fp32, H4-H7-fp32) is one body in
 jepa_tpu_torch/csrc/flash_f32.cuh, the JSON line's source for them.
 Launch counts are checked as whole dicts of every counter (``_counts``): a
@@ -341,16 +351,16 @@ EVAL_BF16_ENTRIES = (8, 6)  # (train, val) synthetic videos of the bf16 video ev
                             # batch 4: 2 train steps, 2 val steps (the last one padded)
 EVAL_F32_ENTRIES = (2, 1)   # the fp32 video eval at batch 1: 2 train, 1 val step
 IMAGE_TRAIN_STEPS = 2
-APP_IPE = 3        # app updates per epoch (the config's ipe is 300)
+APP_IPE = 2        # app updates per epoch (the config's ipe is 300)
 TUBE_MASKS = [{"ratio": 0.9}]  # data.mask_type random_tube at the reference's default ratio
 VITH_EVALS = ("vith16_k400_16x8x3.yaml", "vith16_384_k400_16x8x3.yaml")
-VITH_EVAL_ENTRIES = (8, 4)  # the ViT-H bf16 evals at batch 4: 2 train steps, 1 val step
+VITH_EVAL_ENTRIES = (4, 4)  # the ViT-H bf16 evals at batch 4: 1 train step, 1 val step
 VITH_VIEWS_CHECKED = (2, 1)  # (segments, views) of each ViT-H eval sample whose features
                              # are held against the plain versions
 # depth cuts of earlier paths, each model's width kept (cut_depth, PERF.md §4)
-VITH_CUT_DEPTH = 4  # ViT-H's blocks in its updates, apps and evals (of 32)
-VITL_CUT_DEPTH = 4  # ViT-L's blocks in the tube mode's and the remat phase's runs (of 24)
-GIANT_CUT_DEPTH = 4  # vit_giant's and vit_gigantic's blocks in their serving, updates,
+VITH_CUT_DEPTH = 2  # ViT-H's blocks in its updates, apps and evals (of 32)
+VITL_CUT_DEPTH = 2  # ViT-L's blocks in the tube mode's and the remat phase's runs (of 24)
+GIANT_CUT_DEPTH = 2  # vit_giant's and vit_gigantic's blocks in their serving, updates,
                      # K400 evals and vit_giant's app (of 40, 48)
 # fp32 pretraining of ViT-H and the giants (phase_f32_giants): vith16.yaml whole;
 # (config, model_name, patch_size, depth) of the runs at full width and cut depth
@@ -1345,7 +1355,7 @@ def _check_packed_split(torch, q, k, v, do, mask, scale):
     from jepa_tpu_torch.ops import fused_mlp as fm
 
     f32 = q.dtype == torch.float32
-    key = (lambda kind: f"hm_f32_{kind}_c{q.shape[-1]}") if f32 else (lambda kind: f"hm_{kind}")
+    key = lambda kind: f"hm{'_f32' if f32 else ''}_{kind}_c{q.shape[-1]}"  # noqa: E731
     grads = []
     for plain in (False, True):
         # the token-major projection [B, N, 3, H, c] and its [3, B, H, N, c] view
@@ -1828,10 +1838,10 @@ def expected_launches(enc_cfg, pred_cfg=None, pairs=(), masked=False) -> dict:
     A trainable net with remat True / 'full' recomputes every block in the
     backward, so each of its attention forwards launches twice (H8 too);
     'attn' keeps the forward's (o, lse) and launches no more than False.
-    An fp32 config (``compute_dtype`` float32) counts H1-fp32 (the unmasked
-    c=64 instance as "h1_f32", the evals' key), H2-fp32, H4-H7-fp32 (by
-    kind and head dim) and H3-fp32 / H8-fp32 in place of the bf16
-    instances."""
+    H4-H7 count by kind and head dim. An fp32 config (``compute_dtype``
+    float32) counts H1-fp32 (the unmasked c=64 instance as "h1_f32", the
+    evals' key), H2-fp32, H4-H7-fp32 (by kind and head dim) and H3-fp32 /
+    H8-fp32 in place of the bf16 instances."""
     import torch
 
     from jepa_tpu_torch.ops import flash_attention as fa
@@ -1871,7 +1881,7 @@ def expected_launches(enc_cfg, pred_cfg=None, pairs=(), masked=False) -> dict:
             return
         kinds = ["fwd"] + (["dqkv"] if fa.merged_bwd(n, n, c) else ["dq", "dkv"]) * grad
         for k in kinds:
-            key = f"hm_f32_{k}_c{c}" if f32 else f"hm_{k}"  # H4-H7-fp32 by head dim
+            key = f"hm{'_f32' if f32 else ''}_{k}_c{c}"  # H4-H7(-fp32) by head dim
             add(key, fwd if k == "fwd" else depth)
             if mask:
                 add(f"{key}_masked", fwd if k == "fwd" else depth)
@@ -1905,8 +1915,8 @@ def _counts(fa, fm) -> dict:
                   f"h1_c{hd}_masked": fa.masked_launches_by_head_dim[hd],
                   f"dkv_c{hd}": fa.dkv_launches_by_head_dim[hd],
                   f"dq_c{hd}": fa.dq_launches_by_head_dim[hd]})
-    for k in fa.HM_KINDS:
-        c.update({f"hm_{k}": fa.hm_launches[k], f"hm_{k}_masked": fa.hm_masked_launches[k]})
+    for (k, hd), v in fa.hm_launches.items():
+        c.update({f"hm_{k}_c{hd}": v, f"hm_{k}_c{hd}_masked": fa.hm_masked_launches[k, hd]})
     for (k, hd), v in fa.hm_f32_launches.items():
         c.update({f"hm_f32_{k}_c{hd}": v,
                   f"hm_f32_{k}_c{hd}_masked": fa.hm_f32_masked_launches[k, hd]})
@@ -1925,10 +1935,11 @@ def _reset_counts(fa, fm) -> None:
     fm.reset_launch_counts()
 
 
-def phase_train(torch, setup, determinism=False, steps=TRAIN_STEPS, b2=(False, True)):
+def phase_train(torch, setup, determinism=False, steps=TRAIN_STEPS, b2=(False, True),
+                top_last=False, profile=True):
     """``steps`` pretraining updates of the config of ``train_setup`` at its
     batch (vitl16.yaml: TRAIN_BATCH clips per card), with the launches of
-    every update checked whole, one more update profiled, and held against
+    every update checked whole, one more update (profiled), and held against
     the plain versions by one update at B=2 through both, from the seeded
     state and from the state the timed updates leave (``check_b2``; ``b2``
     holds the ``trained`` flags of those it takes); with ``determinism``, first
@@ -1936,7 +1947,10 @@ def phase_train(torch, setup, determinism=False, steps=TRAIN_STEPS, b2=(False, T
     which must agree to the bit. A padded-mode setup takes each update's
     masks from the host collator, padded as the app pads them
     (``padded_batch``), and expects the masked kernels' launches at the
-    caps each update picks; its B=2 checks are left to the caller."""
+    caps each update picks (``top_last``: the last update's masks padded to
+    the top rung of each ladder); its B=2 checks are left to the caller.
+    ``profile`` False runs that update unprofiled (the smoke profiles only
+    the main cells: host time, 4-18 s a profile, PERF.md §4)."""
     from jepa_tpu_torch.masks.multiblock3d import MaskCollator, calibrate_pad_ladders
     from jepa_tpu_torch.ops import flash_attention as fa
     from jepa_tpu_torch.ops import fused_mlp as fm
@@ -1973,17 +1987,17 @@ def phase_train(torch, setup, determinism=False, steps=TRAIN_STEPS, b2=(False, T
     if False in b2:
         check_b2(torch, step_fn, state, small, trained=False)
 
-    def next_batch():  # (the update's batch, the launches it implies)
+    def next_batch(top=False):  # (the update's batch, the launches it implies)
         if not padded:
             return {"clips": clips}, want
-        b, tier = padded_batch(torch, collator, ladders, clips)
+        b, tier = padded_batch(torch, collator, ladders, clips, top)
         return b, expected_launches(setup["enc_cfg"], setup["pred_cfg"], tier, masked=True)
 
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(fa, fm)
     times, per_step, wants = [], [], []
-    for _ in range(steps):
-        upd, want_i = next_batch()
+    for i in range(steps):
+        upd, want_i = next_batch(top_last and i == steps - 1)
         wants.append(want_i)
         before = _counts(fa, fm)
         t0 = time.perf_counter()
@@ -2005,7 +2019,14 @@ def phase_train(torch, setup, determinism=False, steps=TRAIN_STEPS, b2=(False, T
         f"{med:.1f} ms ({batch / med * 1e3:.2f} clips/s); peak allocated "
         f"{peak_gib:.2f} GiB; launches {launches}")
     upd = next_batch()[0]
-    prof = profile_device(torch, lambda: step_fn(state, upd), "train")
+    # one more update, profiled with ``profile``: the checks below start from
+    # the state it leaves either way
+    if profile:
+        prof = profile_device(torch, lambda: step_fn(state, upd), "train")
+    else:
+        step_fn(state, upd)
+        torch.cuda.synchronize()
+        prof = None
     del clips, upd
     if determinism:
         check_update_determinism(torch, step_fn, state, small)
@@ -2018,16 +2039,19 @@ def phase_train(torch, setup, determinism=False, steps=TRAIN_STEPS, b2=(False, T
             "mode": setup["tc"].mask_mode, "depth": setup["enc_cfg"].depth}
 
 
-def padded_batch(torch, collator, ladders, clips):
+def padded_batch(torch, collator, ladders, clips, top=False):
     """One padded-mode batch as the app assembles it (apps/vjepa/train.py):
     the host collator's masks for the clips, each spec's padded to the
     smallest rung of its cap ladder that covers them (``pad_masks``), with
-    validity weights. Returns (batch, the (context, target) caps)."""
+    validity weights; ``top``: to the top rung of each ladder instead (it
+    covers every batch's masks: the caps a batch of the largest masks
+    picks). Returns (batch, the (context, target) caps)."""
     from jepa_tpu_torch.masks.multiblock3d import select_pad_rungs
     from jepa_tpu_torch.masks.padding import pad_masks
 
     me_list, mp_list = collator.collate_chunks(clips.shape[0], 1)
-    rungs = select_pad_rungs(ladders, me_list, mp_list)
+    rungs = ([len(rungs) - 1 for rungs in ladders] if top
+             else select_pad_rungs(ladders, me_list, mp_list))
     tier = [ladders[s][r] for s, r in enumerate(rungs)]
     batch = {"clips": clips, "masks_enc": [], "enc_weights": [], "masks_pred": [],
              "pred_weights": []}
@@ -2153,6 +2177,7 @@ def profile_device(torch, fn, label):
     top kernels and the aten ops that launched the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -2181,7 +2206,8 @@ def profile_device(torch, fn, label):
             groups["GEMM (cuBLAS)"] += ms
         else:
             groups["other"] += ms
-    log(f"{label} profile: device self time {total:.2f} ms in one call; " + "; ".join(
+    log(f"{label} profile ({time.perf_counter() - t0:.1f} s with the aggregation): device self "
+        f"time {total:.2f} ms in one call; " + "; ".join(
         f"{k} {v:.2f} ms ({100 * v / max(total, 1e-9):.1f} %)" for k, v in groups.items()))
     for name, ms, n in sorted(rows, key=lambda r: -r[1])[:12]:
         log(f"  {ms:9.3f} ms  x{n:<5d} {name[:110]}")
@@ -2192,6 +2218,15 @@ def profile_device(torch, fn, label):
     for name, ms, n in sorted(ops, key=lambda r: -r[1])[:10]:
         log(f"  {ms:9.3f} ms  x{n:<5d} {name}")
     return {"device_ms": total, "groups": groups}
+
+
+def device_split(t) -> str:
+    """A phase_train report's profiled device time and its split, for a log
+    line ("not profiled": ``phase_train(profile=False)``)."""
+    if t["prof"] is None:
+        return "device not profiled"
+    return (f"device {t['prof']['device_ms']:.1f} ms ("
+            + ", ".join(f"{k} {v:.1f}" for k, v in t["prof"]["groups"].items()) + ")")
 
 
 def kernel_split_ms(torch, fn, n=10):
@@ -2233,13 +2268,16 @@ def _csv_times(path):
     return step, wall, host, len(rows) - rows.count(rows[0])
 
 
-def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, padded=True):
+def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, padded=True,
+              default_model=False):
     """The pretrain app on ``setup``'s config (``train_setup``: its model,
     its tube masks if any) on synthetic data, ``ipe`` updates per epoch:
     fixed mode ``epochs`` epochs, a resume to one more, then padded mode 1
     epoch, each with the launch counts set to 0 just before and read just
     after; api.load_encoder reads the fixed run's checkpoint. The app runs
-    its default activation checkpointing (meta.remat absent: 'attn')."""
+    its default activation checkpointing (meta.remat absent: 'attn');
+    ``default_model``: the YAML's model.model_name deleted, so the app
+    takes its default model, which must be ``setup``'s."""
     import shutil
 
     import yaml
@@ -2256,6 +2294,8 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
     cfg["data"]["dataset_type"] = "synthetic"
     cfg["data"]["patch_size"] = setup["patch_size"]
     cfg["model"]["model_name"] = setup["model_name"]
+    if default_model:
+        del cfg["model"]["model_name"]
     if setup["tube"]:
         cfg["data"]["mask_type"] = "random_tube"
         cfg["mask"] = setup["tube"]
@@ -2265,7 +2305,8 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
     cfg["logging"]["folder"] = os.path.join(workdir, "fixed")
     d = cfg["data"]
     label = (f"{setup['config']}{' (tube masks)' if setup['tube'] else ''} with "
-             f"{setup['model_name']}, meta.dtype {cfg['meta']['dtype']}")
+             f"{setup['model_name']}{' (no model_name: the default)' if default_model else ''}"
+             f", meta.dtype {cfg['meta']['dtype']}")
     torch.cuda.empty_cache()  # a fresh allocator, as the app has in its own process
     retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     log(f"app: {label}, synthetic data, ipe {ipe}, batch {d['batch_size']}, "
@@ -2297,6 +2338,10 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
         f"{os.path.getsize(ckpt) / 2**30:.2f} GiB; launches per update {per_update}")
     if remat != ("attn", "attn"):
         raise RuntimeError(f"app: remat {remat}, not the JAX app's default ('attn', 'attn')")
+    shape = lambda cfg: (cfg.embed_dim, cfg.depth, cfg.num_heads)  # noqa: E731
+    if shape(state.encoder.cfg) != shape(setup["enc_cfg"]):
+        raise RuntimeError(f"app: an encoder of (width, depth, heads) "
+                           f"{shape(state.encoder.cfg)}, not {setup['model_name']}'s")
 
     # the app's checkpoint through the serving API: the EMA target's features
     geo = dict(VITL16_GEO, img_size=d["crop_size"], patch_size=d["patch_size"])
@@ -2514,7 +2559,7 @@ def phase_f32_pretrain(torch, repo, workdir):
               ("ragged c=64", 2, 333, 16, 64, 64, 0, 0),
               ("ragged c=24", 2, 333, 16, 32, 24, 0, 0))
     rows = f32_attn_rows(torch, shapes, SEED + 5)
-    runs = f32_updates(torch, fixed, padded)
+    runs = mode_updates(torch, fixed, padded)
     with cut_depth("vit_large", VITL_CUT_DEPTH):
         app = phase_app(torch, repo, train_setup(repo, dtype=torch.float32, remat="attn"),
                         workdir, ipe=F32_APP_IPE, epochs=1, resume=False)
@@ -2559,18 +2604,22 @@ def f32_attn_rows(torch, shapes, seed):
     return rows
 
 
-def f32_updates(torch, fixed, padded, steps=TRAIN_STEPS, b2=True):
-    """``steps`` updates of the fp32 setups ``fixed`` and ``padded``
-    (``phase_train``: launches whole, ms, peak, the profile's split) and,
-    with ``b2``, a seeded B=2 update in each mode against the plain
-    versions (``check_b2_f32``). Returns {mode: phase_train's dict, with
-    "b2"}."""
+def mode_updates(torch, fixed, padded, steps=TRAIN_STEPS, b2=True, top_last=False,
+                 profile=("fixed",)):
+    """``steps`` updates of the setups ``fixed`` and ``padded``
+    (``phase_train``: launches whole, ms, peak, the profile's split in the
+    modes named in ``profile``; ``top_last``: the padded mode's last update
+    at the top rungs) and, with
+    ``b2``, a seeded B=2 update in each mode against the plain versions
+    (``check_b2_f32`` in fp32, else ``check_b2`` from the seeded state).
+    Returns {mode: phase_train's dict, with "b2" in fp32}."""
     from jepa_tpu_torch.masks.multiblock3d import MaskCollator, calibrate_pad_ladders
     from jepa_tpu_torch.train.step import init_train_state
 
     runs = {}
     for mode, setup in (("fixed", fixed), ("padded", padded)):
-        runs[mode] = phase_train(torch, setup, steps=steps, b2=())
+        runs[mode] = phase_train(torch, setup, steps=steps, b2=(), profile=mode in profile,
+                                 top_last=top_last and mode == "padded")
         if not b2:
             continue
         gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2582,9 +2631,12 @@ def f32_updates(torch, fixed, padded, steps=TRAIN_STEPS, b2=True):
                 torch, MaskCollator(setup["specs"], setup["grid"], seed=setup["tc"].seed),
                 calibrate_pad_ladders(setup["specs"], setup["grid"], setup["yaml_batch"]),
                 clips)
-        runs[mode]["b2"] = check_b2_f32(torch, setup["step_fn"], state, batch,
-                                        f"{setup['config']} {setup['model_name']} {mode}, "
-                                        "seeded state")
+        if setup["enc_cfg"].compute_dtype == torch.float32:
+            runs[mode]["b2"] = check_b2_f32(torch, setup["step_fn"], state, batch,
+                                            f"{setup['config']} {setup['model_name']} {mode}, "
+                                            "seeded state")
+        else:
+            check_b2(torch, setup["step_fn"], state, batch, trained=False)
         del state, clips, batch
         torch.cuda.empty_cache()
     return runs
@@ -2606,7 +2658,7 @@ def phase_f32_giants(torch, repo, workdir):
         dq, dk and dv must be nonzero and match (``_check_h2_f32``);
       * vith16.yaml whole (32 blocks, B=24): TRAIN_STEPS updates in the
         fixed and the padded mode and a seeded B=2 update in each against
-        the plain versions (``f32_updates``);
+        the plain versions (``mode_updates``);
       * vith16_384.yaml (B=10), vit_giant and vit_gigantic (patch 14) at
         vitl16.yaml (B=24) at VITH_CUT_DEPTH / GIANT_CUT_DEPTH blocks, full
         width: F32_CUT_STEPS updates in each mode, launches whole;
@@ -2649,9 +2701,10 @@ def phase_f32_giants(torch, repo, workdir):
             _check_h2_f32(torch, tag, qkv, do, 4, c**-0.5, c, mask)
         del qkv, do
 
-    runs = {("vith16.yaml", "vit_huge"): f32_updates(torch, vith, vith_padded)}
+    runs = {("vith16.yaml", "vit_huge"): mode_updates(torch, vith, vith_padded, profile=())}
     for key, (fixed, padded) in cut.items():
-        runs[key] = f32_updates(torch, fixed, padded, steps=F32_CUT_STEPS, b2=False)
+        runs[key] = mode_updates(torch, fixed, padded, steps=F32_CUT_STEPS, b2=False,
+                                 profile=())
     with cut_depth("vit_huge", VITH_CUT_DEPTH):
         app = phase_app(torch, repo, train_setup(repo, config="vith16.yaml", **f32), workdir,
                         ipe=F32_APP_IPE, epochs=1, resume=False)
@@ -2663,18 +2716,19 @@ TINY_F32_PRED96_STEPS = 2  # its updates at B=24 in each mask mode
 RAGGED_N = 333  # a ragged sequence: two 128-row blocks and 77 rows
 
 
-def _hm_f32_times(torch, kind, q, k, v, do, scale, mask, lib):
-    """One head-major fp32 kernel (``kind`` fwd: H4-fp32, dq: H5-fp32, dkv:
-    H6-fp32, dqkv: H7-fp32) timed beside its plain version, ``lib`` (SDPA
-    fp32 forward ms, whole backward ms) and its FFMA / exp2 / bytes bound
-    (each input read once, each output written once; the valid pairs
-    only)."""
+def _hm_times(torch, kind, q, k, v, do, scale, mask, lib):
+    """One head-major kernel (``kind`` fwd: H4, dq: H5, dkv: H6, dqkv: H7;
+    their fp32 instances for fp32 operands) timed beside its plain version,
+    ``lib`` (SDPA forward ms, whole backward ms) and its bound (each input
+    read once, each output written once; the valid pairs only): fp32 the
+    FFMA / exp2 / bytes bound, bf16 the tensor-core / exp2 / bytes one."""
     from jepa_tpu_torch.ops import flash_attention as fa
 
     b, h, nq, c = q.shape
     nk = k.shape[2]
+    el = q.element_size()
     pairs = int(mask.sum().item()) * nq if mask is not None else b * nq * nk
-    qb, kb, vec, mb = 4 * b * h * nq * c, 4 * b * h * nk * c, 4 * b * h * nq, (
+    qb, kb, vec, mb = el * b * h * nq * c, el * b * h * nk * c, 4 * b * h * nq, (
         0 if mask is None else b * nk)
     if kind == "fwd":
         fn = lambda: fa.flash_fwd_hm_cuda(q, k, v, scale, mask)  # noqa: E731
@@ -2688,9 +2742,26 @@ def _hm_f32_times(torch, kind, q, k, v, do, scale, mask, lib):
         plain = lambda: ref(q, k, v, do, lse, delta, scale, mask)  # noqa: E731
         flops, outs = {"dq": (6, qb), "dkv": (8, 2 * kb), "dqkv": (10, qb + 2 * kb)}[kind]
         io, lib_ms = 2 * qb + 2 * kb + 2 * vec + mb + outs, lib[1]
+    bound = (f32_bound_ms(flops * h * pairs * c, h * pairs, io) if el == 4
+             else attn_bound_ms(b, nq, h, c, flops // 2, io, 0, pairs))
     return dict(ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain, iters=5, warmup=1),
-                library_ms=lib_ms, bound=f32_bound_ms(flops * h * pairs * c, h * pairs, io),
-                shape=(b, h, nq, nk, c), masked=mask is not None)
+                library_ms=lib_ms, bound=bound, shape=(b, h, nq, nk, c), masked=mask is not None,
+                f32=el == 4)
+
+
+def _note(rows, key, err, times=None, per_update=None):
+    """Keep row ``key``'s largest max|d| in ``rows``, and its first timed
+    shape's times (``_hm_times`` / ``_tm_f32_times``), logged."""
+    r = rows.setdefault(key, {"max_abs_err": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    if times is not None and "ms" not in r:
+        r.update(times, per_update=per_update)
+        log(f"{key} {times['shape']}{' masked' if times['masked'] else ''} time: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library (SDPA "
+            f"{'fp32 ' if times.get('f32', True) else ''}"
+            f"{'forward' if key.startswith(('hm_fwd', 'h1')) else 'whole backward'}) "
+            f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][2]}), "
+            f"{r['bound'][0] / r['ms']:.3f} of it; launches per update {per_update}")
 
 
 def phase_tiny_f32(torch, repo, workdir):
@@ -2715,7 +2786,7 @@ def phase_tiny_f32(torch, repo, workdir):
       * TRAIN_STEPS updates at B=24, remat 'attn', in the fixed and the
         padded mode with the 384-wide predictor, and TINY_F32_PRED96_STEPS
         in each mode with the 96-wide one (``phase_train``: launches whole,
-        ms, peak, the profile's split), a seeded B=2 update in each mode
+        ms, peak), a seeded B=2 update in each mode
         against the plain versions (``check_b2_f32``);
       * the pretrain app in fp32, fixed and padded, 1 epoch of F32_APP_IPE
         updates each (``phase_app``)."""
@@ -2751,23 +2822,13 @@ def phase_tiny_f32(torch, repo, workdir):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     rng = np.random.default_rng(SEED + 6)
     rows = {}
-
-    def note(key, err, times=None, per_update=None):
-        r = rows.setdefault(key, {"max_abs_err": 0.0})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if times is not None and "ms" not in r:
-            r.update(times, per_update=per_update)
-            log(f"{key} {times['shape']}{' masked' if times['masked'] else ''} time: kernel "
-                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library (SDPA fp32 "
-                f"{'forward' if key.startswith(('hm_fwd', 'h1')) else 'whole backward'}) "
-                f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][2]}), "
-                f"{r['bound'][0] / r['ms']:.3f} of it; launches per update {per_update}")
+    note = lambda *a, **kw: _note(rows, *a, **kw)  # noqa: E731
 
     # H4-fp32 alone: serving and the target
     for label, b, timed_row in (("serving", 2, False), ("target", TRAIN_BATCH, True)):
         q, k, v, do = _hm_inputs(torch, gen, b, h, n_full, n_full, c, f32)
         _, _, err = _check_h4(torch, f"H4-fp32 {label} B={b} N={n_full} c={c}", q, k, v, c**-0.5)
-        note("hm_fwd_c64", err, _hm_f32_times(
+        note("hm_fwd_c64", err, _hm_times(
             torch, "fwd", q, k, v, do, c**-0.5, None, _sdpa_hm_ms(torch, q, k, v, do, c**-0.5))
             if timed_row else None, enc_d)
         del q, k, v, do
@@ -2794,9 +2855,9 @@ def phase_tiny_f32(torch, repo, workdir):
         _, _, err_b = _check_hm_bwd(torch, "dqkv", f"H7-fp32 {tag}", q, k, v, do, scale, mask)
         first = f"hm_dqkv{sfx}" not in rows and per_update
         lib = _sdpa_hm_ms(torch, q, k, v, do, scale, mask) if first else None
-        note(f"hm_fwd{sfx}", err_f, _hm_f32_times(torch, "fwd", q, k, v, do, scale, mask, lib)
+        note(f"hm_fwd{sfx}", err_f, _hm_times(torch, "fwd", q, k, v, do, scale, mask, lib)
              if first and f"hm_fwd{sfx}" not in rows else None, per_update)
-        note(f"hm_dqkv{sfx}", err_b, _hm_f32_times(torch, "dqkv", q, k, v, do, scale, mask, lib)
+        note(f"hm_dqkv{sfx}", err_b, _hm_times(torch, "dqkv", q, k, v, do, scale, mask, lib)
              if first else None, per_update)
         del q, k, v, do, mask
     # H5-fp32 + H6-fp32 (the split backward past the merged rule's reach)
@@ -2818,7 +2879,7 @@ def phase_tiny_f32(torch, repo, workdir):
         first = f"hm_dq{sfx}" not in rows and n == n_full
         lib = _sdpa_hm_ms(torch, q, k, v, do, scale, mask) if first else None
         for kind in ("dq", "dkv"):
-            note(f"hm_{kind}{sfx}", errs[kind], _hm_f32_times(
+            note(f"hm_{kind}{sfx}", errs[kind], _hm_times(
                 torch, kind, q, k, v, do, scale, mask, lib) if first else None, 0)
         if n == n_full and cc == c:
             packed_masks[masked] = (q, k, v, do, mask)
@@ -2859,7 +2920,7 @@ def phase_tiny_f32(torch, repo, workdir):
     os.remove(serve["enc_path"])
     runs = {}
     for mode, setup in (("fixed", fixed), ("padded", padded)):
-        runs[mode] = phase_train(torch, setup, b2=())
+        runs[mode] = phase_train(torch, setup, b2=(), profile=False)
         g = torch.Generator(device="cuda").manual_seed(SEED)
         state = init_train_state(setup["enc_cfg"], setup["pred_cfg"], g)
         clips = torch.randn((2, *setup["clip_shape"]), generator=g, device="cuda")
@@ -2873,10 +2934,166 @@ def phase_tiny_f32(torch, repo, workdir):
         del state, clips, batch
         torch.cuda.empty_cache()
     for mode, setup in (("narrow", narrow), ("narrow_padded", narrow_padded)):
-        runs[mode] = phase_train(torch, setup, steps=TINY_F32_PRED96_STEPS, b2=())
+        runs[mode] = phase_train(torch, setup, steps=TINY_F32_PRED96_STEPS, b2=(),
+                                 profile=False)
     app = phase_app(torch, repo, fixed, workdir, ipe=F32_APP_IPE, epochs=1, resume=False)
     return {"rows": rows, "split": split_launches, "serve": serve, "eval": ev, "runs": runs,
             "app": app}
+
+
+# vit_small and vit_base: the 96-wide predictor at vit_small (6 heads of 16,
+# the head-major route at c=16) and the models' paths
+SMALL_PRED96 = dict(pred_embed_dim=96, pred_depth=2)  # the CPU fixture's predictor
+SMALL_TM_SHAPES = (("vit_small context", 6, 64), ("vit_small 384-wide predictor", 6, 64),
+                   ("vit_base context", 12, 64), ("vit_base 384-wide predictor", 12, 32))
+SMALL_FC1 = {"vit_small": (384, 1536), "vit_base": (768, 3072)}  # (K, F) of the fc1
+
+
+def phase_c16_kernels(torch, narrow, ladders):
+    """H4-H7 and H4-H7-fp32 at head dim 16 (``narrow``: the train setup of
+    vit_small with the 96-wide predictor, 6 heads of 16; ``ladders``: the
+    padded mode's cap ladders) against their plain versions on the card, in
+    bf16 and in fp32 (TF32 off): H4 + H7 at the predictor's fixed sequences
+    (B=24), at every padded rung with a key mask (pads from the context's
+    cap, and a ragged tail), H4 + H5 + H6 at the rungs past the merged
+    rule's reach (the top rung, N=1664) masked and also unmasked, and H4 +
+    H7 at a ragged N=RAGGED_N (B=2) masked or not. bf16 is held under
+    phase_hm_kernels' rule (HM_O_TOL / HM_LSE_TOL, H2_REL), fp32 under
+    F32_TOL; masked keys' dk and dv exactly 0 and second calls bit-equal
+    (``_check_h4``, ``_check_hm_bwd``). The first row of each instance is
+    timed (``_hm_times``: kernel, plain version, SDPA, bound). Returns
+    {"bfloat16" | "float32": {row key: max_abs_err and times}}."""
+    from jepa_tpu_torch.ops import flash_attention as fa
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("TF32 is on: the fp32 plain versions would not be fp32")
+    h = narrow["pred_cfg"].num_heads
+    c = narrow["pred_cfg"].predictor_embed_dim // h
+    if (h, c) != (6, 16):
+        raise RuntimeError(f"vit_small's 96-wide predictor has {h} heads of {c}, not 6 of 16")
+    depth, scale = narrow["pred_cfg"].depth, c**-0.5
+    rungs = sorted({r for rs in ladders for r in rs}, key=sum, reverse=True)
+    split = [(ce, cq) for ce, cq in rungs if not fa.merged_bwd(ce + cq, ce + cq, c)]
+    if not split:
+        raise RuntimeError(f"no padded rung of {rungs} takes the split backward at c={c}")
+    # (label, B, N, mid-row pad start or None (unmasked), launches per update)
+    shapes = ([(f"fixed {ke}+{kp}", TRAIN_BATCH, ke + kp, None, depth)
+               for ke, kp in narrow["keep"]]
+              + [(f"rung {ce}+{cq}", TRAIN_BATCH, ce + cq, ce, depth) for ce, cq in rungs]
+              + [(f"rung {ce}+{cq} unmasked", TRAIN_BATCH, ce + cq, None, 0)
+                 for ce, cq in split]
+              + [("ragged", 2, RAGGED_N, mid, 0) for mid in (None, 0)])
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+        rng = np.random.default_rng(SEED + 23)
+        rows = out[str(dt)[6:]] = {}
+        f32 = "-fp32" if dt == torch.float32 else ""
+        for label, b, n, mid, per_update in shapes:
+            q, k, v, do = _hm_inputs(torch, gen, b, h, n, n, c, dt)
+            mask = None if mid is None else padded_key_mask(torch, rng, b, n, mid)
+            sfx = "_c16" + ("" if mask is None else "_masked")
+            tag = f"{label} B={b} N={n} H={h} c={c}{'' if mask is None else ' masked'}"
+            kinds = ["dqkv"] if fa.merged_bwd(n, n, c) else ["dq", "dkv"]
+            _, _, err = _check_h4(torch, f"H4{f32} {tag}", q, k, v, scale, mask)
+            errs = {"fwd": err}
+            for kind in kinds:
+                name = {"dq": "H5", "dkv": "H6", "dqkv": "H7"}[kind]
+                errs[kind] = _check_hm_bwd(torch, kind, f"{name}{f32} {tag}", q, k, v, do, scale,
+                                           mask)[2]
+            untimed = [kind for kind in errs if f"hm_{kind}{sfx}" not in rows]
+            lib = _sdpa_hm_ms(torch, q, k, v, do, scale, mask) if untimed else None
+            for kind, e in errs.items():
+                _note(rows, f"hm_{kind}{sfx}", e, _hm_times(torch, kind, q, k, v, do, scale,
+                                                            mask, lib)
+                      if kind in untimed else None, per_update)
+            del q, k, v, do, mask
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_small_base_tm_kernels(torch, depth):
+    """The token-major instances at the head counts vit_small and vit_base
+    bring (``depth``: their encoders' blocks, the launches per update),
+    against their plain versions on the card (second calls bit-equal),
+    timed beside SDPA and their bounds: H1 + both H2 kernels
+    (``_check_h1``, ``_check_h2``) at 6 heads of 64 (vit_small's context,
+    N=376, and its 384-wide predictor, N=1109), 12 heads of 64 (vit_base's
+    context) and 12 of 32 (vit_base's 384-wide predictor), B=24; H3 at both
+    models' target fc1 (M=24*1568; K=384, F=1536 and K=768, F=3072); in
+    fp32 (vit_small's fp32 updates) H1-fp32 + H2-fp32 at the 6 x 64 context
+    masked or not (``f32_attn_rows``) and H3-fp32 at K=384. Returns {row
+    label: times and max_abs_err}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    ctx, pred = 376, 376 + 733  # vitl16.yaml's first mask config at B=24 (train_setup's keep)
+    rows = {}
+    for label, h, c in SMALL_TM_SHAPES:
+        n = pred if "predictor" in label else ctx
+        qkv, do = _attn_inputs(torch, gen, TRAIN_BATCH, n, h, c)
+        tag = f"{label} B={TRAIN_BATCH} N={n} H={h} c={c}"
+        o, lse, err = _check_h1(torch, f"H1 {tag}", qkv, h, c**-0.5)
+        delta, errs = _check_h2(torch, f"H2 {tag}", qkv, do, o, lse, h, c**-0.5, c)
+        rows[label, "h1"] = dict(_time_h1(torch, f"H1 {tag}", qkv, h, c**-0.5, c),
+                                 max_abs_err=err)
+        for kind, r in _time_h2(torch, tag, qkv, do, lse, delta, h, c**-0.5, c, errs).items():
+            rows[label, kind] = r
+        del qkv, do, o, lse, delta
+    for model, (k, f) in SMALL_FC1.items():
+        rows[model, "h3"] = _time_fc1(torch, f"H3 {model} target fc1", gen,
+                                      TRAIN_BATCH * 1568, k, f, torch.bfloat16)
+    rows["vit_small", "h3_f32"] = _time_fc1(torch, "H3-fp32 vit_small target fc1", gen,
+                                            TRAIN_BATCH * 1568, *SMALL_FC1["vit_small"],
+                                            torch.float32)
+    for tag, r in f32_attn_rows(torch, (("vit_small context", TRAIN_BATCH, ctx, 6, 64, 64, 0,
+                                         depth),), SEED + 25).items():
+        for kind, x in r.items():
+            rows[tag, f"{kind}_f32"] = x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def small_base_paths(torch, repo):
+    """vit_small and vit_base on the card (``train_setup`` at vitl16.yaml,
+    B=24, full width and depth): the c=16 head-major instances
+    (``phase_c16_kernels``) and the token-major ones at the models' head
+    counts (``phase_small_base_tm_kernels``); serving both models
+    (``phase_serve``, 4 requests of 2 clips, features against the plain
+    path); TRAIN_STEPS updates in the fixed and the padded mode (the fixed
+    mode's profiled) with a seeded B=2 update in each against the plain
+    versions (``mode_updates``)
+    of vit_small with its 12 x 384 predictor, vit_small with the 2 x 96 one
+    (6 heads of 16: H4 + H7 at the fixed sequences; the padded mode's last
+    update at the top rungs, N=1664: H4 + H5 + H6) in bf16 and in fp32
+    (meta.dtype float32, remat 'attn', TF32 off), and vit_base with its
+    12 x 384 predictor; then the pretrain app with no model.model_name, so
+    it takes its default, vit_base (``phase_app``: fixed, a resume,
+    padded). Returns each part's report."""
+    from jepa_tpu_torch.masks.multiblock3d import calibrate_pad_ladders
+
+    f32 = dict(dtype=torch.float32, remat="attn")
+    setups = {}
+    for label, model, kw in (("vit_small", "vit_small", {}),
+                             ("vit_small 96", "vit_small", SMALL_PRED96),
+                             ("vit_small 96 fp32", "vit_small", dict(SMALL_PRED96, **f32)),
+                             ("vit_base", "vit_base", {})):
+        setups[label] = tuple(train_setup(repo, model, mask_mode=mode, **kw)
+                              for mode in (None, "padded"))
+    narrow = setups["vit_small 96"][0]
+    ladders = calibrate_pad_ladders(narrow["specs"], narrow["grid"], TRAIN_BATCH)
+    out = {"c16": timed("c16 kernels", phase_c16_kernels, torch, narrow, ladders),
+           "tm": timed("vit_small / vit_base tm kernels", phase_small_base_tm_kernels, torch,
+                       narrow["enc_cfg"].depth)}
+    with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
+        for model in ("vit_small", "vit_base"):
+            out[model, "serve"] = timed(f"{model} serve", phase_serve, torch, workdir, model)
+            os.remove(out[model, "serve"]["enc_path"])
+    out["runs"] = {label: timed(f"{label} updates", mode_updates, torch, fixed, padded,
+                                top_last="96" in label)
+                   for label, (fixed, padded) in setups.items()}
+    with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
+        out["app"] = timed("vit_base app (the default model)", phase_app, torch, repo,
+                           setups["vit_base"][0], workdir, ipe=2, default_model=True)
+    return out
 
 
 def eval_config(repo, workdir, name, enc_path, n_train, n_val,
@@ -3447,11 +3664,11 @@ def phase_diffusion(torch, repo):
     diffusion-mode predictor: the targets noised by one forward-diffusion
     step in place of the mask tokens) at B=TRAIN_BATCH: 3 updates with
     their launches checked whole (the predictor's sequences are as long
-    as with mask tokens: H1 72, H2 48 + 48, H3 24 per update), one
-    profiled, and the B=2 update against the plain versions from the
-    seeded and the trained state (``check_b2``'s limits)."""
+    as with mask tokens: H1 72, H2 48 + 48, H3 24 per update) and the
+    B=2 update against the plain versions from the seeded and the trained
+    state (``check_b2``'s limits)."""
     setup = train_setup(repo, use_mask_tokens=False)
-    out = phase_train(torch, setup, steps=3)
+    out = phase_train(torch, setup, steps=3, profile=False)
     del setup
     torch.cuda.empty_cache()
     return out
@@ -3819,8 +4036,8 @@ def phase_remat(torch, repo):
     the three (the recomputation repeats deterministic kernels), then two
     more of each in turns (F T A A T F), timed by the host clock to a
     synchronise with their peak of allocated memory (the seeded state's
-    copy held beside: its GiB are logged), then one profiled each (device
-    time). Every update's launches are checked whole: 'attn' those of
+    copy held beside: its GiB are logged). Every update's launches are
+    checked whole: 'attn' those of
     False, True one more H1 per trainable attention block."""
     import copy
 
@@ -3883,16 +4100,13 @@ def phase_remat(torch, repo):
         peaks[remat] = max(peaks[remat], torch.cuda.max_memory_allocated() / 2**30)
         del twin
     out = {}
-    for remat, setup in setups.items():
-        twin = copy.deepcopy(state)
-        prof = profile_device(torch, lambda: setup["step_fn"](twin, batch), f"remat {remat!r}")
-        del twin
+    for remat in setups:
         out[remat] = dict(median_ms=statistics.median(times[remat]), times=times[remat],
-                          peak_gib=peaks[remat], per_update=want[remat], prof=prof,
+                          peak_gib=peaks[remat], per_update=want[remat],
                           state_gib=state_gib, launches=_sum_launches(*seen[remat]))
         log(f"remat {remat!r}, B={TRAIN_BATCH}, in turns: {[round(t, 1) for t in times[remat]]} "
-            f"ms, median {out[remat]['median_ms']:.1f} ms/update, device "
-            f"{prof['device_ms']:.1f} ms, peak allocated {peaks[remat]:.2f} GiB (the seeded "
+            f"ms, median {out[remat]['median_ms']:.1f} ms/update, peak allocated "
+            f"{peaks[remat]:.2f} GiB (the seeded "
             f"state's copy beside: {state_gib:.2f} GiB); launches/update {want[remat]}, in "
             f"{len(seen[remat])} checked updates {dict(out[remat]['launches'])}")
     del state, batch
@@ -3986,8 +4200,8 @@ DIST_LIMIT_FACTOR = 10.0
 DIST_REL_FLOOR = 1e-6  # a limit never below this relative difference (nor cosine above 1 - it)
 DIST_APP_IPE = 2  # (c): updates per epoch of the 2-rank app
 DIST_EVAL_ENTRIES = (8, 10)  # (d): train / val videos; 10 is no multiple of 2 ranks x 4
-DIST_DEPTH = 4  # ViT-L's depth in every run of phase_dist, its width kept (cut_depth)
-DIST_PRED_DEPTH = 4  # the predictor's depth there (model.pred_depth; 12 in vitl16.yaml)
+DIST_DEPTH = 2  # ViT-L's depth in every run of phase_dist, its width kept (cut_depth)
+DIST_PRED_DEPTH = 2  # the predictor's depth there (model.pred_depth; 12 in vitl16.yaml)
 DIST_MODULES = ("encoder", "predictor", "target")
 
 
@@ -5110,7 +5324,7 @@ def main() -> int:
     train = timed("train", phase_train, torch, setup)
     # the context encoder's fc1 fused and differentiated: H8 + LinearGelu
     force = train_setup(repo, fused_mlp="force")
-    train_force = timed("train_force", phase_train, torch, force)
+    train_force = timed("train_force", phase_train, torch, force, profile=False)
     ab = timed("ab", phase_force_ab, torch, setup, force)
     diff = timed("(c) diffusion-mode update", phase_diffusion, torch, repo)
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
@@ -5136,7 +5350,8 @@ def main() -> int:
     # padded), then remat
     with cut_depth("vit_large", VITL_CUT_DEPTH):
         tube = train_setup(repo, tube=TUBE_MASKS)
-        tube_train = timed("tube_train", phase_train, torch, tube, steps=3, b2=(False,))
+        tube_train = timed("tube_train", phase_train, torch, tube, steps=3, b2=(False,),
+                           profile=False)
         with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
             tube_app = timed("tube_app", phase_app, torch, repo, tube, workdir, epochs=1,
                              resume=False)
@@ -5155,11 +5370,13 @@ def main() -> int:
                          ("h1_f32_c80", f32["by_shape"][F32_H1_SHAPES[1]]),
                          ("h3_f32_k1280", f32["by_shape"][F32_H3_SHAPES[1]])):
             row["max_abs_err"] = max(row["max_abs_err"], vk["held"][key])
-        vith_train = timed("vith_train", phase_train, torch, vith, b2=())
-        vith384_train = timed("vith384_train", phase_train, torch, vith384, b2=())
+        vith_train = timed("vith_train", phase_train, torch, vith, b2=(), profile=False)
+        vith384_train = timed("vith384_train", phase_train, torch, vith384, b2=(),
+                              profile=False)
         evh = {}
         with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
-            vith_app = timed("vith_app", phase_app, torch, repo, vith, workdir, ipe=2, epochs=1)
+            vith_app = timed("vith_app", phase_app, torch, repo, vith, workdir, ipe=2, epochs=1,
+                             resume=False)
             vith384_app = timed("vith384_app", phase_app, torch, repo, vith384, workdir, ipe=2,
                                 epochs=1, resume=False, padded=False)
             enc_h = write_seeded_encoder(torch, workdir, "vit_huge")
@@ -5173,7 +5390,7 @@ def main() -> int:
             os.remove(enc_h)
     # vit_giant and vit_gigantic: their kernel instances at full shapes; at
     # GIANT_CUT_DEPTH blocks serving, updates at the config's batch, the K400
-    # 16x8x3 evals in bf16 and fp32 and vit_giant's app (fixed + resume, padded)
+    # 16x8x3 evals in bf16 and fp32 and vit_giant's app (fixed, padded)
     gsetups = {}
     for m, p in GIANTS:
         with cut_depth(m, GIANT_CUT_DEPTH):
@@ -5189,7 +5406,7 @@ def main() -> int:
               cut_depth(m, GIANT_CUT_DEPTH)):
             r["serve"] = timed(f"{m} serve", phase_serve, torch, workdir, m)
             r["train"] = timed(f"{m} train", phase_train, torch, gsetups[m],
-                               b2=(False,) if m == "vit_giant" else ())
+                               b2=(False,) if m == "vit_giant" else (), profile=False)
             os.remove(r["serve"]["enc_path"])
             enc_path = write_seeded_encoder(torch, workdir, m)
             for bf16 in (True, False):
@@ -5202,7 +5419,9 @@ def main() -> int:
             if m == "vit_giant":
                 r["app"] = timed(f"{m} app", phase_app, torch, repo,
                                  train_setup(repo, model_name=m, remat="attn"), workdir,
-                                 ipe=2, epochs=1)
+                                 ipe=2, epochs=1, resume=False)
+    # vit_small and vit_base: the c=16 instances, serving, updates, the app
+    small = small_base_paths(torch, repo)
     sl = _sum_launches(serve["launches"], off["launches"])
     al = app["padded"]["launches"]
     el, fl = ev16["launches"], ev32["launches"]
@@ -5302,9 +5521,9 @@ def main() -> int:
     tiny_runs = lambda k: ts[k] + tt[k] + tf[k] + tp[k]
     kernels += [
         kernel_entry("flash_attention_hm_fwd", hm_src, f"{fa_py}:122",
-                     tiny_runs("hm_fwd") - tp["hm_fwd_masked"], hm["fwd"]),
+                     tiny_runs("hm_fwd_c64") - tp["hm_fwd_c64_masked"], hm["fwd"]),
         kernel_entry("flash_attention_hm_fwd_masked", hm_src, f"{fa_py}:122",
-                     tp["hm_fwd_masked"], hm["fwd_masked"]),
+                     tp["hm_fwd_c64_masked"], hm["fwd_masked"]),
         kernel_entry("flash_attention_hm_bwd_dq", hm_src, f"{fa_py}:225",
                      hm["split_launches"]["dq"], hm["dq"]),
         kernel_entry("flash_attention_hm_bwd_dq_masked", hm_src, f"{fa_py}:225",
@@ -5312,9 +5531,9 @@ def main() -> int:
         kernel_entry("flash_attention_hm_bwd_dkv", hm_src, f"{fa_py}:254",
                      hm["split_launches"]["dkv"], hm["dkv"]),
         kernel_entry("flash_attention_hm_bwd_merged", hm_src, f"{fa_py}:318",
-                     tiny_runs("hm_dqkv") - tp["hm_dqkv_masked"], hm["dqkv"]),
+                     tiny_runs("hm_dqkv_c64") - tp["hm_dqkv_c64_masked"], hm["dqkv"]),
         kernel_entry("flash_attention_hm_bwd_merged_masked", hm_src, f"{fa_py}:318",
-                     tp["hm_dqkv_masked"], hm["dqkv_masked"]),
+                     tp["hm_dqkv_c64_masked"], hm["dqkv_masked"]),
         kernel_entry("flash_self_attention_fwd_c128", fa_src, f"{fa_py}:955",
                      tiny_runs("h1_c128"), c128["fwd"]),
         kernel_entry("flash_self_attention_fwd_masked_c128", fa_src, f"{fa_py}:955",
@@ -5480,14 +5699,50 @@ def main() -> int:
         if "ms" not in r:
             log(f"{key}: held against its plain version, max|d| {r['max_abs_err']:.3e} "
                 "(no launch on the driven path: not in the JSON line)")
+    # vit_small's 96-wide predictor (6 heads of 16): H4-H7 and H4-H7-fp32 at
+    # c=16, launched by its updates (fixed: H4 + H7; padded: masked, the last
+    # update's top rung H5 + H6)
+    for dt, src in (("bfloat16", hm_src), ("float32", f32_attn_src)):
+        sf = "_f32" if dt == "float32" else ""
+        runs = small["runs"]["vit_small 96" + (" fp32" if sf else "")]
+        x, p = runs["fixed"]["launches"], runs["padded"]["launches"]
+        rows = small["c16"][dt]
+        for name, line, kind, masked in (("fwd", 122, "fwd", False), ("fwd", 122, "fwd", True),
+                                         ("bwd_merged", 318, "dqkv", False),
+                                         ("bwd_merged", 318, "dqkv", True),
+                                         ("bwd_dq", 225, "dq", True),
+                                         ("bwd_dkv", 254, "dkv", True)):
+            key = f"hm{sf}_{kind}_c16"
+            n = p[key + "_masked"] if masked else x[key] + p[key] - p[key + "_masked"]
+            entry = f"flash_attention_hm_{name}{sf}{'_masked' if masked else ''}_c16"
+            if n < 1:
+                raise RuntimeError(f"{entry}: no launch on vit_small's path")
+            kernels.append(kernel_entry(entry, src, f"{fa_py}:{line}", n,
+                                        rows[f"hm_{kind}_c16{'_masked' if masked else ''}"]))
+        for key, r in rows.items():
+            if "ms" in r and not r["per_update"]:
+                log(f"{key} ({dt}): held and timed, no launch on the driven path (not in the "
+                    f"JSON line): max|d| {r['max_abs_err']:.3e}")
+    for label, modes in small["runs"].items():
+        for mode, t in modes.items():
+            log(f"card: {card}; {label} update (vitl16.yaml, {mode} masks, B={t['batch']}): "
+                f"median {t['median_ms']:.1f} ms/update, peak {t['peak_gib']:.2f} GiB, "
+                f"{device_split(t)}; launches/update {t['per_step']}"
+                + (f"; B=2 seeded loss rel {t['b2']['loss']['rel']:.2e}" if "b2" in t else ""))
+    for model in ("vit_small", "vit_base"):
+        r = small[model, "serve"]
+        log(f"card: {card}; {model} serve median {r['median_ms']:.3f} ms/request (B=2), peak "
+            f"{r['peak_gib']:.3f} GiB, features vs plain min cosine {r['feat_cos']:.7f}")
+    for mode, a in small["app"].items():
+        log(f"card: {card}; vit_base app (no model_name) {mode} (B={TRAIN_BATCH}): median step "
+            f"{a['step_ms']:.0f} ms, wall {a['wall_ms']:.0f} ms, host share "
+            f"{100 * a['host']:.1f} %, peak {a['peak_gib']:.2f} GiB")
     for mode, t in tiny32["runs"].items():
-        g = t["prof"]["groups"]
         pred = "the 2 x 96 predictor" if mode.startswith("narrow") else "the 12 x 384 predictor"
         log(f"card: {card}; vit_tiny fp32 update (vitl16.yaml, meta.dtype float32, "
             f"{t['mode']} masks, {pred}, "
             f"B={t['batch']}, remat 'attn'): median {t['median_ms']:.1f} ms/update, peak "
-            f"{t['peak_gib']:.2f} GiB, device {t['prof']['device_ms']:.1f} ms (" + ", ".join(
-                f"{k} {v:.1f}" for k, v in g.items()) + f"); launches/update {t['per_step']}"
+            f"{t['peak_gib']:.2f} GiB, {device_split(t)}; launches/update {t['per_step']}"
             + (f"; B=2 seeded loss rel {t['b2']['loss']['rel']:.2e}" if "b2" in t else ""))
     for mode in ("fixed", "padded"):
         a = ta[mode]
@@ -5501,24 +5756,20 @@ def main() -> int:
         f"{e['peak_gib']:.2f} GiB; features vs plain min cosine {min(e['feat_cos'].values()):.7f}")
     for mode in ("fixed", "padded"):
         t, a = f32runs[mode], f32app[mode]
-        g = t["prof"]["groups"]
         log(f"card: {card}; fp32 update (vitl16.yaml, meta.dtype float32, {mode} masks, "
             f"B={t['batch']}, remat 'attn'): median {t['median_ms']:.1f} ms/update, peak "
-            f"{t['peak_gib']:.2f} GiB, device {t['prof']['device_ms']:.1f} ms (" + ", ".join(
-                f"{k} {v:.1f}" for k, v in g.items()) + f"); launches/update {t['per_step']}; "
+            f"{t['peak_gib']:.2f} GiB, {device_split(t)}; launches/update {t['per_step']}; "
             f"B=2 seeded loss rel {t['b2']['loss']['rel']:.2e}; app ({VITL_CUT_DEPTH} blocks) "
             f"{mode}: median step "
             f"{a['step_ms']:.0f} ms, wall {a['wall_ms']:.0f} ms, host share "
             f"{100 * a['host']:.1f} %, peak {a['peak_gib']:.2f} GiB")
     for (config, name), modes in g32runs.items():
         for mode, t in modes.items():
-            g = t["prof"]["groups"]
             depth = "" if config == "vith16.yaml" else f", {t['depth']} blocks"
             log(f"card: {card}; fp32 update ({config}, {name}{depth}, meta.dtype float32, "
                 f"{mode} masks, B={t['batch']}, remat 'attn'): median {t['median_ms']:.1f} "
-                f"ms/update, peak {t['peak_gib']:.2f} GiB, device {t['prof']['device_ms']:.1f} "
-                "ms (" + ", ".join(f"{k} {v:.1f}" for k, v in g.items())
-                + f"); launches/update {t['per_step']}"
+                f"ms/update, peak {t['peak_gib']:.2f} GiB, {device_split(t)}; "
+                f"launches/update {t['per_step']}"
                 + (f"; B=2 seeded loss rel {t['b2']['loss']['rel']:.2e}" if "b2" in t else ""))
     for mode, a in g32app.items():
         log(f"card: {card}; vith16 fp32 app ({VITH_CUT_DEPTH} blocks) {mode}: median step "
@@ -5526,13 +5777,12 @@ def main() -> int:
             f"{100 * a['host']:.1f} %, peak {a['peak_gib']:.2f} GiB")
     for m, _ in GIANTS:
         r = gruns[m]
-        t, g = r["train"], r["train"]["prof"]["groups"]
+        t = r["train"]
         log(f"card: {card}; {m} ({GIANT_CUT_DEPTH} blocks) serve median "
             f"{r['serve']['median_ms']:.3f} ms/request (B=2), "
             f"peak {r['serve']['peak_gib']:.3f} GiB; update (vitl16.yaml, B={t['batch']}, remat "
             f"'attn'): median {t['median_ms']:.1f} ms/update, peak "
-            f"{t['peak_gib']:.2f} GiB, device {t['prof']['device_ms']:.1f} ms (" + ", ".join(
-                f"{k} {v:.1f}" for k, v in g.items()) + f"); launches/update {t['per_step']}")
+            f"{t['peak_gib']:.2f} GiB, {device_split(t)}; launches/update {t['per_step']}")
         for bf16 in (True, False):
             e = r[bf16]
             log(f"card: {card}; {m} ({GIANT_CUT_DEPTH} blocks) K400 16x8x3 eval "
@@ -5548,10 +5798,8 @@ def main() -> int:
     for name, r in ((f"tube (vitl16.yaml, ratio 0.9, {VITL_CUT_DEPTH} blocks)", tube_train),
                     (f"vith16.yaml ({VITH_CUT_DEPTH} blocks), remat 'attn'", vith_train),
                     (f"vith16_384.yaml ({VITH_CUT_DEPTH} blocks), remat 'attn'", vith384_train)):
-        g = r["prof"]["groups"]
         log(f"card: {card}; {name} update: median {r['median_ms']:.1f} ms/update, peak "
-            f"{r['peak_gib']:.2f} GiB, device {r['prof']['device_ms']:.1f} ms (" + ", ".join(
-                f"{k} {v:.1f}" for k, v in g.items()) + f"); launches/update {r['per_step']}")
+            f"{r['peak_gib']:.2f} GiB, {device_split(r)}; launches/update {r['per_step']}")
     for name, a in ((f"tube ({VITL_CUT_DEPTH} blocks)", tube_app),
                     (f"vith16 ({VITH_CUT_DEPTH} blocks)", vith_app),
                     (f"vith16_384 ({VITH_CUT_DEPTH} blocks)", vith384_app)):
@@ -5562,8 +5810,7 @@ def main() -> int:
     for r, m in remat.items():
         log(f"card: {card}; ViT-L update ({VITL_CUT_DEPTH} blocks) remat {r!r} "
             f"(B={TRAIN_BATCH}, in turns): median "
-            f"{m['median_ms']:.1f} ms, device {m['prof']['device_ms']:.1f} ms, peak "
-            f"{m['peak_gib']:.2f} GiB, bit-equal to remat False")
+            f"{m['median_ms']:.1f} ms, peak {m['peak_gib']:.2f} GiB, bit-equal to remat False")
     for (config, bf16), e in evh.items():
         log(f"card: {card}; {config} eval ({VITH_CUT_DEPTH} blocks) "
             f"{'bf16, batch 4' if bf16 else 'fp32, batch 1'}: "
@@ -5585,10 +5832,7 @@ def main() -> int:
         f"{train['median_ms']:.1f} ms/step (B={TRAIN_BATCH}), peak {train['peak_gib']:.2f} GiB, "
         f"device {train['prof']['device_ms']:.1f} ms/step (H1 "
         f"{train['prof']['groups']['H1 flash_fwd']:.1f}, H3 "
-        f"{train['prof']['groups']['H3/H8 linear_gelu']:.1f}); force device "
-        f"{train_force['prof']['device_ms']:.1f} ms/step (H1 "
-        f"{train_force['prof']['groups']['H1 flash_fwd']:.1f}, H3 + H8 "
-        f"{train_force['prof']['groups']['H3/H8 linear_gelu']:.1f})")
+        f"{train['prof']['groups']['H3/H8 linear_gelu']:.1f}); force {device_split(train_force)}")
     log(f"card: {card}; force update (fused trainable fc1, H8) median "
         f"{train_force['median_ms']:.1f} ms/step, peak {train_force['peak_gib']:.2f} GiB; A/B in "
         f"turns: default {ab['default']['median_ms']:.1f} ms / {ab['default']['peak_gib']:.2f} "
@@ -5622,8 +5866,8 @@ def main() -> int:
         f"device busy {instr['busy_ms']:.1f} ms")
     log(f"card: {card}; diffusion-mode update (vitl16.yaml, use_mask_tokens false, "
         f"B={TRAIN_BATCH}): {diff['median_ms']:.1f} ms (the default update "
-        f"{train['median_ms']:.1f} ms), peak {diff['peak_gib']:.2f} GiB, device "
-        f"{diff['prof']['device_ms']:.1f} ms; launches/update {diff['per_step']}")
+        f"{train['median_ms']:.1f} ms), peak {diff['peak_gib']:.2f} GiB, {device_split(diff)}; "
+        f"launches/update {diff['per_step']}")
     for (frames, px), r in ((k, v) for k, v in off.items() if k != "launches"):
         log(f"card: {card}; serve off-size {frames} frames x {px} px (N={r['n']}, B=2): "
             f"median {r['median_ms']:.3f} ms/request (on-size {serve['median_ms']:.3f})")

@@ -19,8 +19,8 @@
 //   * wgmma: the shared-memory matrix descriptor (make_desc, with its
 //     swizzle mode), wgmma_fence / wgmma_commit / wgmma_wait<N>, the
 //     products wgmma_ss (A and B from shared memory, either K-major or
-//     MN-major through the transpose bits; n32/n64/n128) and
-//     wgmma_rs (A from registers, n8/n32/n64/n80/n96/n128), bf16 in, fp32 out,
+//     MN-major through the transpose bits; n16/n32/n64/n128) and
+//     wgmma_rs (A from registers, n8/n16/n32/n64/n80/n96/n128), bf16 in, fp32 out,
 //     and fence_regs / keep_regs, which hold accumulators and register
 //     operands in place across an asynchronous product;
 //   * setmaxnreg (reg_alloc / reg_dealloc) and named barriers (bar_sync);
@@ -273,6 +273,19 @@ __device__ __forceinline__ void keep_regs(const uint32_t (&a)[R][4]) {
 
 // The products, bf16 x bf16 -> fp32, m64nNk16 for one warpgroup; scale_d
 // = 0 overwrites d, 1 accumulates. Generated, one per shape.
+// D[64 x 16] (+)= A . B, A and B bf16 from shared memory (descriptors; H7's
+// dQ partial at head dim 16)
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransA), "n"(TransB));
+}
+
 // D[64 x 32] (+)= A . B, A and B bf16 from shared memory (descriptors)
 template <int TransA, int TransB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
@@ -335,6 +348,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[4], const uint32_t (&a)[4], 
       "%0, %1, %2, %3"
       "}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB));
+}
+
+// D[64 x 16] (+)= A . B, A bf16 in registers (the m16n8k16 A layout per
+// warp), B bf16 from shared memory (H4-H7 at head dim 16)
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB));
 }
 
@@ -473,11 +500,13 @@ inline int sm_count() {
   return counts[dev];
 }
 
-// swizzle: the descriptor's mode (kSwizzle128/64/32)
+// swizzle: the descriptor's mode (kSwizzle128/64/32; any other is refused)
 inline int make_tensor_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
                            const uint64_t* strides, const uint32_t* box, int swizzle) {
   const EncodeTiledFn fn = encode_tiled();
   if (!fn) return (int)cudaErrorNotSupported;
+  if (swizzle != kSwizzle128 && swizzle != kSwizzle64 && swizzle != kSwizzle32)
+    return (int)cudaErrorInvalidValue;
   const uint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUtensorMapSwizzle sw = swizzle == kSwizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : swizzle == kSwizzle64 ? CU_TENSOR_MAP_SWIZZLE_64B

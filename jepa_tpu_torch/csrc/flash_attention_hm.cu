@@ -22,7 +22,7 @@
 // [B, N, 3*H*C], are used in place. lse and delta are [B, H, Nq] fp32; the
 // optional key mask kvm is [B, Nk] uint8 (1 = valid), a template flag: the
 // JAX package's row mask [B, 8, Nk] (K6, K7) and column mask [B, Nk, 8]
-// (K8, K9) are both this one array. C in {32, 64}.
+// (K8, K9) are both this one array. C in {16, 32, 64}.
 //
 // Numerics of K6: q * (scale*log2e) rounded to bf16 before QK^T; a
 // masked score is -1e30 before the row max; p = exp2(s - m) in fp32; the
@@ -51,7 +51,8 @@
 // in place and rows past N come back as zeros, never as the next head's
 // rows: the Q tile once, then 128-key K and V tiles into a 3-stage ring,
 // each stage guarded by a full and an empty mbarrier. The box is the whole
-// head row: C=64 in the 128-byte swizzle, C=32 in the 64-byte swizzle.
+// head row: C=64 in the 128-byte swizzle, C=32 in the 64-byte swizzle,
+// C=16 in the 32-byte swizzle (FwdGeo).
 // Each consumer warpgroup (232 registers) owns 64 query rows: it scales
 // its Q rows by scale*log2e in fp32 in place (fence.proxy.async before
 // wgmma reads them), takes S = Q K^T by wgmma m64n128k16 from shared
@@ -184,10 +185,20 @@ constexpr int DS_RB = DKV_STEP * 2;
 constexpr int DS_TILE = 64 * DS_RB;
 static_assert(DS_RB == 128, "H7's dS^T tile rows are one 128-byte swizzle row");
 
+// C=16 (vit_small's 96-wide predictor, 6 heads of 16): a 32-byte head row,
+// so every product that contracts the head dim (S = Q K^T, dP = dO V^T,
+// S^T = K Qs^T, dP^T = V dO^T) is one k16 step, and every product whose N
+// is the head dim (O = P V, dQ = dS K, dV = P^T dO, dK = dS^T Qs, H7's
+// dQ_part) is m64n16k16; the MN-major operand (V, K, dO, Qs) is then
+// exactly one 32-byte swizzle atom wide. The stores' XOR below, (off >> 7)
+// & SWZ_MASK into the 16-byte chunk index, is the 32-byte pattern at
+// SWZ_MASK = 1 (bit 7 into bit 4).
 template <int C>
 struct FwdGeo {
+  static_assert(C == 16 || C == 32 || C == 64,
+                "FwdGeo: the head row is one swizzle row of 32, 64 or 128 bytes");
   static constexpr int RB = 2 * C;
-  static constexpr int SWZ = C == 64 ? jt::kSwizzle128 : jt::kSwizzle64;
+  static constexpr int SWZ = C == 64 ? jt::kSwizzle128 : C == 32 ? jt::kSwizzle64 : jt::kSwizzle32;
   static constexpr int SWZ_MASK = RB / 16 - 1;  // row bits XORed into the 16-byte chunk
   static constexpr int TILE = 128 * RB;
   static constexpr int SMEM = TILE * (1 + 2 * FWD_STAGES) + 8 * (1 + 2 * FWD_STAGES) + 1024;
@@ -958,5 +969,6 @@ int launch_bwd(const HmArgs* a, void* stream) {
     return launch_bwd<C, true>(a, stream);                                     \
   }
 
+JT_HM_ENTRIES(16)
 JT_HM_ENTRIES(32)
 JT_HM_ENTRIES(64)

@@ -1,7 +1,7 @@
 // H4-H7-fp32: head-major flash attention, forward and backward, fp32
 // (vit_tiny served, evaluated or pretrained in fp32: its encoder's 3 heads
 // of 64 and its 96-wide predictor's 3 heads of 32 have no token-major head
-// split).
+// split; nor has vit_small's 96-wide predictor, 6 heads of 16).
 //
 // Replaces the fp32 instances of the head-major TPU kernels of
 // jepa_tpu/ops/flash_attention.py, which are dtype-generic:
@@ -18,7 +18,8 @@
 // place; lse and delta [B, H, Nq] fp32; the optional key mask kvm [B, Nk]
 // uint8. The rows, bases and strides must be multiples of 16 bytes (the
 // float4 cp.async copies; ops/flash_attention.py::check_hm_tma_layout with
-// 4-byte elements). C in {32, 64}.
+// 4-byte elements). C in {16, 32, 64}; at C=16 each thread's columns are
+// one float2 (BwdGeo: no float4 group, NV = 0).
 //
 // K6's epilogue: o = acc / max(l, 1e-30), lse = m + log2(max(l, 1e-30)); a
 // row with no valid key gets the uniform average. H7-fp32 (K9's merged
@@ -42,5 +43,6 @@
     return jtf32::launch_dkv<C, true>(*a, stream);                             \
   }
 
+JT_HM_F32_ENTRIES(16)
 JT_HM_F32_ENTRIES(32)
 JT_HM_F32_ENTRIES(64)

@@ -47,7 +47,7 @@
 // keys in the dk/dv kernel. Thread (rg, cg) of warp w (rg = 4w + lane%4, cg
 // = lane/4) owns the block's rows 4rg..4rg+3 and, per 32-row tile of the
 // streamed operand, its rows cg + 8i (i < 4) and the head columns 32g +
-// 4cg.. (g < C/32; at C=80, 64+2cg.. too) of its outputs, so a row's 8
+// 4cg.. (g < C/32; at C=16 and 80, 32*(C/32)+2cg.. too) of its outputs, so a row's 8
 // owners sit in one warp. The block's own operands (scaled Qs in the
 // forward and the dq kernel, K and V in the dk/dv kernel, dO) are stored
 // c-major once ([C][128]); the streamed tiles (32 rows, padded to C+4
@@ -61,7 +61,7 @@
 //
 //   forward: S = Qs K^T; the row max over the tile by shuffles among the
 //   row's 8 owners; p = exp2(s - m); O += P V and l += p in key order.
-//   Head dims 32, 64 and 80 ask for two blocks an SM (128 registers a
+//   Head dims 16, 32, 64 and 80 ask for two blocks an SM (128 registers a
 //   thread); at 96 and 128 the accumulators (48 and 64 a thread) and the
 //   shared memory (113 and 145 KB a block) leave room for one.
 //
@@ -124,8 +124,8 @@ struct F32Geo {
   static constexpr int SV = F32_BKV * C;         // V tile [32][C]
   static constexpr int SP = 8 * F32_BKV * 16;    // p, per warp [32 keys][16 rows]
   static constexpr int SMEM = 4 * (SQ + F32_STAGES * (SK + SV) + SP);
-  static constexpr int NV = C / 32;              // float4 column groups of O (1-4)
-  static constexpr int NT = (C % 32) / 8;        // float2 tail columns of O (0; 2 at C=80)
+  static constexpr int NV = C / 32;              // float4 column groups of O (0-4)
+  static constexpr int NT = (C % 32) / 8;        // float2 tail columns of O (0; 2 at C=16, 80)
   static constexpr int COLS = 4 * NV + NT;       // O columns a thread owns
   static constexpr int MINB = C <= 80 ? 2 : 1;   // blocks an SM, for the launch bound
 };
@@ -325,10 +325,10 @@ struct BwdGeo {
   static constexpr int SR = C * BR;        // a block operand, c-major [C][128]
   static constexpr int ST = BT * LD;       // a streamed tile [32][C+4]
   static constexpr int SW = 8 * BT * 16;   // p or ds, per warp [32][16 rows]
-  static constexpr int NV = C / 32;        // float4 column groups a thread owns (1-4)
-  static constexpr int NT = (C % 32) / 8;  // float2 tail columns a thread owns (0; 2 at C=80)
+  static constexpr int NV = C / 32;        // float4 column groups a thread owns (0-4)
+  static constexpr int NT = (C % 32) / 8;  // float2 tail columns a thread owns (0; 2 at C=16, 80)
   static constexpr int COLS = 4 * NV + NT; // output columns a thread owns
-  static constexpr int MINB = C == 32 ? 2 : 1;  // blocks an SM, for the launch bound
+  static constexpr int MINB = C <= 32 ? 2 : 1;  // blocks an SM, for the launch bound
   // the 8 column groups' float4s and float2 tails cover columns [0, C) exactly
   static_assert(C % 16 == 0 && (NT == 0 || NT == 2) && 8 * COLS == C,
                 "BwdGeo: the columns a block owns must cover the head dim exactly");
@@ -426,7 +426,7 @@ __device__ __forceinline__ void score_pair(float (&a)[4][4], float (&bb)[4][4], 
   }
 }
 
-// the columns 32g + 4cg.. (g < C/32) and, at C=80, 64 + 2cg.. of a tile row
+// the columns 32g + 4cg.. (g < C/32) and, at C=16 and 80, 32*(C/32) + 2cg.. of a tile row
 template <int C>
 __device__ __forceinline__ void tile_cols(float (&v)[BwdGeo<C>::COLS], const float* row, int cg) {
   constexpr int NV = BwdGeo<C>::NV;
@@ -441,7 +441,7 @@ __device__ __forceinline__ void tile_cols(float (&v)[BwdGeo<C>::COLS], const flo
   }
 }
 
-// v[...] * mul into a row's columns 32g + 4cg.. (and the C=80 tail 64 + 2cg..)
+// v[...] * mul into a row's columns 32g + 4cg.. (and the C=16 / 80 tail 32*(C/32) + 2cg..)
 template <int C>
 __device__ __forceinline__ void put_cols(float* o, const float* v, float mul, int cg) {
   constexpr int NV = BwdGeo<C>::NV;

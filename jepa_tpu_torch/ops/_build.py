@@ -52,7 +52,7 @@ _SIGNATURES = {
     # head-major H4-H7 and H4-H7-fp32: a pointer to the HmArgs struct
     # (ops/flash_attention.py), stream
     **{f"jt_flash_hm_{kind}{dt}_c{c}": [_P, _P]
-       for kind in ("fwd", "dq", "dkv", "dqkv") for dt in ("", "_f32") for c in (32, 64)},
+       for kind in ("fwd", "dq", "dkv", "dqkv") for dt in ("", "_f32") for c in (16, 32, 64)},
     # H1-fp32: fp32 qkv, key mask (None: unmasked), o, lse, B, N, H, scale*log2e,
     # stream (ops.flash_attention.F32_HEAD_DIMS)
     **{f"jt_flash_fwd_f32_c{c}": [_P, _P, _P, _P, _I, _I, _I, _F, _P] for c in _TM_HEAD_DIMS},

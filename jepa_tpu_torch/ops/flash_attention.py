@@ -69,13 +69,14 @@ H4 forward (K6), H5 dq (K7), H6 dk/dv (K8) and H7, the merged backward
 ``_bwd_merged`` (``merged_bwd``, its ``_merged_fits`` rule). They read
 every operand by (b, h, n) strides, so the three planes of a packed
 [3, B, H, N, c] qkv, or a permuted view of the token-major projection,
-are read with no copy. bf16 with c in {32, 64} (``HM_HEAD_DIMS``); fp32
-(H4-H7-fp32, ``csrc/flash_attention_hm_f32.cu``: the FFMA kernels of
-H1-fp32 and H2-fp32 through the same strides) with c in {32, 64}
-(``HM_F32_HEAD_DIMS``: vit_tiny's encoder and its 96-wide predictor);
-other head dims and a mix of dtypes raise on CUDA (the plain versions take
-any). K6's numerics: row max, p in fp32, the denominator the fp32 sum of
-the *unrounded* p, p rounded to bf16 only as the PV operand, o / max(l,
+are read with no copy. bf16 with c in {16, 32, 64} (``HM_HEAD_DIMS``);
+fp32 (H4-H7-fp32, ``csrc/flash_attention_hm_f32.cu``: the FFMA kernels of
+H1-fp32 and H2-fp32 through the same strides) with c in {16, 32, 64}
+(``HM_F32_HEAD_DIMS``): vit_tiny's encoder (3 x 64) and its 96-wide
+predictor (3 x 32), vit_small's 96-wide predictor (6 x 16); other head
+dims and a mix of dtypes raise on CUDA (the plain versions take any).
+K6's numerics: row max, p in fp32, the denominator the fp32 sum of the
+*unrounded* p, p rounded to bf16 only as the PV operand, o / max(l,
 1e-30), lse = m + log2(max(l, 1e-30)); a fully masked row gives the
 uniform average.
 
@@ -106,8 +107,10 @@ _LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128)
 F32_HEAD_DIMS = (32, 64, 80, 96, 128)  # H1-fp32: the predictors' 32, the encoders' 64-128
 F32_BWD_HEAD_DIMS = (32, 64, 80, 96, 128)  # H2-fp32: the predictors' 32, the encoders' 64-128
-HM_HEAD_DIMS = (32, 64)   # H4-H7, bf16
-HM_F32_HEAD_DIMS = (32, 64)  # H4-H7-fp32: vit_tiny's encoder and 96-wide predictor
+# H4-H7 (bf16) and H4-H7-fp32: vit_tiny's encoder (64) and 96-wide predictor
+# (32), vit_small's 96-wide predictor (16)
+HM_HEAD_DIMS = (16, 32, 64)
+HM_F32_HEAD_DIMS = (16, 32, 64)
 
 # wrapper-counted launches in this process
 launches = 0      # H1 (bf16), every head dim, masked or not
@@ -126,9 +129,10 @@ dq_masked_launches = 0
 dkv_launches_by_head_dim = {c: 0 for c in KERNEL_HEAD_DIMS}  # H2 dk/dv, per instance
 dq_launches_by_head_dim = {c: 0 for c in KERNEL_HEAD_DIMS}   # H2 dq, per instance
 HM_KINDS = ("fwd", "dq", "dkv", "dqkv")  # H4, H5, H6, H7
-hm_launches = dict.fromkeys(HM_KINDS, 0)         # masked or not
-hm_masked_launches = dict.fromkeys(HM_KINDS, 0)  # of which with a key mask
-# H4-H7-fp32 by (kind, head dim): masked or not, and of which with a key mask
+# H4-H7 and H4-H7-fp32 by (kind, head dim): masked or not, and of which with
+# a key mask
+hm_launches = {(k, c): 0 for k in HM_KINDS for c in HM_HEAD_DIMS}
+hm_masked_launches = dict.fromkeys(hm_launches, 0)
 hm_f32_launches = {(k, c): 0 for k in HM_KINDS for c in HM_F32_HEAD_DIMS}
 hm_f32_masked_launches = dict.fromkeys(hm_f32_launches, 0)
 
@@ -760,8 +764,8 @@ def _launch_hm(kind: str, q, k, v, scale: float, kv_mask, **ops) -> None:
         hm_f32_launches[kind, c] += 1
         hm_f32_masked_launches[kind, c] += mask is not None
     else:
-        hm_launches[kind] += 1
-        hm_masked_launches[kind] += mask is not None
+        hm_launches[kind, c] += 1
+        hm_masked_launches[kind, c] += mask is not None
 
 
 def flash_fwd_hm_cuda(q, k, v, scale: float, kv_mask=None):

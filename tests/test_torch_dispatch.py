@@ -435,16 +435,16 @@ def test_jax_tm_kernel_picks(name):
     assert all(v == "K1 + K3" for v in trainable)
 
 
-def _f32_vitl16(mode, model_name=None, config="vitl16.yaml", cfg=None):
-    """``config`` (or the parsed ``cfg``) with ``meta.dtype: float32`` (and
-    ``model_name``) in the fixed mode (the calibrated keep counts) or the
-    padded mode (every rung of each mask config's cap ladder), as its call
-    list."""
+def _f32_vitl16(mode, model_name=None, config="vitl16.yaml", cfg=None, dtype="float32"):
+    """``config`` (or the parsed ``cfg``) with ``meta.dtype: float32`` (or
+    ``dtype``; and ``model_name``) in the fixed mode (the calibrated keep
+    counts) or the padded mode (every rung of each mask config's cap
+    ladder), as its call list."""
     from jepa_tpu_torch.masks.multiblock3d import calibrate_pad_ladders
 
     if cfg is None:
         cfg = yaml.safe_load((_CONFIGS / "pretrain" / config).read_text())
-    cfg["meta"]["dtype"] = "float32"
+    cfg["meta"]["dtype"] = dtype
     keep = None
     if mode == "padded":
         d = cfg["data"]
@@ -565,3 +565,57 @@ def test_f32_fixture_dispatch():
     table = [(call, _resolve(call)) for call in _pretrain_calls(cfg)]
     assert table and all(how.startswith("eager") for _, how in table)
     assert all(call.dtype == torch.float32 for call, _ in table)
+
+
+# (model, predictor width) of vitl16.yaml with vit_small (its 384-wide
+# predictor, 6 x 64, and the fixture's 96-wide one, 6 x 16) and vit_base
+# (the app's default model; its 384-wide predictor, 12 x 32), in bf16 and
+# fp32, fixed and padded
+_SMALL_BASE = [(m, w, dt, mode) for m, w in (("vit_small", 384), ("vit_small", 96),
+                                            ("vit_base", 384))
+               for dt in ("bfloat16", "float32") for mode in ("fixed", "padded")]
+
+
+@pytest.mark.parametrize("model,pred_width,dtype,mode", _SMALL_BASE,
+                         ids=[f"{m}-{w}-{dt}-{mode}" for m, w, dt, mode in _SMALL_BASE])
+def test_small_base_pretrain_resolves(model, pred_width, dtype, mode):
+    """vitl16.yaml with vit_small or vit_base: every call of the update
+    reaches a kernel entry of the dtype or the eager path the JAX package
+    takes. The encoders (6 and 12 heads of 64) split token-major: H1 (+ H2
+    under a gradient) at c=64, H1-fp32 / H2-fp32 in fp32; the 384-wide
+    predictors token-major at c=64 (vit_small) and c=32 (vit_base); the
+    96-wide predictor (6 heads of 16, no token-major split) head-major at
+    c=16: H4 + H7 at the fixed sequences and the merged rungs, H4 + H5 + H6
+    at the padded top rung (1664 tokens); the target's fc1 (K=384, F=1536;
+    K=768, F=3072) H3 or H3-fp32."""
+    cfg = yaml.safe_load((_CONFIGS / "pretrain" / "vitl16.yaml").read_text())
+    cfg["model"].update(pred_embed_dim=pred_width,
+                        pred_depth=2 if pred_width == 96 else cfg["model"]["pred_depth"])
+    table = [(call, _resolve(call)) for call in _f32_vitl16(mode, model, cfg=cfg, dtype=dtype)]
+    for call, how in table:
+        print(f"  {model} {pred_width} {dtype} {mode} {call.where:32s} -> {how}")
+    f32 = "_f32" if dtype == "float32" else ""
+    for call, how in table:
+        if how.startswith("eager"):  # fewer than 128 tokens, or an unfused fc1
+            assert (isinstance(call, Attn) and call.nq < 128) or (
+                isinstance(call, Fc1) and not call.fused), (call, how)
+            continue
+        if isinstance(call, Fc1):
+            assert call.where == "target fc1" and how == f"jt_linear_gelu{f32 or '_bf16'}"
+            assert (call.k, call.f) == {"vit_small": (384, 1536), "vit_base": (768, 3072)}[model]
+            continue
+        if "predictor" in call.where and pred_width == 96:
+            kinds = ["dqkv"] if merged_bwd(call.nq, call.nk, 16) else ["dq", "dkv"]
+            want = [f"jt_flash_hm_fwd{f32}_c16"] + [f"jt_flash_hm_{k}{f32}_c16" for k in kinds]
+        else:
+            cp = 32 if "predictor" in call.where and model == "vit_base" else 64
+            want = [f"jt_flash_fwd{f32}_c{cp}"]
+            want += [f"jt_flash_bwd_{k}{f32}_c{cp}" for k in ("dkv", "dq")] * call.grad
+        assert how == " + ".join(want), (call, how)
+    hows = " ".join(how for _, how in table)
+    if pred_width == 96:  # H7 at the fixed sequences; H5 + H6 at the padded top rung
+        assert f"jt_flash_hm_dqkv{f32}_c16" in hows
+        assert (f"jt_flash_hm_dq{f32}_c16" in hows) == (mode == "padded")
+    trainable = [how for call, how in table if isinstance(call, Attn) and call.grad
+                 and not how.startswith("eager")]
+    assert len(trainable) == (3 if mode == "fixed" else 12)

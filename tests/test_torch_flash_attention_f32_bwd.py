@@ -113,15 +113,18 @@ def test_f32_backward_outside_its_instances_raises(c):
             launch(qkv, None, None, None, None, 16, c**-0.5)
 
 
-@pytest.mark.parametrize("case", ["fp32 c=16", "fp32 q, bf16 k"])
+@pytest.mark.parametrize("case", ["fp32 c=48", "bf16 c=48", "fp32 q, bf16 k"])
 def test_f32_head_major_outside_its_instances_raises(case):
-    """H4-H7-fp32 take fp32 operands at head dims 32 and 64: an fp32 call at
-    another head dim raises NotImplementedError, and operands of two dtypes
-    raise ValueError, on a CUDA tensor before any launch."""
-    c = 16 if case == "fp32 c=16" else 64
-    q = _OnTheCard(dtype=torch.float32, shape=(2, 3, 40, c))
-    k = _OnTheCard(dtype=torch.float32 if c == 16 else torch.bfloat16, shape=(2, 3, 40, c))
-    assert c not in fa.HM_F32_HEAD_DIMS or case != "fp32 c=16"
-    with pytest.raises(NotImplementedError if c == 16 else ValueError,
-                       match="head dim" if c == 16 else "one dtype"):
+    """H4-H7 (bf16) and H4-H7-fp32 take head dims 16, 32 and 64: a call at
+    another head dim (48: a multiple of 16 that no model's head-major route
+    reaches) raises NotImplementedError in either dtype, and operands of two
+    dtypes raise ValueError, on a CUDA tensor before any launch; nothing
+    falls back to a plain version."""
+    c = 64 if case == "fp32 q, bf16 k" else 48
+    dt = torch.bfloat16 if case.startswith("bf16") else torch.float32
+    q = _OnTheCard(dtype=dt, shape=(2, 3, 40, c))
+    k = _OnTheCard(dtype=torch.bfloat16 if c == 64 else dt, shape=(2, 3, 40, c))
+    assert fa.HM_F32_HEAD_DIMS == fa.HM_HEAD_DIMS == (16, 32, 64)
+    with pytest.raises(NotImplementedError if c == 48 else ValueError,
+                       match="head dim" if c == 48 else "one dtype"):
         fa._check_hm("flash_hm_fwd_cuda", q, k, k, None, {})

@@ -55,7 +55,7 @@ def _close(got, want, dtype, grad=False):
 
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("c", [16, 32, 64])
 def test_bhnd_forward_matches_jax(c, dtype, masked):
     rng = np.random.default_rng(c + masked)
     b, h, nq, nk = 2, 2, 37, 149
@@ -97,7 +97,14 @@ _PACKED = [(2, 2, 149, 64, "float32", False, "merged"),
            (1, 1, 376, 64, "bfloat16", False, "merged"),  # vit_tiny's fixed context
            (1, 1, 1568, 32, "float32", False, "split"),
            (1, 1, 1568, 64, "bfloat16", True, "split"),
-           (1, 1, 1568, 32, "bfloat16", True, "split")]
+           (1, 1, 1568, 32, "bfloat16", True, "split"),
+           # c=16: vit_small's and vit_base's 96-wide predictors (6 and 12 heads of 16)
+           (2, 2, 149, 16, "float32", False, "merged"),
+           (2, 2, 149, 16, "float32", True, "merged"),
+           (2, 2, 149, 16, "bfloat16", False, "merged"),
+           (2, 2, 149, 16, "bfloat16", True, "merged"),
+           (1, 1, 1568, 16, "float32", True, "split"),
+           (1, 1, 1568, 16, "bfloat16", False, "split")]
 
 
 @pytest.mark.parametrize("b,h,n,c,dtype,masked,kind", _PACKED,
