@@ -7,9 +7,9 @@
                                             # check (phase_b2_spread)
     python3 chip_smoke.py --kernel-ab --other DIR...
                                             # only H1-H8, H1-fp32, H2-fp32,
-                                            # H3-fp32 and H8-fp32 against
-                                            # another checkout's
-                                            # (phase_kernel_ab)
+                                            # H5-H7-fp32, H3-fp32 and
+                                            # H8-fp32 against another
+                                            # checkout's (phase_kernel_ab)
     python3 chip_smoke.py --update-ab --other DIR
                                             # only the 1-rank vit_tiny and
                                             # ViT-L updates of this checkout
@@ -4917,9 +4917,9 @@ AB_H2_ROWS = (
     ("H2 c=80 B=1 N=333 H=16 (ragged)", 1, 333, 16, 80, 80, None),
 )
 # (label, B, N, H, c, c_real, mid) of the A/B mode's fp32 token-major rows:
-# H1-fp32 (masked where mid is not None) and both H2-fp32 kernels at fp32
-# pretraining's instances, c=64, c=24->32 and c=104->128, masked or not, and a
-# ragged N
+# H1-fp32 (masked where mid is not None) and both H2-fp32 kernels, then their
+# sum, at every fp32 pretraining instance: c=64, c=24->32, c=80, c=88->96,
+# c=104->128 and c=128, masked or not, vit_small's 6 heads of 64, and a ragged N
 AB_F32_TM_ROWS = (
     ("c=64 B=24 N=376 H=16 (ViT-L fp32 context)", 24, 376, 16, 64, 64, None),
     ("c=64 masked B=24 N=384 H=16 (context rung)", 24, 384, 16, 64, 64, 0),
@@ -4928,6 +4928,29 @@ AB_F32_TM_ROWS = (
     ("c=64 masked B=2 N=333 H=16 (ragged)", 2, 333, 16, 64, 64, 0),
     ("c=104->128 B=24 N=513 H=16 (vit_gigantic fp32 context)", 24, 513, 16, 128, 104, None),
     ("c=104->128 masked B=24 N=513 H=16", 24, 513, 16, 128, 104, 0),
+    ("c=80 B=24 N=376 H=16 (vith16 fp32 context)", 24, 376, 16, 80, 80, None),
+    ("c=88->96 B=24 N=376 H=16 (vit_giant fp32 context)", 24, 376, 16, 96, 88, None),
+    ("c=128 B=24 N=1109 H=3 (vit_tiny fp32 predictor)", 24, 1109, 3, 128, 128, None),
+    ("c=128 masked B=24 N=1664 H=3 (vit_tiny fp32 predictor rung)", 24, 1664, 3, 128, 128, 256),
+    ("c=64 B=24 N=376 H=6 (vit_small fp32 context)", 24, 376, 6, 64, 64, None),
+)
+# (label, entry kind, B, H, Nq, Nk, c, masked) of the A/B mode's head-major
+# fp32 rows: H7-fp32 ("dqkv") at vit_tiny's fp32 context and top rung, its 2 x
+# 96 predictor (c=32) and vit_small's (c=16), fixed and a padded rung; H5-fp32
+# ("dq") and H6-fp32 ("dkv") at the split backward's geometry (N >= ~1300)
+AB_HM_F32_ROWS = (
+    ("H7-fp32 B=24 N=376 H=3 c=64 (vit_tiny fp32 context)", "dqkv", 24, 3, 376, 376, 64, False),
+    ("H7-fp32 masked B=24 N=640 H=3 c=64 (top context rung)", "dqkv", 24, 3, 640, 640, 64, True),
+    ("H7-fp32 B=24 N=1109 H=3 c=32 (vit_tiny 2 x 96 predictor)", "dqkv", 24, 3, 1109, 1109, 32,
+     False),
+    ("H7-fp32 masked B=24 N=1408 H=3 c=32", "dqkv", 24, 3, 1408, 1408, 32, True),
+    ("H7-fp32 B=24 N=1109 H=6 c=16 (vit_small 2 x 96 predictor)", "dqkv", 24, 6, 1109, 1109, 16,
+     False),
+    ("H7-fp32 masked B=24 N=1408 H=6 c=16", "dqkv", 24, 6, 1408, 1408, 16, True),
+    ("H5-fp32 B=24 N=1568 H=3 c=64 (split backward)", "dq", 24, 3, 1568, 1568, 64, False),
+    ("H6-fp32 B=24 N=1568 H=3 c=64 (split backward)", "dkv", 24, 3, 1568, 1568, 64, False),
+    ("H5-fp32 masked B=24 N=1664 H=6 c=16 (top rung)", "dq", 24, 6, 1664, 1664, 16, True),
+    ("H6-fp32 masked B=24 N=1664 H=6 c=16 (top rung)", "dkv", 24, 6, 1664, 1664, 16, True),
 )
 
 
@@ -4964,8 +4987,8 @@ def _host_us(torch, fn, n=48) -> float:
 
 def phase_kernel_ab(torch, others):
     """The bf16 H1, H3, H8, H4 and H2, H6, H7 and H5, and H1-fp32 (masked or
-    not), H2-fp32, H3-fp32 and H8-fp32, of this checkout against each other
-    checkout's (``python3
+    not), H2-fp32 (each kernel and their sum), H5-H7-fp32, H3-fp32 and
+    H8-fp32, of this checkout against each other checkout's (``python3
     chip_smoke.py --kernel-ab --other DIR...``, not part of the smoke run),
     at the shapes of PERF.md's kernel tables, both called through the C
     entry points (shared names and signatures). Per
@@ -5025,6 +5048,23 @@ def phase_kernel_ab(torch, others):
             + ", ".join(f"{n} {v:.1f}" for n, v in row["host_us"].items())
             + ("; mean lse - plain " + ", ".join(f"{n} {row[f'{n} extra']:+.3e}" for n in libs)
                if after else ""))
+
+    def ab_sum(label, pair, lib, whole):
+        """The dk/dv and dq rows ``pair`` summed, beside the bound ``whole``
+        and SDPA's whole backward ``lib``."""
+        row = dict(row=label, library_ms=lib, bound=whole, ms=pair[0]["ms"] + pair[1]["ms"])
+        for name in others:
+            row[f"{name} ms"] = pair[0][f"{name} ms"] + pair[1][f"{name} ms"]
+            row[f"{name} speedup"] = row[f"{name} ms"] / row["ms"]
+            row[f"{name} max|this - other|"] = max(
+                p[f"{name} max|this - other|"] for p in pair)
+        row["bound_share"] = whole[0] / row["ms"]
+        rows.append(row)
+        log(f"A/B {row['row']}: this {row['ms']:.4f} ms, " + ", ".join(
+            f"{n} {row[f'{n} ms']:.4f} ms (x{row[f'{n} speedup']:.2f}, max|d| "
+            f"{row[f'{n} max|this - other|']:.2e})" for n in others)
+            + f"; bound {whole[0]:.4f} ms ({whole[2]}, share {100 * row['bound_share']:.1f} %), "
+            f"library (SDPA backward) {lib:.4f} ms (x{lib / row['ms']:.2f} of this)")
 
     for label, b, n, h, c, c_real, mid in AB_H1_ROWS:
         x = torch.randn((b, n, 3, h, c), generator=gen, device="cuda")
@@ -5107,18 +5147,8 @@ def phase_kernel_ab(torch, others):
                                            qkv_b + o_b + 2 * vec_b + m_b, outs * o_b, pairs))
             ab(row, f"jt_flash_bwd_{kind}_c{c}", args, (dqkv[..., cols],))
             pair.append(row)
-        whole = attn_bound_ms(b, n, h, c_real, 5, qkv_b + o_b + 2 * vec_b + m_b, qkv_b, pairs)
-        row = dict(row=f"{label} dkv + dq", library_ms=lib, bound=whole,
-                   ms=pair[0]["ms"] + pair[1]["ms"])
-        for name in others:
-            row[f"{name} ms"] = pair[0][f"{name} ms"] + pair[1][f"{name} ms"]
-            row[f"{name} speedup"] = row[f"{name} ms"] / row["ms"]
-        row["bound_share"] = whole[0] / row["ms"]
-        rows.append(row)
-        log(f"A/B {row['row']}: this {row['ms']:.4f} ms, " + ", ".join(
-            f"{n} {row[f'{n} ms']:.4f} ms (x{row[f'{n} speedup']:.2f})" for n in others)
-            + f"; bound {whole[0]:.4f} ms ({whole[2]}, share {100 * row['bound_share']:.1f} %), "
-            f"library (SDPA backward) {lib:.4f} ms (x{lib / row['ms']:.2f} of this)")
+        ab_sum(f"{label} dkv + dq", pair, lib, attn_bound_ms(
+            b, n, h, c_real, 5, qkv_b + o_b + 2 * vec_b + m_b, qkv_b, pairs))
         del qkv, do, o, lse, delta, dqkv
     for label, b, h, nq, nk, c, masked in AB_H6_ROWS:
         q, k, v, do = _hm_inputs(torch, gen, b, h, nq, nk, c)
@@ -5203,18 +5233,47 @@ def phase_kernel_ab(torch, others):
         delta = fa.attention_delta(do, o, h)
         dqkv = torch.zeros_like(qkv)
         hc = h * c
+        ins = io + 4 * (do.numel() + lse.numel())
+        pair = []
         for kind, products, cols in (("dkv", 8, slice(hc, 3 * hc)), ("dq", 6, slice(0, hc))):
             extra = (scale,) if kind == "dq" else ()
             args = lambda extra=extra: (  # noqa: E731
                 qkv.data_ptr(), None if m8 is None else m8.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), b, n, h, scale * fa._LOG2E,
                 *extra, stream())
-            ab(dict(row=f"H2-fp32 {label} {kind}", library_ms=lib_bwd,
-                    bound=f32_bound_ms(products * h * pairs * c_real, h * pairs,
-                                       io + 4 * (do.numel() + lse.numel())
-                                       + 4 * do.numel() * (2 if kind == "dkv" else 1))),
-               f"jt_flash_bwd_{kind}_f32_c{c}", args, (dqkv[..., cols],))
+            row = dict(row=f"H2-fp32 {label} {kind}", library_ms=lib_bwd,
+                       bound=f32_bound_ms(products * h * pairs * c_real, h * pairs,
+                                          ins + 4 * do.numel() * (2 if kind == "dkv" else 1)))
+            ab(row, f"jt_flash_bwd_{kind}_f32_c{c}", args, (dqkv[..., cols],))
+            pair.append(row)
+        ab_sum(f"H2-fp32 {label} dkv + dq", pair, lib_bwd,
+               f32_bound_ms(14 * h * pairs * c_real, 2 * h * pairs, ins + 4 * qkv.numel()))
         del qkv, do, o, lse, delta, dqkv
+    # H5-H7-fp32 through their head-major entries; H7-fp32's bound counts the
+    # bytes of its inputs and gradients, not its dq slabs
+    for label, kind, b, h, nq, nk, c, masked in AB_HM_F32_ROWS:
+        q, k, v, do = _hm_inputs(torch, gen, b, h, nq, nk, c, torch.float32)
+        mask = padded_key_mask(torch, rng, b, nk, 0) if masked else None
+        scale = c**-0.5
+        o, lse = fa.flash_fwd_hm_cuda(q, k, v, scale, mask)
+        delta = fa.hm_delta(do, o)
+        grads = dict(dq=fa._alloc_like(q)) if kind != "dkv" else {}
+        work = {}
+        if kind != "dq":
+            grads.update(dk=fa._alloc_like(k), dv=fa._alloc_like(v))
+        if kind == "dqkv":
+            work = dict(ws=torch.empty((-(-nk // fa.hm_slab_keys(torch.float32)), *q.shape),
+                                       device="cuda"))
+        hm = _hm_args(fa, q, k, v, scale, mask, do=do, lse=lse, delta=delta, **grads, **work)
+        args = lambda hm=hm: (ctypes.addressof(hm), stream())  # noqa: E731
+        pairs = b * nq * nk if mask is None else int(mask.sum().item()) * nq
+        io = (4 * (b * h * c * 2 * (nq + nk) + 2 * lse.numel()) + (0 if mask is None else b * nk)
+              + 4 * sum(t.numel() for t in grads.values()))
+        flops = {"dq": 6, "dkv": 8, "dqkv": 10}[kind] * h * pairs * c
+        row = dict(row=label, library_ms=_sdpa_hm_ms(torch, q, k, v, do, scale, mask)[1],
+                   bound=f32_bound_ms(flops, h * pairs, io))
+        ab(row, f"jt_flash_hm_{kind}_f32_c{c}", args, tuple(grads.values()))
+        del q, k, v, do, o, lse, delta, grads, work, hm
     for b, n, h, c in F32_H1_SHAPES + F32_H1_SHAPES_AB:
         qkv = torch.randn((b, n, 3 * h * c), generator=gen, device="cuda")
         o = torch.empty((b, n, h * c), device="cuda")

@@ -14,9 +14,15 @@
 // predictors' 24 zero-padded to 32, ViT-H's encoder (80; each thread's
 // columns end in a float2 tail), vit_giant's 88 zero-padded to 96, and
 // vit_gigantic's 104 padded to 128 and vit_tiny's 384-wide predictor (3
-// heads of 128; at C=128 the dk/dv kernel takes 231,936 of the 232,448
-// bytes of shared memory a block may have, one block an SM; 158,208 /
-// 182,784 at C=80 / 96, the dq kernel 141,312 / 165,888). Inputs: qkv [B, N, 3*H*C] fp32
+// heads of 128). Geometry per head dim (flash_f32.cuh's DqPick / DkvPick),
+// shared memory a block and blocks an SM: the dq kernel owns 64 q rows with
+// 128 threads, 43,008 bytes at C=32 (4), 75,776 at C=64 (3), 70,656 at
+// C=80 (one stage; 2), 108,544 at C=96 (2); at C=128 it is the split kernel
+// (256 threads, one stage), 107,520 (2). The dk/dv kernel is the unsplit
+// one at C=32 (64 keys, 128 threads, 43,008 bytes, 4) and the split one
+// above: 128 keys with 8 rows x 8 q rows a thread at C=64 (256 threads,
+// 208,896 bytes, 1), 64 keys with 256 threads and one stage at C=80, 96 and
+// 128 (78,848, 91,136 and 115,712 bytes, 2). Inputs: qkv [B, N, 3*H*C] fp32
 // (columns q|k|v, each head-major), an optional key mask kvm [B, N] uint8
 // (1 = valid key), do [B, N, H*C] fp32, lse and delta [B, H, N] fp32
 // (H1-fp32's base-2 lse; delta = sum_c do*o). Output dqkv [B, N, 3*H*C]

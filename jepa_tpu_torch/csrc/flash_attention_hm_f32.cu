@@ -19,7 +19,9 @@
 // uint8. The rows, bases and strides must be multiples of 16 bytes (the
 // float4 cp.async copies; ops/flash_attention.py::check_hm_tma_layout with
 // 4-byte elements). C in {16, 32, 64}; at C=16 each thread's columns are
-// one float2 (BwdGeo: no float4 group, NV = 0).
+// one float2 (Cols: no float4 group, NV = 0), and H5-fp32 / H6-fp32 give a
+// thread 8 rows of a 128-row block; at C=64 H6-fp32 is the split dk/dv
+// kernel (flash_f32.cuh's DqPick / DkvPick).
 //
 // K6's epilogue: o = acc / max(l, 1e-30), lse = m + log2(max(l, 1e-30)); a
 // row with no valid key gets the uniform average. H7-fp32 (K9's merged
