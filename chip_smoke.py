@@ -76,10 +76,10 @@ Phases (any failure raises and exits non-zero):
      tail; the masked keys' dk and dv must be exactly 0;
   8. the pretrain app (jepa_tpu_torch.apps.vjepa.train.main) on
      configs/pretrain/vitl16.yaml with synthetic data and APP_IPE updates
-     per epoch, in a temporary folder: fixed mode for 1 epoch, a resume
-     to 2 (step count, CSV rows, and api.load_encoder reading the app's
-     checkpoint), then padded mode for 1 epoch with the launches of the
-     masked kernels per update checked;
+     per epoch, in a temporary folder: padded mode for 1 epoch with the
+     launches of the masked kernels per update checked, then fixed mode
+     for 1 epoch (step count, CSV rows, and api.load_encoder reading the
+     app's checkpoint); the app's resume runs in phases 15, 21 and 30;
   9. fp32 kernels (the frozen evals with use_bfloat16: false): H1-fp32 at
      (B=2, N=1568, c=64) and (B=1, N=1568, c=80), H3-fp32 at ViT-L's and
      ViT-H's fc1, against their plain versions in fp32 (TF32 off), each
@@ -114,27 +114,28 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      api.load_encoder / load_classifier, 12 H4 and no H1 or H3 per request,
      features against the plain versions;
  15. vit_tiny pretraining: vitl16.yaml with model_name vit_tiny through
-     build_train_step (TRAIN_STEPS updates at B=24, profile, the B=2 update
-     against the plain versions) and through the app (fixed 1 epoch, a
-     resume, padded 1 epoch), with the launches per update of the routes:
+     build_train_step (TRAIN_STEPS updates at B=24, the B=2 update
+     against the plain versions) and through the app (padded 1 epoch, a
+     fixed-mode resume to 2), with the launches per update of the routes:
      H4 for the target and the contexts, H7 for the contexts' backward, H1
      and H2 c=128 for the predictor, no H3 (K=192 takes the eager fc1).
  16. K11: H8 (fc1 + A&S erf GELU writing z) and H8-fp32 against their
      plain version at the force update's context fc1 shapes (M = 24 x 376
      and 24 x 96, K=1024, F=4096), LinearGelu's gradients through H8
      against the plain version (bf16 and fp32, the fp32 launches those of
-     linear_gelu under autograd), then, after phase 6, the vitl16.yaml
-     update with the encoder's ``fused_mlp='force'`` (TRAIN_STEPS updates,
-     the B=2 check; H8 24 per context forward, H3 24 for the
-     target) and the A/B against the default update in turns, with each
+     linear_gelu under autograd), then, after phase 6, at VITL_CUT_DEPTH
+     blocks, the vitl16.yaml update with the encoder's
+     ``fused_mlp='force'`` (TRAIN_STEPS updates,
+     the B=2 check; H8 once a block per context forward, H3 once a block
+     for the target) and the A/B against the default update in turns, with each
      variant's peak memory.
  17. at VITL_CUT_DEPTH (2) of ViT-L's 24 blocks (``cut_depth``), the tube
      mask mode (data.mask_type random_tube, one mask of ratio
      0.9, the reference's default) at vitl16.yaml: 3 updates at B=24
      (context 152 tokens, predictor 1568), one B=2 update against the
-     plain versions from the seeded state, then the app fixed 1 epoch and
-     padded 1 epoch (one tier of static caps, 256 and 1536: the masked
-     H1/H2);
+     plain versions from the seeded state, then the app padded 1 epoch
+     (one tier of static caps, 256 and 1536: the masked H1/H2) and fixed
+     1 epoch;
  18. at VITL_CUT_DEPTH blocks, activation checkpointing at vitl16.yaml,
      B=24: from one seeded
      state, one update with remat False, True and 'attn' (encoder and
@@ -153,8 +154,8 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      PLAIN_BATCH_BYTES); then, at VITH_CUT_DEPTH (2) of ViT-H's 32 blocks
      (``cut_depth``), vith16.yaml (B=24) and vith16_384.yaml (B=10) with the
      app's default remat ('attn'): TRAIN_STEPS updates each through
-     build_train_step and the app (vith16: fixed 1 epoch of 2 updates,
-     padded 1 epoch; vith16_384: fixed 1 epoch), each checkpoint written in
+     build_train_step and the app (vith16: padded 1 epoch of 2 updates,
+     fixed 1 epoch; vith16_384: fixed 1 epoch), each checkpoint written in
      the temporary folder and removed; runs at a cut depth are not profiled;
  20. at VITH_CUT_DEPTH blocks, the K400 16x8x3 evals of ViT-H (vith16_k400_16x8x3.yaml,
      vith16_384_k400_16x8x3.yaml) in bf16 (batch 4: 1 train step, 1 val
@@ -170,7 +171,7 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      DIST_LIMIT_FACTOR times the plain versions' spread on the same
      inputs (measured first and printed), then fsdp=2 against fsdp=1 after
      2 updates, bit-equal; the 2-rank app on vitl16.yaml (24 clips a rank,
-     fixed, a resume, padded) through apps/main_distributed.py's
+     padded, then a fixed-mode resume of it) through apps/main_distributed.py's
      in-cluster mode (a SLURM environment of two one-GPU nodes): one
      checkpoint writer, equal CSV losses, each rank's launches those of
      the 1-rank app; the 2-rank K400 16x8x3 bf16 eval, whose val pass
@@ -189,7 +190,8 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      the probe checkpoint, the host share of each, the process pool's
      features against the plain versions;
  24. the diffusion-mode predictor (``phase_diffusion``, use_mask_tokens
-     false), after phase 16: 3 vitl16.yaml updates at B=24 and the B=2
+     false), after phase 16, at VITL_CUT_DEPTH blocks: 3 vitl16.yaml
+     updates at B=24 and the B=2
      checks from the seeded and the trained state;
  25. the app with logging.profile_steps [1, 1] and log_resources
      (``phase_app_instruments``), after phase 8: vitl16.yaml, synthetic,
@@ -206,21 +208,22 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      remat 'attn' (vit_giant also the B=2 check from the
      seeded state), the K400 16x8x3 eval in bf16 (batch 4) and fp32 (batch
      1) with the features of each first batch against the plain versions,
-     and vit_giant's app (fixed, padded; checkpoints in the
+     and vit_giant's app (padded, fixed; checkpoints in the
      temporary folder, removed).
  27. fp32 pretraining (``phase_f32_pretrain``), after phase 25: vitl16.yaml
-     with meta.dtype float32, ViT-L/16 + the 12 x 384 predictor at full
-     width and depth, remat 'attn': H1-fp32 (c=64 and c=24->32) and both
+     with meta.dtype float32, ViT-L/16 + the 12 x 384 predictor, remat
+     'attn': H1-fp32 (c=64 and c=24->32) and both
      H2-fp32 kernels against their plain versions in fp32 (TF32 off) at
      the encoder context, both predictors (B=24) and a ragged N=333, each
      unmasked and with a mid-row run of pads and a ragged tail (masked
      keys' dk and dv exactly 0, pad lanes exactly 0, second calls
      bit-equal), timed beside SDPA fp32 and their FFMA / exp2 / bytes
-     bounds; TRAIN_STEPS updates at B=24 in the fixed and the padded mode
-     with their launches whole (H1-fp32, H2-fp32, H3-fp32; no bf16 entry),
-     a seeded B=2 update in each mode against the plain versions (limits
-     from their own re-ordered spread), and the app in fp32 at
-     VITL_CUT_DEPTH blocks, fixed and padded, 1 epoch each.
+     bounds; at VITL_CUT_DEPTH blocks, full width, TRAIN_STEPS updates at
+     B=24 in the fixed and the padded mode with their launches whole
+     (H1-fp32, H2-fp32, H3-fp32; no bf16 entry), a seeded B=2 update in
+     each mode against the plain versions (limits from their own
+     re-ordered spread), and the app in fp32, padded and fixed, 1 epoch
+     each.
  28. vit_tiny in fp32 (``phase_tiny_f32``), after phase 27: H4-H7-fp32
      (c=64, and c=32 for the 96-wide predictor) and H1-fp32 / H2-fp32 at
      c=128 (the 384-wide predictor) against their plain versions in fp32
@@ -231,20 +234,21 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      float32, the fp32 K400 16x8x3 eval, TRAIN_STEPS updates of vitl16.yaml
      with meta.dtype float32 at B=24 'attn' fixed and padded (seeded B=2
      checks) and 2 in each mode with the 96-wide predictor, and the app
-     fixed and padded.
+     padded and fixed.
  29. ViT-H and the giants in fp32 (``phase_f32_giants``), after phase 28:
      H1-fp32 and both H2-fp32 kernels against their plain versions in fp32
      at the vith16 context (c=80), the vit_giant (c=88->96) and
      vit_gigantic (c=104->128) contexts (B=24), vith16_384's first padded
      context rung (B=10) and N=333 at c=80 and 88->96, masked or not,
      timed beside SDPA fp32 and their bounds, and every H2-fp32 instance
-     with its last 16 columns of dq, dk and dv nonzero; vith16.yaml whole
-     (32 blocks, B=24) with meta.dtype float32, TRAIN_STEPS updates in the
-     fixed and the padded mode and a seeded B=2 check in each;
-     vith16_384.yaml, vit_giant and vit_gigantic at 2 blocks, full width,
-     F32_CUT_STEPS updates in each mode; the app on vith16.yaml in fp32 at
-     VITH_CUT_DEPTH blocks, fixed and padded.
- 30. vit_small and vit_base (``small_base_paths``), after phase 26: H4-H7
+     with its last 16 columns of dq, dk and dv nonzero; vith16.yaml (B=24)
+     at VITH_CUT_DEPTH blocks, full width, with meta.dtype float32,
+     F32_CUT_STEPS updates in the fixed and the padded mode and a seeded B=2
+     check in each; vith16_384.yaml, vit_giant and vit_gigantic at 2 blocks,
+     full width, F32_CUT_STEPS updates in each mode; the app on vith16.yaml in fp32 at
+     VITH_CUT_DEPTH blocks, padded and fixed.
+ 30. vit_small and vit_base (``small_base_paths``), after phase 26, at
+     SMALL_BASE_CUT_DEPTH (2) of their 12 blocks, full width: H4-H7
      and H4-H7-fp32 at c=16 (vit_small's 96-wide predictor, 6 heads of 16)
      against their plain versions at its fixed sequences, every padded rung
      (key mask), the top rung's split backward and N=333, timed beside SDPA
@@ -253,13 +257,24 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      models; TRAIN_STEPS updates fixed and padded with a seeded B=2 check
      each for vit_small (12 x 384 predictor; 2 x 96 in bf16 and fp32, the
      padded mode's last update at the top rungs) and vit_base (12 x 384);
-     the app with no model.model_name (its default, vit_base) fixed, a
-     resume and padded.
+     the app with no model.model_name (its default, vit_base) padded and a
+     fixed-mode resume of it.
+ 31. orbax checkpoints (``phase_orbax``), after phase 5: libzstd's
+     version; the seeded ViT-L/16 target (full width and depth) written in
+     the JAX package's layout as an orbax directory by utils.orbax and read
+     back by api.load_encoder, its weights and its features of phase 5's
+     first request bit-equal to the .pth.tar encoder's (24 H1 + 24 H3 a
+     request), write and read seconds and GB/s; the probe likewise through
+     api.load_classifier (logits bit-equal); vit_tiny (vitl16.yaml) resumed
+     by the app from a JAX-layout run directory (meta.read_checkpoint): the
+     restored state bit-equal to the one written, then APP_IPE updates with
+     their launches checked.
 The native decoder has no phase: the card's machine has no FFmpeg
 libraries (PERF.md §6), so it is held against the JAX package's on the
 CPU only (tests/test_torch_native.py).
 Phases 12-13 run after phase 7, phases 14-15 after phase 8, phase 16's
-kernel checks after phase 9, phases 17-20 after phase 15, phases 26 and 30 last.
+kernel checks after phase 9, phases 17-20 after phase 15, phases 26 and 30 last,
+phase 31 right after phase 5.
 Every fp32 attention kernel (H1-fp32, H2-fp32, H4-H7-fp32) is one body in
 jepa_tpu_torch/csrc/flash_f32.cuh, the JSON line's source for them.
 Launch counts are checked as whole dicts of every counter (``_counts``): a
@@ -269,8 +284,9 @@ H7, H8 and H8-fp32 are each called a second time on the same inputs wherever
 they are held against their plain versions, and must give bit-equal outputs,
 and vit_tiny's B=2 update is taken twice from one state and must give
 bit-equal metrics, parameters and moments.
-The line before the last is a JSON summary of the kernels; the last line
-is {"ok": true, "device": {...}}.
+Once main has started, each log line begins with the seconds since its
+start. The line before the last is a JSON summary of the kernels; the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -305,7 +321,7 @@ H2_REL = 2.0**-6   # |d| <= 2^-6 * max|ref| per gradient: p and ds round to bf16
                    # another order) moves a term by one bf16 ulp
 FEAT_COS_MIN = 0.999
 TRAIN_BATCH = 24   # clips per card (configs/pretrain/vitl16.yaml data.batch_size)
-TRAIN_STEPS = 4    # one warm-up update, then the timed ones
+TRAIN_STEPS = 3    # one warm-up update, then the timed ones
 # B=2 update, kernels vs plain versions on the card (reasons in PERF.md):
 TRAIN_LOSS_REL = 1e-4     # measured 7.9e-6: the kernels' roundings sit where the
                           # plain versions' do, so only sums run in another order
@@ -359,11 +375,15 @@ VITH_VIEWS_CHECKED = (2, 1)  # (segments, views) of each ViT-H eval sample whose
                              # are held against the plain versions
 # depth cuts of earlier paths, each model's width kept (cut_depth, PERF.md §4)
 VITH_CUT_DEPTH = 2  # ViT-H's blocks in its updates, apps and evals (of 32)
-VITL_CUT_DEPTH = 2  # ViT-L's blocks in the tube mode's and the remat phase's runs (of 24)
+VITL_CUT_DEPTH = 2  # ViT-L's blocks in the tube mode's, the remat phase's, the fused
+                    # trainable fc1's, the diffusion mode's and the fp32 updates (of 24)
+SMALL_BASE_CUT_DEPTH = 2  # vit_small's and vit_base's blocks in their serving, updates
+                          # and app (of 12)
 GIANT_CUT_DEPTH = 2  # vit_giant's and vit_gigantic's blocks in their serving, updates,
                      # K400 evals and vit_giant's app (of 40, 48)
-# fp32 pretraining of ViT-H and the giants (phase_f32_giants): vith16.yaml whole;
-# (config, model_name, patch_size, depth) of the runs at full width and cut depth
+# fp32 pretraining of ViT-H and the giants (phase_f32_giants): vith16.yaml at
+# VITH_CUT_DEPTH (its seeded B=2 checks kept); (config, model_name, patch_size,
+# depth) of the other runs at full width and cut depth
 # (each instance they launch is held at its full shape in the phase's kernel rows)
 F32_GIANT_RUNS = (("vith16_384.yaml", None, None, VITH_CUT_DEPTH),
                   ("vitl16.yaml", "vit_giant", None, GIANT_CUT_DEPTH),
@@ -380,10 +400,12 @@ HM_O_TOL, HM_LSE_TOL = H1_O_TOL, H1_LSE_TOL  # H4 vs its plain version: the same
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the smoke's log, after main's start stamped with the
+    seconds since it."""
+    print(f"[{time.perf_counter() - T0:7.1f}] {msg}" if T0 else msg, flush=True)
 
 
-def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(torch, fn, iters: int = 10, warmup: int = 3) -> float:
     """Mean device time of fn() by CUDA events over `iters` back-to-back runs."""
     for _ in range(warmup):
         fn()
@@ -1645,7 +1667,8 @@ def write_seeded_encoder(torch, workdir: str, model_name: str = "vit_large") -> 
 def phase_serve(torch, workdir: str, model_name: str = "vit_large", dtype=None):
     """Serving through jepa_tpu_torch.api on a seeded encoder .pth.tar (at
     vitl16_k400_16x8x3.yaml's geometry), which it writes to workdir and
-    returns (``enc_path``) for the evals: 4 requests of 2 clips, each
+    returns (``enc_path``) for the evals, with the loaded encoder and probe
+    (``enc``, ``clf``) for phase_orbax to pop: 4 requests of 2 clips, each
     launching exactly the kernels the routes give (``expected_launches``);
     ``dtype`` the compute dtype (default bf16; fp32: the features held at
     F32_FEAT_COS_MIN)."""
@@ -1724,7 +1747,196 @@ def phase_serve(torch, workdir: str, model_name: str = "vit_large", dtype=None):
     if cos < cos_min or p_err > PROB_TOL:
         raise RuntimeError("serving path disagrees with its plain version")
     return {"launches": launches, "median_ms": med, "peak_gib": peak_gib, "enc_path": enc_path,
-            "feat_cos": cos, "prof": prof}
+            "feat_cos": cos, "prof": prof, "probe_path": probe_path, "clips": requests[0],
+            "feats": feats, "probs": probs_all[0], "enc": enc, "clf": clf}
+
+
+def _bits_equal(a, b) -> bool:
+    """Same dtype, shape and bits (so -0.0 != 0.0 and NaNs compare)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
+def _tree_bits_equal(a, b) -> list:
+    """The key paths where two nested dicts of numpy arrays differ in
+    keys, dtype, shape or bits."""
+    if isinstance(b, dict):
+        if not isinstance(a, dict) or set(a) != set(b):
+            return ["(keys)"]
+        return [f"{k}/{p}" for k in b for p in _tree_bits_equal(a[k], b[k])]
+    a, b = np.asarray(a), np.asarray(b)
+    bits = lambda x: np.ascontiguousarray(x).reshape(-1).view(np.uint8)
+    same = a.dtype == b.dtype and a.shape == b.shape and np.array_equal(bits(a), bits(b))
+    return [] if same else [""]
+
+
+def _tree_nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_nbytes(v) for v in tree.values())
+    return np.asarray(tree).nbytes
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def phase_orbax(torch, repo, workdir, serve, tiny, app_ipe=APP_IPE):
+    """The JAX package's orbax checkpoint format through the port, with no
+    JAX: libzstd's version; ViT-L/16 at full width and depth (the seeded
+    target of phase_serve's .pth.tar in the JAX layout, ``encoder_state_to_jax``)
+    written by ``utils.orbax.save_tree`` as {"target": ...}, read back by
+    ``api.load_encoder``: its state_dict and its features of phase_serve's
+    first request bit-equal to those of phase_serve's encoder (``serve``'s
+    ``enc``, loaded from the .pth.tar), 24 H1 + 24 H3 per request; the
+    400-class probe as {"classifier": ...} through ``api.load_classifier``,
+    its logits and probabilities bit-equal to phase_serve's probe's; then vit_tiny (``tiny``: vitl16.yaml with vit_tiny, at
+    full width and depth) as a JAX-layout run directory (a seeded train
+    state through ``train_state_to_jax``, epoch 1) that the app resumes
+    through meta.read_checkpoint: the state it restores, before its first
+    update, bit-equal to the one written (step and epoch included), then
+    ``app_ipe`` updates with their launches checked as phase_app checks
+    them. Prints the write and read seconds and GB/s. Every check raises."""
+    import shutil
+
+    import yaml
+
+    from jepa_tpu_torch import api
+    from jepa_tpu_torch.apps.vjepa.train import main as train_main
+    from jepa_tpu_torch.models.attentive import classifier_forward
+    from jepa_tpu_torch.models.factory import vit_cfg
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+    from jepa_tpu_torch.train.step import init_train_state
+    from jepa_tpu_torch.utils import checkpoint as ckpt_lib
+    from jepa_tpu_torch.utils import checkpoint_port as cp
+    from jepa_tpu_torch.utils import orbax, zstd
+
+    log(f"orbax: libzstd {zstd.version()} ({zstd.LIBRARY} through ctypes)")
+    out = {}
+    geo, model = VITL16_GEO, "vit_large"
+    cfg = vit_cfg(model, compute_dtype=torch.bfloat16, **geo)
+
+    # ViT-L: the seeded target in the JAX layout, written and read back
+    sd = torch.load(serve["enc_path"], map_location="cpu", weights_only=True)["target_encoder"]
+    tree = {"target": cp.encoder_state_to_jax(sd)}
+    raw = _tree_nbytes(tree)
+    del sd
+    enc_dir = os.path.join(workdir, "orbax-vit_large")
+    t0 = time.perf_counter()
+    orbax.save_tree(enc_dir, tree)
+    write_s = time.perf_counter() - t0
+    disk = _dir_bytes(enc_dir)
+    del tree
+    t0 = time.perf_counter()
+    enc = api.load_encoder(enc_dir, model, compute_dtype=torch.bfloat16, **geo)  # device="cuda"
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    log(f"orbax: ViT-L target {raw / 1e9:.3f} GB (fp32) written in {write_s:.2f} s "
+        f"({raw / 1e9 / write_s:.2f} GB/s, zstd level 1), {disk / 1e9:.3f} GB on disk; "
+        f"read by api.load_encoder (read, layout, to the card) in {read_s:.2f} s "
+        f"({raw / 1e9 / read_s:.2f} GB/s)")
+    ref, clf_ref = serve.pop("enc"), serve.pop("clf")
+    got_sd, want_sd = enc.model.state_dict(), ref.model.state_dict()
+    bad = [k for k in want_sd if k not in got_sd or not _bits_equal(got_sd[k], want_sd[k])]
+    if set(got_sd) != set(want_sd) or bad:
+        raise RuntimeError(f"orbax: the ViT-L state_dict differs from the .pth.tar's at {bad[:4]}")
+    want = expected_launches(cfg)
+    _reset_counts(fa, fm)
+    feats = enc.encode(serve["clips"])
+    torch.cuda.synchronize()
+    got = _counts(fa, fm)
+    if _launch_diff({}, got) != want:
+        raise RuntimeError(f"orbax: launches per request {_launch_diff({}, got)} != {want}")
+    if not _bits_equal(feats, serve["feats"]):
+        err = (feats - serve["feats"]).abs().max().item()
+        raise RuntimeError(f"orbax: features differ from phase_serve's, max|d| {err:.3e}")
+    log(f"orbax: ViT-L state_dict ({len(want_sd)} tensors) and features of phase_serve's first "
+        f"request bit-equal to the .pth.tar encoder's; launches per request {want}")
+
+    # the probe
+    psd = torch.load(serve["probe_path"], map_location="cpu", weights_only=True)["classifier"]
+    probe_dir = os.path.join(workdir, "orbax-probe")
+    orbax.save_tree(probe_dir, {"classifier": cp.classifier_state_to_jax(psd)})
+    clf = api.load_classifier(probe_dir, enc, num_classes=400)
+    probs = clf.classify(serve["clips"])
+    torch.cuda.synchronize()
+    if _launch_diff(got, _counts(fa, fm)) != want:
+        raise RuntimeError(f"orbax: probe launches {_launch_diff(got, _counts(fa, fm))} != {want}")
+    with torch.no_grad():
+        logits = classifier_forward(clf.classifier, feats, clf.acfg)
+        logits_ref = classifier_forward(clf_ref.classifier, feats, clf_ref.acfg)
+    if not (_bits_equal(logits, logits_ref) and _bits_equal(probs, serve["probs"])):
+        raise RuntimeError("orbax: the probe's logits or probabilities differ from the "
+                           ".pth.tar probe's")
+    log("orbax: probe logits and probabilities bit-equal to the .pth.tar probe's")
+    out["serve"] = _counts(fa, fm)  # two requests
+    out.update(write_s=write_s, read_s=read_s, raw_bytes=raw, disk_bytes=disk)
+    del enc, ref, clf, clf_ref, feats
+    shutil.rmtree(enc_dir)
+    shutil.rmtree(probe_dir)
+    torch.cuda.empty_cache()
+
+    # vit_tiny: a JAX-layout run directory that the app resumes
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    state = init_train_state(tiny["enc_cfg"], tiny["pred_cfg"], gen)  # device="cuda"
+    with torch.no_grad():
+        for (_, p), (_, t) in zip(state.encoder.named_parameters(),
+                                  state.target.named_parameters()):
+            t.add_(torch.randn(p.shape, generator=gen, device="cuda"), alpha=1e-3)
+        for n in state.mu:
+            state.mu[n].normal_(0, 1e-3, generator=gen)
+            state.nu[n].uniform_(0, 1e-6, generator=gen)
+    state.step = app_ipe  # one epoch done
+    written = {**cp.train_state_to_jax(state), "epoch": np.int32(1)}
+    del state
+    run_dir = os.path.join(workdir, "jax-run", "vjepa-latest")
+    orbax.save_tree(run_dir, written)
+    with open(os.path.join(repo, "configs", "pretrain", tiny["config"])) as f:
+        app_cfg = yaml.safe_load(f)
+    app_cfg["data"]["dataset_type"] = "synthetic"
+    app_cfg["model"]["model_name"] = tiny["model_name"]
+    app_cfg["meta"].update(dtype=str(tiny["enc_cfg"].compute_dtype).replace("torch.", ""),
+                           load_checkpoint=True, read_checkpoint=run_dir)
+    app_cfg["optimization"].update(ipe=app_ipe, epochs=2)
+    app_cfg["logging"]["folder"] = os.path.join(workdir, "orbax-app")
+    restored = {}
+    load = ckpt_lib.load_checkpoint
+
+    def spy(*args, **kwargs):
+        st, epoch = load(*args, **kwargs)
+        restored.update(tree={**cp.train_state_to_jax(st), "epoch": np.int32(epoch)})
+        return st, epoch
+
+    want_update = expected_launches(tiny["enc_cfg"], tiny["pred_cfg"], tiny["keep"])
+    _reset_counts(fa, fm)
+    t0 = time.perf_counter()
+    with mock.patch.object(ckpt_lib, "load_checkpoint", spy):
+        state = train_main(app_cfg)  # device="cuda"
+    torch.cuda.synchronize()
+    app_s = time.perf_counter() - t0
+    got = _counts(fa, fm)
+    bad = _tree_bits_equal(restored.get("tree"), written)
+    if bad:
+        raise RuntimeError(f"orbax: the app restored a state that differs from the JAX-layout "
+                           f"run directory at {bad[:4]}")
+    per_update = _launch_diff({}, got, app_ipe)
+    if state.step != 2 * app_ipe or per_update != want_update:
+        raise RuntimeError(f"orbax app: step {state.step}, launches per update {per_update} "
+                           f"!= {want_update}")
+    log(f"orbax: the app resumed vit_tiny from a JAX-layout run directory bit-equal (step "
+        f"{app_ipe}, epoch 1, {_dir_bytes(run_dir) / 1e6:.1f} MB on disk), then took "
+        f"{app_ipe} updates to step {state.step} in {app_s:.1f} s; launches per update "
+        f"{per_update}")
+    out["app"] = got
+    del state
+    shutil.rmtree(os.path.join(workdir, "jax-run"))
+    shutil.rmtree(app_cfg["logging"]["folder"])
+    torch.cuda.empty_cache()
+    return out
 
 
 def train_setup(repo: str, model_name: str = None, fused_mlp=False, config="vitl16.yaml",
@@ -2250,10 +2462,15 @@ def kernel_split_ms(torch, fn, n=10):
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
-def _csv_times(path):
+def _csv_times(path, run=None):
     """(median step ms, median wall ms, median host share of the wall) over
-    the rows after each run's first (the CSV's own integer ms)."""
+    the rows after each run's first (the CSV's own integer ms), and the
+    count of rows; ``run``: only of the rows that run wrote (an index into
+    the file's runs, each begun by its header)."""
     rows = [r.split(",") for r in open(path).read().strip().splitlines()]
+    if run is not None:
+        heads = [i for i, r in enumerate(rows) if r[0] == "epoch"]
+        rows = rows[heads[run]:(heads[1:] + [len(rows)])[run]]
     body, first = [], True
     for r in rows:
         if r[0] == "epoch":
@@ -2272,10 +2489,13 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
               default_model=False):
     """The pretrain app on ``setup``'s config (``train_setup``: its model,
     its tube masks if any) on synthetic data, ``ipe`` updates per epoch:
-    fixed mode ``epochs`` epochs, a resume to one more, then padded mode 1
-    epoch, each with the launch counts set to 0 just before and read just
-    after; api.load_encoder reads the fixed run's checkpoint. The app runs
-    its default activation checkpointing (meta.remat absent: 'attn');
+    padded mode 1 epoch, then fixed mode ``epochs`` epochs, which with
+    ``resume`` resume the padded run's checkpoint (one app start fewer than
+    a fresh fixed run and a resume of it; the fixed mode's launches do not
+    depend on the masks, so they are held whole after the resume), each
+    run with the launch counts set to 0 just before and read just after;
+    api.load_encoder reads the fixed run's checkpoint. The app runs its
+    default activation checkpointing (meta.remat absent: 'attn');
     ``default_model``: the YAML's model.model_name deleted, so the app
     takes its default model, which must be ``setup``'s."""
     import shutil
@@ -2289,6 +2509,8 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
     from jepa_tpu_torch.ops import flash_attention as fa
     from jepa_tpu_torch.ops import fused_mlp as fm
 
+    if resume and not padded:
+        raise ValueError("phase_app: the resume starts from the padded run")
     with open(os.path.join(repo, "configs", "pretrain", setup["config"])) as f:
         cfg = yaml.safe_load(f)
     cfg["data"]["dataset_type"] = "synthetic"
@@ -2301,8 +2523,7 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
         cfg["mask"] = setup["tube"]
     cfg["meta"]["dtype"] = str(setup["enc_cfg"].compute_dtype).replace("torch.", "")
     cfg["optimization"]["ipe"] = ipe
-    cfg["optimization"]["epochs"] = epochs
-    cfg["logging"]["folder"] = os.path.join(workdir, "fixed")
+    tag = cfg["logging"]["write_tag"]
     d = cfg["data"]
     label = (f"{setup['config']}{' (tube masks)' if setup['tube'] else ''} with "
              f"{setup['model_name']}{' (no model_name: the default)' if default_model else ''}"
@@ -2313,29 +2534,71 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
         f"{d['num_workers']} loader workers; free disk "
         f"{shutil.disk_usage(workdir).free / 2**30:.1f} GiB")
     out = {}
-    want_fixed = expected_launches(setup["enc_cfg"], setup["pred_cfg"], setup["keep"])
+    start = 0  # the epoch the fixed run starts from
+    if padded:  # padded mode, one epoch
+        cfg["meta"]["mask_mode"] = "padded"
+        cfg["optimization"]["epochs"] = 1
+        cfg["logging"]["folder"] = os.path.join(workdir, "padded")
+        grid = setup["grid"]
+        if setup["tube"]:  # one tier of static caps (the app's rule for exact-K masks)
+            specs_caps = [[(static_cap(grid.n, ke / grid.n), static_cap(grid.n, kp / grid.n))]
+                          for ke, kp in setup["keep"]]
+        else:
+            specs_caps = calibrate_pad_ladders(setup["specs"], grid, d["batch_size"])
+        want_padded = expected_launches(setup["enc_cfg"], setup["pred_cfg"],
+                                        [rungs[0] for rungs in specs_caps], masked=True)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(fa, fm)
+        state = train_main(cfg)  # device="cuda"
+        torch.cuda.synchronize()
+        got = _counts(fa, fm)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if state.step != ipe or _launch_diff({}, got, ipe) != want_padded:
+            raise RuntimeError(f"app padded: step {state.step}, launches {got} != "
+                               f"{ipe} x {want_padded}")
+        csv = os.path.join(cfg["logging"]["folder"], f"{tag}_r0.csv")
+        step_ms, wall_ms, host, n_rows = _csv_times(csv)
+        if n_rows != ipe or not all(np.isfinite(float(x)) for x in _csv_losses(csv)):
+            raise RuntimeError(f"app padded: {n_rows} CSV rows != {ipe}, or a loss not finite")
+        out["padded"] = dict(step_ms=step_ms, wall_ms=wall_ms, host=host, peak_gib=peak,
+                             launches=got, ladders=specs_caps, updates=ipe)
+        log(f"app padded: step {state.step}, caps {specs_caps}; launches per update "
+            f"{_launch_diff({}, got, ipe)}; median step {step_ms:.0f} ms, wall "
+            f"{wall_ms:.0f} ms, host share {100 * host:.1f} %, peak allocated {peak:.2f} GiB")
+        del state
+        if resume:
+            start = 1
+        else:
+            shutil.rmtree(cfg["logging"]["folder"])
+        torch.cuda.empty_cache()
 
+    # fixed mode: ``epochs`` epochs, fresh or resumed from the padded run
+    cfg["meta"]["mask_mode"] = "fixed"
+    cfg["optimization"]["epochs"] = start + epochs
+    if not start:
+        cfg["logging"]["folder"] = os.path.join(workdir, "fixed")
+    want_fixed = expected_launches(setup["enc_cfg"], setup["pred_cfg"], setup["keep"])
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(fa, fm)
     t0 = time.perf_counter()
-    state = train_main(cfg)  # device="cuda"
+    state = train_main(cfg)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     got = _counts(fa, fm)
     steps = epochs * ipe
-    if state.step != steps:
-        raise RuntimeError(f"app fixed: step {state.step} != {steps}")
+    if state.step != (start + epochs) * ipe:
+        raise RuntimeError(f"app fixed: step {state.step} != {(start + epochs) * ipe}")
     per_update = _launch_diff({}, got, steps)
     if per_update != want_fixed:
         raise RuntimeError(f"app fixed: launches per update {per_update} != {want_fixed}")
-    tag = cfg["logging"]["write_tag"]
     csv = os.path.join(cfg["logging"]["folder"], f"{tag}_r0.csv")
     ckpt = os.path.join(cfg["logging"]["folder"], f"{tag}-latest.pth.tar")
     peak = torch.cuda.max_memory_allocated() / 2**30
     remat = (state.encoder.cfg.remat, state.predictor.cfg.remat)
-    log(f"app fixed: {steps} updates in {secs:.1f} s (build of state, loader, checkpoints "
-        f"included); remat (encoder, predictor) {remat}; checkpoint "
-        f"{os.path.getsize(ckpt) / 2**30:.2f} GiB; launches per update {per_update}")
+    log(f"app fixed{', resumed from the padded run' if start else ''}: {steps} updates in "
+        f"{secs:.1f} s (build of state, loader, checkpoints included); remat (encoder, "
+        f"predictor) {remat}; checkpoint {os.path.getsize(ckpt) / 2**30:.2f} GiB; launches per "
+        f"update {per_update}")
     if remat != ("attn", "attn"):
         raise RuntimeError(f"app: remat {remat}, not the JAX app's default ('attn', 'attn')")
     shape = lambda cfg: (cfg.embed_dim, cfg.depth, cfg.num_heads)  # noqa: E731
@@ -2356,65 +2619,16 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
     if not (torch.isfinite(feats).all() and err <= 1e-3):
         raise RuntimeError("api.load_encoder does not read the app's checkpoint")
     del state, feats, want
-    torch.cuda.empty_cache()
-
-    fixed_launches = got
-    if resume:  # to one more epoch
-        cfg["optimization"]["epochs"] = epochs + 1
-        _reset_counts(fa, fm)
-        state = train_main(cfg)
-        got = _counts(fa, fm)
-        if (state.step != (epochs + 1) * ipe
-                or _launch_diff({}, got, ipe) != want_fixed):
-            raise RuntimeError(f"app resume: step {state.step}, launches {got}")
-        fixed_launches = {k: v + got[k] for k, v in fixed_launches.items()}
-        steps = state.step
-        del state
-    step_ms, wall_ms, host, n_rows = _csv_times(csv)
+    step_ms, wall_ms, host, n_rows = _csv_times(csv, run=-1)
     if n_rows != steps or not all(np.isfinite(float(x)) for x in _csv_losses(csv)):
         raise RuntimeError(f"app: {n_rows} CSV rows != {steps}, or a loss not finite")
     out["fixed"] = dict(step_ms=step_ms, wall_ms=wall_ms, host=host, peak_gib=peak,
-                        launches=fixed_launches, updates=steps)
+                        launches=got, updates=steps)
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
-    log(f"app fixed{' + resume' if resume else ''}: step {steps}, {n_rows} CSV rows; median "
-        f"step {step_ms:.0f} ms, wall {wall_ms:.0f} ms, host (loader + augment) share of the "
-        f"wall {100 * host:.1f} %, peak allocated {peak:.2f} GiB, allocator retries {retries}")
-    shutil.rmtree(cfg["logging"]["folder"])
-    torch.cuda.empty_cache()
-    if not padded:
-        return out
-
-    # padded mode, one epoch
-    cfg["meta"]["mask_mode"] = "padded"
-    cfg["optimization"]["epochs"] = 1
-    cfg["logging"]["folder"] = os.path.join(workdir, "padded")
-    grid = setup["grid"]
-    if setup["tube"]:  # one tier of static caps (the app's rule for exact-K masks)
-        specs_caps = [[(static_cap(grid.n, ke / grid.n), static_cap(grid.n, kp / grid.n))]
-                      for ke, kp in setup["keep"]]
-    else:
-        specs_caps = calibrate_pad_ladders(setup["specs"], grid, d["batch_size"])
-    want_padded = expected_launches(setup["enc_cfg"], setup["pred_cfg"],
-                                    [rungs[0] for rungs in specs_caps], masked=True)
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts(fa, fm)
-    state = train_main(cfg)
-    torch.cuda.synchronize()
-    got = _counts(fa, fm)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    if state.step != ipe or _launch_diff({}, got, ipe) != want_padded:
-        raise RuntimeError(f"app padded: step {state.step}, launches {got} != "
-                           f"{ipe} x {want_padded}")
-    csv = os.path.join(cfg["logging"]["folder"], f"{tag}_r0.csv")
-    step_ms, wall_ms, host, n_rows = _csv_times(csv)
-    if n_rows != ipe or not all(np.isfinite(float(x)) for x in _csv_losses(csv)):
-        raise RuntimeError(f"app padded: {n_rows} CSV rows != {ipe}, or a loss not finite")
-    out["padded"] = dict(step_ms=step_ms, wall_ms=wall_ms, host=host, peak_gib=peak,
-                         launches=got, ladders=specs_caps, updates=ipe)
-    log(f"app padded: step {state.step}, caps {specs_caps}; launches per update "
-        f"{_launch_diff({}, got, ipe)}; median step {step_ms:.0f} ms, wall "
-        f"{wall_ms:.0f} ms, host share {100 * host:.1f} %, peak allocated {peak:.2f} GiB")
-    del state
+    log(f"app fixed: {steps} updates to step {(start + epochs) * ipe}, {n_rows} CSV rows; "
+        f"median step {step_ms:.0f} ms, wall {wall_ms:.0f} ms, host (loader + augment) share "
+        f"of the wall {100 * host:.1f} %, peak allocated {peak:.2f} GiB, allocator retries "
+        f"{retries}")
     shutil.rmtree(cfg["logging"]["folder"])
     torch.cuda.empty_cache()
     return out
@@ -2527,9 +2741,9 @@ def check_b2_f32(torch, step_fn, state, batch, label):
 
 
 def phase_f32_pretrain(torch, repo, workdir):
-    """fp32 pretraining at vitl16.yaml (meta.dtype float32), ViT-L/16 + the
-    12 x 384 predictor at full width and depth, remat 'attn' (the app's
-    default):
+    """fp32 pretraining at vitl16.yaml (meta.dtype float32), ViT-L/16 at
+    full width and VITL_CUT_DEPTH blocks + the 12 x 384 predictor, remat
+    'attn' (the app's default):
 
       * H1-fp32 (c=64 and c=24->32) and both H2-fp32 kernels against their
         plain versions in fp32 (TF32 off) at the encoder context (B=24,
@@ -2548,8 +2762,9 @@ def phase_f32_pretrain(torch, repo, workdir):
         checkpoint read back by api.load_encoder)."""
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise RuntimeError("TF32 is on: the fp32 plain versions would not be fp32")
-    fixed = train_setup(repo, dtype=torch.float32, remat="attn")
-    padded = train_setup(repo, dtype=torch.float32, remat="attn", mask_mode="padded")
+    with cut_depth("vit_large", VITL_CUT_DEPTH):
+        fixed = train_setup(repo, dtype=torch.float32, remat="attn")
+        padded = train_setup(repo, dtype=torch.float32, remat="attn", mask_mode="padded")
     (ke0, kp0), (ke1, kp1) = fixed["keep"]
     enc_d, pred_d = fixed["enc_cfg"].depth, fixed["pred_cfg"].depth
     # (label, B, N, H, c, c_real, mid-row pad start (0: random), launches per fixed update)
@@ -2559,8 +2774,8 @@ def phase_f32_pretrain(torch, repo, workdir):
               ("ragged c=64", 2, 333, 16, 64, 64, 0, 0),
               ("ragged c=24", 2, 333, 16, 32, 24, 0, 0))
     rows = f32_attn_rows(torch, shapes, SEED + 5)
-    runs = mode_updates(torch, fixed, padded)
     with cut_depth("vit_large", VITL_CUT_DEPTH):
+        runs = mode_updates(torch, fixed, padded)
         app = phase_app(torch, repo, train_setup(repo, dtype=torch.float32, remat="attn"),
                         workdir, ipe=F32_APP_IPE, epochs=1, resume=False)
     return {"rows": rows, "runs": runs, "app": app}
@@ -2656,9 +2871,9 @@ def phase_f32_giants(torch, repo, workdir):
         and the FFMA bound); then every H2-fp32 instance at c_real = c
         (B=2, N=333, 4 heads), masked or not, whose last 16 columns of
         dq, dk and dv must be nonzero and match (``_check_h2_f32``);
-      * vith16.yaml whole (32 blocks, B=24): TRAIN_STEPS updates in the
-        fixed and the padded mode and a seeded B=2 update in each against
-        the plain versions (``mode_updates``);
+      * vith16.yaml (B=24) at VITH_CUT_DEPTH blocks, full width:
+        F32_CUT_STEPS updates in the fixed and the padded mode and a seeded
+        B=2 update in each against the plain versions (``mode_updates``);
       * vith16_384.yaml (B=10), vit_giant and vit_gigantic (patch 14) at
         vitl16.yaml (B=24) at VITH_CUT_DEPTH / GIANT_CUT_DEPTH blocks, full
         width: F32_CUT_STEPS updates in each mode, launches whole;
@@ -2671,8 +2886,9 @@ def phase_f32_giants(torch, repo, workdir):
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise RuntimeError("TF32 is on: the fp32 plain versions would not be fp32")
     f32 = dict(dtype=torch.float32, remat="attn")
-    vith = train_setup(repo, config="vith16.yaml", **f32)
-    vith_padded = train_setup(repo, config="vith16.yaml", mask_mode="padded", **f32)
+    with cut_depth("vit_huge", VITH_CUT_DEPTH):
+        vith = train_setup(repo, config="vith16.yaml", **f32)
+        vith_padded = train_setup(repo, config="vith16.yaml", mask_mode="padded", **f32)
     cut = {}  # (config, model): (fixed setup, padded setup), at their cut depth
     for config, model, patch, depth in F32_GIANT_RUNS:
         with cut_depth(model or "vit_huge", depth):
@@ -2701,7 +2917,8 @@ def phase_f32_giants(torch, repo, workdir):
             _check_h2_f32(torch, tag, qkv, do, 4, c**-0.5, c, mask)
         del qkv, do
 
-    runs = {("vith16.yaml", "vit_huge"): mode_updates(torch, vith, vith_padded, profile=())}
+    runs = {("vith16.yaml", "vit_huge"): mode_updates(torch, vith, vith_padded,
+                                                      steps=F32_CUT_STEPS, profile=())}
     for key, (fixed, padded) in cut.items():
         runs[key] = mode_updates(torch, fixed, padded, steps=F32_CUT_STEPS, b2=False,
                                  profile=())
@@ -3054,20 +3271,21 @@ def phase_small_base_tm_kernels(torch, depth):
 
 def small_base_paths(torch, repo):
     """vit_small and vit_base on the card (``train_setup`` at vitl16.yaml,
-    B=24, full width and depth): the c=16 head-major instances
+    B=24, full width, the depth the caller's ``cut_depth`` leaves): the
+    c=16 head-major instances
     (``phase_c16_kernels``) and the token-major ones at the models' head
     counts (``phase_small_base_tm_kernels``); serving both models
     (``phase_serve``, 4 requests of 2 clips, features against the plain
-    path); TRAIN_STEPS updates in the fixed and the padded mode (the fixed
-    mode's profiled) with a seeded B=2 update in each against the plain
+    path); TRAIN_STEPS updates in the fixed and the padded mode with a
+    seeded B=2 update in each against the plain
     versions (``mode_updates``)
     of vit_small with its 12 x 384 predictor, vit_small with the 2 x 96 one
     (6 heads of 16: H4 + H7 at the fixed sequences; the padded mode's last
     update at the top rungs, N=1664: H4 + H5 + H6) in bf16 and in fp32
     (meta.dtype float32, remat 'attn', TF32 off), and vit_base with its
     12 x 384 predictor; then the pretrain app with no model.model_name, so
-    it takes its default, vit_base (``phase_app``: fixed, a resume,
-    padded). Returns each part's report."""
+    it takes its default, vit_base (``phase_app``: padded, then a fixed
+    resume of it). Returns each part's report."""
     from jepa_tpu_torch.masks.multiblock3d import calibrate_pad_ladders
 
     f32 = dict(dtype=torch.float32, remat="attn")
@@ -3088,7 +3306,7 @@ def small_base_paths(torch, repo):
             out[model, "serve"] = timed(f"{model} serve", phase_serve, torch, workdir, model)
             os.remove(out[model, "serve"]["enc_path"])
     out["runs"] = {label: timed(f"{label} updates", mode_updates, torch, fixed, padded,
-                                top_last="96" in label)
+                                top_last="96" in label, profile=())
                    for label, (fixed, padded) in setups.items()}
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
         out["app"] = timed("vit_base app (the default model)", phase_app, torch, repo,
@@ -3664,7 +3882,7 @@ def phase_diffusion(torch, repo):
     diffusion-mode predictor: the targets noised by one forward-diffusion
     step in place of the mask tokens) at B=TRAIN_BATCH: 3 updates with
     their launches checked whole (the predictor's sequences are as long
-    as with mask tokens: H1 72, H2 48 + 48, H3 24 per update) and the
+    as with mask tokens) and the
     B=2 update against the plain versions from the seeded and the trained
     state (``check_b2``'s limits)."""
     setup = train_setup(repo, use_mask_tokens=False)
@@ -4332,11 +4550,13 @@ def _dist_update_rank(rank, world, repo):
     return out
 
 
-def _dist_app_rank(rank, world, argv):
+def _dist_app_rank(rank, world, runs):
     """Phase (c) in one rank: the pretrain app through the launcher's
-    in-cluster mode (the process group from the SLURM environment the
-    parent set), with its launches counted and its checkpoint writes
-    recorded."""
+    in-cluster mode once for each (argv, master port) of ``runs``, in
+    turn, each run's process group joined from the SLURM environment the
+    parent set at that port (the launcher destroys its group after a
+    run); a run's launches counted and its checkpoint writes recorded.
+    Returns one record a run."""
     import torch
 
     from jepa_tpu_torch.apps import main_distributed
@@ -4347,15 +4567,22 @@ def _dist_app_rank(rank, world, argv):
     _rank_device(torch)
     writes, save = [], ckpt_lib._save_atomic
     ckpt_lib._save_atomic = lambda obj, path: (writes.append(path), save(obj, path))
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts(fa, fm)
-    t0 = time.perf_counter()
-    with cut_depth("vit_large", DIST_DEPTH):
-        state = main_distributed.main(argv)
-    torch.cuda.synchronize()
-    return dict(step=state.step, writes=writes, launches=_counts(fa, fm),
-                secs=time.perf_counter() - t0,
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    out = []
+    for argv, port in runs:
+        os.environ["MASTER_PORT"] = str(port)
+        writes.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(fa, fm)
+        t0 = time.perf_counter()
+        with cut_depth("vit_large", DIST_DEPTH):
+            state = main_distributed.main(argv)
+        torch.cuda.synchronize()
+        out.append(dict(step=state.step, writes=list(writes), launches=_counts(fa, fm),
+                        secs=time.perf_counter() - t0,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+        del state
+    return out
 
 
 def _dist_eval_rank(rank, world, argv):
@@ -4485,7 +4712,7 @@ def phase_dist(torch, repo, setup, card):
         plain versions' spread on the same inputs, measured first and
         printed; then fsdp=2 against fsdp=1 after 2 updates, bit-equal;
     (c) the 2-rank app on vitl16.yaml (per-rank batch 24, ipe
-        DIST_APP_IPE), fixed then a resume, and padded, through
+        DIST_APP_IPE), padded then a fixed-mode resume of it, through
         apps/main_distributed.py's in-cluster mode: one checkpoint writer,
         the resume, equal CSV loss columns, each rank's launches those of
         the 1-rank app;
@@ -4588,29 +4815,37 @@ def phase_dist(torch, repo, setup, card):
         cfg["data"]["num_workers"] = 4  # per rank: two ranks share the host's cores
         cfg["model"]["pred_depth"] = DIST_PRED_DEPTH
         cfg["optimization"].update(ipe=DIST_APP_IPE, epochs=1)
-        cfg_path = os.path.join(workdir, "dist_app.yaml")
-        argv = ["--fname", cfg_path, "--backend", "gloo"]
         tag = cfg["logging"]["write_tag"]
         ladders = calibrate_pad_ladders(setup["specs"], setup["grid"], cfg["data"]["batch_size"],
                                         n_chunks=2)
-        runs = (("fixed", 1, want), ("resume", 2, want),
-                ("padded", 1, expected_launches(setup["enc_cfg"], setup["pred_cfg"],
-                                                [rungs[0] for rungs in ladders], masked=True)))
-        out["c"] = {}
-        for mode, epochs, want_mode in runs:
+        # padded 1 epoch, then a fixed-mode resume of its checkpoint to epoch 2
+        # (the fixed mode's launches do not depend on the masks), both in
+        # one spawn of the ranks
+        runs = (("padded", 1, expected_launches(setup["enc_cfg"], setup["pred_cfg"],
+                                                [rungs[0] for rungs in ladders], masked=True)),
+                ("resume", 2, want))
+        cfg["logging"]["folder"] = os.path.join(workdir, "app")
+        argvs = []
+        for mode, epochs, _ in runs:
             cfg["optimization"]["epochs"] = epochs
             cfg["meta"]["mask_mode"] = "padded" if mode == "padded" else "fixed"
-            cfg["logging"]["folder"] = os.path.join(workdir, "padded" if mode == "padded"
-                                                    else "fixed")
-            with open(cfg_path, "w") as f:
+            path = os.path.join(workdir, f"dist_app_{mode}.yaml")
+            with open(path, "w") as f:
                 yaml.safe_dump(cfg, f)
-            torch.cuda.empty_cache()
-            ranks = _run_ranks(_dist_app_rank, (argv,), init_group=False, env=_slurm_env(2))
+            argvs.append(["--fname", path, "--backend", "gloo"])
+        env = _slurm_env(2)
+        ports = [env[0]["MASTER_PORT"], _free_port()]
+        torch.cuda.empty_cache()
+        by_rank = _run_ranks(_dist_app_rank, (list(zip(argvs, ports)),), init_group=False,
+                             env=env)
+        out["c"] = {}
+        csvs = [os.path.join(cfg["logging"]["folder"], f"{tag}_r{r}.csv") for r in range(2)]
+        for i, (mode, epochs, want_mode) in enumerate(runs):
+            ranks = [r[i] for r in by_rank]
             steps = epochs * DIST_APP_IPE
             new = DIST_APP_IPE  # updates this run took (the resume: the second epoch's)
-            csvs = [os.path.join(cfg["logging"]["folder"], f"{tag}_r{r}.csv") for r in range(2)]
-            losses = [_csv_losses(c) for c in csvs]
-            times = [_csv_times(c)[:3] for c in csvs]
+            losses = [_csv_losses(c)[:steps] for c in csvs]  # the rows up to this run's
+            times = [_csv_times(c, run=i)[:3] for c in csvs]
             log(f"dist (c): card {card}; 2-rank app {mode} (vitl16.yaml, batch "
                 f"{cfg['data']['batch_size']} per rank): steps {[r['step'] for r in ranks]}, "
                 f"checkpoint writes per rank {[len(r['writes']) for r in ranks]}, "
@@ -4627,8 +4862,7 @@ def phase_dist(torch, repo, setup, card):
                 raise RuntimeError(f"dist (c) {mode}: steps {[r['step'] for r in ranks]}, "
                                    f"writes {[r['writes'] for r in ranks]}, losses {losses}")
             out["c"][mode] = _sum_launches(*(r["launches"] for r in ranks))
-            if mode != "fixed":
-                shutil.rmtree(cfg["logging"]["folder"])
+        shutil.rmtree(cfg["logging"]["folder"])
 
         # (d) the 2-rank K400 16x8x3 bf16 eval
         enc_path = write_seeded_encoder(torch, workdir)
@@ -5374,6 +5608,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
         serve = timed("serve", phase_serve, torch, workdir)
         enc_path = serve["enc_path"]
+        orb = timed("orbax", phase_orbax, torch, repo, workdir, serve, tiny)
         off = timed("(d) off-size serving", phase_serve_off_size, torch, enc_path)
         ev16 = timed("ev16", phase_eval_video, torch, repo, workdir, enc_path, bf16=True)
         ev32 = timed("ev32", phase_eval_video, torch, repo, workdir, enc_path, bf16=False)
@@ -5381,13 +5616,16 @@ def main() -> int:
         img_eval = timed("(b) image eval through evals.main", phase_image_eval, torch, repo,
                          workdir, enc_path)
     train = timed("train", phase_train, torch, setup)
-    # the context encoder's fc1 fused and differentiated: H8 + LinearGelu
-    force = train_setup(repo, fused_mlp="force")
-    train_force = timed("train_force", phase_train, torch, force, profile=False)
-    ab = timed("ab", phase_force_ab, torch, setup, force)
-    diff = timed("(c) diffusion-mode update", phase_diffusion, torch, repo)
+    # at VITL_CUT_DEPTH of ViT-L's blocks: the context encoder's fc1 fused
+    # and differentiated (H8 + LinearGelu), its A/B against the default
+    # update, and the diffusion mode
+    with cut_depth("vit_large", VITL_CUT_DEPTH):
+        force = train_setup(repo, fused_mlp="force")
+        train_force = timed("train_force", phase_train, torch, force, profile=False)
+        ab = timed("ab", phase_force_ab, torch, train_setup(repo), force)
+        diff = timed("(c) diffusion-mode update", phase_diffusion, torch, repo)
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
-        app = timed("app", phase_app, torch, repo, setup, workdir)
+        app = timed("app", phase_app, torch, repo, setup, workdir, resume=False)
         instr = timed("app with profile_steps and log_resources", phase_app_instruments,
                       torch, repo, setup, workdir)
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
@@ -5402,7 +5640,8 @@ def main() -> int:
     # vit_tiny: its serving, updates and app, through the head-major kernels
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
         tiny_serve = timed("tiny_serve", phase_serve, torch, workdir, "vit_tiny")
-        tiny_train = timed("tiny_train", phase_train, torch, tiny, determinism=True)
+        tiny_train = timed("tiny_train", phase_train, torch, tiny, determinism=True,
+                           profile=False)
         tiny_app = timed("tiny_app", phase_app, torch, repo, tiny, workdir)
     # at VITL_CUT_DEPTH of ViT-L's blocks: the tube mask mode at vitl16.yaml
     # (updates, one B=2 update against the plain versions, the app fixed and
@@ -5479,9 +5718,14 @@ def main() -> int:
                 r["app"] = timed(f"{m} app", phase_app, torch, repo,
                                  train_setup(repo, model_name=m, remat="attn"), workdir,
                                  ipe=2, epochs=1, resume=False)
-    # vit_small and vit_base: the c=16 instances, serving, updates, the app
-    small = small_base_paths(torch, repo)
-    sl = _sum_launches(serve["launches"], off["launches"])
+    # vit_small and vit_base at SMALL_BASE_CUT_DEPTH blocks: the c=16
+    # instances, serving, updates, the app
+    with (cut_depth("vit_small", SMALL_BASE_CUT_DEPTH),
+          cut_depth("vit_base", SMALL_BASE_CUT_DEPTH)):
+        small = small_base_paths(torch, repo)
+    # ViT-L serving: phase_serve's requests, the off-size ones and the
+    # orbax-loaded encoder's (phase_orbax)
+    sl = _sum_launches(serve["launches"], off["launches"], orb["serve"])
     al = app["padded"]["launches"]
     el, fl = ev16["launches"], ev32["launches"]
     il = _sum_launches(img["launches"], img_eval["launches"])
@@ -5490,7 +5734,7 @@ def main() -> int:
     # the instrumented app's
     tl = _sum_launches(train["launches"], tube_train["launches"],
                        tube_app["fixed"]["launches"], *(r["launches"] for r in remat.values()),
-                       dist["a"], dist["b"], dist["c"]["fixed"], dist["c"]["resume"],
+                       dist["a"], dist["b"], dist["c"]["resume"],
                        diff["launches"], instr["launches"])
     al = _sum_launches(al, tube_app["padded"]["launches"], dist["c"]["padded"])
     el = _sum_launches(el, dist["d"])
@@ -5514,7 +5758,7 @@ def main() -> int:
     # flash_attention_hm_f32.cu
     f32_attn_src = "jepa_tpu_torch/csrc/flash_f32.cuh"
     fa_py = "jepa_tpu/ops/flash_attention.py"
-    # fp32 pretraining of ViT-H (vith16 whole, vith16_384 cut, vith16's app),
+    # fp32 pretraining of ViT-H (vith16 and vith16_384 cut, vith16's app),
     # vit_giant and vit_gigantic (cut): by model, fixed (gx) and padded (gp32)
     g32runs, g32app = giants32["runs"], giants32["app"]
     gx, gp32 = {}, {}
@@ -5572,12 +5816,13 @@ def main() -> int:
                      k11["z_f32"]),
     ]
     # the head-major kernels and the c=128 instances: vit_tiny's serving, its
-    # timed updates, its app (fixed + resume, padded), and H5 + H6 through
+    # timed updates, its app (padded, fixed resume), and H5 + H6 through
     # flash_attention_packed under autograd
     hm_src = "jepa_tpu_torch/csrc/flash_attention_hm.cu"
     ts, tt = tiny_serve["launches"], tiny_train["launches"]
     tf, tp = tiny_app["fixed"]["launches"], tiny_app["padded"]["launches"]
-    tiny_runs = lambda k: ts[k] + tt[k] + tf[k] + tp[k]
+    to = _sum_launches(orb["app"])  # the app resumed from orbax (phase_orbax)
+    tiny_runs = lambda k: ts[k] + tt[k] + tf[k] + tp[k] + to[k]
     kernels += [
         kernel_entry("flash_attention_hm_fwd", hm_src, f"{fa_py}:122",
                      tiny_runs("hm_fwd_c64") - tp["hm_fwd_c64_masked"], hm["fwd"]),
@@ -5824,7 +6069,7 @@ def main() -> int:
             f"{100 * a['host']:.1f} %, peak {a['peak_gib']:.2f} GiB")
     for (config, name), modes in g32runs.items():
         for mode, t in modes.items():
-            depth = "" if config == "vith16.yaml" else f", {t['depth']} blocks"
+            depth = f", {t['depth']} blocks"
             log(f"card: {card}; fp32 update ({config}, {name}{depth}, meta.dtype float32, "
                 f"{mode} masks, B={t['batch']}, remat 'attn'): median {t['median_ms']:.1f} "
                 f"ms/update, peak {t['peak_gib']:.2f} GiB, {device_split(t)}; "
@@ -5876,6 +6121,11 @@ def main() -> int:
             f"median train step {e['train_ms']:.1f} ms, val step {e['val_ms']:.1f} ms, peak "
             f"{e['peak_gib']:.2f} GiB; features vs plain min cosine "
             f"{min(e['feat_cos'].values()):.7f}")
+    gb = orb["raw_bytes"] / 1e9
+    log(f"card: {card}; orbax ViT-L/16 target ({gb:.3f} GB fp32, "
+        f"{orb['disk_bytes'] / 1e9:.3f} GB on disk): save_tree {orb['write_s']:.2f} s "
+        f"({gb / orb['write_s']:.2f} GB/s), api.load_encoder {orb['read_s']:.2f} s "
+        f"({gb / orb['read_s']:.2f} GB/s)")
     log(f"card: {card}; vit_tiny serve median {tiny_serve['median_ms']:.3f} ms/request (B=2), "
         f"peak {tiny_serve['peak_gib']:.3f} GiB; train median {tiny_train['median_ms']:.1f} "
         f"ms/step (B={TRAIN_BATCH}), peak {tiny_train['peak_gib']:.2f} GiB")

@@ -9,7 +9,9 @@ serve features or class probabilities (counterpart of jepa_tpu/api.py).
     clf = load_classifier("k400-probe.pth.tar", enc, num_classes=400)
     probs = clf.classify(clips)   # [B, num_classes] fp32
 
-Checkpoints are the reference zoo's ``.pth.tar`` layout. The encoder runs
+A checkpoint is a reference zoo ``.pth.tar`` (or the port's own) or a
+JAX package's orbax directory (its pretraining run or eval probe, read
+without JAX by ``utils.orbax``). The encoder runs
 grad-free with the fused fc1 kernel on: on a CUDA device every encoder
 block runs the flash-attention kernel (H1) and the fused fc1 + GELU
 kernel (H3). ``device`` defaults to "cuda" and a missing GPU raises; the
@@ -32,9 +34,12 @@ from jepa_tpu_torch.models.attentive import (
 from jepa_tpu_torch.models.factory import vit_cfg
 from jepa_tpu_torch.models.transformer import cast_matmul_weights_
 from jepa_tpu_torch.models.vit import ViTCfg, VisionTransformer, vit_forward
+from jepa_tpu_torch.utils import orbax
 from jepa_tpu_torch.utils.checkpoint_port import (
     check_state,
     load_classifier_state,
+    load_orbax_classifier,
+    load_orbax_encoder,
     load_pretrained_encoder,
 )
 
@@ -49,11 +54,16 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
-def _require_torch_ckpt(path: str) -> None:
-    if not path.endswith(_TORCH_CKPT):
-        raise NotImplementedError(
-            f"{path!r}: only .pth.tar / .pth / .pt checkpoints load in the port "
-            "(the orbax checkpoint path is not ported)")
+def checkpoint_format(path: str) -> str:
+    """'torch' for a ``.pth.tar`` / ``.pth`` / ``.pt`` file, 'orbax' for an
+    orbax checkpoint directory (one with ``_METADATA``); anything else
+    raises ValueError."""
+    if path.endswith(_TORCH_CKPT):
+        return "torch"
+    if orbax.is_checkpoint(path):
+        return "orbax"
+    raise ValueError(f"{path!r} is neither a .pth.tar / .pth / .pt file nor an orbax "
+                     f"checkpoint directory (one with {orbax.METADATA})")
 
 
 @dataclasses.dataclass
@@ -105,22 +115,28 @@ def load_encoder(
     tolerant: bool = False,
     device="cuda",
 ) -> Encoder:
-    """Load a frozen encoder from a reference ``.pth.tar`` zoo file.
+    """Load a frozen encoder from a reference ``.pth.tar`` zoo file or a
+    JAX orbax checkpoint directory.
 
-    ``checkpoint_key`` is 'target_encoder' or 'encoder'. Loading is strict
-    by default: a key or shape mismatch raises; ``tolerant=True`` keeps a
-    seeded init for mismatched entries.
+    ``checkpoint_key`` is 'target_encoder' or 'encoder' (in an orbax
+    directory: ``target`` or ``params/encoder``). Loading is strict by
+    default: a key or shape mismatch raises; ``tolerant=True`` keeps a
+    seeded init for mismatched entries of a ``.pth.tar`` (an orbax
+    directory always loads strictly, as in the JAX package).
     """
     if checkpoint_key not in ("target_encoder", "encoder"):
         raise ValueError(f"checkpoint_key must be 'target_encoder' or 'encoder', "
                          f"got {checkpoint_key!r}")
     device = _resolve_device(device)
-    _require_torch_ckpt(checkpoint)
+    fmt = checkpoint_format(checkpoint)
     cfg = vit_cfg(model_name, img_size=img_size, patch_size=patch_size,
                   num_frames=num_frames, tubelet_size=tubelet_size,
                   uniform_power=uniform_power, compute_dtype=compute_dtype)
-    model = load_pretrained_encoder(checkpoint, cfg, checkpoint_key,
-                                    tolerant=tolerant, device=device)
+    if fmt == "orbax":
+        model = load_orbax_encoder(checkpoint, cfg, checkpoint_key, device=device)
+    else:
+        model = load_pretrained_encoder(checkpoint, cfg, checkpoint_key,
+                                        tolerant=tolerant, device=device)
     return Encoder(model=cast_matmul_weights_(model, compute_dtype), cfg=cfg)
 
 
@@ -155,17 +171,21 @@ def load_classifier(
     depth: int = 1,
     checkpoint_key: str = "classifier",
 ) -> VideoClassifier:
-    """Load a trained attentive probe (reference ``.pth.tar`` layout, its
-    ``checkpoint_key`` entry) on top of a loaded encoder, strictly: a key
-    or shape mismatch raises. ``depth`` must match the probe's training
-    config (the evals use 1)."""
-    _require_torch_ckpt(checkpoint)
+    """Load a trained attentive probe on top of a loaded encoder, strictly:
+    a key or shape mismatch raises. A ``.pth.tar`` (reference layout) gives
+    its ``checkpoint_key`` entry; a JAX eval's orbax probe directory its
+    ``classifier`` tree. ``depth`` must match the probe's training config
+    (the evals use 1)."""
+    fmt = checkpoint_format(checkpoint)
     cd = encoder.cfg.compute_dtype
     acfg = AttentiveCfg(embed_dim=encoder.cfg.embed_dim, num_heads=encoder.cfg.num_heads,
                         depth=depth, num_classes=num_classes, compute_dtype=cd)
-    sd = load_classifier_state(checkpoint, checkpoint_key)
-    clf = AttentiveClassifier(acfg, device=encoder.device)
-    check_state(sd, clf, "classifier")
-    clf.load_state_dict(sd, strict=True)
+    if fmt == "orbax":
+        clf = load_orbax_classifier(checkpoint, acfg, device=encoder.device)
+    else:
+        sd = load_classifier_state(checkpoint, checkpoint_key)
+        clf = AttentiveClassifier(acfg, device=encoder.device)
+        check_state(sd, clf, "classifier")
+        clf.load_state_dict(sd, strict=True)
     return VideoClassifier(encoder=encoder, classifier=cast_matmul_weights_(clf, cd),
                            acfg=acfg)

@@ -5,8 +5,8 @@ evals/video_classification_frozen/eval.py:67-561).
     from jepa_tpu_torch.evals.video_classification_frozen import main
     val_accs = main(load_config("configs/evals/vitl16_k400_16x8x3.yaml"))  # device="cuda"
 
-A pretrained encoder (a ``.pth.tar``; an orbax directory raises, as
-``api.load_encoder`` does) is frozen; an AttentiveClassifier trains with
+A pretrained encoder (a ``.pth.tar``, or a JAX pretraining run's orbax
+directory, read strictly as the JAX eval reads one) is frozen; an AttentiveClassifier trains with
 cross-entropy on the aggregated clip features; validation is
 multi-segment x multi-view with softmax-averaged top-1. It reads the
 reference's YAML schema key by key, as the JAX eval does. One process
@@ -44,7 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from jepa_tpu_torch.api import _require_torch_ckpt
+from jepa_tpu_torch.api import checkpoint_format
 from jepa_tpu_torch.data.loader import make_video_loader
 from jepa_tpu_torch.data.transforms import AugmentCfg, multiview_crops, pretrain_augment
 from jepa_tpu_torch.evals.aggregation import (
@@ -66,7 +66,7 @@ from jepa_tpu_torch.models.vit import ViTCfg, VisionTransformer
 from jepa_tpu_torch.train.optimizer import adamw_update_, clip_by_global_norm, decay_mask
 from jepa_tpu_torch.train.step import step_generator
 from jepa_tpu_torch.utils import checkpoint as ckpt_lib
-from jepa_tpu_torch.utils.checkpoint_port import load_pretrained_encoder
+from jepa_tpu_torch.utils.checkpoint_port import load_orbax_encoder, load_pretrained_encoder
 from jepa_tpu_torch.utils.logging import AverageMeter, CSVLogger, get_logger
 from jepa_tpu_torch.utils.schedulers import CosineWD, WarmupCosine
 
@@ -75,9 +75,15 @@ AUG_SEED = 1234  # the JAX eval's augmentation key
 
 def load_frozen_encoder(path: str, cfg: ViTCfg, checkpoint_key: str, device) -> VisionTransformer:
     """A zoo or app ``.pth.tar`` encoder, loaded tolerantly as the JAX eval
-    loads one, frozen, its matmul weights stored in the compute dtype."""
-    _require_torch_ckpt(path)
-    model = load_pretrained_encoder(path, cfg, checkpoint_key, tolerant=True, device=device)
+    loads one, or a JAX orbax run directory's ``target`` / ``params/encoder``,
+    loaded strictly as the JAX eval loads one (a probe on a silently random
+    encoder is worse than a crash); frozen, its matmul weights stored in the
+    compute dtype."""
+    if checkpoint_format(path) == "orbax":
+        model = load_orbax_encoder(path, cfg, checkpoint_key, device=device)
+    else:
+        model = load_pretrained_encoder(path, cfg, checkpoint_key, tolerant=True,
+                                        device=device)
     return cast_matmul_weights_(model, cfg.compute_dtype).requires_grad_(False).eval()
 
 

@@ -19,6 +19,12 @@ ZeRO-1 (fsdp > 1) the moments' slices are gathered first, so the file
 keeps the layout above and a 1-rank run, or one with another fsdp,
 resumes from it; on load every rank reads the file and keeps its slices.
 
+``meta.read_checkpoint`` may also name a JAX pretraining run's orbax
+directory (jepa_tpu/utils/checkpoint.py's ``<tag>-latest``): the train
+state and its epoch are read without JAX (``utils.orbax``) and go through
+``checkpoint_port.train_state_from_jax``, so a run moves from the JAX
+package to the port. The port still writes ``.pth.tar``.
+
 The frozen evals' probe checkpoints (``save_probe_checkpoint``) use the
 same naming and atomic write and hold what the JAX evals save:
 ``classifier`` (the AttentiveClassifier state_dict, which
@@ -37,6 +43,8 @@ import torch
 
 from jepa_tpu_torch.parallel import dist as pdist
 from jepa_tpu_torch.parallel.mesh import Layout, shard, zero1_plan
+from jepa_tpu_torch.utils import orbax
+from jepa_tpu_torch.utils.checkpoint_port import train_state_from_jax, train_state_template
 
 logger = logging.getLogger(__name__)
 
@@ -109,21 +117,46 @@ def _restore_moments(path: str, opt: dict, state, plan=None, layout=None) -> Non
                 t.copy_(saved[name] if plan is None else shard(saved[name], plan[name], layout))
 
 
+def _read_orbax(path: str, state) -> Tuple[dict, int]:
+    """A JAX train state's orbax directory as a ``.pth.tar``'s entries
+    (state_dicts, ``opt``) on the CPU, and its epoch."""
+    enc_cfg, pred_cfg = state.encoder.cfg, state.predictor.cfg
+    template = train_state_template(enc_cfg, pred_cfg)
+    template["epoch"] = ()
+    tree = orbax.load_subtree(path, template)
+    consts = {"encoder": {"pos_embed": state.encoder.pos_embed[0]},
+              "predictor": {"pos_embed": state.predictor.predictor_pos_embed[0]}}
+    src = train_state_from_jax(tree, consts, enc_cfg, pred_cfg, device="cpu")
+    ckpt = {"encoder": src.encoder.state_dict(), "predictor": src.predictor.state_dict(),
+            "target_encoder": src.target.state_dict(),
+            "opt": {"step": src.step, "mu": src.mu, "nu": src.nu}}
+    return ckpt, int(tree["epoch"])
+
+
 def load_checkpoint(folder: str, tag: str, state, read_path: Optional[str] = None,
                     layout: Optional[Layout] = None) -> Tuple[object, int]:
     """Restore params, target, moments and step into ``state`` in place;
-    returns (state, start epoch). A missing or unreadable file leaves the
+    returns (state, start epoch). ``read_path`` may be a ``.pth.tar`` or a
+    JAX orbax run directory. A missing or unreadable checkpoint leaves the
     state as it is and returns epoch 0, as the reference does. Under a
     ``layout`` with fsdp > 1 the moments keep this rank's slices."""
     path = read_path or checkpoint_path(folder, tag)
     if not os.path.exists(path):
         logger.info("no checkpoint at %s; starting fresh", path)
         return state, 0
-    try:
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    except (OSError, RuntimeError, pickle.UnpicklingError) as e:
-        logger.warning("failed to load checkpoint %s: %s", path, e)
-        return state, 0
+    if orbax.is_checkpoint(path):
+        try:
+            ckpt, epoch = _read_orbax(path, state)
+        except (OSError, ValueError, KeyError, NotImplementedError) as e:
+            logger.warning("failed to load checkpoint %s: %s", path, e)
+            return state, 0
+        ckpt["epoch"] = epoch
+    else:
+        try:
+            ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        except (OSError, RuntimeError, pickle.UnpicklingError) as e:
+            logger.warning("failed to load checkpoint %s: %s", path, e)
+            return state, 0
     state.encoder.load_state_dict(ckpt["encoder"])
     state.predictor.load_state_dict(ckpt["predictor"])
     state.target.load_state_dict(ckpt["target_encoder"])

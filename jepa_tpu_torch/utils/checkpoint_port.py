@@ -11,6 +11,16 @@ port state_dicts; they take plain dicts and need no JAX.
 ``predictor_state_from_jax`` does the same for the predictor, and
 ``train_state_from_jax`` turns a whole JAX train state (params, target,
 AdamW moments, step) into the port's ``TrainState``.
+
+The ``*_to_jax`` functions are their inverses: port state_dicts (and a
+whole ``TrainState``, moments and step included) to the JAX package's
+canonical stacked layout as numpy, which ``utils.orbax.save_tree`` writes
+as the JAX package's own checkpoint. ``pos_embed`` is a const the JAX
+package derives from the config, so no tree holds it. The ``*_template``
+functions give the layout's shapes (nested dicts of shape tuples, built
+on the meta device) for ``utils.orbax.load_subtree``; ``load_orbax_encoder``
+and ``load_orbax_classifier`` read an orbax checkpoint's encoder or probe
+strictly, as jepa_tpu/api.py does.
 """
 
 from __future__ import annotations
@@ -95,12 +105,15 @@ def load_pretrained_encoder(
 
 
 def _t(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # a bfloat16 leaf of an orbax checkpoint
+        return a.detach().to("cpu", torch.float32, copy=True)
     return torch.from_numpy(np.array(a, dtype=np.float32))  # a writable copy
 
 
 def _block_state(blocks: Mapping, i: int, prefix: str) -> Dict[str, torch.Tensor]:
     """Layer i of a stacked JAX block tree -> reference-named entries."""
-    g = lambda leaf: np.asarray(leaf, np.float32)[i]
+    g = lambda leaf: (leaf[i].float().numpy() if isinstance(leaf, torch.Tensor)
+                      else np.asarray(leaf[i], np.float32))
     return {
         f"{prefix}.norm1.weight": _t(g(blocks["ln1"]["scale"])),
         f"{prefix}.norm1.bias": _t(g(blocks["ln1"]["bias"])),
@@ -118,7 +131,7 @@ def _block_state(blocks: Mapping, i: int, prefix: str) -> Dict[str, torch.Tensor
 
 
 def _depth(blocks: Mapping) -> int:
-    return int(np.asarray(blocks["ln1"]["scale"]).shape[0])
+    return int(blocks["ln1"]["scale"].shape[0])
 
 
 def encoder_state_from_jax(params: Mapping, consts: Mapping, cfg: ViTCfg) -> Dict[str, torch.Tensor]:
@@ -232,3 +245,183 @@ def load_classifier_state(path: str, checkpoint_key: str = "classifier") -> Dict
     ckpt = load_checkpoint(path)
     return strip_prefixes(ckpt[checkpoint_key] if checkpoint_key in ckpt else ckpt)
 
+
+
+# ---- the port -> the JAX package's layout ----------------------------------
+# Each *_tree builds the JAX layout as torch tensors, so the same code runs
+# on real state (``*_to_jax``, then numpy) and on meta tensors (the shape
+# templates).
+
+def _stacked_blocks(sd: Mapping[str, torch.Tensor], prefix: str) -> dict:
+    """The blocks ``{prefix}.{i}.*`` stacked on a leading depth axis, with
+    the linears as [in, out] (the inverse of ``_block_state``)."""
+    depth = sum(1 for k in sd if k.startswith(f"{prefix}.") and k.endswith(".norm1.weight"))
+    g = lambda name: torch.stack([sd[f"{prefix}.{i}.{name}"] for i in range(depth)])
+    gt = lambda name: torch.stack([sd[f"{prefix}.{i}.{name}"].T for i in range(depth)])
+    return {
+        "ln1": {"scale": g("norm1.weight"), "bias": g("norm1.bias")},
+        "attn": {"qkv_w": gt("attn.qkv.weight"), "qkv_b": g("attn.qkv.bias"),
+                 "proj_w": gt("attn.proj.weight"), "proj_b": g("attn.proj.bias")},
+        "ln2": {"scale": g("norm2.weight"), "bias": g("norm2.bias")},
+        "mlp": {"fc1_w": gt("mlp.fc1.weight"), "fc1_b": g("mlp.fc1.bias"),
+                "fc2_w": gt("mlp.fc2.weight"), "fc2_b": g("mlp.fc2.bias")},
+    }
+
+
+def _encoder_tree(sd: Mapping[str, torch.Tensor]) -> dict:
+    w = sd["patch_embed.proj.weight"]
+    return {
+        "patch_embed": {"w": w.reshape(w.shape[0], -1).T, "b": sd["patch_embed.proj.bias"]},
+        "blocks": _stacked_blocks(sd, "blocks"),
+        "norm": {"scale": sd["norm.weight"], "bias": sd["norm.bias"]},
+    }
+
+
+def _predictor_tree(sd: Mapping[str, torch.Tensor]) -> dict:
+    tree = {
+        "predictor_embed": {"w": sd["predictor_embed.weight"].T,
+                            "b": sd["predictor_embed.bias"]},
+        "blocks": _stacked_blocks(sd, "predictor_blocks"),
+        "norm": {"scale": sd["predictor_norm.weight"], "bias": sd["predictor_norm.bias"]},
+        "predictor_proj": {"w": sd["predictor_proj.weight"].T, "b": sd["predictor_proj.bias"]},
+    }
+    tokens = sorted((k for k in sd if k.startswith("mask_tokens.")),
+                    key=lambda k: int(k.split(".")[1]))
+    if tokens:
+        tree["mask_tokens"] = torch.stack([sd[k].reshape(-1) for k in tokens])
+    return tree
+
+
+def _classifier_tree(sd: Mapping[str, torch.Tensor]) -> dict:
+    cp = "pooler.cross_attention_block"
+    cross = {
+        "ln1": {"scale": sd[f"{cp}.norm1.weight"], "bias": sd[f"{cp}.norm1.bias"]},
+        "q_w": sd[f"{cp}.xattn.q.weight"].T, "q_b": sd[f"{cp}.xattn.q.bias"],
+        "kv_w": sd[f"{cp}.xattn.kv.weight"].T, "kv_b": sd[f"{cp}.xattn.kv.bias"],
+        "proj_w": sd[f"{cp}.xattn.proj.weight"].T, "proj_b": sd[f"{cp}.xattn.proj.bias"],
+    }
+    if f"{cp}.norm2.weight" in sd:  # complete_block
+        cross["ln2"] = {"scale": sd[f"{cp}.norm2.weight"], "bias": sd[f"{cp}.norm2.bias"]}
+        cross["mlp"] = {"fc1_w": sd[f"{cp}.mlp.fc1.weight"].T, "fc1_b": sd[f"{cp}.mlp.fc1.bias"],
+                        "fc2_w": sd[f"{cp}.mlp.fc2.weight"].T, "fc2_b": sd[f"{cp}.mlp.fc2.bias"]}
+    pooler = {"query_tokens": sd["pooler.query_tokens"][0], "cross": cross}
+    if any(k.startswith("pooler.blocks.") for k in sd):
+        pooler["blocks"] = _stacked_blocks(sd, "pooler.blocks")
+    return {"pooler": pooler, "linear": {"w": sd["linear.weight"].T, "b": sd["linear.bias"]}}
+
+
+def _numpy(tree):
+    """A tree of tensors as float32 numpy arrays of their own (bit-equal for
+    fp32; never a view of a live parameter)."""
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", torch.float32, copy=True).contiguous().numpy()
+
+
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape)
+
+
+def _split_moments(moments: Mapping[str, torch.Tensor]):
+    """"encoder.<n>" / "predictor.<n>" keyed moments -> two state_dicts."""
+    enc = {k[len("encoder."):]: v for k, v in moments.items() if k.startswith("encoder.")}
+    pred = {k[len("predictor."):]: v for k, v in moments.items() if k.startswith("predictor.")}
+    return enc, pred
+
+
+def encoder_state_to_jax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """VisionTransformer state_dict -> the JAX encoder's params as numpy
+    (the inverse of ``encoder_state_from_jax``; ``pos_embed`` is dropped)."""
+    return _numpy(_encoder_tree(strip_prefixes(sd)))
+
+
+def predictor_state_to_jax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """Predictor state_dict -> the JAX predictor's params as numpy."""
+    return _numpy(_predictor_tree(sd))
+
+
+def classifier_state_to_jax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """AttentiveClassifier state_dict -> the JAX probe's params as numpy."""
+    return _numpy(_classifier_tree(strip_prefixes(sd)))
+
+
+def train_state_to_jax(state) -> dict:
+    """The port's TrainState (whole moments, as a 1-rank run or
+    ``checkpoint.gather_moments`` holds them) -> the JAX package's train
+    state as numpy: ``step`` (int32), ``params`` {encoder, predictor},
+    ``target`` and ``opt`` {mu, nu} (the inverse of ``train_state_from_jax``)."""
+    def params(enc_sd, pred_sd):
+        return {"encoder": _numpy(_encoder_tree(enc_sd)),
+                "predictor": _numpy(_predictor_tree(pred_sd))}
+
+    return {
+        "step": np.asarray(int(state.step), np.int32),
+        "params": params(state.encoder.state_dict(), state.predictor.state_dict()),
+        "target": _numpy(_encoder_tree(state.target.state_dict())),
+        "opt": {"mu": params(*_split_moments(state.mu)),
+                "nu": params(*_split_moments(state.nu))},
+    }
+
+
+def encoder_template(cfg: ViTCfg) -> dict:
+    """The JAX encoder params' shapes for ``cfg``."""
+    return _shapes(_encoder_tree(VisionTransformer(cfg, device="meta").state_dict()))
+
+
+def predictor_template(cfg) -> dict:
+    from jepa_tpu_torch.models.predictor import Predictor
+
+    return _shapes(_predictor_tree(Predictor(cfg, device="meta").state_dict()))
+
+
+def classifier_template(acfg) -> dict:
+    from jepa_tpu_torch.models.attentive import AttentiveClassifier
+
+    return _shapes(_classifier_tree(AttentiveClassifier(acfg, device="meta").state_dict()))
+
+
+def train_state_template(enc_cfg: ViTCfg, pred_cfg) -> dict:
+    """The JAX train state's shapes (``init_train_state``'s stacked layout)."""
+    params = {"encoder": encoder_template(enc_cfg), "predictor": predictor_template(pred_cfg)}
+    return {"step": (), "params": params, "target": params["encoder"],
+            "opt": {"mu": params, "nu": params}}
+
+
+# checkpoint_key -> where the JAX package's orbax run directory keeps it
+# (jepa_tpu/evals/video_classification_frozen.py::_load_encoder)
+_ORBAX_ENCODER = {"target_encoder": ("target",), "encoder": ("params", "encoder")}
+
+
+def load_orbax_encoder(path: str, cfg: ViTCfg, checkpoint_key: str = "target_encoder",
+                       device=None) -> VisionTransformer:
+    """The encoder of a JAX orbax checkpoint (``target`` for
+    'target_encoder', ``params/encoder`` for 'encoder') in a
+    VisionTransformer on ``device``, strictly: a missing leaf raises
+    KeyError, a shape mismatch ValueError."""
+    from jepa_tpu_torch.utils import orbax
+
+    keys = _ORBAX_ENCODER.get(checkpoint_key, ("target",))
+    template = encoder_template(cfg)
+    for k in reversed(keys):
+        template = {k: template}
+    tree = orbax.load_subtree(path, template)
+    for k in keys:
+        tree = tree[k]
+    sd = encoder_state_from_jax(tree, {"pos_embed": sincos_table(cfg)[0]}, cfg)
+    model = VisionTransformer(cfg, device=device)
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def load_orbax_classifier(path: str, acfg, device=None):
+    """The ``classifier`` entry of a JAX eval's orbax probe checkpoint in an
+    AttentiveClassifier on ``device``, strictly."""
+    from jepa_tpu_torch.models.attentive import AttentiveClassifier
+    from jepa_tpu_torch.utils import orbax
+
+    tree = orbax.load_subtree(path, {"classifier": classifier_template(acfg)})["classifier"]
+    clf = AttentiveClassifier(acfg, device=device)
+    clf.load_state_dict(classifier_state_from_jax(tree, acfg), strict=True)
+    return clf

@@ -97,7 +97,8 @@ def test_strict_and_tolerant_loading(tmp_path):
     # a zoo file at another resolution: pos_embed alone is regenerated
     enc = api.load_encoder(path, "vit_tiny", **{**_GEO, "img_size": 64}, device="cpu")
     assert enc.model.pos_embed.shape == (1, 2 * 4 * 4, 192)
-    with pytest.raises(NotImplementedError, match="orbax"):
+    # a path that is neither a .pth.tar nor an orbax directory (one with _METADATA)
+    with pytest.raises(ValueError, match="nor an orbax checkpoint directory"):
         api.load_encoder(str(tmp_path / "run-latest"), "vit_tiny", **_GEO, device="cpu")
 
 

@@ -120,9 +120,10 @@ def test_image_eval_cli(tmp_path, encoder_ckpt, bf16):
 def test_eval_refuses_an_orbax_encoder_and_a_missing_gpu(tmp_path, monkeypatch):
     from jepa_tpu_torch.evals import video_classification_frozen as vcf
 
+    (tmp_path / "run-dir").mkdir()  # a directory without an orbax checkpoint's _METADATA
     cfg = {"pretrain": _pretrain(str(tmp_path), "run-dir"),
            "data": {"num_classes": 2}, "optimization": _opt(False, resolution=32)}
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(ValueError, match="nor an orbax checkpoint directory"):
         vcf.main(cfg, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

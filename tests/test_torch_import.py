@@ -1,6 +1,8 @@
 """The PyTorch port imports torch and numpy only (and PIL inside the image
 loader, psutil inside the resource monitor, the native decoder through
-ctypes): no JAX, no jepa_tpu.
+ctypes, libzstd through ctypes): no JAX, no jepa_tpu, and none of orbax,
+tensorstore, zarr or zstandard (orbax checkpoints are read and written by
+the port's own utils/ocdbt.py and utils/orbax.py).
 That holds for the package and for chip_smoke.py, including imports made
 inside functions."""
 
@@ -10,6 +12,7 @@ import subprocess
 import sys
 
 _REPO = pathlib.Path(__file__).resolve().parent.parent
+_BANNED = ("jax", "jaxlib", "jepa_tpu", "orbax", "tensorstore", "zarr", "zstandard")
 
 _SCRIPT = """
 import importlib, pkgutil, sys
@@ -22,19 +25,20 @@ for need in ("train.step", "train.optimizer", "train.losses", "masks.multiblock3
              "apps.vjepa.train", "data.randaugment", "data.image_dataset", "evals.aggregation",
              "evals.video_classification_frozen", "evals.image_classification_frozen",
              "evals.scaffold", "evals.main", "native", "native.build", "native.videodec",
-             "utils.monitoring", "models.pos_embed", "models.vit"):
+             "utils.monitoring", "models.pos_embed", "models.vit", "utils.zstd",
+             "utils.ocdbt", "utils.orbax"):
     assert "jepa_tpu_torch." + need in names, need
 for name in names:
     importlib.import_module(name)
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "jepa_tpu" or m.startswith("jepa_tpu."))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 print(len(names), bad)
 assert not bad, bad
 """
 
 
 def test_port_imports_no_jax():
-    res = subprocess.run([sys.executable, "-c", _SCRIPT], capture_output=True,
+    script = _SCRIPT.replace("BANNED", repr(_BANNED))
+    res = subprocess.run([sys.executable, "-c", script], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
@@ -53,5 +57,5 @@ def test_port_sources_import_no_jax():
             else:
                 continue
             bad += [f"{path.name}: {m}" for m in mods
-                    if m.split(".")[0] in ("jax", "jaxlib", "jepa_tpu")]
+                    if m.split(".")[0] in _BANNED]
     assert len(files) > 49 and not bad, bad
