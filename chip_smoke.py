@@ -21,10 +21,19 @@
                                             # memory (phase_remat_peak)
     python3 chip_smoke.py --f32-peak vitl16.yaml:vit_giant [--padded]
                                             # only a pretrain config (and
-                                            # model) in fp32 at full depth:
-                                            # its ms and peak memory, or the
-                                            # OOM and the largest batch that
-                                            # fits (phase_f32_peak)
+                                            # model) in fp32 at full depth,
+                                            # remat 'attn': its ms and peak
+                                            # memory, or the OOM and the
+                                            # largest batch that fits
+                                            # (phase_f32_peak)
+    python3 chip_smoke.py --full-configs [protos,giant-evals,vith-evals,gigantic-app,gigantic-f32]
+                                            # only the shipped configurations
+                                            # at full depth (default: every
+                                            # part; phase_full_configs): the
+                                            # prototypes' shapes, the giants'
+                                            # K400 evals, ViT-H's SSv2 and
+                                            # image evals, vit_gigantic's app,
+                                            # vit_gigantic fp32 with remat true
 
 Phases (any failure raises and exits non-zero):
   1. device: require CUDA, print the card's name and power limit, turn
@@ -75,7 +84,8 @@ Phases (any failure raises and exits non-zero):
      c=24->32), each mask with a mid-sequence run of pads and a ragged
      tail; the masked keys' dk and dv must be exactly 0;
   8. the pretrain app (jepa_tpu_torch.apps.vjepa.train.main) on
-     configs/pretrain/vitl16.yaml with synthetic data and APP_IPE updates
+     configs/pretrain/vitl16.yaml at VITL_CUT_DEPTH of ViT-L's blocks (phase
+     25 runs the app at full depth) with synthetic data and APP_IPE updates
      per epoch, in a temporary folder: padded mode for 1 epoch with the
      launches of the masked kernels per update checked, then fixed mode
      for 1 epoch (step count, CSV rows, and api.load_encoder reading the
@@ -89,9 +99,11 @@ Phases (any failure raises and exits non-zero):
  10. the video eval (jepa_tpu_torch.evals.video_classification_frozen.main)
      on configs/evals/vitl16_k400_16x8x3.yaml at full ViT-L width and depth
      with the seeded encoder and synthetic videos: bf16 at the config's
-     batch 4 for 1 epoch, then a resume to 2 (per train step 32 clips, per
-     val step 96 clips, 24 H1 and 24 H3 launches each), then fp32 at batch 1
-     (24 H1-fp32 and 24 H3-fp32 per step, the bf16 counters still);
+     batch 4 for 1 epoch (per train step 32 clips, per val step 96 clips,
+     24 H1 and 24 H3 launches each), then fp32 at batch 1 (24 H1-fp32 and
+     24 H3-fp32 per step, the bf16 counters still); then
+     configs/evals/vitl16_ssv2_16x2x3.yaml (2 segments x 3 views, 174
+     classes) likewise, its bf16 run for 1 epoch and a resume to 2;
  11. the image probe's device path at configs/evals/vitl16_in1k.yaml's
      geometry: 16 images at 224 px repeated over 16 frames, AutoAugment
      'original' on the card, 2 train steps and 1 val step through the
@@ -161,22 +173,28 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      vith16_384_k400_16x8x3.yaml) in bf16 (batch 4: 1 train step, 1 val
      step) and fp32 (batch 1: 2 and 1) on a seeded ViT-H .pth.tar, the
      features of each first train and val batch's first VITH_VIEWS_CHECKED
-     (segments, views) through the kernels against the plain versions.
+     (segments, views) through the kernels against the plain versions;
+     then the SSv2 16x2x3 evals (vith16_ssv2_16x2x3.yaml,
+     vith16_384_ssv2_16x2x3.yaml) in bf16 likewise, and the image evals
+     vith16_in1k.yaml (224 px) and vith16_384_inat.yaml (384 px, N=4608,
+     10,000 classes) through evals.main with the process pool (phase 23's
+     checks; features against the plain versions one image at a time at
+     384 px).
  21. data parallelism (``phase_dist``), after phase 8, ViT-L at DIST_DEPTH
      (2) of its 24 blocks in every run (``cut_depth``): a vitl16.yaml
      update at B=24 in a 1-rank NCCL group (its collectives run) against
-     the same update with no group, bit for bit; 2 gloo ranks sharing the
-     card (spawned, the kernels built once by this process), 12 clips
-     each, against the 1-rank update of their 24 clips, within limits
+     the same update with no group, bit for bit; then one spawn of 2 ranks
+     sharing the card (the kernels built once by this process): 2 gloo
+     ranks, 12 clips each, against the 1-rank update of their 24 clips, within limits
      DIST_LIMIT_FACTOR times the plain versions' spread on the same
      inputs (measured first and printed), then fsdp=2 against fsdp=1 after
      2 updates, bit-equal; the 2-rank app on vitl16.yaml (24 clips a rank,
      padded, then a fixed-mode resume of it) through apps/main_distributed.py's
      in-cluster mode (a SLURM environment of two one-GPU nodes): one
      checkpoint writer, equal CSV losses, each rank's launches those of
-     the 1-rank app; the 2-rank K400 16x8x3 bf16 eval, whose val pass
-     over 10 videos counts each once and matches a 1-rank val pass of the
-     same probe.
+     the 1-rank app; then the 2-rank
+     K400 16x8x3 bf16 eval, whose val pass over 10 videos counts each once
+     and matches a 1-rank val pass of the same probe.
  22. off-size serving (``phase_serve_off_size``), after phase 5: the seeded
      ViT-L/16 (224 px, 16 frames) encodes clips of 16 x 256 px (N=2048)
      and 8 x 224 px (N=784) through api.Encoder.encode, the pos-embed
@@ -255,8 +273,9 @@ Phases 9-11 run after phase 4 and phase 5 (sharing its seeded encoder).
      and their bounds; H1 + H2 at 6 x 64, 12 x 64 and 12 x 32, H3 at K=384
      and 768, H1-fp32 + H2-fp32 at 6 x 64 and H3-fp32 at K=384; serving both
      models; TRAIN_STEPS updates fixed and padded with a seeded B=2 check
-     each for vit_small (12 x 384 predictor; 2 x 96 in bf16 and fp32, the
-     padded mode's last update at the top rungs) and vit_base (12 x 384);
+     each for vit_small (12 x 384 predictor in bf16 and fp32; 2 x 96 in
+     bf16 and fp32, the padded mode's last update at the top rungs) and
+     vit_base (12 x 384, bf16 and fp32);
      the app with no model.model_name (its default, vit_base) padded and a
      fixed-mode resume of it.
  31. orbax checkpoints (``phase_orbax``), after phase 5: libzstd's
@@ -370,6 +389,15 @@ IMAGE_TRAIN_STEPS = 2
 APP_IPE = 2        # app updates per epoch (the config's ipe is 300)
 TUBE_MASKS = [{"ratio": 0.9}]  # data.mask_type random_tube at the reference's default ratio
 VITH_EVALS = ("vith16_k400_16x8x3.yaml", "vith16_384_k400_16x8x3.yaml")
+# the SSv2 16x2x3 evals (2 segments x 3 views, 174 classes): ViT-L's at full depth,
+# bf16 and fp32 (the bf16 run with the resume); ViT-H's at VITH_CUT_DEPTH, bf16
+SSV2_EVAL_L = "vitl16_ssv2_16x2x3.yaml"
+SSV2_EVALS_H = ("vith16_ssv2_16x2x3.yaml", "vith16_384_ssv2_16x2x3.yaml")
+# ViT-H's image evals through evals.main at VITH_CUT_DEPTH: 224 px (batch 16, N=1568,
+# 1000 classes) and 384 px (batch 16, N=4608, 10,000 classes); the other four
+# vith16{,_384}_{in1k,places,inat}.yaml differ from the one of their resolution only
+# in tag, classes, folder and dataset name (tests/test_torch_eval_configs.py)
+VITH_IMAGE_EVALS = ("vith16_in1k.yaml", "vith16_384_inat.yaml")
 VITH_EVAL_ENTRIES = (4, 4)  # the ViT-H bf16 evals at batch 4: 1 train step, 1 val step
 VITH_VIEWS_CHECKED = (2, 1)  # (segments, views) of each ViT-H eval sample whose features
                              # are held against the plain versions
@@ -2485,8 +2513,26 @@ def _csv_times(path, run=None):
     return step, wall, host, len(rows) - rows.count(rows[0])
 
 
+def _check_app_checkpoint(torch, ckpt, setup, target, d):
+    """api.load_encoder on the app's checkpoint ``ckpt``: the features it
+    serves against those of the run's EMA ``target``."""
+    from jepa_tpu_torch import api
+
+    geo = dict(VITL16_GEO, img_size=d["crop_size"], patch_size=d["patch_size"])
+    clips = np.random.default_rng(SEED).integers(
+        0, 256, size=(2, 16, d["crop_size"], d["crop_size"], 3), dtype=np.uint8)
+    feats = api.load_encoder(ckpt, setup["model_name"],
+                             compute_dtype=setup["enc_cfg"].compute_dtype, **geo).encode(clips)
+    want = api.Encoder(model=target, cfg=setup["enc_cfg"]).encode(clips)
+    err = (feats - want).abs().max().item()
+    log(f"app: api.load_encoder on {os.path.basename(ckpt)} vs the state's target, "
+        f"features max|d| {err:.3e} (tol 1e-3)")
+    if not (torch.isfinite(feats).all() and err <= 1e-3):
+        raise RuntimeError("api.load_encoder does not read the app's checkpoint")
+
+
 def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, padded=True,
-              default_model=False):
+              default_model=False, resume_saves=True):
     """The pretrain app on ``setup``'s config (``train_setup``: its model,
     its tube masks if any) on synthetic data, ``ipe`` updates per epoch:
     padded mode 1 epoch, then fixed mode ``epochs`` epochs, which with
@@ -2497,20 +2543,26 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
     api.load_encoder reads the fixed run's checkpoint. The app runs its
     default activation checkpointing (meta.remat absent: 'attn');
     ``default_model``: the YAML's model.model_name deleted, so the app
-    takes its default model, which must be ``setup``'s."""
+    takes its default model, which must be ``setup``'s. ``resume_saves``
+    False: the resume's final save is recorded but not written (one
+    checkpoint in all, where the machine cannot write two), and
+    api.load_encoder reads the padded run's checkpoint instead."""
     import shutil
+    from unittest import mock
 
     import yaml
 
-    from jepa_tpu_torch import api
     from jepa_tpu_torch.apps.vjepa.train import main as train_main
     from jepa_tpu_torch.masks.multiblock3d import calibrate_pad_ladders
     from jepa_tpu_torch.masks.padding import static_cap
     from jepa_tpu_torch.ops import flash_attention as fa
     from jepa_tpu_torch.ops import fused_mlp as fm
+    from jepa_tpu_torch.utils import checkpoint as ckpt_lib
 
     if resume and not padded:
         raise ValueError("phase_app: the resume starts from the padded run")
+    if not (resume or resume_saves):
+        raise ValueError("phase_app: resume_saves=False needs the resume")
     with open(os.path.join(repo, "configs", "pretrain", setup["config"])) as f:
         cfg = yaml.safe_load(f)
     cfg["data"]["dataset_type"] = "synthetic"
@@ -2565,6 +2617,10 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
         log(f"app padded: step {state.step}, caps {specs_caps}; launches per update "
             f"{_launch_diff({}, got, ipe)}; median step {step_ms:.0f} ms, wall "
             f"{wall_ms:.0f} ms, host share {100 * host:.1f} %, peak allocated {peak:.2f} GiB")
+        if not resume_saves:
+            _check_app_checkpoint(torch, os.path.join(cfg["logging"]["folder"],
+                                                      f"{tag}-latest.pth.tar"),
+                                  setup, state.target, d)
         del state
         if resume:
             start = 1
@@ -2580,12 +2636,19 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
     want_fixed = expected_launches(setup["enc_cfg"], setup["pred_cfg"], setup["keep"])
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(fa, fm)
+    saves = []  # (epoch, step) of each save that resume_saves=False holds back
+    hold = (contextlib.nullcontext() if resume_saves else mock.patch.object(
+        ckpt_lib, "save_checkpoint",
+        lambda folder, tag, st, epoch, *a, **kw: saves.append((epoch, int(st.step)))))
     t0 = time.perf_counter()
-    state = train_main(cfg)
+    with hold:
+        state = train_main(cfg)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     got = _counts(fa, fm)
     steps = epochs * ipe
+    if not resume_saves and saves != [(start + epochs, state.step)]:
+        raise RuntimeError(f"app fixed: saves {saves} != [({start + epochs}, {state.step})]")
     if state.step != (start + epochs) * ipe:
         raise RuntimeError(f"app fixed: step {state.step} != {(start + epochs) * ipe}")
     per_update = _launch_diff({}, got, steps)
@@ -2595,10 +2658,11 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
     ckpt = os.path.join(cfg["logging"]["folder"], f"{tag}-latest.pth.tar")
     peak = torch.cuda.max_memory_allocated() / 2**30
     remat = (state.encoder.cfg.remat, state.predictor.cfg.remat)
+    written = (f"checkpoint {os.path.getsize(ckpt) / 2**30:.2f} GiB" if resume_saves else
+               f"its save at epoch {saves[0][0]}, step {saves[0][1]} held back")
     log(f"app fixed{', resumed from the padded run' if start else ''}: {steps} updates in "
         f"{secs:.1f} s (build of state, loader, checkpoints included); remat (encoder, "
-        f"predictor) {remat}; checkpoint {os.path.getsize(ckpt) / 2**30:.2f} GiB; launches per "
-        f"update {per_update}")
+        f"predictor) {remat}; {written}; launches per update {per_update}")
     if remat != ("attn", "attn"):
         raise RuntimeError(f"app: remat {remat}, not the JAX app's default ('attn', 'attn')")
     shape = lambda cfg: (cfg.embed_dim, cfg.depth, cfg.num_heads)  # noqa: E731
@@ -2607,18 +2671,9 @@ def phase_app(torch, repo, setup, workdir, ipe=APP_IPE, epochs=1, resume=True, p
                            f"{shape(state.encoder.cfg)}, not {setup['model_name']}'s")
 
     # the app's checkpoint through the serving API: the EMA target's features
-    geo = dict(VITL16_GEO, img_size=d["crop_size"], patch_size=d["patch_size"])
-    clips = np.random.default_rng(SEED).integers(
-        0, 256, size=(2, 16, d["crop_size"], d["crop_size"], 3), dtype=np.uint8)
-    feats = api.load_encoder(ckpt, setup["model_name"],
-                             compute_dtype=setup["enc_cfg"].compute_dtype, **geo).encode(clips)
-    want = api.Encoder(model=state.target, cfg=setup["enc_cfg"]).encode(clips)
-    err = (feats - want).abs().max().item()
-    log(f"app: api.load_encoder on {os.path.basename(ckpt)} vs the state's target, "
-        f"features max|d| {err:.3e} (tol 1e-3)")
-    if not (torch.isfinite(feats).all() and err <= 1e-3):
-        raise RuntimeError("api.load_encoder does not read the app's checkpoint")
-    del state, feats, want
+    if resume_saves:
+        _check_app_checkpoint(torch, ckpt, setup, state.target, d)
+    del state
     step_ms, wall_ms, host, n_rows = _csv_times(csv, run=-1)
     if n_rows != steps or not all(np.isfinite(float(x)) for x in _csv_losses(csv)):
         raise RuntimeError(f"app: {n_rows} CSV rows != {steps}, or a loss not finite")
@@ -3282,9 +3337,12 @@ def small_base_paths(torch, repo):
     of vit_small with its 12 x 384 predictor, vit_small with the 2 x 96 one
     (6 heads of 16: H4 + H7 at the fixed sequences; the padded mode's last
     update at the top rungs, N=1664: H4 + H5 + H6) in bf16 and in fp32
-    (meta.dtype float32, remat 'attn', TF32 off), and vit_base with its
-    12 x 384 predictor; then the pretrain app with no model.model_name, so
-    it takes its default, vit_base (``phase_app``: padded, then a fixed
+    (meta.dtype float32, remat 'attn', TF32 off), vit_small with the 12 x
+    384 predictor in fp32 (H1-fp32 + H2-fp32 at 6 x 64, contexts and
+    predictor), and vit_base with its 12 x 384 predictor in bf16 and in
+    fp32 (H1-fp32 + H2-fp32 at 12 x 64 and, the predictor, 12 x 32); then
+    the pretrain app with no model.model_name, so it takes its default,
+    vit_base (``phase_app``: padded, then a fixed
     resume of it). Returns each part's report."""
     from jepa_tpu_torch.masks.multiblock3d import calibrate_pad_ladders
 
@@ -3293,7 +3351,9 @@ def small_base_paths(torch, repo):
     for label, model, kw in (("vit_small", "vit_small", {}),
                              ("vit_small 96", "vit_small", SMALL_PRED96),
                              ("vit_small 96 fp32", "vit_small", dict(SMALL_PRED96, **f32)),
-                             ("vit_base", "vit_base", {})):
+                             ("vit_small fp32", "vit_small", f32),
+                             ("vit_base", "vit_base", {}),
+                             ("vit_base fp32", "vit_base", f32)):
         setups[label] = tuple(train_setup(repo, model, mask_mode=mode, **kw)
                               for mode in (None, "padded"))
     narrow = setups["vit_small 96"][0]
@@ -3318,8 +3378,8 @@ def eval_config(repo, workdir, name, enc_path, n_train, n_val,
                 config="vitl16_k400_16x8x3.yaml", **opt):
     """configs/evals/<config> with the seeded encoder, the synthetic decode
     and CSV manifests of n_train / n_val synthetic videos (seeded labels in
-    [0, 400)) in workdir/name; ``opt`` overrides keys of its optimization
-    section."""
+    [0, the config's num_classes)) in workdir/name; ``opt`` overrides keys
+    of its optimization section."""
     import yaml
 
     with open(os.path.join(repo, "configs", "evals", config)) as f:
@@ -3330,8 +3390,8 @@ def eval_config(repo, workdir, name, enc_path, n_train, n_val,
     for split, n in (("train", n_train), ("val", n_val)):
         path = os.path.join(folder, f"{split}.csv")
         with open(path, "w") as f:
-            f.writelines(f"synthetic://{name}-{split}{i} {rng.integers(0, 400)}\n"
-                         for i in range(n))
+            f.writelines(f"synthetic://{name}-{split}{i} "
+                         f"{rng.integers(0, cfg['data']['num_classes'])}\n" for i in range(n))
         cfg["data"][f"dataset_{split}"] = path
     cfg["data"]["decode_backend"] = "synthetic"
     cfg["pretrain"].update(folder=folder, checkpoint=enc_path)
@@ -3493,7 +3553,8 @@ def phase_eval_video(torch, repo, workdir, enc_path, bf16: bool,
     batch = 4 if bf16 else 1
     n_train, n_val = entries or (EVAL_BF16_ENTRIES if bf16 else EVAL_F32_ENTRIES)
     resume = bf16 if resume is None else resume
-    name = (f"{config.split('_k400')[0]}{'_' + model_name if model_name else ''}_k400_"
+    data = "k400" if "_k400_" in config else "ssv2"
+    name = (f"{config.split('_' + data)[0]}{'_' + model_name if model_name else ''}_{data}_"
             f"{'bf16' if bf16 else 'fp32'}")
     cfg = eval_config(repo, workdir, name, enc_path, n_train, n_val, config=config,
                       batch_size=batch, num_epochs=1, use_bfloat16=bf16)
@@ -3566,6 +3627,29 @@ def phase_eval_video(torch, repo, workdir, enc_path, bf16: bool,
     return dict(launches=launches, train_ms=tr_ms, val_ms=va_ms, train_host=tr_host,
                 train_aug=tr_aug, val_host=va_host, peak_gib=peak, feat_cos=cos,
                 steps=len(rec["train_step"]) + len(rec["val_step"]))
+
+
+def vith_evals(torch, repo, workdir, enc_h, k400=True):
+    """ViT-H's frozen evals on the seeded ViT-H encoder at ``enc_h``, at the
+    depth the caller's ``cut_depth`` leaves: with ``k400`` the K400 16x8x3
+    evals of VITH_EVALS in bf16 (batch 4, VITH_EVAL_ENTRIES) and fp32
+    (batch 1, EVAL_F32_ENTRIES); the SSv2 16x2x3 evals of SSV2_EVALS_H in
+    bf16 (batch 4, VITH_EVAL_ENTRIES), each with the features of its first
+    VITH_VIEWS_CHECKED (segments, views) against the plain versions; and
+    the image evals of VITH_IMAGE_EVALS through evals.main with the process
+    pool (``phase_image_eval``). Returns ({(config, bf16): report},
+    {config: report})."""
+    evh = {}
+    runs = [(c, bf16) for c in VITH_EVALS for bf16 in (True, False)] if k400 else []
+    for config, bf16 in runs + [(c, True) for c in SSV2_EVALS_H]:
+        evh[config, bf16] = timed(
+            f"{config} {'bf16' if bf16 else 'fp32'}", phase_eval_video, torch, repo, workdir,
+            enc_h, bf16, config=config, entries=VITH_EVAL_ENTRIES if bf16 else EVAL_F32_ENTRIES,
+            resume=False, views_checked=VITH_VIEWS_CHECKED)
+    img = {config: timed(config, phase_image_eval, torch, repo, workdir, enc_h, config=config,
+                         modes=("processes",))
+           for config in VITH_IMAGE_EVALS}
+    return evh, img
 
 
 def phase_image_probe(torch, repo, enc_path):
@@ -3657,28 +3741,15 @@ INSTR_IPE = 2      # updates of the app run with logging.profile_steps and log_r
 PROFILE_STEPS = [1, 1]  # one traced update, after the first
 
 
-def phase_image_eval(torch, repo, workdir, enc_path):
-    """(b) The image eval through ``evals.main`` (the CLI a user runs) at
-    configs/evals/vitl16_in1k.yaml's geometry on IMAGE_EVAL_IMAGES seeded
-    320x240 JPEGs in 4 classes, written with PIL, with IMAGE_EVAL_WORKERS
-    loader workers: first the default process pool, which forks after
-    CUDA is up (the train and the val loader), then the same run with
-    ``use_processes=False`` (threads). Each run: every step's launches and
-    H3 rows checked, finite losses, the probe checkpoint and the host share
-    of the wall between back-to-back train steps; the process pool's run
-    also the features of its first train and val batch against the plain
-    versions."""
-    import yaml
+def write_seeded_jpegs(workdir: str) -> str:
+    """IMAGE_EVAL_IMAGES seeded 320x240 JPEGs in 4 classes, written with
+    PIL under workdir/images/imgs/{train,val}/class<i> (once: an existing
+    directory is reused); returns the root_path."""
     from PIL import Image
 
-    from jepa_tpu_torch.data import image_dataset
-    from jepa_tpu_torch.evals import image_classification_frozen as icf
-    from jepa_tpu_torch.evals.main import main as eval_cli
-    from jepa_tpu_torch.models.factory import vit_cfg
-    from jepa_tpu_torch.ops import flash_attention as fa
-    from jepa_tpu_torch.ops import fused_mlp as fm
-
     root = os.path.join(workdir, "images")
+    if os.path.isdir(root):
+        return root
     rng = np.random.default_rng(SEED)
     y, x = np.mgrid[0:240, 0:320]
     for split, n in zip(("train", "val"), IMAGE_EVAL_IMAGES):
@@ -3690,24 +3761,58 @@ def phase_image_eval(torch, repo, workdir, enc_path):
             img = img.transpose(1, 2, 0) + rng.normal(0, 8, (240, 320, 3))
             Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
                 os.path.join(d, f"{i}.jpg"), quality=90)
-    with open(os.path.join(repo, "configs", "evals", "vitl16_in1k.yaml")) as f:
+    return root
+
+
+def phase_image_eval(torch, repo, workdir, enc_path, config="vitl16_in1k.yaml",
+                     modes=("processes", "threads")):
+    """(b) The image eval through ``evals.main`` (the CLI a user runs) on
+    configs/evals/<config> (default vitl16_in1k.yaml; its model at the
+    depth the caller's ``cut_depth`` leaves, from the seeded encoder at
+    ``enc_path``) on the seeded JPEGs of ``write_seeded_jpegs``, with
+    IMAGE_EVAL_WORKERS loader workers, in each of ``modes``: "processes",
+    the default process pool, which forks after CUDA is up (the train and
+    the val loader), and "threads", the same run with
+    ``use_processes=False``. Each run: every step's launches (those the
+    routes imply, ``expected_launches``) and H3 rows checked, finite
+    losses, the probe checkpoint and the host share of the wall between
+    back-to-back train steps; the first run also the features of its
+    first train and val batch against the plain versions (one image at a
+    time where a batch's fp32 scores pass PLAIN_BATCH_BYTES)."""
+    import yaml
+
+    from jepa_tpu_torch.data import image_dataset
+    from jepa_tpu_torch.evals import image_classification_frozen as icf
+    from jepa_tpu_torch.evals.main import main as eval_cli
+    from jepa_tpu_torch.models.factory import vit_cfg
+    from jepa_tpu_torch.ops import flash_attention as fa
+    from jepa_tpu_torch.ops import fused_mlp as fm
+
+    root = write_seeded_jpegs(workdir)
+    with open(os.path.join(repo, "configs", "evals", config)) as f:
         cfg = yaml.safe_load(f)
-    p, o = cfg["pretrain"], cfg["optimization"]
-    cfg["data"].update(root_path=root, image_folder="imgs", num_workers=IMAGE_EVAL_WORKERS)
+    p, o, d = cfg["pretrain"], cfg["optimization"], cfg["data"]
+    d.update(root_path=root, image_folder="imgs", num_workers=IMAGE_EVAL_WORKERS)
     o["num_epochs"] = 1
-    enc_cfg = vit_cfg(p["model_name"], img_size=cfg["data"]["resolution"],
-                      patch_size=p["patch_size"], num_frames=p["frames_per_clip"],
-                      tubelet_size=p["tubelet_size"])
-    b = o["batch_size"]
-    per_step = {"h1": enc_cfg.depth, "h1_c64": enc_cfg.depth, "h3": enc_cfg.depth}
-    want = {"train_step": (per_step, b * enc_cfg.num_patches),
-            "val_step": (per_step, b * enc_cfg.num_patches)}
+    enc_cfg = vit_cfg(p["model_name"], img_size=d["resolution"], patch_size=p["patch_size"],
+                      num_frames=p["frames_per_clip"], tubelet_size=p["tubelet_size"])
+    b, n_tok = o["batch_size"], enc_cfg.num_patches
+    per_step = expected_launches(enc_cfg)
+    fc1 = any(k.startswith("h3") for k in per_step)  # H3 rows: the step's tokens
+    want = {"train_step": (per_step, b * n_tok if fc1 else None),
+            "val_step": (per_step, b * n_tok if fc1 else None)}
+    scores = b * enc_cfg.num_heads * n_tok ** 2 * 4
+    by_sample = scores > PLAIN_BATCH_BYTES
+    name = config.removesuffix(".yaml")
+    log(f"image eval {name}: {p['model_name']} ({enc_cfg.depth} blocks), {d['resolution']} px, "
+        f"batch {b}, {d['num_classes']} classes; expected per step {per_step}, H3 rows "
+        f"{want['train_step'][1]}; features vs plain {'by image' if by_sample else 'by batch'}")
     real_loader = image_dataset.make_image_loader
     out = {"launches": {}}
-    for procs in (True, False):
-        mode = "processes" if procs else "threads"
-        p.update(folder=os.path.join(workdir, f"image_eval_{mode}"), checkpoint=enc_path)
-        path = os.path.join(workdir, f"image_eval_{mode}.yaml")
+    for mode in modes:
+        procs = mode == "processes"
+        p.update(folder=os.path.join(workdir, f"image_eval_{name}_{mode}"), checkpoint=enc_path)
+        path = os.path.join(workdir, f"image_eval_{name}_{mode}.yaml")
         with open(path, "w") as f:
             yaml.safe_dump(cfg, f)
         pools = []
@@ -3718,6 +3823,7 @@ def phase_image_eval(torch, repo, workdir, enc_path):
             return ds, loader, sampler
 
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         _reset_counts(fa, fm)
         t0 = time.perf_counter()
         with spy_steps(torch, icf, fa, fm) as rec, \
@@ -3725,41 +3831,52 @@ def phase_image_eval(torch, repo, workdir, enc_path):
             accs = eval_cli(["--fname", path])  # the card
         secs = time.perf_counter() - t0
         launches = _counts(fa, fm)
+        peak = torch.cuda.max_memory_allocated() / 2**30
         if pools != [procs, procs]:
-            raise RuntimeError(f"image eval ({mode}): loaders use_processes {pools}")
+            raise RuntimeError(f"image eval {name} ({mode}): loaders use_processes {pools}")
         n_train = IMAGE_EVAL_IMAGES[0] // b
         if len(rec["train_step"]) != n_train or len(rec["val_step"]) != 1:
-            raise RuntimeError(f"image eval ({mode}): {len(rec['train_step'])} train and "
+            raise RuntimeError(f"image eval {name} ({mode}): {len(rec['train_step'])} train and "
                                f"{len(rec['val_step'])} val steps")
-        times = _check_steps(rec, want, f"image eval ({mode})")
+        times = _check_steps(rec, want, f"image eval {name} ({mode})")
         losses = [float(s["out"]["loss"]) for s in rec["train_step"]]
         if not (all(np.isfinite(losses)) and len(accs) == 1 and 0.0 <= accs[0] <= 100.0):
-            raise RuntimeError(f"image eval ({mode}): losses {losses}, val accs {accs}")
+            raise RuntimeError(f"image eval {name} ({mode}): losses {losses}, val accs {accs}")
         folder = os.path.join(p["folder"], "image_classification_frozen", cfg["tag"])
         saved = torch.load(os.path.join(folder, f"{p['write_tag']}-latest.pth.tar"),
                            weights_only=True)
         if saved["opt"]["step"] != n_train or saved["epoch"] != 1:
-            raise RuntimeError(f"image eval ({mode}): checkpoint step {saved['opt']['step']}")
-        cos = {}  # the threads run's batches are the process pool's (tests/test_torch_host.py)
+            raise RuntimeError(f"image eval {name} ({mode}): checkpoint step "
+                               f"{saved['opt']['step']}")
+        if saved["classifier"]["linear.weight"].shape[0] != d["num_classes"]:
+            raise RuntimeError(f"image eval {name} ({mode}): a probe of "
+                               f"{saved['classifier']['linear.weight'].shape[0]} classes")
+        cos = {}  # later runs' batches are the first's (tests/test_torch_host.py)
         with torch.no_grad():
-            for kind, (probe, imgs, _) in (rec.pop("inputs").items() if procs else ()):
-                feats = icf.encode_images(probe, imgs.cuda())
+            for kind, (probe, imgs, _) in (rec.pop("inputs").items() if mode == modes[0]
+                                           else ()):
+                imgs = imgs.cuda()
+                feats = icf.encode_images(probe, imgs)
                 with plain_versions():
-                    ref = icf.encode_images(probe, imgs.cuda())
-                cos[kind] = torch.nn.functional.cosine_similarity(feats, ref, dim=-1).min().item()
+                    ref = (torch.cat([icf.encode_images(probe, imgs[i:i + 1])
+                                      for i in range(imgs.shape[0])])
+                           if by_sample else icf.encode_images(probe, imgs))
+                cos[kind] = torch.nn.functional.cosine_similarity(
+                    feats.float(), ref.float(), dim=-1).min().item()
                 if not (torch.isfinite(feats).all() and cos[kind] >= FEAT_COS_MIN):
-                    raise RuntimeError(f"image eval ({mode}) {kind} features disagree with "
-                                       f"the plain versions: min cosine {cos[kind]}")
+                    raise RuntimeError(f"image eval {name} ({mode}) {kind} features disagree "
+                                       f"with the plain versions: min cosine {cos[kind]}")
+                del feats, ref, imgs
         (tr_ms, tr_host, tr_aug), (va_ms, _, _) = times["train_step"], times["val_step"]
-        log(f"image eval ({mode}, {IMAGE_EVAL_WORKERS} workers, nproc {os.cpu_count()}): "
+        log(f"image eval {name} ({mode}, {IMAGE_EVAL_WORKERS} workers, nproc {os.cpu_count()}): "
             f"{secs:.1f} s through evals.main; train losses {[round(v, 4) for v in losses]}, "
             f"val acc {accs}; median train step {tr_ms:.1f} ms (host share of the wall "
             f"{_fmt_host(tr_host)}, augmentation on the card {_fmt_host(tr_aug)}), val step "
-            f"{va_ms:.1f} ms" + (f"; features vs plain min cosine train "
-                                 f"{cos['train_step']:.7f} / val {cos['val_step']:.7f}"
-                                 if cos else ""))
+            f"{va_ms:.1f} ms, peak allocated {peak:.2f} GiB"
+            + (f"; features vs plain min cosine train {cos['train_step']:.7f} / val "
+               f"{cos['val_step']:.7f}" if cos else ""))
         out[mode] = dict(train_ms=tr_ms, val_ms=va_ms, host=tr_host, aug=tr_aug, secs=secs,
-                         feat_cos=cos)
+                         feat_cos=cos, peak_gib=peak)
         out["launches"] = _sum_launches(out["launches"], launches)
         del rec
     return out
@@ -3892,11 +4009,36 @@ def phase_diffusion(torch, repo):
     return out
 
 
+def _children() -> int:
+    """Live processes whose parent is this one (loader pools, ranks)."""
+    me, n = str(os.getpid()), 0
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                n += f.read().rsplit(")", 1)[1].split()[1] == me
+        except (OSError, IndexError):
+            pass
+    return n
+
+
+def _host_probe_ms() -> float:
+    """ms of a fixed pure-Python loop on this thread: the host's speed for
+    the host-bound phases, read between phases."""
+    t0 = time.perf_counter()
+    sum(i * i for i in range(100_000))
+    return (time.perf_counter() - t0) * 1e3
+
+
 def timed(label, fn, *args, **kw):
-    """fn(*args, **kw), logging how long the phase took."""
+    """fn(*args, **kw), logging how long the phase took, then the host
+    probe's ms and this process's live children: a host-bound phase that
+    slows with a slower probe and no children of its own shares the host
+    with others."""
     t0 = time.perf_counter()
     out = fn(*args, **kw)
-    log(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    secs = time.perf_counter() - t0
+    log(f"phase {label}: {secs:.1f} s (host probe {_host_probe_ms():.1f} ms, {_children()} "
+        f"children)")
     return out
 
 
@@ -4367,13 +4509,15 @@ def phase_remat_peak(torch, repo, config, padded):
         f"{wall_ms:.0f} ms, peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
-def phase_f32_peak(torch, repo, spec, padded):
-    """``--f32-peak CONFIG[:MODEL] [--padded]``: one pretrain config in fp32
-    (meta.dtype float32, remat 'attn', the app's default) at full depth,
-    outside the smoke: TRAIN_STEPS updates through build_train_step at the
-    config's batch (fixed masks, or with ``padded`` the collator's padded
-    masks), with their launches checked whole; prints ms per update and the
-    peak of allocated memory. MODEL overrides the config's model_name
+def phase_f32_peak(torch, repo, spec, padded, remat="attn"):
+    """``--f32-peak CONFIG[:MODEL] [--padded]``: one pretrain config in
+    fp32 (meta.dtype float32, remat ``remat``: 'attn', the app's default,
+    from the command line; True from ``--full-configs gigantic-f32``) at
+    full depth, outside the smoke:
+    TRAIN_STEPS updates through build_train_step at the config's batch
+    (fixed masks, or with ``padded`` the collator's padded masks), with
+    their launches checked whole; prints ms per update and the peak of
+    allocated memory. MODEL overrides the config's model_name
     (vit_gigantic takes its factory patch, 14). Where the batch does not
     fit, the out-of-memory error is printed and the next smaller batch of
     ``f32_peak_batches`` is tried, until one fits."""
@@ -4381,9 +4525,9 @@ def phase_f32_peak(torch, repo, spec, padded):
 
     config, _, model = spec.partition(":")
     kw = dict(config=config, model_name=model or None, patch_size=dict(GIANTS).get(model),
-              dtype=torch.float32, remat="attn", mask_mode="padded" if padded else None)
+              dtype=torch.float32, remat=remat, mask_mode="padded" if padded else None)
     yaml_batch = train_setup(repo, **kw)["yaml_batch"]
-    label = f"f32-peak {spec} {'padded' if padded else 'fixed'}"
+    label = f"f32-peak {spec} {'padded' if padded else 'fixed'} remat {remat!r}"
     for batch in f32_peak_batches(yaml_batch):
         setup = dict(train_setup(repo, **kw), yaml_batch=batch)
         try:
@@ -4399,9 +4543,179 @@ def phase_f32_peak(torch, repo, spec, padded):
             continue
         log(f"{label} B={batch} (the config's {yaml_batch}), {setup['model_name']} "
             f"{setup['enc_cfg'].depth} blocks: median {r['median_ms']:.1f} ms/update, peak "
-            f"allocated {r['peak_gib']:.2f} GiB, device {r['prof']['device_ms']:.1f} ms/update")
-        return
+            f"allocated {r['peak_gib']:.2f} GiB, device {r['prof']['device_ms']:.1f} ms/update, "
+            f"{device_split(r)}")
+        return dict(r, batch=batch, yaml_batch=yaml_batch)
     raise RuntimeError(f"{label}: no batch of {f32_peak_batches(yaml_batch)} fits")
+
+
+# ---- --full-configs: the shipped configurations at full depth ---------------------
+
+# (B, N, H, c, c_real) of the TPU prototypes' shapes: scripts/proto_tokmajor.py's
+# token-major forward (P1), head-major forward (P2) and merged backward (P3), and
+# scripts/probe_tiled_bwd.py's K4 / K5 in a tiled grid (P4)
+PROTO_SHAPES = ((24, 1568, 16, 64, 64), (24, 1191, 16, 32, 24), (24, 376, 16, 64, 64))
+PROTO_TILED = (1, 4608, 16, 96, 96)
+
+
+def phase_proto_rows(torch):
+    """The prototypes' functions through their Hopper counterparts, at the
+    prototypes' own shapes: H1 (P1) and H4 (P2, on the planes of the same
+    packed qkv) at PROTO_SHAPES, both H2 kernels (P3) there, and both H2
+    kernels (and H1) at PROTO_TILED (P4); each held against its plain
+    version (``_check_h1`` / ``_check_h4`` / ``_check_h2``, one sample at a
+    time where a batch's fp32 scores pass PLAIN_BATCH_BYTES) and timed
+    beside it, SDPA and its bound (P3's that of the merged backward it
+    stands for, as K3's; P4's the sum of its two kernels'). No shipped
+    path launches them at these shapes: launches 0. Returns {(P, shape):
+    times}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    rows = {}
+    for b, n, h, c, cr in PROTO_SHAPES + (PROTO_TILED,):
+        tiled = (b, n, h, c, cr) == PROTO_TILED
+        label = f"proto (B, N, H, c) = ({b}, {n}, {h}, {cr}{'->' + str(c) if c != cr else ''})"
+        qkv, do = _attn_inputs(torch, gen, b, n, h, c, cr)
+        scale = cr ** -0.5
+        by = b * h * n * n * 4 > PLAIN_BATCH_BYTES
+        o, lse, _ = _check_h1(torch, f"{label} H1", qkv, h, scale, by_sample=by)
+        delta, errs = _check_h2(torch, f"{label} H2", qkv, do, o, lse, h, scale, cr,
+                                by_sample=by)
+        bwd = _time_h2(torch, label, qkv, do, lse, delta, h, scale, cr, errs)
+        if tiled:  # P4 is the split K4 / K5: the sum of their two bounds
+            bound = (bwd["dkv"]["bound"][0] + bwd["dq"]["bound"][0], bwd["dkv"]["bound"][1],
+                     bwd["dkv"]["bound"][2])
+        else:  # P3 is K3's merged backward: 5 products, one exp2 per score
+            qkv_b, o_b, vec_b = qkv.numel() * 2, b * n * h * c * 2, b * h * n * 4
+            bound = attn_bound_ms(b, n, h, cr, 5, qkv_b + o_b + 2 * vec_b, qkv_b)
+        rows["P4" if tiled else "P3", (b, n, h, cr)] = dict(
+            ms=bwd["dkv"]["ms"] + bwd["dq"]["ms"], plain_ms=bwd["dkv"]["plain_ms"]
+            + bwd["dq"]["plain_ms"], library_ms=bwd["dkv"]["library_ms"], bound=bound,
+            parts=bwd)
+        if not tiled:
+            rows["P1", (b, n, h, cr)] = _time_h1(torch, f"{label} H1", qkv, h, scale, cr,
+                                                 by_sample=by)
+            q, k, v = qkv.reshape(b, n, 3, h, c).permute(2, 0, 3, 1, 4).unbind(0)
+            do_hm = do.reshape(b, n, h, c).transpose(1, 2)
+            _check_h4(torch, f"{label} H4", q, k, v, scale)
+            rows["P2", (b, n, h, cr)] = _hm_times(torch, "fwd", q, k, v, do_hm, scale, None,
+                                                  _sdpa_hm_ms(torch, q, k, v, do_hm, scale))
+        del qkv, do, o, lse, delta
+        torch.cuda.empty_cache()
+    for (p, shape), r in sorted(rows.items()):
+        parts = (f" (dk/dv {r['parts']['dkv']['ms']:.4f} + dq {r['parts']['dq']['ms']:.4f})"
+                 if "parts" in r else "")
+        log(f"proto {p} (B, N, H, c) {shape}: kernel {r['ms']:.4f} ms{parts}, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][2]}), library (SDPA "
+            f"{'forward' if p in ('P1', 'P2') else 'whole backward'}) {r['library_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, launches on the driven path 0")
+    return rows
+
+
+def _host_numbers():
+    """``df -h`` of the working directory and ``free -g`` as the machine
+    prints them (or why not), and (free disk bytes, available host bytes)."""
+    import shutil
+
+    out = []
+    for cmd in (["df", "-h", os.getcwd()], ["free", "-g"]):
+        try:
+            out.append(subprocess.run(cmd, capture_output=True, text=True, timeout=30).stdout)
+        except OSError as e:
+            out.append(f"{' '.join(cmd)}: {e}")
+    mem = dict(line.split(":", 1) for line in open("/proc/meminfo").read().splitlines())
+    avail = int(mem["MemAvailable"].split()[0]) * 1024
+    return "\n".join(out), shutil.disk_usage(os.getcwd()).free, avail
+
+
+def full_giant_evals(torch, repo):
+    """vit_giant (40 blocks) and vit_gigantic (48, patch 14) at full depth:
+    the K400 16x8x3 eval in bf16 (batch 4) and fp32 (batch 1) on a seeded
+    encoder, each with its launches and its first train and val batch's
+    features against the plain versions (``phase_eval_video``)."""
+    out = {}
+    for m, p in GIANTS:
+        with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
+            enc = write_seeded_encoder(torch, workdir, m)
+            for bf16 in (True, False):
+                out[m, bf16] = timed(
+                    f"{m} K400 eval {'bf16' if bf16 else 'fp32'}", phase_eval_video, torch, repo,
+                    workdir, enc, bf16, entries=VITH_EVAL_ENTRIES if bf16 else EVAL_F32_ENTRIES,
+                    resume=False, views_checked=VITH_VIEWS_CHECKED, model_name=m, patch_size=p)
+    return out
+
+
+def full_vith_evals(torch, repo):
+    """ViT-H at its full 32 blocks: the SSv2 16x2x3 evals and the image
+    evals of the smoke's ViT-H path (``vith_evals`` without K400)."""
+    with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
+        return vith_evals(torch, repo, workdir, write_seeded_encoder(torch, workdir, "vit_huge"),
+                          k400=False)
+
+
+def full_gigantic_app(torch, repo):
+    """vit_gigantic's pretrain app at full depth (vitl16.yaml, B=24, remat
+    'attn', 2 updates an epoch): padded 1 epoch, then a fixed-mode resume
+    of its checkpoint (``phase_app``). A checkpoint holds the encoder, the
+    target, the predictor and both AdamW moments in fp32 (25.84 GB); a
+    call on the card's machine may write 45 GiB, so the resume's own save
+    is held back (``resume_saves=False``): the padded run's save, the
+    resume's restore and its updates run whole. First ``df -h`` and ``free
+    -g``; where the disk or the host's memory cannot hold one checkpoint,
+    the part fails with the numbers (the model is never cut to fit)."""
+    from jepa_tpu_torch.models.predictor import Predictor
+    from jepa_tpu_torch.models.vit import VisionTransformer
+
+    setup = train_setup(repo, model_name="vit_gigantic", remat="attn", patch_size=14)
+    count = lambda mod: sum(t.numel() for t in mod.parameters())  # noqa: E731
+    enc = count(VisionTransformer(setup["enc_cfg"], device="meta"))
+    pred = count(Predictor(setup["pred_cfg"], device="meta"))
+    ckpt = 4 * (4 * enc + 3 * pred)  # encoder, target, predictor, mu and nu of both
+    text, disk, ram = _host_numbers()
+    need_disk, need_ram = ckpt + 2**30, ckpt + 8 * 2**30
+    log(f"gigantic app: encoder {enc / 1e9:.3f} B parameters, predictor {pred / 1e6:.1f} M; "
+        f"a checkpoint {ckpt / 1e9:.2f} GB; free disk {disk / 1e9:.1f} GB (needs "
+        f"{need_disk / 1e9:.1f}), available host memory {ram / 1e9:.1f} GB (needs "
+        f"{need_ram / 1e9:.1f});\n{text}")
+    if disk < need_disk or ram < need_ram:
+        raise RuntimeError("gigantic app: blocked: the disk or the host memory cannot hold "
+                           "its checkpoint")
+    with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
+        return phase_app(torch, repo, setup, workdir, ipe=2, epochs=1, resume=True,
+                         resume_saves=False)
+
+
+def full_gigantic_f32(torch, repo):
+    """vit_gigantic in fp32 at full depth with meta.remat true, fixed and
+    padded, at the config's B=24 or the largest batch that fits
+    (``phase_f32_peak``)."""
+    return {padded: phase_f32_peak(torch, repo, "vitl16.yaml:vit_gigantic", padded, remat=True)
+            for padded in (False, True)}
+
+
+FULL_CONFIG_PARTS = {"protos": lambda torch, repo: phase_proto_rows(torch),
+                     "giant-evals": full_giant_evals,
+                     "vith-evals": full_vith_evals, "gigantic-app": full_gigantic_app,
+                     "gigantic-f32": full_gigantic_f32}
+
+
+def phase_full_configs(torch, repo, parts):
+    """``--full-configs [PART,...]`` (default every part of
+    FULL_CONFIG_PARTS, in order): the shipped configurations at full depth,
+    outside the smoke and its time. A part that fails is logged with its
+    traceback and the next one runs; the command then exits non-zero."""
+    import traceback
+
+    failed = []
+    for part in parts:
+        fn = FULL_CONFIG_PARTS[part]
+        try:
+            timed(f"full-configs {part}", fn, torch, repo)
+        except Exception:
+            log(f"full-configs {part} failed:\n{traceback.format_exc()}")
+            failed.append(part)
+        torch.cuda.empty_cache()
+    if failed:
+        raise RuntimeError(f"--full-configs: {failed} failed")
 
 
 def f32_peak_batches(batch):
@@ -4633,6 +4947,27 @@ def _dist_eval_rank(rank, world, argv):
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
+def _dist_rank(rank, world, repo, update_port, runs, eval_argv, eval_port):
+    """Phases (b), (c) and (d) in one spawn of the ranks: ``_dist_update_rank``
+    in a gloo group joined at ``update_port`` and destroyed after it, then
+    ``_dist_app_rank``'s runs, then ``_dist_eval_rank`` with the eval
+    launcher's group joined at ``eval_port``. Returns (the update's record,
+    the app's, the eval's)."""
+    import torch.distributed as tdist
+
+    t0 = time.perf_counter()
+    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{update_port}",
+                             world_size=world, rank=rank)
+    try:
+        update = _dist_update_rank(rank, world, repo)
+    finally:
+        tdist.destroy_process_group()
+    update["secs"] = time.perf_counter() - t0
+    app = _dist_app_rank(rank, world, runs)
+    os.environ["MASTER_PORT"] = str(eval_port)
+    return update, app, _dist_eval_rank(rank, world, eval_argv)
+
+
 def _slurm_env(world: int) -> list:
     """Two one-GPU nodes that share this card: SLURM's variables per rank,
     the master on 127.0.0.1."""
@@ -4719,6 +5054,7 @@ def phase_dist(torch, repo, setup, card):
     (d) the 2-rank K400 16x8x3 bf16 eval (batch 4 per rank, one epoch):
         the val pass counts each of an uneven val set's clips once and
         matches a 1-rank val pass of the same probe.
+    (b), (c) and (d) run in one spawn of the ranks (``_dist_rank``).
     ``setup`` and every run here are ViT-L at DIST_DEPTH blocks
     (``cut_depth``, entered by the caller and by each spawned rank).
     Spawned ranks fail the phase when they fail."""
@@ -4779,34 +5115,6 @@ def phase_dist(torch, repo, setup, card):
     del state0, clips, bare, grouped, mb, mg
     torch.cuda.empty_cache()
 
-    # (b) 2 ranks on the one card against 1 rank
-    t0 = time.perf_counter()
-    ranks = _run_ranks(_dist_update_rank, (repo,))
-    secs = time.perf_counter() - t0
-    r0 = ranks[0]
-    limits = _dist_limits(r0["plain"])
-    log(f"dist (b): card {card}; 2 gloo ranks x {DIST_BATCH} vs 1 rank x {TRAIN_BATCH}, seeded "
-        f"state, remat 'attn': plain versions' spread {r0['plain']}; limits (x"
-        f"{DIST_LIMIT_FACTOR:g}, floor {DIST_REL_FLOOR:g}) {limits}")
-    log(f"dist (b): kernels' spread {r0['kernels']}; 1-rank update "
-        f"{r0['one_ms_kernels']:.0f} ms (plain {r0['one_ms_plain']:.0f}), 2-rank update "
-        f"{r0['two_ms_kernels']:.0f} ms (plain {r0['two_ms_plain']:.0f}); peak per rank "
-        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; launches per rank "
-        f"{[_launch_diff({}, r['launches']) for r in ranks]}; {secs:.0f} s")
-    bad = [k for k, v in r0["kernels"].items()
-           if (v < limits[k] if k.endswith("_cos") else v > limits[k])]
-    for r in ranks:
-        if _launch_diff({}, r["launches"]) != want:
-            raise RuntimeError(f"dist (b): launches {r['launches']} != {want}")
-    if bad:
-        raise RuntimeError(f"dist (b): the kernels' 2-rank update is past its limits on {bad}")
-    log(f"dist (b): fsdp=2 vs fsdp=1 after 2 updates: AdamW moment elements per rank "
-        f"{r0['fsdp_moment_elems']}; parameters and moments that differ "
-        f"{[len(r['fsdp_differ']) for r in ranks]}")
-    if any(r["fsdp_differ"] for r in ranks):
-        raise RuntimeError(f"dist (b): fsdp=2 differs from fsdp=1: {r0['fsdp_differ'][:8]}")
-    out["b"] = _sum_launches(*(r["launches"] for r in ranks))
-
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
         # (c) the 2-rank app through the launcher's in-cluster mode
         with open(os.path.join(repo, "configs", "pretrain", "vitl16.yaml")) as f:
@@ -4833,11 +5141,54 @@ def phase_dist(torch, repo, setup, card):
             with open(path, "w") as f:
                 yaml.safe_dump(cfg, f)
             argvs.append(["--fname", path, "--backend", "gloo"])
+        # (d)'s config: the 2-rank K400 16x8x3 bf16 eval, in the same spawn
+        enc_path = write_seeded_encoder(torch, workdir)
+        n_train, n_val = DIST_EVAL_ENTRIES
+        ecfg = eval_config(repo, workdir, "dist_k400", enc_path, n_train, n_val, batch_size=4,
+                           num_epochs=1, use_bfloat16=True)
+        for split, n in (("train", n_train), ("val", n_val)):  # labels 0 / 1: the probe's
+            with open(ecfg["data"][f"dataset_{split}"], "w") as f:  # val hits are not all 0
+                f.writelines(f"synthetic://dist-{split}{i} {i % 2}\n" for i in range(n))
+        ecfg["data"]["num_workers"] = 4
+        epath = os.path.join(workdir, "dist_eval.yaml")
+        with open(epath, "w") as f:
+            yaml.safe_dump(ecfg, f)
+        # (b), (c) and (d) in one spawn of the ranks
         env = _slurm_env(2)
-        ports = [env[0]["MASTER_PORT"], _free_port()]
+        ports = [env[0]["MASTER_PORT"], _free_port(), _free_port(), _free_port()]
         torch.cuda.empty_cache()
-        by_rank = _run_ranks(_dist_app_rank, (list(zip(argvs, ports)),), init_group=False,
-                             env=env)
+        every = _run_ranks(_dist_rank, (repo, ports[3], list(zip(argvs, ports)),
+                                        ["--fname", epath, "--backend", "gloo"], ports[2]),
+                           init_group=False, env=env)
+
+        # (b) 2 ranks on the one card against 1 rank
+        ranks = [upd for upd, _, _ in every]
+        r0 = ranks[0]
+        limits = _dist_limits(r0["plain"])
+        log(f"dist (b): card {card}; 2 gloo ranks x {DIST_BATCH} vs 1 rank x {TRAIN_BATCH}, seeded "
+            f"state, remat 'attn': plain versions' spread {r0['plain']}; limits (x"
+            f"{DIST_LIMIT_FACTOR:g}, floor {DIST_REL_FLOOR:g}) {limits}")
+        log(f"dist (b): kernels' spread {r0['kernels']}; 1-rank update "
+            f"{r0['one_ms_kernels']:.0f} ms (plain {r0['one_ms_plain']:.0f}), 2-rank update "
+            f"{r0['two_ms_kernels']:.0f} ms (plain {r0['two_ms_plain']:.0f}); peak per rank "
+            f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; launches per rank "
+            f"{[_launch_diff({}, r['launches']) for r in ranks]}; {r0['secs']:.0f} s")
+        bad = [k for k, v in r0["kernels"].items()
+               if (v < limits[k] if k.endswith("_cos") else v > limits[k])]
+        for r in ranks:
+            if _launch_diff({}, r["launches"]) != want:
+                raise RuntimeError(f"dist (b): launches {r['launches']} != {want}")
+        if bad:
+            raise RuntimeError(f"dist (b): the kernels' 2-rank update is past its limits on {bad}")
+        log(f"dist (b): fsdp=2 vs fsdp=1 after 2 updates: AdamW moment elements per rank "
+            f"{r0['fsdp_moment_elems']}; parameters and moments that differ "
+            f"{[len(r['fsdp_differ']) for r in ranks]}")
+        if any(r["fsdp_differ"] for r in ranks):
+            raise RuntimeError(f"dist (b): fsdp=2 differs from fsdp=1: {r0['fsdp_differ'][:8]}")
+        out["b"] = _sum_launches(*(r["launches"] for r in ranks))
+
+        # (c) the 2-rank app's runs
+        by_rank = [app for _, app, _ in every]
         out["c"] = {}
         csvs = [os.path.join(cfg["logging"]["folder"], f"{tag}_r{r}.csv") for r in range(2)]
         for i, (mode, epochs, want_mode) in enumerate(runs):
@@ -4865,20 +5216,7 @@ def phase_dist(torch, repo, setup, card):
         shutil.rmtree(cfg["logging"]["folder"])
 
         # (d) the 2-rank K400 16x8x3 bf16 eval
-        enc_path = write_seeded_encoder(torch, workdir)
-        n_train, n_val = DIST_EVAL_ENTRIES
-        ecfg = eval_config(repo, workdir, "dist_k400", enc_path, n_train, n_val, batch_size=4,
-                           num_epochs=1, use_bfloat16=True)
-        for split, n in (("train", n_train), ("val", n_val)):  # labels 0 / 1: the probe's
-            with open(ecfg["data"][f"dataset_{split}"], "w") as f:  # val hits are not all 0
-                f.writelines(f"synthetic://dist-{split}{i} {i % 2}\n" for i in range(n))
-        ecfg["data"]["num_workers"] = 4
-        epath = os.path.join(workdir, "dist_eval.yaml")
-        with open(epath, "w") as f:
-            yaml.safe_dump(ecfg, f)
-        torch.cuda.empty_cache()
-        ranks = _run_ranks(_dist_eval_rank, (["--fname", epath, "--backend", "gloo"],),
-                           init_group=False, env=_slurm_env(2))
+        ranks = [ev for _, _, ev in every]
         steps = n_train // (2 * 4) + -(-n_val // (2 * 4))
         depth = setup["enc_cfg"].depth
         per_step = {"h1": depth, "h1_c64": depth, "h3": depth}
@@ -5563,6 +5901,12 @@ def main() -> int:
         phase_f32_peak(torch, repo, sys.argv[sys.argv.index("--f32-peak") + 1],
                        "--padded" in sys.argv)
         return 0
+    if "--full-configs" in sys.argv:
+        i = sys.argv.index("--full-configs") + 1
+        parts = (sys.argv[i].split(",") if i < len(sys.argv) and not sys.argv[i].startswith("-")
+                 else list(FULL_CONFIG_PARTS))
+        phase_full_configs(torch, repo, parts)
+        return 0
     if "--update-ab" in sys.argv:
         phase_update_ab(repo, [sys.argv[i + 1] for i, a in enumerate(sys.argv)
                                if a == "--other"])
@@ -5610,8 +5954,13 @@ def main() -> int:
         enc_path = serve["enc_path"]
         orb = timed("orbax", phase_orbax, torch, repo, workdir, serve, tiny)
         off = timed("(d) off-size serving", phase_serve_off_size, torch, enc_path)
-        ev16 = timed("ev16", phase_eval_video, torch, repo, workdir, enc_path, bf16=True)
+        # K400 16x8x3 bf16 one epoch (the resume runs in the SSv2 bf16 eval) and fp32
+        ev16 = timed("ev16", phase_eval_video, torch, repo, workdir, enc_path, bf16=True,
+                     resume=False)
         ev32 = timed("ev32", phase_eval_video, torch, repo, workdir, enc_path, bf16=False)
+        ssv2 = {bf16: timed(f"{SSV2_EVAL_L} {'bf16' if bf16 else 'fp32'}", phase_eval_video,
+                            torch, repo, workdir, enc_path, bf16, config=SSV2_EVAL_L)
+                for bf16 in (True, False)}
         img = timed("img", phase_image_probe, torch, repo, enc_path)
         img_eval = timed("(b) image eval through evals.main", phase_image_eval, torch, repo,
                          workdir, enc_path)
@@ -5625,7 +5974,11 @@ def main() -> int:
         ab = timed("ab", phase_force_ab, torch, train_setup(repo), force)
         diff = timed("(c) diffusion-mode update", phase_diffusion, torch, repo)
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
-        app = timed("app", phase_app, torch, repo, setup, workdir, resume=False)
+        # ViT-L's app at VITL_CUT_DEPTH blocks (the instrumented app below runs
+        # it whole)
+        with cut_depth("vit_large", VITL_CUT_DEPTH):
+            app = timed("app", phase_app, torch, repo, train_setup(repo), workdir,
+                        resume=False)
         instr = timed("app with profile_steps and log_resources", phase_app_instruments,
                       torch, repo, setup, workdir)
     with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
@@ -5671,20 +6024,13 @@ def main() -> int:
         vith_train = timed("vith_train", phase_train, torch, vith, b2=(), profile=False)
         vith384_train = timed("vith384_train", phase_train, torch, vith384, b2=(),
                               profile=False)
-        evh = {}
         with tempfile.TemporaryDirectory(dir=repo, prefix=".chip_smoke_") as workdir:
             vith_app = timed("vith_app", phase_app, torch, repo, vith, workdir, ipe=2, epochs=1,
                              resume=False)
             vith384_app = timed("vith384_app", phase_app, torch, repo, vith384, workdir, ipe=2,
                                 epochs=1, resume=False, padded=False)
             enc_h = write_seeded_encoder(torch, workdir, "vit_huge")
-            for config in VITH_EVALS:
-                for bf16 in (True, False):
-                    evh[config, bf16] = timed(
-                        f"{config} {'bf16' if bf16 else 'fp32'}", phase_eval_video,
-                        torch, repo, workdir, enc_h, bf16, config=config,
-                        entries=VITH_EVAL_ENTRIES if bf16 else EVAL_F32_ENTRIES, resume=False,
-                        views_checked=VITH_VIEWS_CHECKED)
+            evh, img_h = vith_evals(torch, repo, workdir, enc_h)
             os.remove(enc_h)
     # vit_giant and vit_gigantic: their kernel instances at full shapes; at
     # GIANT_CUT_DEPTH blocks serving, updates at the config's batch, the K400
@@ -5727,7 +6073,8 @@ def main() -> int:
     # orbax-loaded encoder's (phase_orbax)
     sl = _sum_launches(serve["launches"], off["launches"], orb["serve"])
     al = app["padded"]["launches"]
-    el, fl = ev16["launches"], ev32["launches"]
+    el = _sum_launches(ev16["launches"], ssv2[True]["launches"])
+    fl = _sum_launches(ev32["launches"], ssv2[False]["launches"])
     il = _sum_launches(img["launches"], img_eval["launches"])
     # ViT-L's updates: the timed default ones, the tube mode's (updates, fixed
     # app), the remat phase's (its checked updates), the diffusion mode's and
@@ -5743,7 +6090,8 @@ def main() -> int:
     # c=80, both as counted at the launch
     vith_runs = [vith_train["launches"], vith384_train["launches"],
                  vith_app["fixed"]["launches"], vith384_app["fixed"]["launches"]]
-    vl = _sum_launches(*vith_runs, *(e["launches"] for e in evh.values()))
+    vl = _sum_launches(*vith_runs, *(e["launches"] for e in evh.values()),
+                       *(r["launches"] for r in img_h.values()))
     vp = vith_app["padded"]["launches"]  # every attention call key-masked but the target's
     k2 = vl[K2_KEY] + vp[K2_KEY]
     # vit_giant (gl; its padded app gp, every trainable call key-masked) and
@@ -5774,8 +6122,13 @@ def main() -> int:
     # c=24->32 instances also in every fp32 run of ViT-H and the giants
     f32runs, f32app = f32pre["runs"], f32pre["app"]
     c32 = lambda d: {k: v for k, v in d.items() if "_c32" in k}  # noqa: E731
-    fx = _sum_launches(f32runs["fixed"]["launches"], f32app["fixed"]["launches"], c32(g32x))
-    fp = _sum_launches(f32runs["padded"]["launches"], f32app["padded"]["launches"], c32(g32p))
+    # and fp32 vit_small (6 x 64 contexts and predictor) and vit_base (12 x 64,
+    # its predictor 12 x 32) with the 12 x 384 predictor
+    sb32 = [small["runs"][f"{m} fp32"] for m in ("vit_small", "vit_base")]
+    fx = _sum_launches(f32runs["fixed"]["launches"], f32app["fixed"]["launches"], c32(g32x),
+                       *(r["fixed"]["launches"] for r in sb32))
+    fp = _sum_launches(f32runs["padded"]["launches"], f32app["padded"]["launches"], c32(g32p),
+                       *(r["padded"]["launches"] for r in sb32))
     kernels = [
         # the padded apps' unmasked launches: their target forwards (H1, H3)
         kernel_entry("flash_self_attention_fwd", fa_src, f"{fa_py}:955",
@@ -6121,6 +6474,13 @@ def main() -> int:
             f"median train step {e['train_ms']:.1f} ms, val step {e['val_ms']:.1f} ms, peak "
             f"{e['peak_gib']:.2f} GiB; features vs plain min cosine "
             f"{min(e['feat_cos'].values()):.7f}")
+    for config, r in img_h.items():
+        m = r["processes"]
+        log(f"card: {card}; {config} image eval through evals.main ({VITH_CUT_DEPTH} blocks, "
+            f"{IMAGE_EVAL_WORKERS} processes): median train step {m['train_ms']:.1f} ms, host "
+            f"share {_fmt_host(m['host'])}, val step {m['val_ms']:.1f} ms, peak "
+            f"{m['peak_gib']:.2f} GiB, {m['secs']:.1f} s; features vs plain min cosine "
+            f"{min(m['feat_cos'].values()):.7f}")
     gb = orb["raw_bytes"] / 1e9
     log(f"card: {card}; orbax ViT-L/16 target ({gb:.3f} GB fp32, "
         f"{orb['disk_bytes'] / 1e9:.3f} GB on disk): save_tree {orb['write_s']:.2f} s "
@@ -6149,8 +6509,11 @@ def main() -> int:
     for m, r in k11["rows"].items():
         log(f"card: {card}; H8 M={m}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][2]})")
-    for name, e in (("bf16, batch 4", ev16), ("fp32, batch 1", ev32)):
-        log(f"card: {card}; K400 16x8x3 eval {name}: median train step {e['train_ms']:.1f} ms "
+    for name, e in (("K400 16x8x3 eval bf16, batch 4", ev16),
+                    ("K400 16x8x3 eval fp32, batch 1", ev32),
+                    ("SSv2 16x2x3 eval bf16, batch 4 (with the resume)", ssv2[True]),
+                    ("SSv2 16x2x3 eval fp32, batch 1", ssv2[False])):
+        log(f"card: {card}; ViT-L {name}: median train step {e['train_ms']:.1f} ms "
             f"(host share {_fmt_host(e['train_host'])}, augmentation "
             f"{_fmt_host(e['train_aug'])}), val step {e['val_ms']:.1f} ms (host share "
             f"{_fmt_host(e['val_host'])}), peak {e['peak_gib']:.2f} GiB; features vs plain "
@@ -6164,15 +6527,16 @@ def main() -> int:
             f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms ({r['bound'][2]})")
     for mode in ("fixed", "padded"):
         a = app[mode]
-        log(f"card: {card}; app {mode} (B={TRAIN_BATCH}): median step {a['step_ms']:.0f} ms, "
+        log(f"card: {card}; app {mode} ({VITL_CUT_DEPTH} blocks, B={TRAIN_BATCH}): median step "
+            f"{a['step_ms']:.0f} ms, "
             f"wall {a['wall_ms']:.0f} ms, host share {100 * a['host']:.1f} %, peak "
             f"{a['peak_gib']:.2f} GiB")
     log(f"card: {card}; app with profile_steps {PROFILE_STEPS} and log_resources "
         f"(B={TRAIN_BATCH}, synthetic): median step {instr['step_ms']:.0f} ms, wall "
-        f"{instr['wall_ms']:.0f} ms, host share {100 * instr['host']:.1f} % (app fixed in the "
-        f"same run: {app['fixed']['step_ms']:.0f} / {app['fixed']['wall_ms']:.0f} ms, "
-        f"{100 * app['fixed']['host']:.1f} %); traced window {instr['span_ms']:.1f} ms, "
-        f"device busy {instr['busy_ms']:.1f} ms")
+        f"{instr['wall_ms']:.0f} ms, host share {100 * instr['host']:.1f} % (the app fixed at "
+        f"{VITL_CUT_DEPTH} blocks in the same run: {app['fixed']['step_ms']:.0f} / "
+        f"{app['fixed']['wall_ms']:.0f} ms, {100 * app['fixed']['host']:.1f} %); traced window "
+        f"{instr['span_ms']:.1f} ms, device busy {instr['busy_ms']:.1f} ms")
     log(f"card: {card}; diffusion-mode update (vitl16.yaml, use_mask_tokens false, "
         f"B={TRAIN_BATCH}): {diff['median_ms']:.1f} ms (the default update "
         f"{train['median_ms']:.1f} ms), peak {diff['peak_gib']:.2f} GiB, {device_split(diff)}; "

@@ -26,7 +26,7 @@ for need in ("train.step", "train.optimizer", "train.losses", "masks.multiblock3
              "evals.video_classification_frozen", "evals.image_classification_frozen",
              "evals.scaffold", "evals.main", "native", "native.build", "native.videodec",
              "utils.monitoring", "models.pos_embed", "models.vit", "utils.zstd",
-             "utils.ocdbt", "utils.orbax"):
+             "utils.ocdbt", "utils.orbax", "utils.port_cli"):
     assert "jepa_tpu_torch." + need in names, need
 for name in names:
     importlib.import_module(name)
