@@ -1,0 +1,7 @@
+"""Share of the traced updates' wall with nothing running on the device, %."""
+
+from portbench import readers
+
+
+def read(m):
+    return readers.idle_pct(m, "pretrain")
